@@ -1,0 +1,86 @@
+"""Weight bridge from the JAX package: flax variables -> the port's
+state_dict. The inverse of autoware_vision_pilot_tpu/convert/torch_import.py.
+
+Leaf transforms, by flax leaf name:
+  ``w``  conv kernel HWIO            -> ``weight`` OIHW  (3, 2, 0, 1)
+  ``wt`` conv-transpose (kh,kw,O,I)  -> ``weight`` IOHW  (3, 2, 0, 1)
+  ``wl`` linear kernel (in, out)     -> ``weight`` (out, in)
+  ``b``, ``bias``                    -> ``bias``
+  ``scale``                          -> ``weight``   (BatchNorm)
+  ``mean``, ``var`` (batch_stats)    -> ``running_mean``, ``running_var``
+
+Flax paths merge a torch index into its parent (``encoder_1_0``); whether a
+``_0`` is such an index (``encoder.1.0``) or part of a name
+(``context_layer_0``) is read off the target module's own keys. Leaves come
+as numpy arrays or anything ``np.asarray`` takes; nothing here imports JAX.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+_TRANSPOSE = {"w": (3, 2, 0, 1), "wt": (3, 2, 0, 1), "wl": (1, 0)}
+_TORCH_LEAF = {"w": "weight", "wt": "weight", "wl": "weight", "b": "bias",
+               "scale": "weight", "bias": "bias", "mean": "running_mean",
+               "var": "running_var"}
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _merge_digits(key: str) -> str:
+    """torch 'encoder.1.0.block' -> flax-style 'encoder_1_0.block'."""
+    merged = []
+    for p in key.split("."):
+        if p.isdigit() and merged:
+            merged[-1] = f"{merged[-1]}_{p}"
+        else:
+            merged.append(p)
+    return ".".join(merged)
+
+
+def variables_to_state_dict(flax_vars: Mapping, module: nn.Module
+                            ) -> Dict[str, torch.Tensor]:
+    """{'params', 'batch_stats'} trees -> a state_dict for ``module`` (f32,
+    on the CPU) that ``module.load_state_dict(..., strict=True)`` takes.
+    Raises KeyError on a leaf with no place in ``module`` or a key of
+    ``module`` left unfilled, ValueError on a shape mismatch."""
+    targets = module.state_dict()
+    by_merged = {_merge_digits(k): k for k in targets}
+    out = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _flatten(flax_vars.get(collection, {})).items():
+            parts = path.split(".")
+            leaf = parts.pop()
+            if parts and parts[-1] == "bn":  # nn/layers.py BatchNorm2d wrapper
+                parts.pop()
+            if leaf not in _TORCH_LEAF:
+                raise KeyError(f"no torch counterpart for flax leaf {path}")
+            key = by_merged.get(".".join([*parts, _TORCH_LEAF[leaf]]))
+            if key is None:
+                raise KeyError(f"{collection}/{path} has no key in "
+                               f"{type(module).__name__}")
+            a = np.asarray(value, dtype=np.float32)
+            if leaf in _TRANSPOSE:
+                a = a.transpose(_TRANSPOSE[leaf])
+            if a.shape != tuple(targets[key].shape):
+                raise ValueError(f"shape mismatch at {key}: flax {a.shape} vs "
+                                 f"torch {tuple(targets[key].shape)}")
+            out[key] = torch.from_numpy(np.ascontiguousarray(a))
+    missing = sorted(set(targets) - set(out))
+    if missing:
+        raise KeyError(f"no flax leaf for {missing[:10]}"
+                       f"{' ...' if len(missing) > 10 else ''}")
+    return out

@@ -1,0 +1,139 @@
+"""Layer library of the PyTorch port, eval-mode, with the numerics of
+autoware_vision_pilot_tpu/nn/layers.py.
+
+Modules take and return NCHW tensors; the pipeline keeps them in
+``torch.channels_last``, so each is the same NHWC buffer as in the JAX
+package. Parameter names are torch's own (``weight``, ``bias``,
+``running_mean``, ``running_var``), so a model's ``state_dict()`` has the
+reference's torch key layout, the one convert/torch_import.py reads.
+
+Parameters are allocated uninitialised; ``init_seeded`` fills a module tree
+from an explicit ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-5
+
+
+def gelu(x):
+    """Exact (erf) GELU in float32 and the tanh approximation in bfloat16,
+    as the JAX package chooses per dtype."""
+    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
+
+
+silu = F.silu
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _param(shape, device, dtype):
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+class Conv2d(nn.Module):
+    """torch Conv2d semantics: symmetric padding, groups, dilation."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=0,
+                 groups=1, bias=True, dilation=1, *, device=None, dtype=None):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.dilation = _pair(dilation)
+        self.groups = groups
+        self.weight = _param((out_ch, in_ch // groups, kh, kw), device, dtype)
+        self.register_parameter(
+            "bias", _param((out_ch,), device, dtype) if bias else None)
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding,
+                        self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.Module):
+    """Transposed conv for the kernel == stride, padding 0 case (the U-neck
+    and head upsamples). Weight layout (in, out, kh, kw), as torch's."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=2, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.stride = _pair(kernel_size)
+        self.weight = _param((in_ch, out_ch, *self.stride), device, dtype)
+        self.bias = _param((out_ch,), device, dtype)
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, self.weight, self.bias, self.stride)
+
+
+class Linear(nn.Module):
+    def __init__(self, in_features, out_features, *, device=None, dtype=None):
+        super().__init__()
+        self.weight = _param((out_features, in_features), device, dtype)
+        self.bias = _param((out_features,), device, dtype)
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class BatchNorm2d(nn.Module):
+    """Eval-mode BatchNorm over channels (dim 1) with running statistics."""
+
+    def __init__(self, num_features, *, device=None, dtype=None):
+        super().__init__()
+        self.weight = _param((num_features,), device, dtype)
+        self.bias = _param((num_features,), device, dtype)
+        self.register_buffer(
+            "running_mean", torch.empty(num_features, device=device, dtype=dtype))
+        self.register_buffer(
+            "running_var", torch.empty(num_features, device=device, dtype=dtype))
+
+    def forward(self, x):
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, BN_EPS)
+
+
+def max_pool2d(x, kernel: int, stride: int | None = None, padding: int = 0):
+    """torch nn.MaxPool2d semantics (padding counts as -inf)."""
+    return F.max_pool2d(x, kernel, stride or kernel, padding)
+
+
+@torch.no_grad()
+def init_seeded(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every layer of ``module`` from ``generator``, a CPU generator,
+    so that one seed gives the same weights on every device and dtype.
+
+    Weights are normal with std sqrt(2 / fan_in), where fan_in counts the
+    inputs summed into one output (for the k == s transposed conv, its
+    input channels), so activations keep their scale through the random
+    network; biases are normal with std 0.1. BatchNorm gets non-trivial
+    affine terms and running statistics, as tests/support/torch_b0.py's
+    ``randomize_bn_stats`` gives the reference's.
+    """
+    def fill(t, draw):
+        cpu = torch.empty(t.shape, dtype=torch.float32)
+        draw(cpu)
+        t.copy_(cpu)
+
+    for m in module.modules():
+        if isinstance(m, (Conv2d, ConvTranspose2d, Linear)):
+            fan_in = (m.weight.shape[0] if isinstance(m, ConvTranspose2d)
+                      else m.weight[0].numel())
+            std = (2.0 / fan_in) ** 0.5
+            fill(m.weight, lambda t: t.normal_(0.0, std, generator=generator))
+            if m.bias is not None:
+                fill(m.bias, lambda t: t.normal_(0.0, 0.1, generator=generator))
+        elif isinstance(m, BatchNorm2d):
+            fill(m.running_mean,
+                 lambda t: t.normal_(0.0, 0.5, generator=generator))
+            fill(m.running_var,
+                 lambda t: t.uniform_(0.5, 1.5, generator=generator))
+            fill(m.weight, lambda t: t.normal_(1.0, 0.2, generator=generator))
+            fill(m.bias, lambda t: t.normal_(0.0, 0.2, generator=generator))
+    return module
