@@ -8,6 +8,12 @@ Leaf transforms, by flax leaf name:
   ``b``, ``bias``                    -> ``bias``
   ``scale``                          -> ``weight``   (BatchNorm)
   ``mean``, ``var`` (batch_stats)    -> ``running_mean``, ``running_var``
+  ``w_scale``, ``x_scale`` (int8)    -> ``weight_scale``, ``input_scale``
+
+An int8 ``w`` (export/quantize.py::quantize_variables_for_int8_conv) keeps
+its dtype and loads into an ``Int8Conv2d`` of the port's own quantized
+module (export/quantize.py); every other leaf becomes f32. An int8 leaf for
+a float key, or the other way round, raises like a shape mismatch.
 
 Flax paths merge a torch index into its parent (``encoder_1_0``); whether a
 ``_0`` is such an index (``encoder.1.0``) or part of a name
@@ -26,7 +32,8 @@ from torch import nn
 _TRANSPOSE = {"w": (3, 2, 0, 1), "wt": (3, 2, 0, 1), "wl": (1, 0)}
 _TORCH_LEAF = {"w": "weight", "wt": "weight", "wl": "weight", "b": "bias",
                "scale": "weight", "bias": "bias", "mean": "running_mean",
-               "var": "running_var"}
+               "var": "running_var", "w_scale": "weight_scale",
+               "x_scale": "input_scale"}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -56,7 +63,8 @@ def variables_to_state_dict(flax_vars: Mapping, module: nn.Module
     """{'params', 'batch_stats'} trees -> a state_dict for ``module`` (f32,
     on the CPU) that ``module.load_state_dict(..., strict=True)`` takes.
     Raises KeyError on a leaf with no place in ``module`` or a key of
-    ``module`` left unfilled, ValueError on a shape mismatch."""
+    ``module`` left unfilled, ValueError on a shape or int8/float mismatch.
+    Int8 leaves stay int8."""
     targets = module.state_dict()
     by_merged = {_merge_digits(k): k for k in targets}
     out = {}
@@ -72,13 +80,18 @@ def variables_to_state_dict(flax_vars: Mapping, module: nn.Module
             if key is None:
                 raise KeyError(f"{collection}/{path} has no key in "
                                f"{type(module).__name__}")
-            a = np.asarray(value, dtype=np.float32)
+            a = np.asarray(value)
+            if (a.dtype == np.int8) != (targets[key].dtype == torch.int8):
+                raise ValueError(f"dtype mismatch at {key}: flax {a.dtype} vs "
+                                 f"torch {targets[key].dtype}")
+            if a.dtype != np.int8:
+                a = a.astype(np.float32)
             if leaf in _TRANSPOSE:
                 a = a.transpose(_TRANSPOSE[leaf])
             if a.shape != tuple(targets[key].shape):
                 raise ValueError(f"shape mismatch at {key}: flax {a.shape} vs "
                                  f"torch {tuple(targets[key].shape)}")
-            out[key] = torch.from_numpy(np.ascontiguousarray(a))
+            out[key] = torch.from_numpy(np.array(a, order="C"))  # keeps 0-d
     missing = sorted(set(targets) - set(out))
     if missing:
         raise KeyError(f"no flax leaf for {missing[:10]}"

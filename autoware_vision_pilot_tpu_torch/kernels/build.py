@@ -1,11 +1,13 @@
 """Builds the port's CUDA kernels and loads them with ctypes.
 
-All of ``autoware_vision_pilot_tpu_torch/csrc/*.cu`` is compiled by ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface,
+Each ``autoware_vision_pilot_tpu_torch/csrc/*.cu`` is compiled by its own
+``nvcc`` for ``sm_90a``, all of them at once, and the objects are linked
+into one shared library with a plain C interface,
 ``build/torch_kernels/libavp_kernels.so`` at the repository root, at first
-use. A hash of the sources and flags, stored beside the library, decides
-whether a later process rebuilds it. A failed compile raises with nvcc's
-stderr. Nothing here runs at import time.
+use. A hash of the sources, the headers they include (``csrc/*.cuh``) and
+the flags, stored beside the library, decides whether a later process
+rebuilds it. A failed compile raises with nvcc's stderr. Nothing here runs
+at import time.
 """
 from __future__ import annotations
 
@@ -22,24 +24,29 @@ CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE.parent / "build" / "torch_kernels"
 LIBRARY = BUILD_DIR / "libavp_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry point -> argtypes; every function returns a cudaError_t as int.
 SIGNATURES = {
     # frame, out, y0, y1, fy, x0, x1, fx, mean, std,
     # B, H, W, h, w, out_bf16, stream
     "avp_fused_preprocess": (_P,) * 10 + (_I,) * 6 + (_P,),
+    # x, xq, scale, per_channel, pixels, C, in_bf16, stream
+    "avp_int8_quantize": (_P, _P, _P, _I, _L, _I, _I, _P),
+    # xq, w, w_scale, x_scale, bias, out, B, H, W, C, N, KH, KW, pad,
+    # out_kind, stream
+    "avp_int8_conv": (_P,) * 6 + (_I,) * 9 + (_P,),
 }
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
@@ -53,6 +60,20 @@ def _nvcc() -> str:
                / "bin" / "nvcc")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Start every command, wait for all, raise on the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    failures = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed with exit code {proc.returncode}: "
+                            f"{' '.join(cmd)}\n{err}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 def build() -> Path:
     """Compile the library unless one built from the same sources exists."""
     digest = _digest()
@@ -60,12 +81,14 @@ def build() -> Path:
     if LIBRARY.exists() and stamp.exists() and stamp.read_text() == digest:
         return LIBRARY
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.stem}.{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    nvcc, pid = _nvcc(), os.getpid()
+    objects = [BUILD_DIR / f"{src.stem}.{pid}.o" for src in sources()]
+    _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(sources(), objects)])
+    tmp = LIBRARY.with_name(f"{LIBRARY.stem}.{pid}.so")
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, LIBRARY)
     stamp.write_text(digest)
     return LIBRARY
@@ -74,7 +97,8 @@ def build() -> Path:
 @functools.cache
 def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C
-    signatures (pointers and the stream as c_void_p, ints as c_int)."""
+    signatures (pointers and the stream as c_void_p, ints as c_int or
+    c_int64)."""
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels.int8_conv import dynamic_input_scale, int8_conv2d
+
 BN_EPS = 1e-5
 
 
@@ -55,6 +57,54 @@ class Conv2d(nn.Module):
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, self.stride, self.padding,
                         self.dilation, self.groups)
+
+
+class Int8Conv2d(nn.Module):
+    """The int8 branch of the JAX package's Conv2d (nn/layers.py:81-113):
+    int8 x int8 -> int32 on the card's tensor cores (ops/kernels/int8_conv.py),
+    then ``cast(f32(acc) * dequant) + bias`` in the model dtype.
+
+    A class of its own beside Conv2d, not a branch of it: its state differs
+    (``weight`` int8 OIHW in channels_last memory, f32 ``weight_scale``, the
+    JAX ``w_scale``, per output channel, and the optional f32 ``input_scale``,
+    the JAX ``x_scale``: () or (in_ch,) when per-input-channel scales were
+    folded into the weights), so ``isinstance`` tells which convs run int8
+    and Conv2d's forward stays free of branches. export/quantize.py swaps
+    Conv2d modules for these; it covers stride 1, groups 1, dilation 1.
+
+    Without ``input_scale`` the scale is dynamic, max(max|x|, 1e-6) / 127,
+    kept on the device; each call then records the running ``observed_amax``
+    that calibration reads. ``plain = True`` routes a module through the
+    kernels' plain versions, for a reference run that asks for it.
+    """
+
+    def __init__(self, in_ch, out_ch, kernel_size=3, padding=0, bias=True, *,
+                 input_scale_shape=None, device=None, dtype=None):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.padding = _pair(padding)
+        self.weight = nn.Parameter(
+            torch.empty((out_ch, in_ch, kh, kw), device=device, dtype=torch.int8,
+                        memory_format=torch.channels_last), requires_grad=False)
+        self.register_buffer(
+            "weight_scale", torch.empty(out_ch, device=device, dtype=torch.float32))
+        self.register_buffer(
+            "input_scale", None if input_scale_shape is None else
+            torch.empty(input_scale_shape, device=device, dtype=torch.float32))
+        self.register_parameter(
+            "bias", _param((out_ch,), device, dtype) if bias else None)
+        self.observed_amax = None
+        self.plain = False
+
+    def forward(self, x):
+        x = x.contiguous(memory_format=torch.channels_last)
+        sx = self.input_scale
+        if sx is None:
+            sx, amax = dynamic_input_scale(x)
+            self.observed_amax = (amax if self.observed_amax is None
+                                  else torch.maximum(self.observed_amax, amax))
+        return int8_conv2d(x, self.weight, self.weight_scale, sx, self.bias,
+                           self.padding, plain=self.plain)
 
 
 class ConvTranspose2d(nn.Module):

@@ -1,20 +1,27 @@
-"""Tests of the port that need an NVIDIA GPU: the fused-preprocess CUDA
-kernel against its plain PyTorch version, and the main path on the card
-against the CPU. They skip where there is no CUDA device.
+"""Tests of the port that need an NVIDIA GPU: the fused-preprocess and int8
+CUDA kernels against their plain PyTorch versions, and the main path, bf16
+and int8, on the card against the CPU. They skip where there is no CUDA
+device.
 
 This file imports no JAX, so it also runs on a machine that has none:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
+from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
+    int8_conv, int8_conv_plain, int8_quantize, int8_quantize_plain)
 from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
 from autoware_vision_pilot_tpu_torch.ops.preprocess import preprocess_imagenet
 from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused
 
 pytestmark = pytest.mark.cuda
+CL = torch.channels_last
 
 
 @pytest.fixture
@@ -73,6 +80,113 @@ def test_main_path_on_card_matches_cpu(cuda):
         before = fused_preprocess.launches
         out = build_pipeline_fused(cuda, torch.float32, **kw).logits(frame.to(cuda))
         assert fused_preprocess.launches == before + 1
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=1e-3 * b.abs().max().item())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("k,cin,cout,hw", [
+    (3, 1456, 20, (5, 9)),    # K = 13104, not a multiple of the 64-byte K tile
+    (1, 672, 28, (1, 1)),     # an SE squeeze: M = 1, N = 28
+    (3, 1456, 768, (1, 2)),   # M = 2, N a multiple of the tile
+    (3, 288, 20, (7, 9)),     # N = 20, M = 63: ragged in M, N and K
+    (3, 20, 36, (5, 5)),      # C = 20: the wrapper pads channels to 16s
+])
+def test_int8_kernels_match_plain_versions(cuda, k, cin, cout, hw):
+    """Quantized values, int32 accumulators and outputs bit-equal, f32 and
+    bf16, scalar and per-input-channel scales."""
+    g = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(1, cin, *hw, generator=g) * torch.linspace(0.5, 2.0, cin).reshape(1, -1, 1, 1)
+    w = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
+                      dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+    w_scale = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).to(cuda)
+    scales = [torch.tensor(float(x.abs().max()) * 0.9 / 127.0),  # some values clip
+              (x.double().abs().amax(dim=(0, 2, 3)) / 127.0).float()]
+    before = int8_quantize.launches, int8_conv.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype).contiguous(memory_format=CL).to(cuda)
+        bias = (torch.randn(cout, generator=g) * 0.1).to(dtype).to(cuda)
+        for sx in scales:
+            sx = sx.to(cuda)
+            xq = int8_quantize(xd, sx)
+            assert torch.equal(xq, int8_quantize_plain(xd, sx))
+            acc = int8_conv(xq, w, w_scale, sx, None, k // 2, torch.int32)
+            assert torch.equal(acc, int8_conv_plain(xq, w, w_scale, sx, None, k // 2,
+                                                    torch.int32))
+            y = int8_conv(xq, w, w_scale, sx, bias, k // 2, dtype)
+            torch.cuda.synchronize()
+            assert y.dtype == dtype and y.is_contiguous(memory_format=CL)
+            assert torch.equal(y, int8_conv_plain(xq, w, w_scale, sx, bias, k // 2, dtype))
+    assert (int8_quantize.launches, int8_conv.launches) == (before[0] + 4, before[1] + 8)
+
+
+def test_int8_wrappers_raise_on_the_card(cuda):
+    x = torch.randn(1, 32, 4, 5, device=cuda).contiguous(memory_format=CL)
+    s = torch.tensor(0.02, device=cuda)
+    w = torch.zeros(8, 32, 3, 3, dtype=torch.int8, device=cuda).contiguous(memory_format=CL)
+    w_scale = torch.ones(8, device=cuda)
+    xq = int8_quantize(x, s)
+    with pytest.raises(ValueError, match="groups"):
+        int8_conv(xq, w, w_scale, s, None, 1, groups=2)
+    with pytest.raises(ValueError, match="stride"):
+        int8_conv(xq, w, w_scale, s, None, 1, stride=2)
+    with pytest.raises(ValueError, match="channels_last"):
+        int8_conv(xq.contiguous(), w, w_scale, s, None, 1)
+    with pytest.raises(ValueError, match="channels_last"):
+        int8_quantize(x.contiguous(), s)
+    with pytest.raises(TypeError, match="x_scale"):
+        int8_quantize(x, s.cpu())
+
+
+def int8_calls(pipe, forced=None):
+    """Hooks on every Int8Conv2d of the pipeline: record (input, output) in
+    call order; with ``forced``, feed each conv the next of those inputs
+    instead of its own. -> (calls, remove)."""
+    calls = []
+
+    def pre(m, args):
+        if forced is not None:
+            return (forced[len(calls)].to(args[0].device),)
+
+    def post(m, args, y):
+        calls.append((args[0], y))
+
+    handles = [h for net in (pipe.stack, pipe.lanes) for m in net.modules()
+               if isinstance(m, Int8Conv2d)
+               for h in (m.register_forward_pre_hook(pre), m.register_forward_hook(post))]
+    return calls, lambda: [h.remove() for h in handles]
+
+
+def test_int8_main_path_on_card_matches_cpu(cuda):
+    """Small int8 main path in f32 with TF32 off: the pipeline quantized and
+    calibrated on the CPU, copied to the card with its scales. Each of the
+    72 int8 convs on the card gets the CPU conv's input and must give its
+    output bit for bit; the logits agree within 1e-3 * max|CPU|. (Left to
+    run free, a 1e-7 float difference between cuDNN and the CPU can move an
+    int8 value across a rounding boundary, and the flips multiply through
+    the later int8 convs: tests/test_torch_int8_slice.py.)"""
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        frame = frames((144, 256), 1, seed=2)[0]
+        cpu = build_pipeline_fused("cpu", torch.float32, seed=0, ctx_hw=(2, 4),
+                                   out_hw=(64, 128), int8=True)
+        card = copy.deepcopy(cpu)
+        for net in (card.stack, card.lanes):
+            net.to(cuda)
+        calls, remove = int8_calls(cpu)
+        ref = cpu.logits(frame)
+        remove()
+        before = int8_conv.launches
+        card_calls, remove = int8_calls(card, [x for x, _ in calls])
+        out = card.logits(frame.to(cuda))
+        remove()
+        assert len(calls) == len(card_calls) == 72
+        assert int8_conv.launches == before + 72
+        for i, ((_, want), (_, got)) in enumerate(zip(calls, card_calls)):
+            assert torch.equal(got.cpu(), want), i
         for a, b in zip(out, ref):
             torch.testing.assert_close(a.cpu(), b, rtol=0,
                                        atol=1e-3 * b.abs().max().item())

@@ -7,6 +7,7 @@ modules get the same parameters through the weight bridge
 2e-4, rtol 1e-3 in f32, the bar of tests/test_models_parity.py; it covers
 summation order and the JAX ConvTranspose's CPU einsum lowering (~1 ulp).
 """
+import flax.linen as fnn
 import numpy as np
 import pytest
 import torch
@@ -78,6 +79,45 @@ def assert_close(port_nchw, ref_nhwc, atol=ATOL, rtol=RTOL):
 
 def normal_input(shape, seed=0):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def jax_int8_calls(jmod, variables, x):
+    """Eager apply of ``jmod`` -> (outputs, [(path, input, output)] of every
+    int8 conv in call order), as numpy."""
+    calls = []
+
+    def intercept(next_fun, args, kwargs, context):
+        y = next_fun(*args, **kwargs)
+        m = context.module
+        if (isinstance(m, jl.Conv2d) and context.method_name == "__call__"
+                and m.has_variable("params", "w_scale")):
+            calls.append((".".join(m.path), np.array(args[0]), np.array(y)))
+        return y
+
+    with fnn.intercept_methods(intercept):
+        out = jmod.apply(variables, x)
+    return out, calls
+
+
+def port_int8_calls(nets, forced=None):
+    """Hooks on every Int8Conv2d of ``nets``: record (name, NHWC input,
+    NHWC output, module) in call order; with ``forced``, a list of NHWC
+    arrays in that order, replace each conv's input by the next one.
+    -> (calls, remove)."""
+    calls = []
+    names = {m: n for net in nets for n, m in net.named_modules()}
+
+    def pre(m, args):
+        if forced is not None:
+            return (to_port(forced[len(calls)]).contiguous(
+                memory_format=torch.channels_last),)
+
+    def post(m, args, y):
+        calls.append((names[m], from_port(args[0]), from_port(y), m))
+
+    handles = [h for m in names if isinstance(m, tl.Int8Conv2d)
+               for h in (m.register_forward_pre_hook(pre), m.register_forward_hook(post))]
+    return calls, lambda: [h.remove() for h in handles]
 
 
 def test_gelu_f32_is_exact_erf():

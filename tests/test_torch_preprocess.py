@@ -1,6 +1,7 @@
 """The port's preprocessing and post-processing against the JAX package's
 (ops/preprocess.py, ops/pallas/preprocess_kernel.py, ops/postprocess.py),
-and the fused-preprocess wrapper's CPU branch and argument checks.
+and the fused-preprocess wrapper's CPU branch and argument checks; and the
+kernel library's C bindings and rebuild key (kernels/build.py).
 
 The kernel itself (csrc/preprocess.cu) runs only on a GPU: its tests are
 in test_torch_cuda.py. Here, ``test_kernel_arithmetic_is_the_plain_version``
@@ -187,15 +188,33 @@ def test_depth_minmax_scale():
 def test_kernel_binding_matches_c_signature():
     """The ctypes argtypes in kernels/build.py against the extern "C"
     declarations in csrc/*.cu: pointers (and the stream) as c_void_p, ints
-    as c_int, in order. The library itself is built only on a GPU machine."""
-    assert [p.name for p in build.sources()] == ["preprocess.cu"]
+    as c_int, long longs as c_int64, in order. The library itself is built
+    only on a GPU machine."""
+    assert [p.name for p in build.sources()] == ["int8_conv.cu", "preprocess.cu"]
     decls = {}
     for src in build.sources():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
                                        src.read_text()):
-            decls[name] = [ctypes.c_void_p if "*" in p else ctypes.c_int
+            decls[name] = [ctypes.c_void_p if "*" in p else
+                           ctypes.c_int64 if "long long" in p else ctypes.c_int
                            for p in params.split(",")]
     assert decls.keys() == build.SIGNATURES.keys()
     for name, argtypes in build.SIGNATURES.items():
         assert list(argtypes) == decls[name], name
     assert build.LIBRARY.parent == Path(build.__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+
+def test_rebuild_key_covers_headers(tmp_path):
+    """The hash that decides a rebuild covers csrc/*.cu and the *.cuh
+    headers they include, so an edited header rebuilds the library.
+    No nvcc runs here: only the key is computed."""
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / "k.cuh").write_text("#define TILE 64\n")
+    (tmp_path / "notes.txt").write_text("not a source")
+    key = build._digest(tmp_path)
+    assert build._digest(tmp_path) == key
+    (tmp_path / "notes.txt").write_text("still not a source")
+    assert build._digest(tmp_path) == key
+    (tmp_path / "k.cuh").write_text("#define TILE 128\n")
+    assert build._digest(tmp_path) != key
+    assert [p.name for p in build.sources(tmp_path)] == ["k.cu"]
