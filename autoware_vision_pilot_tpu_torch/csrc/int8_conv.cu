@@ -1,5 +1,7 @@
-// Int8 convolution for Hopper (sm_90a): activation quantize + implicit-GEMM
-// conv with int32 accumulation and the dequant/bias epilogue.
+// Int8 convolution for Hopper (sm_90a), part 1: the activation quantize
+// kernel and the mma.sync conv route. The wgmma/TMA route and its split-K
+// form are in int8_conv_sm90.cu; ops/kernels/int8_conv.py::int8_conv_plan
+// decides which route runs a conv.
 //
 // Replaces the int8 branch of autoware_vision_pilot_tpu/nn/layers.py::Conv2d
 // (:81-113), which the JAX package leaves to XLA
@@ -7,89 +9,111 @@
 //   avp_int8_quantize  xq = clip(round_half_even(f32(x) / sx), -127, 127)
 //                      with sx a scalar or one scale per input channel
 //                      (:103-108), a separate kernel;
-//   avp_int8_conv      acc = conv(xq, w) in int32, then
-//                      y = cast(f32(acc) * dequant) + bias, with dequant =
-//                      sx * w_scale for a scalar sx, w_scale alone for a
-//                      per-channel one (whose scales the weights carry)
-//                      (:110-113).
+//   avp_int8_conv_mma  acc = conv(xq, w) in int32, then the epilogue of
+//                      int8_common.cuh (:110-113).
 // Both take channels_last (NHWC) tensors; the weights are (O, kh, kw, I)
 // int8, K = kh*kw*I contiguous, arranged once when a conv is quantized.
 //
-// What bounds it on the H100: at the main path's shapes, operations. A 3x3
-// conv reads each int8 input value ~9 times from the cache and does
-// 2*kh*kw*cout operations per input byte: 13,824 for 256->256 at 160x320,
-// 27,648 for 1456->768 at 20x40, far above the ~590 operations per byte of
-// device memory at which the int8 tensor cores (1,979 TOP/s dense) and
-// HBM (3.35 TB/s) balance. Only the SE squeeze convs (M = 1) and the 1x1
-// project convs at 10x20 are small enough to be bound by their weight bytes
-// and by the launch itself. The quantize kernel is bound by bytes.
+// Quantize: bound by bytes (a bf16 input is 2 bytes read and 1 written per
+// value). Each thread takes 16 consecutive channels of one pixel: two
+// 16-byte loads of bf16 (four of f32) and one 16-byte int8 store, with the
+// channel computed once per group of 16; a grid-stride loop over a grid
+// sized to the SM count; a scalar scale read once, per-channel scales
+// staged in shared memory. C must be a multiple of 16 (the wrapper pads).
 //
-// Design, a simple and exact first version: 128x128 (or 64x64 where the
-// big tiles would leave SMs idle) output tiles, K in steps of 64 bytes
-// through a 3-stage cp.async ring in shared memory, im2col rows generated
-// on the fly, warp-level mma.sync.m16n8k32 s8 x s8 -> s32 on the tensor
-// cores. Zero padding is exact to do on the int8 tensor: quantize(0) == 0,
-// so padding commutes with quantization and the loader zero-fills padded
-// pixels, the K tail, and the rows and columns beyond M and N (cp.async
-// with a source size of 0). wgmma, TMA and a persistent schedule are later
-// work.
+// The mma.sync route: warp-level mma.sync.m16n8k32 s8 x s8 -> s32, 128x128
+// or 64x64 tiles (the plan's choice), K in steps of 64 bytes through a
+// 3-stage cp.async ring, im2col rows generated on the fly; cp.async with a
+// source size of 0 zero-fills padded pixels, the K tail and the rows and
+// columns beyond M and N (quantize(0) == 0, so padding commutes with
+// quantization). The plan keeps on it the 1x1 convs at the small maps and
+// the SE convs (M = 1): bound by their weight bytes and by the launch.
 //
 // Numerics: the division is __fdiv_rn and the rounding __float2int_rn
-// (half to even, as jnp.round), clamped to +-127, never -128. The epilogue
-// is __int2float_rn, __fmul_rn, the cast to the output type, then a
-// separate __fadd_rn for the bias: two roundings, never contracted into an
-// FMA, as XLA and PyTorch compute them. The accumulators are exact
-// (|acc| <= 127^2 * K < 2^31 for K < 133,000).
+// (half to even, as jnp.round), clamped to +-127, never -128. The
+// accumulators are exact (|acc| <= 127^2 * K < 2^31 for K < 133,144).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_common.cuh"
+
 namespace {
 
-// ---------------------------------------------------------------- quantize
+using avp::MAX_DEVICES;
+using avp::sm_count;
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// ---------------------------------------------------------------- quantize
 
 __device__ __forceinline__ signed char quantize_one(float v, float s) {
   int q = __float2int_rn(__fdiv_rn(v, s));
   return (signed char)min(max(q, -127), 127);
 }
 
-// Each thread quantizes 4 consecutive values of the flattened (pixels, C)
-// tensor; scale has C values if per_channel, else one.
-template <typename T>
-__global__ void quantize_kernel(const T* __restrict__ x,
-                                signed char* __restrict__ xq,
-                                const float* __restrict__ scale,
-                                int per_channel, long long total, int C) {
-  const long long e0 = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 4;
-  if (e0 >= total) return;
-  int c = (int)(e0 % C);
-  signed char q[4];
+__device__ __forceinline__ void load16(const float* p, float (&v)[16]) {
+  const float4* q = reinterpret_cast<const float4*>(p);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    q[j] = 0;
-    if (e0 + j < total) {
-      q[j] = quantize_one(to_f32(x[e0 + j]), scale[per_channel ? c : 0]);
-    }
-    if (++c == C) c = 0;
-  }
-  if (e0 + 3 < total) {
-    *reinterpret_cast<char4*>(xq + e0) = make_char4(q[0], q[1], q[2], q[3]);
-  } else {
-    for (int j = 0; e0 + j < total; ++j) xq[e0 + j] = q[j];
+    const float4 f = __ldg(q + j);
+    v[4 * j] = f.x; v[4 * j + 1] = f.y; v[4 * j + 2] = f.z; v[4 * j + 3] = f.w;
   }
 }
 
-// -------------------------------------------------------------------- conv
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[16]) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const uint4 u = __ldg(q + j);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // a bf16 is the top half of an f32: exact
+      v[8 * j + 2 * i] = __uint_as_float(w[i] << 16);
+      v[8 * j + 2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// groups = pixels * C / 16; group g holds channels (g % (C/16)) * 16 + 0..15
+// of pixel g / (C/16).
+template <typename T>
+__global__ void __launch_bounds__(256) quantize_kernel(
+    const T* __restrict__ x, signed char* __restrict__ xq,
+    const float* __restrict__ scale, int per_channel, long long groups, int C) {
+  extern __shared__ float s_scale[];  // C values when per_channel
+  float s0 = 0.f;
+  if (per_channel) {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) s_scale[c] = scale[c];
+    __syncthreads();
+  } else {
+    s0 = __ldg(scale);
+  }
+  const int cg = C / 16;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       g < groups; g += step) {
+    float v[16];
+    load16(x + g * 16, v);
+    const int c0 = (int)(g % cg) * 16;
+    uint32_t packed[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 4 * i + j;
+        const float s = per_channel ? s_scale[c0 + k] : s0;
+        word |= (uint32_t)(uint8_t)quantize_one(v[k], s) << (8 * j);
+      }
+      packed[i] = word;
+    }
+    *reinterpret_cast<uint4*>(xq + g * 16) =
+        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  }
+}
+
+// ------------------------------------------------------------ mma.sync conv
 
 constexpr int BK = 64;         // K bytes per tile: 4 chunks of 16
 constexpr int LDS = BK + 16;   // smem row pitch: 20 words, so the 8x4
@@ -99,12 +123,8 @@ constexpr int STAGES = 3;
 struct ConvArgs {
   const signed char* x;   // (B, H, W, C) int8
   const signed char* w;   // (N, KH, KW, C) int8
-  const float* w_scale;   // (N,)
-  const float* x_scale;   // scalar, or null: dequant = w_scale alone
-  const void* bias;       // (N,) in the output type, or null
-  void* out;              // (B, OH, OW, N): f32, bf16, or int32 acc
+  avp::Epilogue e;        // out (B, OH, OW, N)
   int B, H, W, C, N, KH, KW, pad, OH, OW, M, K;
-  int out_kind;           // 0 f32, 1 bf16, 2 the raw int32 accumulators
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -141,32 +161,10 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void store_out(const ConvArgs& a, int m, int n,
-                                          int acc) {
-  const long long i = (long long)m * a.N + n;
-  if (a.out_kind == 2) {
-    static_cast<int*>(a.out)[i] = acc;
-    return;
-  }
-  const float dq = a.x_scale ? __fmul_rn(a.x_scale[0], a.w_scale[n])
-                             : a.w_scale[n];
-  const float y = __fmul_rn(__int2float_rn(acc), dq);
-  if (a.out_kind == 0) {
-    static_cast<float*>(a.out)[i] =
-        a.bias ? __fadd_rn(y, static_cast<const float*>(a.bias)[n]) : y;
-    return;
-  }
-  __nv_bfloat16 yb = __float2bfloat16_rn(y);
-  if (a.bias) {
-    const float b = __bfloat162float(static_cast<const __nv_bfloat16*>(a.bias)[n]);
-    yb = __float2bfloat16_rn(__fadd_rn(__bfloat162float(yb), b));
-  }
-  static_cast<__nv_bfloat16*>(a.out)[i] = yb;
-}
-
 // One block computes a BM x BN output tile with (BM/WM) x (BN/WN) warps,
-// each a WM x WN tile of m16n8 fragments.
-template <int BM, int BN, int WM, int WN>
+// each a WM x WN tile of m16n8 fragments. OUT_KIND is a.e.out_kind, fixed
+// at compile time so that the epilogue holds the code of one output type.
+template <int BM, int BN, int WM, int WN, int OUT_KIND>
 __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
     int8_conv_kernel(const ConvArgs a) {
   constexpr int NT = (BM / WM) * (BN / WN) * 32;
@@ -289,75 +287,103 @@ __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
   }
   cp_async_wait<0>();
 
+  avp::Epilogue e = a.e;
+  e.out_kind = OUT_KIND;
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm + i * 16 + g + (e >> 1) * 8;
-        const int n = n0 + wn + j * 8 + t * 2 + (e & 1);
-        if (m < a.M && n < a.N) store_out(a, m, n, acc[i][j][e]);
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + i * 16 + g + h * 8;
+        const int n = n0 + wn + j * 8 + t * 2;
+        if (m < a.M) avp::store_pair(e, m, n, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
       }
 }
 
-template <int BM, int BN, int WM, int WN>
-cudaError_t launch_conv(const ConvArgs& a, cudaStream_t stream) {
+// The dynamic shared-memory limit is set once per kernel and device.
+template <int BM, int BN, int WM, int WN, int OUT_KIND>
+cudaError_t launch_kind(const ConvArgs& a, unsigned grid_x, unsigned grid_y,
+                        cudaStream_t stream) {
   constexpr int threads = (BM / WM) * (BN / WN) * 32;
   constexpr int smem = STAGES * (BM + BN) * LDS;
-  // on every launch: the attribute belongs to the current device's copy
-  const cudaError_t err = cudaFuncSetAttribute(
-      int8_conv_kernel<BM, BN, WM, WN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool ready[MAX_DEVICES] = {false};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.M + BM - 1) / BM, (a.N + BN - 1) / BN);
-  int8_conv_kernel<BM, BN, WM, WN><<<grid, threads, smem, stream>>>(a);
+  if (dev < 0 || dev >= MAX_DEVICES || !ready[dev]) {
+    err = cudaFuncSetAttribute(int8_conv_kernel<BM, BN, WM, WN, OUT_KIND>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (dev >= 0 && dev < MAX_DEVICES) ready[dev] = true;
+  }
+  int8_conv_kernel<BM, BN, WM, WN, OUT_KIND><<<dim3(grid_x, grid_y), threads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int BM, int BN, int WM, int WN>
+cudaError_t launch_conv(const ConvArgs& a, unsigned grid_x, unsigned grid_y,
+                        cudaStream_t stream) {
+  if (a.e.out_kind == 0) return launch_kind<BM, BN, WM, WN, 0>(a, grid_x, grid_y, stream);
+  if (a.e.out_kind == 1) return launch_kind<BM, BN, WM, WN, 1>(a, grid_x, grid_y, stream);
+  return launch_kind<BM, BN, WM, WN, 2>(a, grid_x, grid_y, stream);
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// x: (pixels, C) f32 or bf16 (in_bf16), contiguous; xq: (pixels, C) int8;
-// scale: f32, C values if per_channel, else one.
+// x: (pixels, C) f32 or bf16 (in_bf16), contiguous, 16-byte aligned, C a
+// multiple of 16; xq: (pixels, C) int8, 16-byte aligned; scale: f32, C
+// values if per_channel, else one.
 extern "C" int avp_int8_quantize(const void* x, void* xq, const void* scale,
                                  int per_channel, long long pixels, int C,
                                  int in_bf16, void* stream) {
-  if (pixels <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  const long long total = pixels * C;
+  if (pixels <= 0 || C <= 0 || C % 16) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)x % 16 || (uintptr_t)xq % 16) return (int)cudaErrorMisalignedAddress;
+  const long long groups = pixels * (C / 16);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
   const int threads = 256;
-  const long long blocks = (total + 4LL * threads - 1) / (4LL * threads);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long want = (groups + threads - 1) / threads;
+  const long long cap = 8LL * sm_count(dev);  // 8 blocks of 256 per SM
+  const unsigned blocks = (unsigned)(want < cap ? want : cap);
+  const size_t smem = per_channel ? (size_t)C * sizeof(float) : 0;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* sc = (const float*)scale;
   signed char* q = (signed char*)xq;
   if (in_bf16) {
-    quantize_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, 0, s>>>(
-        (const __nv_bfloat16*)x, q, sc, per_channel, total, C);
+    quantize_kernel<__nv_bfloat16><<<blocks, threads, smem, s>>>(
+        (const __nv_bfloat16*)x, q, sc, per_channel, groups, C);
   } else {
-    quantize_kernel<float><<<(unsigned)blocks, threads, 0, s>>>(
-        (const float*)x, q, sc, per_channel, total, C);
+    quantize_kernel<float><<<blocks, threads, smem, s>>>(
+        (const float*)x, q, sc, per_channel, groups, C);
   }
   return (int)cudaGetLastError();
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// xq: (B, H, W, C) int8, C a multiple of 16; w: (N, KH, KW, C) int8;
-// w_scale: (N,) f32; x_scale: one f32, or null for a per-channel input
-// scale already folded into w; bias: (N,) of the output type, or null;
-// out: (B, OH, OW, N) with OH = H + 2*pad - KH + 1 (stride 1), f32
-// (out_kind 0), bf16 (1) or the int32 accumulators (2).
-extern "C" int avp_int8_conv(const void* xq, const void* w, const void* w_scale,
-                             const void* x_scale, const void* bias, void* out,
-                             int B, int H, int W, int C, int N, int KH, int KW,
-                             int pad, int out_kind, void* stream) {
+// Launches the mma.sync route on `stream` and returns cudaGetLastError()
+// (0 on success). xq: (B, H, W, C) int8, C a multiple of 16; w: (N, KH, KW,
+// C) int8; w_scale: (N,) f32; x_scale: one f32, or null for a per-channel
+// input scale already folded into w; bias: (N,) of the output type, or
+// null; out: (B, OH, OW, N) with OH = H + 2*pad - KH + 1 (stride 1), f32
+// (out_kind 0), bf16 (1) or the int32 accumulators (2). bm (128 or 64) and
+// the grid are the plan's.
+extern "C" int avp_int8_conv_mma(const void* xq, const void* w, const void* w_scale,
+                                 const void* x_scale, const void* bias, void* out,
+                                 int B, int H, int W, int C, int N, int KH, int KW,
+                                 int pad, int out_kind, int bm, int grid_x,
+                                 int grid_y, void* stream) {
   ConvArgs a;
   a.x = (const signed char*)xq;
   a.w = (const signed char*)w;
-  a.w_scale = (const float*)w_scale;
-  a.x_scale = (const float*)x_scale;
-  a.bias = bias;
-  a.out = out;
+  a.e.w_scale = (const float*)w_scale;
+  a.e.x_scale = (const float*)x_scale;
+  a.e.bias = bias;
+  a.e.out = out;
+  a.e.N = N;
+  a.e.out_kind = out_kind;
   a.B = B; a.H = H; a.W = W; a.C = C; a.N = N;
   a.KH = KH; a.KW = KW; a.pad = pad;
   a.OH = H + 2 * pad - KH + 1;
@@ -365,13 +391,13 @@ extern "C" int avp_int8_conv(const void* xq, const void* w, const void* w_scale,
   const long long M = (long long)B * a.OH * a.OW;
   const long long K = (long long)KH * KW * C;
   if (B <= 0 || C <= 0 || C % 16 || N <= 0 || a.OH <= 0 || a.OW <= 0 ||
-      M > 0x7fffffffLL || K > 0x7fffffffLL || out_kind < 0 || out_kind > 2)
+      M > 0x7fffffffLL || K > 0x7fffffffLL || out_kind < 0 || out_kind > 2 ||
+      grid_x <= 0 || grid_y <= 0 || (bm != 128 && bm != 64) ||
+      (long long)grid_x * bm < M || (long long)grid_y * bm < N)
     return (int)cudaErrorInvalidValue;
   a.M = (int)M;
   a.K = (int)K;
-  a.out_kind = out_kind;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long big_tiles = ((M + 127) / 128) * ((N + 127) / 128);
-  if (big_tiles >= 132) return (int)launch_conv<128, 128, 64, 32>(a, s);
-  return (int)launch_conv<64, 64, 32, 32>(a, s);
+  if (bm == 128) return (int)launch_conv<128, 128, 64, 32>(a, grid_x, grid_y, s);
+  return (int)launch_conv<64, 64, 32, 32>(a, grid_x, grid_y, s);
 }

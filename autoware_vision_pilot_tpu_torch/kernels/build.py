@@ -35,8 +35,14 @@ SIGNATURES = {
     # x, xq, scale, per_channel, pixels, C, in_bf16, stream
     "avp_int8_quantize": (_P, _P, _P, _I, _L, _I, _I, _P),
     # xq, w, w_scale, x_scale, bias, out, B, H, W, C, N, KH, KW, pad,
-    # out_kind, stream
-    "avp_int8_conv": (_P,) * 6 + (_I,) * 9 + (_P,),
+    # out_kind, bm, grid_x, grid_y, stream
+    "avp_int8_conv_mma": (_P,) * 6 + (_I,) * 12 + (_P,),
+    # w, N, KH, KW, C, map_out
+    "avp_int8_weight_map": (_P,) + (_I,) * 4 + (_P,),
+    # xq, w_map, w_scale, x_scale, bias, out, ws, B, H, W, C, N, KH, KW,
+    # pad, out_kind, th, tw, m_tiles, n_tiles, splits, per_split, blocks,
+    # stream
+    "avp_int8_conv_wgmma": (_P,) * 7 + (_I,) * 16 + (_P,),
 }
 
 

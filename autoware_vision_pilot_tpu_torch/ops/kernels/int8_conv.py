@@ -1,9 +1,10 @@
-"""Int8 convolution: the wrappers of csrc/int8_conv.cu, the port of the int8
-branch of autoware_vision_pilot_tpu/nn/layers.py::Conv2d (:81-113), which
-the JAX package leaves to XLA.
+"""Int8 convolution: the wrappers of csrc/int8_conv.cu and
+csrc/int8_conv_sm90.cu, the port of the int8 branch of
+autoware_vision_pilot_tpu/nn/layers.py::Conv2d (:81-113), which the JAX
+package leaves to XLA.
 
-Two kernels, each with its wrapper, its plain PyTorch version and its count
-of launches:
+Kernels, each with its wrapper, its plain PyTorch version and its count of
+launches:
 
 - ``int8_quantize``: xq = clip(round_half_even(f32(x) / sx), -127, 127),
   sx a scalar or one scale per input channel (nn/layers.py:103-108).
@@ -11,12 +12,18 @@ of launches:
   ``cast(f32(acc) * dequant) + bias`` with dequant = sx * w_scale for a
   scalar sx, w_scale alone for a per-channel one, which the weights carry
   (:110-113); or the accumulators themselves for ``out_dtype=torch.int32``.
+  ``int8_conv_plan`` picks one of three routes: "wgmma" (TMA loads and
+  wgmma on 128x128 tiles), "splitk" (the same kernel over slices of K; the
+  split that finishes a tile last runs its epilogue) and "mma" (mma.sync,
+  for the 1x1 convs at small maps and the M = 1 SE convs).
+  ``int8_conv.launches`` counts every conv launch;
+  ``int8_conv.route_launches`` counts them by route.
 
-``int8_conv2d`` chains the two. On a CUDA tensor a wrapper launches its
-kernel or raises; on a CPU tensor it runs the plain version, which computes
-the conv in float64 on the int8 values (exact: |acc| <= 127^2 * K < 2^53)
-and the same epilogue in torch ops. Every scale is an f32 tensor on the
-input's device, so no launch waits for the host.
+``int8_conv2d`` chains quantize and conv. On a CUDA tensor a wrapper
+launches its kernel or raises; on a CPU tensor it runs the plain version,
+which computes the conv in float64 on the int8 values (exact: |acc| <=
+127^2 * K < 2^53) and the same epilogue in torch ops. Every scale is an
+f32 tensor on the input's device, so no launch waits for the host.
 
 The kernels cover what the selective-int8 path needs: groups 1, stride 1,
 dilation 1, any window with symmetric padding, NHWC (channels_last) inputs
@@ -24,7 +31,10 @@ and (O, kh, kw, I) weights, i.e. OIHW weights in channels_last memory.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +44,11 @@ from ...kernels import build
 CL = torch.channels_last
 IN_DTYPES = (torch.float32, torch.bfloat16)
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+ROUTES = ("wgmma", "splitk", "mma")
+TILE = 128      # the wgmma route's BM = BN = BK (csrc/int8_conv_sm90.cu)
+MMA_BK = 64     # the mma.sync route's K step (csrc/int8_conv.cu)
+MAX_K = 133_144  # 127^2 * K < 2^31: the int32 accumulators cannot overflow
+SMS = 132       # an H100 SXM's SM count; the wrapper passes the card's own
 
 
 def f32_div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -73,6 +88,32 @@ def _check_scale(x_scale: torch.Tensor, cin: int, device) -> None:
                          f"{tuple(x_scale.shape)}")
 
 
+def _check_aligned(*tensors: torch.Tensor) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the int8 kernels need 16-byte aligned tensors")
+
+
+def _check_err(name: str, err: int) -> None:
+    if err >= 100000:
+        raise RuntimeError(f"{name}: the driver refused a tensor map, CUresult {err - 100000}")
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError_t {err}")
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream of CUDA device ``index``, as the handle the C
+    entry points take. torch.cuda.current_stream() builds a Stream object
+    under a device guard, which costs the host more than the launch."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+# ------------------------------------------------------------------ quantize
+
 def int8_quantize_plain(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
     s = x_scale.reshape(1, -1, 1, 1) if x_scale.dim() == 1 else x_scale
     q = torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
@@ -90,22 +131,127 @@ def int8_quantize(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
         return int8_quantize_plain(x, x_scale)
     if x.device.type != "cuda":
         raise ValueError(f"no int8 quantize for device {x.device}")
+    index = x.get_device()
+    if index != torch.cuda.current_device():  # the kernels launch on the current device
+        with torch.cuda.device(index):
+            return int8_quantize(x, x_scale)
     B, C, H, W = x.shape
+    if C % 16:  # the kernel takes 16 channels a thread; the pad is cut off again
+        extra = 16 - C % 16
+        xp = F.pad(x, (0, 0, 0, 0, 0, extra)).contiguous(memory_format=CL)
+        sp = F.pad(x_scale, (0, extra), value=1.0) if x_scale.dim() == 1 else x_scale
+        return int8_quantize(xp, sp)[:, :C].contiguous(memory_format=CL)
     xq = torch.empty_like(x, dtype=torch.int8, memory_format=CL)
+    _check_aligned(x, xq)
     scale = x_scale.contiguous()
-    with torch.cuda.device(x.device):
-        err = build.load().avp_int8_quantize(
-            x.data_ptr(), xq.data_ptr(), scale.data_ptr(),
-            int(x_scale.dim() == 1), B * H * W, C, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"avp_int8_quantize failed: cudaError_t {err}")
+    err = build.load().avp_int8_quantize(
+        x.data_ptr(), xq.data_ptr(), scale.data_ptr(),
+        int(x_scale.dim() == 1), B * H * W, C, int(x.dtype == torch.bfloat16),
+        _raw_stream(index))
+    _check_err("avp_int8_quantize", err)
     int8_quantize.launches += 1
     return xq
 
 
 int8_quantize.launches = 0
 
+
+# ---------------------------------------------------------------------- plan
+
+class Int8ConvPlan(NamedTuple):
+    """How one int8 conv runs. ``grid`` is (M tiles, N tiles, K splits).
+    The wgmma routes tile M as rectangles of ``th`` x ``tw`` output pixels
+    of one image and K as ``iters`` steps of (tap r, tap s, a chunk of
+    ``bk`` channels), ``per_split`` steps to a split; a unit of work is one
+    (M tile, N tile, split), and each of the ``blocks`` persistent blocks
+    takes every blocks-th unit. The mma route tiles M as ``bm`` flat rows
+    and K in steps of ``bk`` bytes, one block per tile."""
+    route: str
+    bm: int
+    bn: int
+    bk: int
+    grid: tuple
+    th: int
+    tw: int
+    iters: int
+    per_split: int
+    blocks: int
+
+    @property
+    def splits(self) -> int:
+        return self.grid[2]
+
+
+def _rectangle(OH: int, OW: int, bm: int = TILE) -> tuple:
+    """The th x tw pixel rectangle (th * tw <= bm) that covers the OH x OW
+    map in the fewest M tiles; the widest of those."""
+    best = None
+    for tw in sorted({min(OW, bm), *(w for w in (128, 64, 32, 16, 8) if w <= OW)},
+                     reverse=True):
+        th = min(bm // tw, OH)
+        tiles = math.ceil(OH / th) * math.ceil(OW / tw)
+        if best is None or tiles < best[0]:
+            best = (tiles, th, tw)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=4096)
+def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
+                   pad: int, sms: int = SMS) -> Int8ConvPlan:
+    """The route, tiles, K splits and grid of a stride-1 int8 conv of a
+    (B, H, W, C) NHWC input (C a multiple of 16) with N output channels, a
+    KH x KW window and ``pad`` zeros on each side, on a card of ``sms`` SMs:
+
+    - "wgmma" for windows larger than 1x1 with C >= 128;
+    - "splitk" for those of them whose 128x128 output tiles fill less than
+      half of the SMs (the thin 20x40 and 10x20 3x3 convs): K is cut into
+      up to sms // tiles contiguous ranges of at least 4 steps;
+    - "mma" for the rest (1x1 convs, the M = 1 SE convs, C < 128): bound by
+      weight bytes and by the launch.
+
+    The wgmma routes launch persistent blocks, one per SM or one per unit
+    of work, whichever is fewer.
+
+    Raises ValueError for a shape that no route takes."""
+    OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
+    if min(B, H, W, C, N, KH, KW) <= 0 or pad < 0:
+        raise ValueError(f"no int8 conv of B={B} H={H} W={W} C={C} N={N} "
+                         f"window {KH}x{KW} pad {pad}")
+    if OH <= 0 or OW <= 0:
+        raise ValueError(f"window {KH}x{KW} larger than the padded input {H}x{W}")
+    if C % 16:
+        raise ValueError(f"C = {C}: the kernels take multiples of 16 channels "
+                         "(int8_conv pads the rest with zeros)")
+    if KH * KW * C > MAX_K:
+        raise ValueError(f"K = {KH * KW * C} > {MAX_K}: int32 accumulators could overflow")
+    M = B * OH * OW
+    if M >= 2 ** 31:
+        raise ValueError(f"M = {M} output pixels: more than an int32 indexes")
+    if KH * KW == 1 or C < TILE:
+        bm = 128 if math.ceil(M / 128) * math.ceil(N / 128) >= sms else 64
+        iters = math.ceil(KH * KW * C / MMA_BK)
+        grid = (math.ceil(M / bm), math.ceil(N / bm), 1)
+        return Int8ConvPlan("mma", bm, bm, MMA_BK, grid, 0, 0, iters, iters,
+                            grid[0] * grid[1])
+    th, tw = _rectangle(OH, OW)
+    m_tiles = B * math.ceil(OH / th) * math.ceil(OW / tw)
+    n_tiles = math.ceil(N / TILE)
+    iters = KH * KW * math.ceil(C / TILE)
+    if n_tiles > 65535:
+        raise ValueError(f"N = {N}: more output channels than the grid holds")
+    tiles = m_tiles * n_tiles
+    splits = max(1, min(sms // tiles, iters // 4))
+    route = "splitk" if 2 * tiles <= sms and splits >= 2 else "wgmma"
+    if route == "wgmma":
+        splits = 1
+    per_split = math.ceil(iters / splits)
+    splits = math.ceil(iters / per_split)  # no split left without a K step
+    units = tiles * splits
+    return Int8ConvPlan(route, TILE, TILE, TILE, (m_tiles, n_tiles, splits), th, tw,
+                        iters, per_split, min(units, sms))
+
+
+# ---------------------------------------------------------------------- conv
 
 def int8_conv_plain(xq: torch.Tensor, weight: torch.Tensor,
                     weight_scale: torch.Tensor, x_scale: torch.Tensor,
@@ -124,14 +270,32 @@ def int8_conv_plain(xq: torch.Tensor, weight: torch.Tensor,
     return y.contiguous(memory_format=CL)
 
 
+def _weight_map(lib, weight: torch.Tensor, N: int, KH: int, KW: int, C: int) -> bytes:
+    """The weights' 128-byte TMA map, encoded once and kept on the weight
+    tensor itself. The map holds the address and the shape alone, so it is
+    encoded again only when they change."""
+    key = (weight.data_ptr(), N, KH, KW, C)
+    kept = getattr(weight, "_tma_map", None)
+    if kept is not None and kept[0] == key:
+        return kept[1]
+    buf = ctypes.create_string_buffer(128)
+    _check_err("avp_int8_weight_map",
+               lib.avp_int8_weight_map(weight.data_ptr(), N, KH, KW, C,
+                                       ctypes.addressof(buf)))
+    weight._tma_map = (key, buf.raw)
+    return buf.raw
+
+
 def int8_conv(xq: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor,
               x_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
               padding=0, out_dtype: torch.dtype = torch.bfloat16, *, stride=1,
               groups: int = 1, dilation=1) -> torch.Tensor:
     """int8 (B, C, H, W) channels_last, int8 OIHW channels_last weights ->
     (B, O, OH, OW) channels_last in ``out_dtype`` (f32, bf16, or int32 for
-    the raw accumulators). ``x_scale`` is the scale xq was made with.
-    Counts its kernel launches in ``int8_conv.launches``."""
+    the raw accumulators). ``x_scale`` is the scale xq was made with. On
+    the card it runs the route ``int8_conv_plan`` picks. Counts its kernel
+    launches in ``int8_conv.launches`` and by route in
+    ``int8_conv.route_launches``."""
     if xq.dtype != torch.int8 or weight.dtype != torch.int8:
         raise TypeError(f"xq and weight must be int8, got {xq.dtype}, {weight.dtype}")
     if groups != 1 or stride not in (1, (1, 1)) or dilation not in (1, (1, 1)):
@@ -161,31 +325,66 @@ def int8_conv(xq: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor
                                out_dtype)
     if xq.device.type != "cuda":
         raise ValueError(f"no int8 conv for device {xq.device}")
+    index = xq.get_device()
+    if index != torch.cuda.current_device():  # the kernels launch on the current device
+        with torch.cuda.device(index):
+            return int8_conv(xq, weight, weight_scale, x_scale, bias, padding, out_dtype)
     OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
     if OH <= 0 or OW <= 0:
         raise ValueError(f"window {KH}x{KW} larger than the padded input {H}x{W}")
-    if C % 16:  # the kernel copies 16 channels at a time; zeros add nothing
+    if C % 16:  # the kernels copy 16 channels at a time; zeros add nothing
         extra = 16 - C % 16
         xq = F.pad(xq, (0, 0, 0, 0, 0, extra)).contiguous(memory_format=CL)
         weight = F.pad(weight, (0, 0, 0, 0, 0, extra)).contiguous(memory_format=CL)
         C += extra
-    if xq.data_ptr() % 16 or weight.data_ptr() % 16:
-        raise ValueError("xq and weight must be 16-byte aligned")
-    out = torch.empty((B, OH, OW, N), dtype=out_dtype, device=xq.device)
+    plan = int8_conv_plan(B, H, W, C, N, KH, KW, pad, _sm_count(index))
+    return _launch(plan, xq, weight, weight_scale, x_scale, bias, pad, out_dtype)
+
+
+def _launch(plan: Int8ConvPlan, xq: torch.Tensor, weight: torch.Tensor,
+            weight_scale: torch.Tensor, x_scale: torch.Tensor,
+            bias: Optional[torch.Tensor], pad: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """Runs ``plan`` on CUDA tensors of the current device that int8_conv
+    has checked (C a multiple of 16). int8_conv passes the plan of the
+    shape; a test may pass another plan of it (fewer persistent blocks,
+    one split)."""
+    B, C, H, W = xq.shape
+    N, _, KH, KW = weight.shape
+    OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
+    _check_aligned(xq, weight)
+    lib = build.load()
     x_ptr = x_scale.data_ptr() if x_scale.dim() == 0 else None
     b_ptr = bias.data_ptr() if bias is not None and out_dtype != torch.int32 else None
-    with torch.cuda.device(xq.device):
-        err = build.load().avp_int8_conv(
+    kind = _OUT_KIND[out_dtype]
+    out = torch.empty((B, OH, OW, N), dtype=out_dtype, device=xq.device)
+    stream = _raw_stream(xq.get_device())
+    if plan.route == "mma":
+        err = lib.avp_int8_conv_mma(
             xq.data_ptr(), weight.data_ptr(), weight_scale.data_ptr(), x_ptr,
-            b_ptr, out.data_ptr(), B, H, W, C, N, KH, KW, pad,
-            _OUT_KIND[out_dtype], torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"avp_int8_conv failed: cudaError_t {err}")
+            b_ptr, out.data_ptr(), B, H, W, C, N, KH, KW, pad, kind, plan.bm,
+            plan.grid[0], plan.grid[1], stream)
+        _check_err("avp_int8_conv_mma", err)
+    else:
+        m_tiles, n_tiles, splits = plan.grid
+        # split-K: each split's (M, N) partial sums, then one arrival
+        # counter a tile
+        ws = (torch.empty(splits * B * OH * OW * N + m_tiles * n_tiles,
+                          dtype=torch.int32, device=xq.device)
+              if splits > 1 else None)
+        err = lib.avp_int8_conv_wgmma(
+            xq.data_ptr(), _weight_map(lib, weight, N, KH, KW, C),
+            weight_scale.data_ptr(), x_ptr, b_ptr, out.data_ptr(),
+            None if ws is None else ws.data_ptr(), B, H, W, C, N, KH, KW, pad,
+            kind, plan.th, plan.tw, m_tiles, n_tiles, splits, plan.per_split,
+            plan.blocks, stream)
+        _check_err("avp_int8_conv_wgmma", err)
     int8_conv.launches += 1
+    int8_conv.route_launches[plan.route] += 1
     return out.permute(0, 3, 1, 2)
 
 
 int8_conv.launches = 0
+int8_conv.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def int8_conv2d(x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor,

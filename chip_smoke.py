@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --host-costs ROOT   # phase 7's host costs alone, of
+                                              # the package in ROOT
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. device: CUDA must be available; prints the card's name and power limit.
@@ -12,11 +14,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              absolute) and bf16 (one bf16 ulp), with CUDA-event and
              torch.profiler device times.
   4. int8 kernels: the int8 quantize and conv kernels against their plain
-             versions at six main-path shapes, bf16 and f32 outputs, scalar
-             and per-channel scales: quantized values, int32 accumulators
-             and outputs bit-equal. Times of the kernels, the plain versions
-             and a bf16 cuDNN conv of the same shape, as CUDA-event and
-             profiler device times.
+             versions at nine shapes that between them take every route of
+             int8_conv_plan (wgmma, split-K, mma.sync), bf16 and f32
+             outputs, scalar and per-channel scales: quantized values, int32
+             accumulators and outputs bit-equal. Then every one of the 24 distinct
+             int8 conv shapes of the main path, bf16 with a scalar scale,
+             timed over rotating inputs that together exceed the 50 MB L2:
+             profiler device time of the conv and the quantize (and of the
+             conv with one block per unit of work in place of the
+             persistent blocks), the bound,
+             the share of the bound, and two yardsticks that the port never
+             calls: the bf16 cuDNN conv of the same shape and torch._int_mm
+             on a pre-built im2col matrix.
   5. f32:    the main path (build_pipeline_fused, full width and depth) on
              one 720p frame, on the card with TF32 off against the CPU, same
              seeded weights: logits within 1e-3 * max|CPU|.
@@ -24,17 +33,25 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              card, 10 warm-up and 50 timed with CUDA events; checks shapes,
              dtypes, ranges and that every frame launched the kernel.
   7. int8:   the same on the selective-int8 main path (int8=True, min_ch
-             256, bench.py's default): 72 int8 conv launches per frame; then
-             a few frames against the same modules routed through the int8
-             kernels' plain versions (masks >= 99.9 % equal, logits within
-             1e-2 * max|ref|), and the int8-vs-bf16 mask agreement for
-             information (random weights: no bar).
+             256, bench.py's default): 72 int8 conv and quantize launches per
+             frame by route (18 wgmma, 12 split-K, 42 mma.sync); on one
+             frame, each of the 72 int8 convs against its plain version on
+             the same input (torch.equal); device time per frame by kind of
+             kernel over 20 frames (torch.profiler), and the wgmma kernel's
+             at each 3x3 int8 conv of the frame; host time per conv call
+             at the 72 int8 layers, int8 against bf16, with both paths'
+             frame latency p50 from the same rounds; then a
+             few frames against the same modules routed through the plain
+             versions (masks >= 99.9 % equal, logits within 1e-2 * max|ref|),
+             and the int8-vs-bf16 mask agreement for information (random
+             weights: no bar).
 Then one JSON line {"kernels": [...]} and, last, the device line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -51,17 +68,40 @@ CTX_HW = (10, 20)
 SEED = 0
 WARM, TIMED = 10, 50
 CL = torch.channels_last
-# (window, cin, cout, h, w) of main-path int8 convs at 320x640
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
+INT8_OPS_PER_S = 1979e12    # H100 SXM int8 tensor cores, dense, published
+L2_BYTES = 50e6
+# (window, cin, cout, h, w, route) checked bit for bit in every variant:
+# main-path shapes, then one more shape for each route
 INT8_SHAPES = (
-    (3, 1456, 768, 20, 40),   # EgopathNeck.decode_layer_0, K = 13104
-    (3, 1280, 768, 20, 40),   # SceneNeck.decode_layer_0
-    (3, 512, 512, 80, 160),   # decode_layer_4
-    (3, 256, 256, 160, 320),  # SceneSegHead.decode_layer_6, M = 51200
-    (1, 1152, 320, 10, 20),   # stage-7 MBConv project
-    (1, 672, 28, 1, 1),       # SE fc1, M = 1, N = 28
+    (3, 1456, 768, 20, 40, "splitk"),   # EgopathNeck.decode_layer_0, K = 13104
+    (3, 1280, 768, 20, 40, "splitk"),   # SceneNeck.decode_layer_0
+    (3, 512, 512, 80, 160, "wgmma"),    # decode_layer_4
+    (3, 256, 256, 160, 320, "wgmma"),   # SceneSegHead.decode_layer_6, M = 51200
+    (1, 1152, 320, 10, 20, "mma"),      # stage-7 MBConv project
+    (1, 672, 28, 1, 1, "mma"),          # SE fc1, M = 1, N = 28
+    (3, 480, 200, 60, 90, "wgmma"),     # channel tail, ragged N and pixel rectangles
+    (3, 672, 100, 9, 13, "splitk"),     # one tile, 11 splits, channel tail, ragged N
+    (1, 480, 20, 1, 1, "mma"),          # SE fc1 of stage 4, M = 1, N = 20
 )
-TIMED_INT8 = INT8_SHAPES[3]   # the JSON line's times: the largest M
+# (window, cin, cout, h, w, convs per frame): the 24 distinct int8 convs of
+# the main path at 320x640 (72 convs, 669.7 GOP)
+MAIN_INT8 = (
+    (3, 512, 512, 80, 160, 3), (3, 256, 256, 160, 320, 2), (3, 512, 256, 80, 160, 3),
+    (3, 256, 128, 160, 320, 2), (3, 768, 512, 40, 80, 3), (3, 1456, 768, 20, 40, 1),
+    (3, 512, 512, 40, 80, 3), (3, 256, 256, 80, 160, 1), (3, 1280, 768, 20, 40, 2),
+    (3, 768, 768, 20, 40, 3), (3, 256, 128, 80, 160, 1), (3, 512, 1456, 10, 20, 1),
+    (3, 512, 1280, 10, 20, 2), (3, 256, 512, 10, 20, 3), (1, 320, 1280, 10, 20, 2),
+    (1, 1152, 320, 10, 20, 2), (1, 672, 112, 20, 40, 4), (1, 1152, 192, 10, 20, 6),
+    (1, 480, 112, 20, 40, 2), (1, 480, 80, 20, 40, 4), (1, 672, 192, 10, 20, 2),
+    (1, 1152, 48, 1, 1, 8), (1, 672, 28, 1, 1, 6), (1, 480, 20, 1, 1, 6),
+)
+# the shape at which the JSON line reports each kernel
+RECORD_SHAPES = {"int8_quantize": (3, 256, 256, 160, 320), "int8_conv_wgmma": (3, 256, 256, 160, 320),
+                 "int8_conv_mma": (1, 1152, 320, 10, 20)}
 INT8_REF_FRAMES = 4
+PROFILE_FRAMES = 20
+HOST_FRAMES = 20  # per round; rounds bf16, int8, int8, bf16
 
 
 def frames(n, hw, seed):
@@ -87,16 +127,29 @@ def cuda_ms(fn, inputs):
 
 def device_us(fn, inputs):
     """Mean device microseconds per call of fn(x) over ``inputs``: the sum
-    of every kernel's own time in a torch.profiler trace of the run."""
+    of every kernel's own time in a torch.profiler trace of the run. A
+    trace that recorded no device time is taken again, up to five times;
+    then the time is NaN (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(inputs[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for x in inputs:
-            fn(x)
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / len(inputs)
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for x in inputs:
+                fn(x)
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages())
+        if total > 0:
+            return total / len(inputs)
+    return float("nan")
+
+
+def bound(ops, nbytes):
+    """-> (ms, "operations" or "bytes"): the least time for ``ops`` int8
+    operations and ``nbytes`` moved once, at the published peaks."""
+    t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def bf16_ulps(a, b):
@@ -124,6 +177,16 @@ def phase_build():
     build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{build.LIBRARY.relative_to(REPO)}")
+
+
+def preprocess_bytes(hw, out_hw):
+    """The bytes the fused preprocess must move: the source pixels its
+    two-tap lerp reads (the union of the rows y0, y1 by the union of the
+    columns x0, x1 of ops/preprocess.py::bilinear_taps), 3 bytes each, and
+    the bf16 output."""
+    from autoware_vision_pilot_tpu_torch.ops.preprocess import bilinear_taps
+    rows, cols = (len(np.union1d(*bilinear_taps(n, m)[:2])) for n, m in zip(hw, out_hw))
+    return rows * cols * 3 + out_hw[0] * out_hw[1] * 3 * 2
 
 
 def phase_kernel():
@@ -159,36 +222,57 @@ def phase_kernel():
             if not ok:
                 raise AssertionError("fused_preprocess disagrees with its plain version")
             if hw == FRAME_HW and dtype == torch.bfloat16:
-                record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                nbytes = preprocess_bytes(FRAME_HW, OUT_HW)
+                bound_ms, bound_by = bound(0, nbytes)
+                print(f"fused_preprocess bound: {nbytes} bytes read once and written "
+                      f"once, {bound_ms * 1e3!r} us at 3.35 TB/s; share "
+                      f"{bound_ms * 1e3 / us!r}")
+                record = dict(max_abs_err=err, ms=us / 1e3, plain_ms=plain_us / 1e3,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         del pool
     return record
 
 
-def phase_int8_kernels(card):
-    """The int8 kernels against their plain versions at main-path shapes;
-    -> the JSON records of int8_quantize and int8_conv."""
-    import torch.nn.functional as F
-    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
-        int8_conv, int8_conv_plain, int8_quantize, int8_quantize_plain)
+def int8_inputs(g, shape, dtype):
+    k, cin, cout, h, w = shape[:5]
+    x = torch.randn(1, cin, h, w, generator=g).to(dtype).contiguous(memory_format=CL)
+    weight = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
+                           dtype=torch.int8).contiguous(memory_format=CL)
+    w_scale = torch.rand(cout, generator=g) * 1e-3 + 1e-4
+    bias = (torch.randn(cout, generator=g) * 0.1).to(dtype)
+    sx = torch.tensor(float(x.float().abs().max()) / 127.0)
+    return x.cuda(), weight.cuda(), w_scale.cuda(), bias.cuda(), sx.cuda()
 
-    g = torch.Generator().manual_seed(SEED + 4)
-    worst = {"int8_quantize": 0.0, "int8_conv": 0.0}
-    records = {}
+
+def check_int8_kernels(g):
+    """Every route bit-equal to the plain versions at INT8_SHAPES. -> worst
+    error by kernel."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv, int8_conv_plain, int8_conv_plan, int8_quantize, int8_quantize_plain)
+
+    worst = dict.fromkeys(("int8_quantize", "int8_conv_wgmma", "int8_conv_mma"), 0.0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for shape in INT8_SHAPES:
-        k, cin, cout, h, w = shape
+        k, cin, cout, h, w, route = shape
         pad = k // 2
-        x = torch.randn(1, cin, h, w, generator=g).contiguous(memory_format=CL)
+        plan = int8_conv_plan(1, h, w, cin, cout, k, k, pad, sms)
+        if plan.route != route:
+            raise AssertionError(f"{shape}: plan {plan}, expected route {route}")
+        x = torch.randn(1, cin, h, w, generator=g)
+        x = x * torch.linspace(0.5, 2.0, cin).reshape(1, -1, 1, 1)
         weight = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
                                dtype=torch.int8).contiguous(memory_format=CL).cuda()
         w_scale = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).cuda()
         scales = {  # amax / 127 in float64, then f32, as calibration does
-            "scalar": torch.tensor(float(x.abs().max()) / 127.0),
+            "scalar": torch.tensor(float(x.abs().max()) * 0.9 / 127.0),  # some clip
             "vector": (x.double().abs().amax(dim=(0, 2, 3)) / 127.0).float()}
+        conv_name = "int8_conv_mma" if route == "mma" else "int8_conv_wgmma"
         for dtype in (torch.bfloat16, torch.float32):
             xd = x.to(dtype).cuda().contiguous(memory_format=CL)
             bias = (torch.randn(cout, generator=g) * 0.1).to(dtype).cuda()
             for kind, sx in scales.items():
                 sx = sx.cuda()
+                before = dict(int8_conv.route_launches)
                 xq, xq_ref = int8_quantize(xd, sx), int8_quantize_plain(xd, sx)
                 acc = int8_conv(xq, weight, w_scale, sx, bias, pad, torch.int32)
                 acc_ref = int8_conv_plain(xq_ref, weight, w_scale, sx, bias, pad,
@@ -196,53 +280,147 @@ def phase_int8_kernels(card):
                 y = int8_conv(xq, weight, w_scale, sx, bias, pad, dtype)
                 y_ref = int8_conv_plain(xq_ref, weight, w_scale, sx, bias, pad, dtype)
                 torch.cuda.synchronize()
+                if int8_conv.route_launches[route] != before[route] + 2:
+                    raise AssertionError(f"{shape}: the convs did not take route {route}")
                 q_err = (xq.int() - xq_ref.int()).abs().max().item()
                 acc_err = (acc.long() - acc_ref.long()).abs().max().item()
                 y_err = (y.float() - y_ref.float()).abs().max().item()
                 ok = (q_err == 0 and acc_err == 0 and y.shape == y_ref.shape
                       and torch.equal(y, y_ref))
-                print(f"int8 {k}x{k} {cin}->{cout} at {h}x{w}, {str(dtype)[6:]}, "
-                      f"{kind} scale: quantize max_abs_err {q_err}, int32 acc "
-                      f"max_abs_err {acc_err}, output max_abs_err {y_err!r} "
-                      f"(tol 0: bit-equal)")
+                print(f"int8 {k}x{k} {cin}->{cout} at {h}x{w}, route {route} "
+                      f"grid {plan.grid}, {str(dtype)[6:]}, {kind} scale: quantize "
+                      f"max_abs_err {q_err}, int32 acc max_abs_err {acc_err}, output "
+                      f"max_abs_err {y_err!r} (tol 0: bit-equal)")
                 if not ok:
                     raise AssertionError("int8 kernels disagree with their plain versions")
                 worst["int8_quantize"] = max(worst["int8_quantize"], float(q_err))
-                worst["int8_conv"] = max(worst["int8_conv"], y_err)
-            if dtype != torch.bfloat16:
-                continue
-            # times on the main path's configuration: bf16, scalar scale
-            sx = scales["scalar"].cuda()
-            xq = int8_quantize(xd, sx)
-            w16 = torch.randn(cout, cin, k, k, generator=g).to(
-                dtype=dtype, memory_format=CL).cuda()
-            reps = [xd] * 20
-            fns = {
-                "quantize kernel": lambda a: int8_quantize(a, sx),
-                "quantize plain": lambda a: int8_quantize_plain(a, sx),
-                "conv kernel": lambda a: int8_conv(xq, weight, w_scale, sx, bias, pad, dtype),
-                "conv plain": lambda a: int8_conv_plain(xq, weight, w_scale, sx, bias,
-                                                         pad, dtype),
-                "bf16 cuDNN conv": lambda a: F.conv2d(a, w16, bias, 1, pad),
-            }
-            t = {name: (cuda_ms(fn, reps), device_us(fn, reps[:5]))
-                 for name, fn in fns.items()}
-            gop = 2.0 * h * w * cout * cin * k * k / 1e9
-            conv_us = t["conv kernel"][1]
-            rate = (f"{gop / (conv_us * 1e-6) / 1e3!r} TOP/s" if conv_us > 0
-                    else "not measured (no profiler device time)")
-            print(f"int8 times {k}x{k} {cin}->{cout} at {h}x{w}, bf16, {card}: "
-                  + "; ".join(f"{n} {ms!r} ms (events) {us!r} us (profiler)"
-                              for n, (ms, us) in t.items())
-                  + f"; {gop!r} GOP, conv kernel {rate}")
-            if shape == TIMED_INT8:
-                records = {
-                    "int8_quantize": dict(ms=t["quantize kernel"][0],
-                                          plain_ms=t["quantize plain"][0]),
-                    "int8_conv": dict(ms=t["conv kernel"][0],
-                                      plain_ms=t["conv plain"][0])}
+                worst[conv_name] = max(worst[conv_name], y_err)
         del xd, weight
         torch.cuda.empty_cache()
+    return worst
+
+
+def time_int8_shapes(g, card):
+    """The 24 main-path int8 conv shapes, bf16 with a scalar scale, each
+    timed over rotating inputs (and weights) that together exceed the L2
+    where the shape allows. -> (per-frame device us of conv and quantize,
+    the JSON records' timings)."""
+    import torch.nn.functional as F
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
+        _launch, int8_conv, int8_conv_plain, int8_conv_plan, int8_quantize,
+        int8_quantize_plain)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    frame = {"conv": 0.0, "quantize": 0.0}
+    missing = {"conv": [], "quantize": []}  # shapes the profiler recorded nothing of
+    records = {}
+    for k, cin, cout, h, w, per_frame in MAIN_INT8:
+        pad = k // 2
+        plan = int8_conv_plan(1, h, w, cin, cout, k, k, pad, sms)
+        M, K = h * w, k * k * cin
+        set_bytes = h * w * cin * 3 + cout * K * 3  # x bf16 + xq, w int8 + w bf16
+        n = max(2, min(64, math.ceil(1.2 * L2_BYTES / set_bytes)))
+        sets = [int8_inputs(g, (k, cin, cout, h, w), torch.bfloat16) for _ in range(n)]
+        for s in range(n):
+            x, weight, w_scale, bias, sx = sets[s]
+            sets[s] = (x, weight, w_scale, bias, sx, int8_quantize(x, sx),
+                       weight.to(torch.bfloat16))
+        idx = list(range(n)) * max(1, math.ceil(20 / n))
+
+        def conv(i):
+            x, wt, ws, b, sx, xq, _ = sets[i]
+            return int8_conv(xq, wt, ws, sx, b, pad, torch.bfloat16)
+
+        def conv_one_block_a_unit(i):
+            x, wt, ws, b, sx, xq, _ = sets[i]
+            return _launch(plan._replace(blocks=math.prod(plan.grid)), xq, wt, ws, sx,
+                           b, pad, torch.bfloat16)
+
+        def quant(i):
+            return int8_quantize(sets[i][0], sets[i][4])
+
+        def cudnn(i):
+            x, _, _, b, _, _, w16 = sets[i]
+            return F.conv2d(x, w16, b, 1, pad)
+
+        t = {"conv": device_us(conv, idx), "quantize": device_us(quant, idx),
+             "cudnn": device_us(cudnn, idx)}
+        conv_ms = cuda_ms(conv, idx)
+        # the persistent schedule against one block per unit of work
+        one_each = (device_us(conv_one_block_a_unit, idx)
+                    if plan.route != "mma" and plan.blocks < math.prod(plan.grid) else None)
+        # torch._int_mm on a pre-built im2col matrix (leaves out the im2col)
+        intmm = None
+        if M > 16 and K % 8 == 0 and cout % 8 == 0:
+            cols = []
+            for s in range(min(n, max(1, math.ceil(1.2 * L2_BYTES / (M * K + cout * K))))):
+                xq, wt = sets[s][5], sets[s][1]
+                # K in (c, r, s) order on both sides: unfold's, and OIHW's
+                a = F.unfold(xq.float(), k, padding=pad) if k > 1 else xq.float().flatten(2)
+                a = a.transpose(1, 2).reshape(M, K).to(torch.int8).contiguous()
+                b2 = wt.contiguous().reshape(cout, K).t()  # (K, N), column-major
+                cols.append((a, b2))
+            intmm = device_us(lambda i: torch._int_mm(*cols[i % len(cols)]),
+                              list(range(len(cols))) * max(1, math.ceil(20 / len(cols))))
+            del cols
+        ops = 2.0 * M * cout * K
+        nbytes = h * w * cin + cout * K + M * cout * 2 + cout * 6
+        bms, by = bound(ops, nbytes)
+        q_bms, _ = bound(0, h * w * cin * 3)
+        share = bms * 1e3 / t["conv"] if t["conv"] > 0 else float("nan")
+        rate = ops / (t["conv"] * 1e-6) / 1e12 if t["conv"] > 0 else float("nan")
+        for kind in frame:
+            if math.isnan(t[kind]):
+                missing[kind].append(f"{k}x{k} {cin}->{cout} at {h}x{w}")
+            else:
+                frame[kind] += per_frame * t[kind]
+        print(f"int8 shape {k}x{k} {cin}->{cout} at {h}x{w} (M {M}, N {cout}, K {K}), "
+              f"{per_frame} per frame, route {plan.route} grid {plan.grid}, "
+              f"{plan.blocks} blocks, {card}: "
+              f"conv {t['conv']!r} us ({rate!r} TOP/s; CUDA events {conv_ms * 1e3!r} us"
+              + (f"; one block per unit of work {one_each!r} us" if one_each else "")
+              + f"), bound {bms * 1e3!r} us by {by}, share {share!r}; bf16 cuDNN conv "
+              f"{t['cudnn']!r} us; torch._int_mm on im2col (no im2col) "
+              + (f"{intmm!r} us" if intmm is not None else "not taken (M <= 16 or N % 8)")
+              + f"; quantize {t['quantize']!r} us (bound {q_bms * 1e3!r} us, share "
+              f"{q_bms * 1e3 / t['quantize'] if t['quantize'] > 0 else float('nan')!r}); "
+              f"rotation {n} input sets, "
+              f"{n * set_bytes / 1e6:.1f} MB")
+        shape = (k, cin, cout, h, w)
+        for name, rec_shape in RECORD_SHAPES.items():
+            if rec_shape != shape:
+                continue
+            x, wt, ws, b, sx, xq, _ = sets[0]
+            one = [0] * 5
+            if name == "int8_quantize":
+                records[name] = dict(
+                    ms=t["quantize"] / 1e3, bound_ms=q_bms, bound_by="bytes", library_ms=None,
+                    plain_ms=device_us(lambda i: int8_quantize_plain(sets[i][0], sets[i][4]),
+                                       idx[:5]) / 1e3)
+            else:
+                lib = None
+                if name == "int8_conv_mma" and intmm is not None:
+                    lib = intmm / 1e3  # a 1x1 conv's accumulators are this GEMM's
+                records[name] = dict(
+                    ms=t["conv"] / 1e3, bound_ms=bms, bound_by=by, library_ms=lib,
+                    plain_ms=device_us(lambda i: int8_conv_plain(
+                        xq, wt, ws, sx, b, pad, torch.bfloat16), one) / 1e3)
+        del sets
+        torch.cuda.empty_cache()
+    print(f"int8 per frame from the 24 shapes x their counts, {card}: "
+          + ", ".join(f"{kind} {frame[kind]!r} us"
+                      + (f" without {missing[kind]} (not measured)" if missing[kind] else "")
+                      for kind in frame)
+          + " (profiler device time, rotating inputs)")
+    return records
+
+
+def phase_int8_kernels(card):
+    """The int8 kernels against their plain versions, then the 24 shapes'
+    times; -> the JSON records of the int8 kernels."""
+    g = torch.Generator().manual_seed(SEED + 4)
+    worst = check_int8_kernels(g)
+    records = time_int8_shapes(g, card)
     return {name: dict(max_abs_err=worst[name], **rec) for name, rec in records.items()}
 
 
@@ -276,11 +454,25 @@ def phase_f32():
             raise AssertionError(f"{name}: card and CPU disagree")
 
 
-def counters():
+def reset_counts():
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
+        ROUTES, int8_conv, int8_quantize)
+    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
+    for fn in (fused_preprocess, int8_quantize, int8_conv):
+        fn.launches = 0
+    int8_conv.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def read_counts():
+    """Launches by kernel since reset_counts(); int8_conv counts its two
+    conv kernels together, by route."""
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv, int8_quantize
     from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
-    return {"fused_preprocess": fused_preprocess, "int8_quantize": int8_quantize,
-            "int8_conv": int8_conv}
+    r = int8_conv.route_launches
+    return {"fused_preprocess": fused_preprocess.launches,
+            "int8_quantize": int8_quantize.launches, "int8_conv": int8_conv.launches,
+            "int8_conv_wgmma": r["wgmma"] + r["splitk"], "int8_conv_splitk": r["splitk"],
+            "int8_conv_mma": r["mma"]}
 
 
 def drive(pipe, pool, name, card):
@@ -294,8 +486,7 @@ def drive(pipe, pool, name, card):
               ((1, OUT_HW[0] // 4, OUT_HW[1] // 4, 3), torch.float32)]
     latencies = []
     torch.cuda.synchronize()
-    for fn in counters().values():
-        fn.launches = 0  # count only this main path's launches
+    reset_counts()  # count only this main path's launches
     for i in range(len(pool)):
         start.record()
         outs = pipe(pool[i])
@@ -315,7 +506,7 @@ def drive(pipe, pool, name, card):
             raise AssertionError(f"frame {i}: depth outside [0, 1]")
         if not ((lanes == 0) | (lanes == 1)).all():
             raise AssertionError(f"frame {i}: lane masks not in {{0, 1}}")
-    launches = {k: fn.launches for k, fn in counters().items()}
+    launches = read_counts()
     timed = np.asarray(latencies[WARM:])
     p50, p99 = (float(np.percentile(timed, q)) for q in (50, 99))
     print(f"{name} main path, batch 1, {FRAME_HW[0]}x{FRAME_HW[1]} -> "
@@ -337,8 +528,7 @@ def phase_bf16(card):
     pipe = build_pipeline_fused("cuda", torch.bfloat16, SEED, CTX_HW, OUT_HW)
     n = WARM + TIMED
     launches = drive(pipe, frames(n, FRAME_HW, SEED + 3).cuda(), "bf16", card)
-    expect_launches(launches, {"fused_preprocess": n, "int8_quantize": 0,
-                               "int8_conv": 0})
+    expect_launches(launches, {"fused_preprocess": n, "int8_quantize": 0, "int8_conv": 0})
     return pipe
 
 
@@ -346,9 +536,188 @@ def mask_agreement(a, b):
     return (a == b).float().mean().item()
 
 
+def int8_modules(pipe):
+    from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
+    return [m for net in (pipe.stack, pipe.lanes) for m in net.modules()
+            if isinstance(m, Int8Conv2d)]
+
+
+def check_convs_on_path(pipe, frame):
+    """One int8 frame; a hook on each Int8Conv2d holds the kernels' output
+    against the plain versions on the same input, with torch.equal."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv2d
+
+    checked, bad = [], []
+
+    def hook(m, args, y):
+        if m.input_scale is None:
+            raise AssertionError("an int8 conv of the main path has no static scale")
+        x = args[0].contiguous(memory_format=CL)
+        ref = int8_conv2d(x, m.weight, m.weight_scale, m.input_scale, m.bias,
+                          m.padding, plain=True)
+        checked.append(m)
+        if not torch.equal(y, ref):
+            bad.append((len(checked) - 1, (y.float() - ref.float()).abs().max().item()))
+
+    handles = [m.register_forward_hook(hook) for m in int8_modules(pipe)]
+    try:
+        pipe(frame)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    print(f"int8 frame, conv by conv: {len(checked)} int8 convs held against their "
+          f"plain versions on the same input, {len(checked) - len(bad)} bit-equal "
+          "(torch.equal)" + (f"; differ: {bad[:8]}" if bad else ""))
+    if len(checked) != 72 or bad:
+        raise AssertionError("int8 convs on the main path disagree with their plain versions")
+
+
+KINDS = (("int8 conv, wgmma and split-K", "int8_conv_wgmma_kernel"),
+         ("int8 conv, mma.sync", "int8_conv_kernel"),
+         ("int8 quantize", "quantize_kernel"),
+         # the 12 split-K arrival counters, and the memsets of the rest of the frame
+         ("memsets", "Memset"))
+
+
+def profile_frames(pipe, pool, card):
+    """torch.profiler device time per frame by kind of kernel, and the wgmma
+    kernel's device time at each 3x3 int8 conv of the frame (its launches
+    in order, matched to the Int8Conv2d calls)."""
+    from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
+    from torch.profiler import ProfilerActivity, profile
+
+    order = []
+
+    def note(m, args, y):
+        if m.weight.shape[-1] == 3:
+            h, w = args[0].shape[-2:]
+            order.append(f"3x3 {m.weight.shape[1]}->{m.weight.shape[0]} at {h}x{w}")
+
+    handles = [m.register_forward_hook(note) for m in int8_modules(pipe)]
+    pipe(pool[0])
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    for _ in range(3):  # the profiler drops an event now and then: trace again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(PROFILE_FRAMES):
+                pipe(pool[i])
+            torch.cuda.synchronize()
+        launches = sorted((e for e in prof.events() if "int8_conv_wgmma_kernel" in e.name
+                           and e.device_type == torch.autograd.DeviceType.CUDA),
+                          key=lambda e: e.time_range.start)
+        if len(launches) == len(order) * PROFILE_FRAMES:
+            break
+    by_kind = dict.fromkeys([k for k, _ in KINDS] + ["the rest"], 0.0)
+    count = dict.fromkeys(by_kind, 0)
+    for e in prof.key_averages():
+        kind = next((k for k, pat in KINDS if pat in e.key), "the rest")
+        by_kind[kind] += e.self_device_time_total / PROFILE_FRAMES
+        count[kind] += e.count / PROFILE_FRAMES
+    total = sum(by_kind.values())
+    print(f"int8 device time per frame by kind (torch.profiler, {PROFILE_FRAMES} "
+          f"frames, {card}): " + "; ".join(f"{k} {v!r} us in {count[k]:g} kernels"
+                                           for k, v in by_kind.items())
+          + f"; total {total!r} us")
+    if total <= 0:
+        print("int8 device time per frame: not measured (no profiler device time)")
+    if len(launches) != len(order) * PROFILE_FRAMES:
+        print(f"wgmma kernel by conv: not measured (the profiler recorded "
+              f"{len(launches)} of {len(order) * PROFILE_FRAMES} launches, three times)")
+        return
+    us = np.array([e.time_range.elapsed_us() for e in launches],
+                  dtype=float).reshape(PROFILE_FRAMES, len(order))
+    by_conv = {}
+    for j, name in enumerate(order):
+        by_conv.setdefault(name, []).append(float(np.median(us[:, j])))
+    print(f"wgmma kernel device time by conv on the int8 path (median over "
+          f"{PROFILE_FRAMES} frames, {card}): "
+          + "; ".join(f"{k} {float(np.mean(v))!r} us x {len(v)}" for k, v in by_conv.items())
+          + f"; per frame {float(us.sum(1).mean())!r} us")
+
+
+def conv_class(k, hw):
+    """The route a main-path int8 conv takes, from its window and map."""
+    if k == 1:
+        return "1x1 (mma.sync)"
+    return "3x3 from 40x80 up (wgmma)" if hw[0] * hw[1] >= 40 * 80 else "3x3 thin (split-K)"
+
+
+def host_costs(bf16_pipe, int8_pipe, pool, card):
+    """Host time per conv call at the 72 int8 layers of the main path: each
+    Int8Conv2d call (quantize and int8 conv) against the same layer's bf16
+    cuDNN conv, from a forward pre-hook to the forward hook, by the route
+    the int8 conv takes; the host time to enqueue a whole frame; and each
+    path's frame latency p50 (CUDA events) from the same rounds: bf16,
+    int8, int8, bf16, HOST_FRAMES frames each."""
+    from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
+
+    names = [(i, name) for i, net in enumerate((int8_pipe.stack, int8_pipe.lanes))
+             for name, m in net.named_modules() if isinstance(m, Int8Conv2d)]
+    stats = {}
+
+    def hooked(pipe, path):
+        nets = (pipe.stack, pipe.lanes)
+        mods = [dict(nets[i].named_modules())[name] for i, name in names]
+        t0 = [0.0]
+
+        def pre(m, args):
+            t0[0] = time.perf_counter()
+
+        def post(m, args, y):
+            dt = time.perf_counter() - t0[0]
+            key = (path, conv_class(m.weight.shape[-1], args[0].shape[-2:]))
+            stats.setdefault(key, []).append(dt)
+
+        return [h for m in mods for h in (m.register_forward_pre_hook(pre),
+                                         m.register_forward_hook(post))]
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    latency, enqueue = {"bf16": [], "int8": []}, {"bf16": [], "int8": []}
+    for pipe in (bf16_pipe, int8_pipe):  # warm-up, not counted
+        pipe(pool[0])
+    torch.cuda.synchronize()
+    handles = hooked(bf16_pipe, "bf16") + hooked(int8_pipe, "int8")
+    try:
+        for path in ("bf16", "int8", "int8", "bf16"):
+            pipe = int8_pipe if path == "int8" else bf16_pipe
+            for i in range(HOST_FRAMES):
+                start.record()
+                t0 = time.perf_counter()
+                pipe(pool[i % len(pool)])
+                enqueue[path].append(time.perf_counter() - t0)
+                end.record()
+                end.synchronize()
+                latency[path].append(start.elapsed_time(end))
+    finally:
+        for h in handles:
+            h.remove()
+    frames_run = 2 * HOST_FRAMES
+    per = {}
+    for path in ("int8", "bf16"):
+        calls = [dt for (p, _), v in stats.items() if p == path for dt in v]
+        by_class = {c: v for (p, c), v in stats.items() if p == path}
+        per[path] = (1e6 * float(np.mean(calls)), 1e3 * sum(calls) / frames_run)
+        print(f"host per conv call, {path} at the 72 int8 layers ({card}; hooks "
+              f"around each module call, {frames_run} frames): mean "
+              f"{per[path][0]!r} us over {len(calls)} calls, median "
+              f"{1e6 * float(np.median(calls))!r} us; "
+              + "; ".join(f"{c} {1e6 * float(np.mean(v))!r} us x {len(v) // frames_run}"
+                          for c, v in sorted(by_class.items()))
+              + f"; {per[path][1]!r} ms a frame in those calls; host enqueue of a "
+              f"whole frame p50 {1e3 * float(np.median(enqueue[path]))!r} ms")
+    p50 = {k: float(np.median(v)) for k, v in latency.items()}
+    print(f"host cost of the int8 path, {card}: int8 conv calls take "
+          f"{per['int8'][0] - per['bf16'][0]!r} us more host time each than the bf16 "
+          f"convs they replace ({per['int8'][1] - per['bf16'][1]!r} ms a frame); "
+          f"frame latency p50 int8 {p50['int8']!r} ms, bf16 {p50['bf16']!r} ms, "
+          f"ratio {p50['int8'] / p50['bf16']!r} (CUDA events, the same rounds)")
+
+
 def phase_int8(card, bf16_pipe):
     from autoware_vision_pilot_tpu_torch.export.quantize import int8_conv_count
-    from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
     from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused
 
     t0 = time.perf_counter()
@@ -364,11 +733,14 @@ def phase_int8(card, bf16_pipe):
     pool = frames(n, FRAME_HW, SEED + 5).cuda()
     launches = drive(pipe, pool, "int8", card)
     expect_launches(launches, {"fused_preprocess": n, "int8_quantize": 72 * n,
-                               "int8_conv": 72 * n})
+                               "int8_conv": 72 * n, "int8_conv_wgmma": 30 * n,
+                               "int8_conv_splitk": 12 * n, "int8_conv_mma": 42 * n})
+    check_convs_on_path(pipe, pool[0])
+    profile_frames(pipe, pool, card)
+    host_costs(bf16_pipe, pipe, pool, card)
 
     # the same modules with the int8 convs routed to the plain versions
-    modules = [m for net in (pipe.stack, pipe.lanes) for m in net.modules()
-               if isinstance(m, Int8Conv2d)]
+    modules = int8_modules(pipe)
     kernel_out = [pipe.logits(pool[i]) for i in range(INT8_REF_FRAMES)]
     for m in modules:
         m.plain = True
@@ -397,7 +769,26 @@ def phase_int8(card, bf16_pipe):
     return launches
 
 
+def host_costs_of(root):
+    """--host-costs ROOT: phase 7's host-cost measurement alone, over the
+    port package found in ROOT (this repository, or an earlier commit of it
+    unpacked with git archive), to compare two trees in one call."""
+    card = phase_device()
+    sys.path.insert(0, str(pathlib.Path(root).resolve()))
+    from autoware_vision_pilot_tpu_torch.kernels import build
+    from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused
+
+    print(f"host costs of the package in {build.PACKAGE.parent}")
+    build.load()
+    bf16_pipe = build_pipeline_fused("cuda", torch.bfloat16, SEED, CTX_HW, OUT_HW)
+    int8_pipe = build_pipeline_fused("cuda", torch.bfloat16, SEED, CTX_HW, OUT_HW,
+                                     int8=True, min_ch=256)
+    host_costs(bf16_pipe, int8_pipe, frames(HOST_FRAMES, FRAME_HW, SEED + 5).cuda(), card)
+
+
 def main():
+    if sys.argv[1:2] == ["--host-costs"]:
+        return host_costs_of(sys.argv[2])
     card = phase_device()
     sys.path.insert(0, str(REPO))
     phase_build()
@@ -405,14 +796,18 @@ def main():
     phase_f32()
     bf16_pipe = phase_bf16(card)
     launches = phase_int8(card, bf16_pipe)  # the slice's main path
+    pkg = "autoware_vision_pilot_tpu_torch/csrc/"
     sources = {
-        "fused_preprocess": ("autoware_vision_pilot_tpu_torch/csrc/preprocess.cu",
+        "fused_preprocess": (pkg + "preprocess.cu",
                              "autoware_vision_pilot_tpu/ops/pallas/preprocess_kernel.py:51"),
-        "int8_quantize": ("autoware_vision_pilot_tpu_torch/csrc/int8_conv.cu",
-                          "autoware_vision_pilot_tpu/nn/layers.py:103"),
-        "int8_conv": ("autoware_vision_pilot_tpu_torch/csrc/int8_conv.cu",
-                      "autoware_vision_pilot_tpu/nn/layers.py:110"),
+        "int8_quantize": (pkg + "int8_conv.cu", "autoware_vision_pilot_tpu/nn/layers.py:103"),
+        "int8_conv_wgmma": (pkg + "int8_conv_sm90.cu",
+                            "autoware_vision_pilot_tpu/nn/layers.py:110"),
+        "int8_conv_mma": (pkg + "int8_conv.cu", "autoware_vision_pilot_tpu/nn/layers.py:110"),
     }
+    for name in sources:
+        if launches[name] <= 0:
+            raise AssertionError(f"the main path never launched {name}")
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

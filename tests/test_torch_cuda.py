@@ -15,7 +15,7 @@ import torch
 
 from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
 from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
-    int8_conv, int8_conv_plain, int8_quantize, int8_quantize_plain)
+    _launch, int8_conv, int8_conv_plain, int8_conv_plan, int8_quantize, int8_quantize_plain)
 from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
 from autoware_vision_pilot_tpu_torch.ops.preprocess import preprocess_imagenet
 from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused
@@ -120,6 +120,109 @@ def test_int8_kernels_match_plain_versions(cuda, k, cin, cout, hw):
             assert y.dtype == dtype and y.is_contiguous(memory_format=CL)
             assert torch.equal(y, int8_conv_plain(xq, w, w_scale, sx, bias, k // 2, dtype))
     assert (int8_quantize.launches, int8_conv.launches) == (before[0] + 4, before[1] + 8)
+
+
+def sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def one_split(plan):
+    """The wgmma route's plan of a shape whose own plan splits K: the same
+    kernel, one split, a persistent block per tile up to one per SM."""
+    tiles = plan.grid[0] * plan.grid[1]
+    return plan._replace(route="wgmma", grid=(*plan.grid[:2], 1), per_split=plan.iters,
+                         blocks=min(tiles, sm_count()))
+
+
+@pytest.mark.parametrize("route,k,cin,cout,hw,batch", [
+    ("wgmma", 3, 128, 256, (48, 96), 1),    # 72 tiles, C one 128-channel chunk
+    ("wgmma", 3, 256, 200, (24, 40), 2),    # two images, ragged N; one split forced
+    ("wgmma", 3, 480, 136, (17, 23), 1),    # channel tail, ragged rectangles; one split
+    ("splitk", 3, 1456, 768, (5, 9), 1),    # K = 13104 in 108 steps
+    ("splitk", 3, 672, 100, (9, 13), 1),    # one output tile, channel tail, ragged N
+    ("mma", 3, 64, 96, (20, 40), 1),        # a 3x3 window with C < 128
+    ("mma", 1, 1152, 48, (1, 1), 1),        # an SE squeeze: M = 1
+])
+def test_int8_conv_routes_match_plain_version(cuda, route, k, cin, cout, hw, batch):
+    """Each route of int8_conv_plan against the plain version: int32
+    accumulators and f32/bf16 outputs bit-equal, scalar and
+    per-input-channel scales. A shape whose own plan splits K also runs
+    on the wgmma route through a one-split plan."""
+    g = torch.Generator().manual_seed(cin + cout + k)
+    x = torch.randn(batch, cin, *hw, generator=g)
+    w = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
+                      dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+    w_scale = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).to(cuda)
+    scales = [torch.tensor(float(x.abs().max()) / 127.0),
+              (x.double().abs().amax(dim=(0, 2, 3)) / 127.0).float()]
+    plan = int8_conv_plan(batch, *hw, cin, cout, k, k, k // 2, sm_count())
+    if route == "wgmma" and plan.route == "splitk":
+        plan = one_split(plan)
+    assert plan.route == route
+
+    def conv(xq, sx, bias, dtype):
+        return _launch(plan, xq, w, w_scale, sx, bias, k // 2, dtype)
+
+    before = int8_conv.route_launches[route]
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype).contiguous(memory_format=CL).to(cuda)
+        bias = (torch.randn(cout, generator=g) * 0.1).to(dtype).to(cuda)
+        for sx in scales:
+            sx = sx.to(cuda)
+            xq = int8_quantize(xd, sx)
+            acc = conv(xq, sx, None, torch.int32)
+            assert torch.equal(acc, int8_conv_plain(xq, w, w_scale, sx, None, k // 2,
+                                                    torch.int32))
+            y = conv(xq, sx, bias, dtype)
+            torch.cuda.synchronize()
+            assert y.dtype == dtype and y.is_contiguous(memory_format=CL)
+            assert torch.equal(y, int8_conv_plain(xq, w, w_scale, sx, bias, k // 2, dtype))
+    assert int8_conv.route_launches[route] == before + 8
+
+
+@pytest.mark.parametrize("route,blocks", [("wgmma", 5), ("splitk", 7)])
+def test_int8_conv_persistent_blocks_match_plain_version(cuda, route, blocks):
+    """Fewer blocks than units of work (32 tiles; 128 tile-and-K-range units
+    split over K): each block carries several units through one ring of
+    stages. Accumulators and bf16 outputs bit-equal to the plain version,
+    and the same on every run, whatever order the splits arrive in."""
+    g = torch.Generator().manual_seed(blocks)
+    x = torch.randn(2, 480, 24, 40, generator=g).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (200, 480, 3, 3), generator=g,
+                      dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+    w_scale = (torch.rand(200, generator=g) * 1e-3 + 1e-4).to(cuda)
+    bias = (torch.randn(200, generator=g) * 0.1).to(torch.bfloat16).to(cuda)
+    sx = torch.tensor(float(x.float().abs().max()) / 127.0).to(cuda)
+    xq = int8_quantize(x.contiguous(memory_format=CL).to(cuda), sx)
+    plan = int8_conv_plan(2, 24, 40, 480, 200, 3, 3, 1, sm_count())
+    assert plan.route == "splitk" and plan.grid == (16, 2, 4)
+    plan = (one_split(plan) if route == "wgmma" else plan)._replace(blocks=blocks)
+    for dtype in (torch.int32, torch.bfloat16):
+        want = int8_conv_plain(xq, w, w_scale, sx, bias, 1, dtype)
+        for _ in range(3):
+            y = _launch(plan, xq, w, w_scale, sx, bias, 1, dtype)
+            torch.cuda.synchronize()
+            assert torch.equal(y, want)
+
+
+def test_int8_weight_map_is_kept_on_the_weight(cuda):
+    """The weights' TMA map is encoded at the first wgmma launch, kept on
+    the weight, and encoded again for a copy at another address."""
+    g = torch.Generator().manual_seed(9)
+    w = torch.randint(-127, 128, (256, 256, 3, 3), generator=g,
+                      dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+    w_scale = torch.full((256,), 1e-3, device=cuda)
+    sx = torch.tensor(0.02, device=cuda)
+    xq = torch.randint(-127, 128, (1, 256, 40, 80), generator=g,
+                       dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+    y = int8_conv(xq, w, w_scale, sx, None, 1, torch.int32)
+    key, first = w._tma_map
+    assert key[0] == w.data_ptr() and len(first) == 128
+    assert torch.equal(int8_conv(xq, w, w_scale, sx, None, 1, torch.int32), y)
+    assert w._tma_map[1] is first
+    w2 = copy.deepcopy(w)
+    assert torch.equal(int8_conv(xq, w2, w_scale, sx, None, 1, torch.int32), y)
+    assert w2._tma_map[0][0] == w2.data_ptr() != w.data_ptr()
 
 
 def test_int8_wrappers_raise_on_the_card(cuda):
