@@ -1,7 +1,8 @@
 // Int8 convolution for Hopper (sm_90a), part 1: the activation quantize
 // kernel and the mma.sync conv route. The wgmma/TMA route and its split-K
-// form are in int8_conv_sm90.cu; ops/kernels/int8_conv.py::int8_conv_plan
-// decides which route runs a conv.
+// form are in int8_conv_sm90.cu, the 1x1 routes (pointwise and dot, which
+// quantize as they load) in int8_pointwise.cu;
+// ops/kernels/int8_conv.py::int8_conv_plan decides which route runs a conv.
 //
 // Replaces the int8 branch of autoware_vision_pilot_tpu/nn/layers.py::Conv2d
 // (:81-113), which the JAX package leaves to XLA
@@ -26,8 +27,9 @@
 // 3-stage cp.async ring, im2col rows generated on the fly; cp.async with a
 // source size of 0 zero-fills padded pixels, the K tail and the rows and
 // columns beyond M and N (quantize(0) == 0, so padding commutes with
-// quantization). The plan keeps on it the 1x1 convs at the small maps and
-// the SE convs (M = 1): bound by their weight bytes and by the launch.
+// quantization). The plan keeps on it what no other route takes: windows
+// larger than 1x1 with C < 128, and a 1x1 window with padding. (Until the
+// pointwise and dot routes, it ran every 1x1 and SE conv of the main path.)
 //
 // Numerics: the division is __fdiv_rn and the rounding __float2int_rn
 // (half to even, as jnp.round), clamped to +-127, never -128. The
@@ -41,15 +43,15 @@
 
 namespace {
 
+using avp::cp_async16;
+using avp::cp_async_commit;
+using avp::cp_async_wait;
+using avp::lds32;
 using avp::MAX_DEVICES;
+using avp::mma_s8;
 using avp::sm_count;
 
 // ---------------------------------------------------------------- quantize
-
-__device__ __forceinline__ signed char quantize_one(float v, float s) {
-  int q = __float2int_rn(__fdiv_rn(v, s));
-  return (signed char)min(max(q, -127), 127);
-}
 
 __device__ __forceinline__ void load16(const float* p, float (&v)[16]) {
   const float4* q = reinterpret_cast<const float4*>(p);
@@ -68,9 +70,8 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[16]) {
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      // a bf16 is the top half of an f32: exact
-      v[8 * j + 2 * i] = __uint_as_float(w[i] << 16);
-      v[8 * j + 2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      v[8 * j + 2 * i] = avp::bf16_lo(w[i]);
+      v[8 * j + 2 * i + 1] = avp::bf16_hi(w[i]);
     }
   }
 }
@@ -104,7 +105,7 @@ __global__ void __launch_bounds__(256) quantize_kernel(
       for (int j = 0; j < 4; ++j) {
         const int k = 4 * i + j;
         const float s = per_channel ? s_scale[c0 + k] : s0;
-        word |= (uint32_t)(uint8_t)quantize_one(v[k], s) << (8 * j);
+        word |= (uint32_t)(uint8_t)avp::quantize_one(v[k], s) << (8 * j);
       }
       packed[i] = word;
     }
@@ -126,40 +127,6 @@ struct ConvArgs {
   avp::Epilogue e;        // out (B, OH, OW, N)
   int B, H, W, C, N, KH, KW, pad, OH, OW, M, K;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int bytes = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D = A(16x32 s8, row) * B(32x8 s8, col) + D, s32 accumulators.
-// Fragments (lane = 4*g + t): a0 = A[g][4t..4t+3], a1 = A[g+8][4t..],
-// a2 = A[g][16+4t..], a3 = A[g+8][16+4t..]; b0 = B[4t..4t+3][g],
-// b1 = B[16+4t..][g]; d0,d1 = D[g][2t, 2t+1], d2,d3 = D[g+8][2t, 2t+1].
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // One block computes a BM x BN output tile with (BM/WM) x (BN/WN) warps,
 // each a WM x WN tile of m16n8 fragments. OUT_KIND is a.e.out_kind, fixed

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry point -> argtypes; every function returns a cudaError_t as int.
 SIGNATURES = {
-    # frame, out, y0, y1, fy, x0, x1, fx, mean, std,
+    # frame, out, y0, y1, fy, x0, x1, fx, mean, inv_std,
     # B, H, W, h, w, out_bf16, stream
     "avp_fused_preprocess": (_P,) * 10 + (_I,) * 6 + (_P,),
     # x, xq, scale, per_channel, pixels, C, in_bf16, stream
@@ -43,6 +43,12 @@ SIGNATURES = {
     # pad, out_kind, th, tw, m_tiles, n_tiles, splits, per_split, blocks,
     # stream
     "avp_int8_conv_wgmma": (_P,) * 7 + (_I,) * 16 + (_P,),
+    # x, in_kind, scale, rcp, per_channel, w, w_scale, bias, out, M, C, N,
+    # out_kind, bm, m_tiles, n_tiles, cs, k_per_rank, stream
+    "avp_int8_conv_pointwise": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 9 + (_P,),
+    # x, in_kind, scale, rcp, per_channel, w, w_scale, bias, out, M, C, N,
+    # out_kind, stream
+    "avp_int8_conv_dot": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 4 + (_P,),
 }
 
 

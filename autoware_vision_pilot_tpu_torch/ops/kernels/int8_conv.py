@@ -1,7 +1,7 @@
-"""Int8 convolution: the wrappers of csrc/int8_conv.cu and
-csrc/int8_conv_sm90.cu, the port of the int8 branch of
-autoware_vision_pilot_tpu/nn/layers.py::Conv2d (:81-113), which the JAX
-package leaves to XLA.
+"""Int8 convolution: the wrappers of csrc/int8_conv.cu,
+csrc/int8_conv_sm90.cu and csrc/int8_pointwise.cu, the port of the int8
+branch of autoware_vision_pilot_tpu/nn/layers.py::Conv2d (:81-113), which
+the JAX package leaves to XLA.
 
 Kernels, each with its wrapper, its plain PyTorch version and its count of
 launches:
@@ -12,18 +12,24 @@ launches:
   ``cast(f32(acc) * dequant) + bias`` with dequant = sx * w_scale for a
   scalar sx, w_scale alone for a per-channel one, which the weights carry
   (:110-113); or the accumulators themselves for ``out_dtype=torch.int32``.
-  ``int8_conv_plan`` picks one of three routes: "wgmma" (TMA loads and
+  ``int8_conv_plan`` picks one of five routes: "wgmma" (TMA loads and
   wgmma on 128x128 tiles), "splitk" (the same kernel over slices of K; the
-  split that finishes a tile last runs its epilogue) and "mma" (mma.sync,
-  for the 1x1 convs at small maps and the M = 1 SE convs).
+  split that finishes a tile last runs its epilogue), "pointwise" (1x1
+  convs: mma.sync, K split over the blocks of a cluster), "dot" (1x1 convs
+  of at most 8 pixels, the M = 1 SE convs: one warp per output channel)
+  and "mma" (mma.sync, for windows larger than 1x1 with C < 128).
   ``int8_conv.launches`` counts every conv launch;
   ``int8_conv.route_launches`` counts them by route.
 
-``int8_conv2d`` chains quantize and conv. On a CUDA tensor a wrapper
-launches its kernel or raises; on a CPU tensor it runs the plain version,
-which computes the conv in float64 on the int8 values (exact: |acc| <=
-127^2 * K < 2^53) and the same epilogue in torch ops. Every scale is an
-f32 tensor on the input's device, so no launch waits for the host.
+``int8_conv2d`` is the whole conv on a float input: on the "pointwise"
+and "dot" routes one launch that quantizes as it loads (bit-equal to the
+quantize kernel: it multiplies by 1 / sx in float64, which ``_reciprocal``
+keeps on the scale tensor), on the others quantize, then conv. On a CUDA
+tensor a wrapper launches its kernel or raises; on a CPU tensor it runs
+the plain version, which computes the conv in float64 on the int8 values
+(exact: |acc| <= 127^2 * K < 2^53) and the same epilogue in torch ops.
+Every scale is a tensor on the input's device, so no launch waits for the
+host.
 
 The kernels cover what the selective-int8 path needs: groups 1, stride 1,
 dilation 1, any window with symmetric padding, NHWC (channels_last) inputs
@@ -44,9 +50,17 @@ from ...kernels import build
 CL = torch.channels_last
 IN_DTYPES = (torch.float32, torch.bfloat16)
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
-ROUTES = ("wgmma", "splitk", "mma")
+ROUTES = ("wgmma", "splitk", "mma", "pointwise", "dot")
+FUSED_ROUTES = ("pointwise", "dot")  # they take a float input and quantize it
+_IN_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 TILE = 128      # the wgmma route's BM = BN = BK (csrc/int8_conv_sm90.cu)
 MMA_BK = 64     # the mma.sync route's K step (csrc/int8_conv.cu)
+PW_BN = 64      # the pointwise route's output channels a tile (csrc/int8_pointwise.cu)
+PW_BK = 32      # its K ranges are multiples of 32 channels, one mma.sync k
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+DOT_MAX_M = 8   # the dot route's most output pixels
+DOT_MAX_BYTES = 32 * 1024  # and most int8 activation bytes, held in shared memory
+DOT_WARPS = 8   # its output channels a block
 MAX_K = 133_144  # 127^2 * K < 2^31: the int32 accumulators cannot overflow
 SMS = 132       # an H100 SXM's SM count; the wrapper passes the card's own
 
@@ -165,7 +179,12 @@ class Int8ConvPlan(NamedTuple):
     ``bk`` channels), ``per_split`` steps to a split; a unit of work is one
     (M tile, N tile, split), and each of the ``blocks`` persistent blocks
     takes every blocks-th unit. The mma route tiles M as ``bm`` flat rows
-    and K in steps of ``bk`` bytes, one block per tile."""
+    and K in steps of ``bk`` bytes, one block per tile. The pointwise route
+    tiles M as ``bm`` flat rows and N as ``bn`` channels; the K splits are
+    the blocks of one cluster, and split z takes the channels
+    [z * per_split * bk, (z + 1) * per_split * bk) of the ``iters * bk``;
+    one block per tile and split. The dot route runs ``bn`` output
+    channels a block, ``bm`` = M rows each."""
     route: str
     bm: int
     bn: int
@@ -206,8 +225,15 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
     - "splitk" for those of them whose 128x128 output tiles fill less than
       half of the SMs (the thin 20x40 and 10x20 3x3 convs): K is cut into
       up to sms // tiles contiguous ranges of at least 4 steps;
-    - "mma" for the rest (1x1 convs, the M = 1 SE convs, C < 128): bound by
-      weight bytes and by the launch.
+    - "dot" for 1x1 convs without padding of at most DOT_MAX_M output
+      pixels whose int8 activation fits in DOT_MAX_BYTES (the M = 1 SE
+      convs);
+    - "pointwise" for the other 1x1 convs without padding: 64 x 64 or
+      32 x 64 tiles, whichever fills more SMs once each tile's K is split
+      over a cluster of up to 8 blocks, in ranges of at least 64 channels
+      (64 on a tie);
+    - "mma" for the rest (windows larger than 1x1 with C < 128, and a 1x1
+      window with padding).
 
     The wgmma routes launch persistent blocks, one per SM or one per unit
     of work, whichever is fewer.
@@ -227,12 +253,10 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
     M = B * OH * OW
     if M >= 2 ** 31:
         raise ValueError(f"M = {M} output pixels: more than an int32 indexes")
+    if KH * KW == 1 and pad == 0:
+        return _pointwise_plan(M, C, N, sms)
     if KH * KW == 1 or C < TILE:
-        bm = 128 if math.ceil(M / 128) * math.ceil(N / 128) >= sms else 64
-        iters = math.ceil(KH * KW * C / MMA_BK)
-        grid = (math.ceil(M / bm), math.ceil(N / bm), 1)
-        return Int8ConvPlan("mma", bm, bm, MMA_BK, grid, 0, 0, iters, iters,
-                            grid[0] * grid[1])
+        return _mma_plan(M, N, KH * KW * C, sms)
     th, tw = _rectangle(OH, OW)
     m_tiles = B * math.ceil(OH / th) * math.ceil(OW / tw)
     n_tiles = math.ceil(N / TILE)
@@ -249,6 +273,40 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
     units = tiles * splits
     return Int8ConvPlan(route, TILE, TILE, TILE, (m_tiles, n_tiles, splits), th, tw,
                         iters, per_split, min(units, sms))
+
+
+def _mma_plan(M: int, N: int, K: int, sms: int) -> Int8ConvPlan:
+    """The "mma" plan of a conv of M pixels, N output channels and K =
+    KH * KW * C: 128x128 tiles where they fill the SMs, else 64x64. It
+    runs any shape, so a test may hand it a 1x1 conv as well."""
+    bm = 128 if math.ceil(M / 128) * math.ceil(N / 128) >= sms else 64
+    iters = math.ceil(K / MMA_BK)
+    grid = (math.ceil(M / bm), math.ceil(N / bm), 1)
+    return Int8ConvPlan("mma", bm, bm, MMA_BK, grid, 0, 0, iters, iters, grid[0] * grid[1])
+
+
+def _pointwise_plan(M: int, C: int, N: int, sms: int) -> Int8ConvPlan:
+    """The "pointwise" or "dot" plan of a 1x1 conv of M pixels."""
+    units = math.ceil(C / PW_BK)
+    if M <= DOT_MAX_M and M * C <= DOT_MAX_BYTES:
+        blocks = math.ceil(N / DOT_WARPS)
+        return Int8ConvPlan("dot", M, DOT_WARPS, PW_BK, (1, blocks, 1), 0, 0,
+                            units, units, blocks)
+    n_tiles = math.ceil(N / PW_BN)
+    if n_tiles > 65535:
+        raise ValueError(f"N = {N}: more output channels than the grid holds")
+    best = None
+    for bm in (64, 32):
+        tiles = math.ceil(M / bm) * n_tiles
+        cs = max(1, min(MAX_CLUSTER, sms // tiles, units // 2))
+        per_split = math.ceil(units / cs)
+        cs = math.ceil(units / per_split)  # no rank left without channels
+        fill = min(tiles * cs, sms)
+        if best is None or fill > best[0]:
+            best = (fill, bm, tiles, cs, per_split)
+    _, bm, tiles, cs, per_split = best
+    return Int8ConvPlan("pointwise", bm, PW_BN, PW_BK, (math.ceil(M / bm), n_tiles, cs),
+                        0, 0, units, per_split, tiles * cs)
 
 
 # ---------------------------------------------------------------------- conv
@@ -301,66 +359,112 @@ def int8_conv(xq: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor
     if groups != 1 or stride not in (1, (1, 1)) or dilation not in (1, (1, 1)):
         raise ValueError(f"int8 conv covers groups 1, stride 1, dilation 1; got "
                          f"groups={groups} stride={stride} dilation={dilation}")
+    return _conv(xq, weight, weight_scale, x_scale, bias, padding, out_dtype)
+
+
+def _conv(x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor,
+          x_scale: torch.Tensor, bias: Optional[torch.Tensor], padding,
+          out_dtype: torch.dtype) -> torch.Tensor:
+    """int8_conv and int8_conv2d: ``x`` is int8 (quantized with x_scale) or
+    f32/bf16, which the "pointwise" and "dot" routes quantize as they load
+    it and the other routes after int8_quantize."""
+    if weight.dtype != torch.int8:
+        raise TypeError(f"weight must be int8, got {weight.dtype}")
     if out_dtype not in _OUT_KIND:
         raise TypeError(f"out_dtype must be one of {tuple(_OUT_KIND)}, got {out_dtype}")
-    _check_nhwc(xq, "xq")
+    quantized = x.dtype == torch.int8
+    _check_nhwc(x, "xq" if quantized else "x")
     _check_nhwc(weight, "weight")
     pad = _pad(padding)
-    B, C, H, W = xq.shape
+    B, C, H, W = x.shape
     N, _, KH, KW = weight.shape
     if weight.shape[1] != C:
         raise ValueError(f"weight {tuple(weight.shape)} does not take {C} channels")
     if weight_scale.dtype != torch.float32 or weight_scale.shape != (N,):
         raise TypeError(f"weight_scale must be f32 ({N},), got "
                         f"{weight_scale.dtype} {tuple(weight_scale.shape)}")
-    _check_scale(x_scale, C, xq.device)
+    _check_scale(x_scale, C, x.device)
     if bias is not None and out_dtype != torch.int32 and (
             bias.dtype != out_dtype or bias.shape != (N,)):
         raise TypeError(f"bias must be {out_dtype} ({N},), got {bias.dtype} "
                         f"{tuple(bias.shape)}")
-    if any(t.device != xq.device for t in (weight, weight_scale)):
-        raise ValueError("xq, weight and scales must be on one device")
-    if xq.device.type == "cpu":
-        return int8_conv_plain(xq, weight, weight_scale, x_scale, bias, pad,
-                               out_dtype)
-    if xq.device.type != "cuda":
-        raise ValueError(f"no int8 conv for device {xq.device}")
-    index = xq.get_device()
+    if any(t.device != x.device for t in (weight, weight_scale)):
+        raise ValueError("x, weight and scales must be on one device")
+    if x.device.type == "cpu":
+        xq = x if quantized else int8_quantize_plain(x, x_scale)
+        return int8_conv_plain(xq, weight, weight_scale, x_scale, bias, pad, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"no int8 conv for device {x.device}")
+    index = x.get_device()
     if index != torch.cuda.current_device():  # the kernels launch on the current device
         with torch.cuda.device(index):
-            return int8_conv(xq, weight, weight_scale, x_scale, bias, padding, out_dtype)
+            return _conv(x, weight, weight_scale, x_scale, bias, padding, out_dtype)
     OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
     if OH <= 0 or OW <= 0:
         raise ValueError(f"window {KH}x{KW} larger than the padded input {H}x{W}")
     if C % 16:  # the kernels copy 16 channels at a time; zeros add nothing
         extra = 16 - C % 16
-        xq = F.pad(xq, (0, 0, 0, 0, 0, extra)).contiguous(memory_format=CL)
+        x = F.pad(x, (0, 0, 0, 0, 0, extra)).contiguous(memory_format=CL)
         weight = F.pad(weight, (0, 0, 0, 0, 0, extra)).contiguous(memory_format=CL)
+        if x_scale.dim() == 1:
+            x_scale = F.pad(x_scale, (0, extra), value=1.0)
         C += extra
     plan = int8_conv_plan(B, H, W, C, N, KH, KW, pad, _sm_count(index))
-    return _launch(plan, xq, weight, weight_scale, x_scale, bias, pad, out_dtype)
+    if not quantized and plan.route not in FUSED_ROUTES:
+        x = int8_quantize(x, x_scale)
+    return _launch(plan, x, weight, weight_scale, x_scale, bias, pad, out_dtype)
 
 
-def _launch(plan: Int8ConvPlan, xq: torch.Tensor, weight: torch.Tensor,
+def _reciprocal(x_scale: torch.Tensor) -> torch.Tensor:
+    """1 / x_scale in float64, correctly rounded: the "pointwise" and "dot"
+    routes quantize with it (csrc/int8_common.cuh::quantize_rcp, the same
+    values as the division). Kept on the scale tensor while its address
+    and version are unchanged, so a static scale costs one launch, once."""
+    key = (x_scale.data_ptr(), x_scale._version)
+    kept = getattr(x_scale, "_rcp", None)
+    if kept is not None and kept[0] == key:
+        return kept[1]
+    rcp = torch.reciprocal(x_scale.double()).contiguous()
+    x_scale._rcp = (key, rcp)
+    return rcp
+
+
+def _launch(plan: Int8ConvPlan, x: torch.Tensor, weight: torch.Tensor,
             weight_scale: torch.Tensor, x_scale: torch.Tensor,
             bias: Optional[torch.Tensor], pad: int, out_dtype: torch.dtype) -> torch.Tensor:
-    """Runs ``plan`` on CUDA tensors of the current device that int8_conv
-    has checked (C a multiple of 16). int8_conv passes the plan of the
-    shape; a test may pass another plan of it (fewer persistent blocks,
-    one split)."""
-    B, C, H, W = xq.shape
+    """Runs ``plan`` on CUDA tensors of the current device that _conv has
+    checked (C a multiple of 16): x int8, or f32/bf16 on the "pointwise"
+    and "dot" routes. _conv passes the plan of the shape; a test may pass
+    another plan of it (fewer persistent blocks, one split, the mma.sync
+    route for a 1x1 conv)."""
+    B, C, H, W = x.shape
     N, _, KH, KW = weight.shape
     OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
-    _check_aligned(xq, weight)
+    if x.dtype != torch.int8 and plan.route not in FUSED_ROUTES:
+        raise TypeError(f"the {plan.route} route takes an int8 input, got {x.dtype}")
+    _check_aligned(x, weight)
     lib = build.load()
     x_ptr = x_scale.data_ptr() if x_scale.dim() == 0 else None
     b_ptr = bias.data_ptr() if bias is not None and out_dtype != torch.int32 else None
     kind = _OUT_KIND[out_dtype]
-    out = torch.empty((B, OH, OW, N), dtype=out_dtype, device=xq.device)
-    stream = _raw_stream(xq.get_device())
-    if plan.route == "mma":
+    out = torch.empty((B, OH, OW, N), dtype=out_dtype, device=x.device)
+    stream = _raw_stream(x.get_device())
+    if plan.route in FUSED_ROUTES:
+        rcp = None if x.dtype == torch.int8 else _reciprocal(x_scale)
+        args = (x.data_ptr(), _IN_KIND[x.dtype], x_scale.data_ptr(),
+                None if rcp is None else rcp.data_ptr(), int(x_scale.dim() == 1),
+                weight.data_ptr(), weight_scale.data_ptr(), b_ptr, out.data_ptr(),
+                B * H * W, C, N, kind)
+        if plan.route == "pointwise":
+            m_tiles, n_tiles, cs = plan.grid
+            err = lib.avp_int8_conv_pointwise(*args, plan.bm, m_tiles, n_tiles, cs,
+                                              plan.per_split * plan.bk, stream)
+        else:
+            err = lib.avp_int8_conv_dot(*args, stream)
+        _check_err(f"avp_int8_conv_{plan.route}", err)
+    elif plan.route == "mma":
         err = lib.avp_int8_conv_mma(
-            xq.data_ptr(), weight.data_ptr(), weight_scale.data_ptr(), x_ptr,
+            x.data_ptr(), weight.data_ptr(), weight_scale.data_ptr(), x_ptr,
             b_ptr, out.data_ptr(), B, H, W, C, N, KH, KW, pad, kind, plan.bm,
             plan.grid[0], plan.grid[1], stream)
         _check_err("avp_int8_conv_mma", err)
@@ -369,10 +473,10 @@ def _launch(plan: Int8ConvPlan, xq: torch.Tensor, weight: torch.Tensor,
         # split-K: each split's (M, N) partial sums, then one arrival
         # counter a tile
         ws = (torch.empty(splits * B * OH * OW * N + m_tiles * n_tiles,
-                          dtype=torch.int32, device=xq.device)
+                          dtype=torch.int32, device=x.device)
               if splits > 1 else None)
         err = lib.avp_int8_conv_wgmma(
-            xq.data_ptr(), _weight_map(lib, weight, N, KH, KW, C),
+            x.data_ptr(), _weight_map(lib, weight, N, KH, KW, C),
             weight_scale.data_ptr(), x_ptr, b_ptr, out.data_ptr(),
             None if ws is None else ws.data_ptr(), B, H, W, C, N, KH, KW, pad,
             kind, plan.th, plan.tw, m_tiles, n_tiles, splits, plan.per_split,
@@ -391,12 +495,15 @@ def int8_conv2d(x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tenso
                 x_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 padding=0, *, plain: bool = False) -> torch.Tensor:
     """The whole int8 conv of nn/layers.py:81-113 on a float input, in the
-    input's dtype: quantize, then conv with the dequant epilogue.
+    input's dtype: quantize, then conv with the dequant epilogue; on the
+    card a 1x1 conv ("pointwise" and "dot" routes) is one launch that
+    quantizes as it loads, the others int8_quantize and int8_conv.
     ``plain=True`` runs the plain versions on any device (a reference run
     selects it explicitly; the kernels never fall back to it)."""
     if plain:
         xq = int8_quantize_plain(x, x_scale)
         return int8_conv_plain(xq, weight, weight_scale, x_scale, bias,
                                _pad(padding), x.dtype)
-    return int8_conv(int8_quantize(x, x_scale), weight, weight_scale, x_scale,
-                     bias, padding, x.dtype)
+    if x.dtype not in IN_DTYPES:
+        raise TypeError(f"x must be one of {IN_DTYPES}, got {x.dtype}")
+    return _conv(x, weight, weight_scale, x_scale, bias, padding, x.dtype)

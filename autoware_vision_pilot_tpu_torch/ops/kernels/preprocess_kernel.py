@@ -9,6 +9,7 @@ reads.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -17,6 +18,15 @@ from ...kernels import build
 from ..preprocess import device_mean_std, device_taps, preprocess_imagenet
 
 OUT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def _mean_inv_std(device: torch.device):
+    """The kernel's channel tables: the f32 mean, and 1 / std in f64
+    (correctly rounded), with which it computes the plain version's f32
+    division by std bit for bit (csrc/preprocess.cu)."""
+    mean, std = device_mean_std(device)
+    return mean, torch.reciprocal(std.double())
 
 
 def fused_preprocess(frame_u8: torch.Tensor, out_hw: Tuple[int, int] = (320, 640),
@@ -50,7 +60,7 @@ def fused_preprocess(frame_u8: torch.Tensor, out_hw: Tuple[int, int] = (320, 640
         raise ValueError(f"no preprocess for device {frames.device}")
 
     tables = (*device_taps(H, h, frames.device), *device_taps(W, w, frames.device),
-              *device_mean_std(frames.device))
+              *_mean_inv_std(frames.device))
     out = torch.empty((B, h, w, 3), dtype=out_dtype, device=frames.device)
     with torch.cuda.device(frames.device):
         err = build.load().avp_fused_preprocess(

@@ -10,22 +10,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   2. build:  compiles each autoware_vision_pilot_tpu_torch/csrc/*.cu with its
              own nvcc for sm_90a, all at once, into build/torch_kernels/.
   3. kernel: the fused-preprocess kernel against its plain PyTorch version
-             on the card, 720x1280 and 375x1242 -> 320x640, f32 (1e-5
-             absolute) and bf16 (one bf16 ulp), with CUDA-event and
-             torch.profiler device times.
+             on the card, 720x1280 and 375x1242 -> 320x640 and 360x640 ->
+             180x321 (a width that is not a multiple of 8), f32 and bf16,
+             bit-equal, with CUDA-event and torch.profiler device times.
   4. int8 kernels: the int8 quantize and conv kernels against their plain
-             versions at nine shapes that between them take every route of
-             int8_conv_plan (wgmma, split-K, mma.sync), bf16 and f32
-             outputs, scalar and per-channel scales: quantized values, int32
-             accumulators and outputs bit-equal. Then every one of the 24 distinct
-             int8 conv shapes of the main path, bf16 with a scalar scale,
-             timed over rotating inputs that together exceed the 50 MB L2:
-             profiler device time of the conv and the quantize (and of the
-             conv with one block per unit of work in place of the
-             persistent blocks), the bound,
-             the share of the bound, and two yardsticks that the port never
-             calls: the bf16 cuDNN conv of the same shape and torch._int_mm
-             on a pre-built im2col matrix.
+             versions at shapes that between them take every route of
+             int8_conv_plan (wgmma, split-K, mma.sync, pointwise, dot; every
+             1x1 conv of the main path, a ragged N, a batch of two), bf16
+             and f32 outputs, scalar and per-channel scales, through
+             int8_conv on the int8 input and int8_conv2d on the float one:
+             quantized values, int32 accumulators and outputs bit-equal.
+             Then every one of the 24 distinct int8 conv shapes of the main
+             path, bf16 with a scalar scale, timed over rotating inputs
+             that together exceed the 50 MB L2: profiler device time of the
+             conv and the quantize (and of the conv with one block per unit
+             of work in place of the persistent blocks; at a 1x1 conv, of
+             int8_conv2d, which absorbs the quantize, and of PR 2's mma.sync
+             kernel on the same inputs), the bound, the share of the bound,
+             and two yardsticks that the port never calls: the bf16 cuDNN
+             conv of the same shape and torch._int_mm on a pre-built im2col
+             matrix.
   5. f32:    the main path (build_pipeline_fused, full width and depth) on
              one 720p frame, on the card with TF32 off against the CPU, same
              seeded weights: logits within 1e-3 * max|CPU|.
@@ -33,11 +37,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              card, 10 warm-up and 50 timed with CUDA events; checks shapes,
              dtypes, ranges and that every frame launched the kernel.
   7. int8:   the same on the selective-int8 main path (int8=True, min_ch
-             256, bench.py's default): 72 int8 conv and quantize launches per
-             frame by route (18 wgmma, 12 split-K, 42 mma.sync); on one
+             256, bench.py's default): 72 int8 conv launches per frame by
+             route (18 wgmma, 12 split-K, 22 pointwise, 20 dot, none on
+             mma.sync) and 30 quantize launches (the 1x1 convs quantize as
+             they load); on one
              frame, each of the 72 int8 convs against its plain version on
              the same input (torch.equal); device time per frame by kind of
-             kernel over 20 frames (torch.profiler), and the wgmma kernel's
+             kernel and route over 20 frames (torch.profiler), and the wgmma kernel's
              at each 3x3 int8 conv of the frame; host time per conv call
              at the 72 int8 layers, int8 against bf16, with both paths'
              frame latency p50 from the same rounds; then a
@@ -64,6 +70,8 @@ REPO = pathlib.Path(__file__).resolve().parent
 FRAME_HW = (720, 1280)
 ODD_HW = (375, 1242)  # a KITTI-sized frame: upscale rows, downscale columns
 OUT_HW = (320, 640)
+# (source, output) of phase 3; the last output width is not a multiple of 8
+PREPROCESS_SIZES = ((FRAME_HW, OUT_HW), (ODD_HW, OUT_HW), ((360, 640), (180, 321)))
 CTX_HW = (10, 20)
 SEED = 0
 WARM, TIMED = 10, 50
@@ -71,19 +79,32 @@ CL = torch.channels_last
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 INT8_OPS_PER_S = 1979e12    # H100 SXM int8 tensor cores, dense, published
 L2_BYTES = 50e6
-# (window, cin, cout, h, w, route) checked bit for bit in every variant:
-# main-path shapes, then one more shape for each route
+# (window, cin, cout, h, w, batch, route) checked bit for bit in every
+# variant: main-path shapes (every 1x1 one), then more shapes for each route
 INT8_SHAPES = (
-    (3, 1456, 768, 20, 40, "splitk"),   # EgopathNeck.decode_layer_0, K = 13104
-    (3, 1280, 768, 20, 40, "splitk"),   # SceneNeck.decode_layer_0
-    (3, 512, 512, 80, 160, "wgmma"),    # decode_layer_4
-    (3, 256, 256, 160, 320, "wgmma"),   # SceneSegHead.decode_layer_6, M = 51200
-    (1, 1152, 320, 10, 20, "mma"),      # stage-7 MBConv project
-    (1, 672, 28, 1, 1, "mma"),          # SE fc1, M = 1, N = 28
-    (3, 480, 200, 60, 90, "wgmma"),     # channel tail, ragged N and pixel rectangles
-    (3, 672, 100, 9, 13, "splitk"),     # one tile, 11 splits, channel tail, ragged N
-    (1, 480, 20, 1, 1, "mma"),          # SE fc1 of stage 4, M = 1, N = 20
+    (3, 1456, 768, 20, 40, 1, "splitk"),   # EgopathNeck.decode_layer_0, K = 13104
+    (3, 1280, 768, 20, 40, 1, "splitk"),   # SceneNeck.decode_layer_0
+    (3, 512, 512, 80, 160, 1, "wgmma"),    # decode_layer_4
+    (3, 256, 256, 160, 320, 1, "wgmma"),   # SceneSegHead.decode_layer_6, M = 51200
+    (1, 320, 1280, 10, 20, 1, "pointwise"),   # stage-8 head conv, 140 tiles, no split
+    (1, 1152, 320, 10, 20, 1, "pointwise"),   # stage-7 MBConv project
+    (1, 672, 112, 20, 40, 1, "pointwise"),    # stage-5 MBConv project
+    (1, 1152, 192, 10, 20, 1, "pointwise"),   # stage-6 MBConv project, 32-row tiles
+    (1, 480, 112, 20, 40, 1, "pointwise"),    # stage-4 -> 5 project
+    (1, 480, 80, 20, 40, 1, "pointwise"),     # stage-4 project
+    (1, 672, 192, 10, 20, 1, "pointwise"),    # stage-5 -> 6 project
+    (1, 1152, 48, 1, 1, 1, "dot"),         # SE fc1 of stages 6-7, M = 1
+    (1, 672, 28, 1, 1, 1, "dot"),          # SE fc1 of stage 5, N = 28
+    (1, 480, 20, 1, 1, 1, "dot"),          # SE fc1 of stage 4, N = 20
+    (3, 480, 200, 60, 90, 1, "wgmma"),     # channel tail, ragged N and pixel rectangles
+    (3, 672, 100, 9, 13, 1, "splitk"),     # one tile, 11 splits, channel tail, ragged N
+    (3, 64, 96, 20, 40, 1, "mma"),         # a 3x3 window with C < 128
+    (1, 672, 100, 9, 13, 1, "pointwise"),  # ragged M and N
+    (1, 480, 112, 20, 40, 2, "pointwise"),  # a batch of two
+    (1, 1152, 48, 1, 1, 2, "dot"),         # a batch of two SE squeezes
 )
+CONV_KERNEL = {"wgmma": "int8_conv_wgmma", "splitk": "int8_conv_wgmma", "mma": "int8_conv_mma",
+               "pointwise": "int8_conv_pointwise", "dot": "int8_conv_dot"}
 # (window, cin, cout, h, w, convs per frame): the 24 distinct int8 convs of
 # the main path at 320x640 (72 convs, 669.7 GOP)
 MAIN_INT8 = (
@@ -98,7 +119,9 @@ MAIN_INT8 = (
 )
 # the shape at which the JSON line reports each kernel
 RECORD_SHAPES = {"int8_quantize": (3, 256, 256, 160, 320), "int8_conv_wgmma": (3, 256, 256, 160, 320),
-                 "int8_conv_mma": (1, 1152, 320, 10, 20)}
+                 "int8_conv_mma": (1, 1152, 320, 10, 20),
+                 "int8_conv_pointwise": (1, 1152, 320, 10, 20),
+                 "int8_conv_dot": (1, 1152, 48, 1, 1)}
 INT8_REF_FRAMES = 4
 PROFILE_FRAMES = 20
 HOST_FRAMES = 20  # per round; rounds bf16, int8, int8, bf16
@@ -194,32 +217,28 @@ def phase_kernel():
     from autoware_vision_pilot_tpu_torch.ops.preprocess import preprocess_imagenet
 
     record = None
-    for hw in (FRAME_HW, ODD_HW):
+    for hw, out_hw in PREPROCESS_SIZES:
         pool = frames(32, hw, SEED + 1).cuda()  # 88 MB at 720p, above the L2
         for dtype in (torch.float32, torch.bfloat16):
             before = fused_preprocess.launches
-            out = fused_preprocess(pool[0], OUT_HW, dtype)
+            out = fused_preprocess(pool[0], out_hw, dtype)
             torch.cuda.synchronize()
             if fused_preprocess.launches != before + 1:
                 raise AssertionError("fused_preprocess did not count its launch")
-            ref = preprocess_imagenet(pool[0][None], OUT_HW, dtype).permute(0, 3, 1, 2)
-            if out.shape != (1, 3, *OUT_HW) or out.dtype != dtype or \
+            ref = preprocess_imagenet(pool[0][None], out_hw, dtype).permute(0, 3, 1, 2)
+            if out.shape != (1, 3, *out_hw) or out.dtype != dtype or \
                     not out.is_contiguous(memory_format=torch.channels_last):
                 raise AssertionError(f"kernel output {out.shape} {out.dtype}")
             err = (out.float() - ref.float()).abs().max().item()
-            ulps = bf16_ulps(out, ref) if dtype == torch.bfloat16 else None
-            ok = err <= 1e-5 if dtype == torch.float32 else ulps <= 1.0
-            kernel = lambda x: fused_preprocess(x, OUT_HW, dtype)  # noqa: E731
-            plain = lambda x: preprocess_imagenet(x[None], OUT_HW, dtype)  # noqa: E731
+            kernel = lambda x: fused_preprocess(x, out_hw, dtype)  # noqa: E731
+            plain = lambda x: preprocess_imagenet(x[None], out_hw, dtype)  # noqa: E731
             ms, plain_ms = cuda_ms(kernel, pool), cuda_ms(plain, pool)
             us, plain_us = device_us(kernel, pool), device_us(plain, pool)
-            print(f"kernel fused_preprocess {hw[0]}x{hw[1]}->{OUT_HW[0]}x"
-                  f"{OUT_HW[1]} {str(dtype)[6:]}: max_abs_err {err!r}"
-                  + (f" ({ulps!r} bf16 ulp, tol 1 ulp)" if ulps is not None
-                     else " (tol 1e-5)")
-                  + f", kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA events); "
+            print(f"kernel fused_preprocess {hw[0]}x{hw[1]}->{out_hw[0]}x"
+                  f"{out_hw[1]} {str(dtype)[6:]}: max_abs_err {err!r} (tol 0: "
+                  f"bit-equal), kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA events); "
                   f"kernel {us!r} us, plain {plain_us!r} us (profiler device time)")
-            if not ok:
+            if not torch.equal(out, ref):
                 raise AssertionError("fused_preprocess disagrees with its plain version")
             if hw == FRAME_HW and dtype == torch.bfloat16:
                 nbytes = preprocess_bytes(FRAME_HW, OUT_HW)
@@ -245,20 +264,23 @@ def int8_inputs(g, shape, dtype):
 
 
 def check_int8_kernels(g):
-    """Every route bit-equal to the plain versions at INT8_SHAPES. -> worst
-    error by kernel."""
+    """Every route bit-equal to the plain versions at INT8_SHAPES, through
+    int8_conv (int8 input) and int8_conv2d (float input; the pointwise and
+    dot routes quantize it as they load it, with no quantize launch). ->
+    worst error by kernel."""
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
-        int8_conv, int8_conv_plain, int8_conv_plan, int8_quantize, int8_quantize_plain)
+        FUSED_ROUTES, int8_conv, int8_conv2d, int8_conv_plain, int8_conv_plan, int8_quantize,
+        int8_quantize_plain)
 
-    worst = dict.fromkeys(("int8_quantize", "int8_conv_wgmma", "int8_conv_mma"), 0.0)
+    worst = dict.fromkeys(("int8_quantize", *CONV_KERNEL.values()), 0.0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for shape in INT8_SHAPES:
-        k, cin, cout, h, w, route = shape
+        k, cin, cout, h, w, batch, route = shape
         pad = k // 2
-        plan = int8_conv_plan(1, h, w, cin, cout, k, k, pad, sms)
+        plan = int8_conv_plan(batch, h, w, cin, cout, k, k, pad, sms)
         if plan.route != route:
             raise AssertionError(f"{shape}: plan {plan}, expected route {route}")
-        x = torch.randn(1, cin, h, w, generator=g)
+        x = torch.randn(batch, cin, h, w, generator=g)
         x = x * torch.linspace(0.5, 2.0, cin).reshape(1, -1, 1, 1)
         weight = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
                                dtype=torch.int8).contiguous(memory_format=CL).cuda()
@@ -266,31 +288,37 @@ def check_int8_kernels(g):
         scales = {  # amax / 127 in float64, then f32, as calibration does
             "scalar": torch.tensor(float(x.abs().max()) * 0.9 / 127.0),  # some clip
             "vector": (x.double().abs().amax(dim=(0, 2, 3)) / 127.0).float()}
-        conv_name = "int8_conv_mma" if route == "mma" else "int8_conv_wgmma"
+        conv_name = CONV_KERNEL[route]
+        fused = route in FUSED_ROUTES
         for dtype in (torch.bfloat16, torch.float32):
             xd = x.to(dtype).cuda().contiguous(memory_format=CL)
             bias = (torch.randn(cout, generator=g) * 0.1).to(dtype).cuda()
             for kind, sx in scales.items():
                 sx = sx.cuda()
-                before = dict(int8_conv.route_launches)
+                before = dict(int8_conv.route_launches), int8_quantize.launches
                 xq, xq_ref = int8_quantize(xd, sx), int8_quantize_plain(xd, sx)
                 acc = int8_conv(xq, weight, w_scale, sx, bias, pad, torch.int32)
                 acc_ref = int8_conv_plain(xq_ref, weight, w_scale, sx, bias, pad,
                                           torch.int32)
                 y = int8_conv(xq, weight, w_scale, sx, bias, pad, dtype)
+                y2d = int8_conv2d(xd, weight, w_scale, sx, bias, pad)
                 y_ref = int8_conv_plain(xq_ref, weight, w_scale, sx, bias, pad, dtype)
                 torch.cuda.synchronize()
-                if int8_conv.route_launches[route] != before[route] + 2:
+                if int8_conv.route_launches[route] != before[0][route] + 3:
                     raise AssertionError(f"{shape}: the convs did not take route {route}")
+                if int8_quantize.launches != before[1] + (1 if fused else 2):
+                    raise AssertionError(f"{shape}: {int8_quantize.launches - before[1]} "
+                                         "quantize launches")
                 q_err = (xq.int() - xq_ref.int()).abs().max().item()
                 acc_err = (acc.long() - acc_ref.long()).abs().max().item()
-                y_err = (y.float() - y_ref.float()).abs().max().item()
+                y_err = max((t.float() - y_ref.float()).abs().max().item() for t in (y, y2d))
                 ok = (q_err == 0 and acc_err == 0 and y.shape == y_ref.shape
-                      and torch.equal(y, y_ref))
-                print(f"int8 {k}x{k} {cin}->{cout} at {h}x{w}, route {route} "
+                      and torch.equal(y, y_ref) and torch.equal(y2d, y_ref))
+                print(f"int8 {k}x{k} {cin}->{cout} at {batch}x{h}x{w}, route {route} "
                       f"grid {plan.grid}, {str(dtype)[6:]}, {kind} scale: quantize "
                       f"max_abs_err {q_err}, int32 acc max_abs_err {acc_err}, output "
-                      f"max_abs_err {y_err!r} (tol 0: bit-equal)")
+                      f"max_abs_err {y_err!r} (int8 input and float input"
+                      + (", quantized on load" if fused else "") + "; tol 0: bit-equal)")
                 if not ok:
                     raise AssertionError("int8 kernels disagree with their plain versions")
                 worst["int8_quantize"] = max(worst["int8_quantize"], float(q_err))
@@ -303,16 +331,21 @@ def check_int8_kernels(g):
 def time_int8_shapes(g, card):
     """The 24 main-path int8 conv shapes, bf16 with a scalar scale, each
     timed over rotating inputs (and weights) that together exceed the L2
-    where the shape allows. -> (per-frame device us of conv and quantize,
-    the JSON records' timings)."""
+    where the shape allows. At a 1x1 shape also int8_conv2d (one launch
+    that quantizes on load: what the main path runs) and PR 2's mma.sync
+    kernel on the same int8 inputs. -> the JSON records' timings."""
     import torch.nn.functional as F
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
-        _launch, int8_conv, int8_conv_plain, int8_conv_plan, int8_quantize,
-        int8_quantize_plain)
+        _launch, _mma_plan, _reciprocal, int8_conv, int8_conv2d, int8_conv_plain,
+        int8_conv_plan, int8_quantize, int8_quantize_plain)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    frame = {"conv": 0.0, "quantize": 0.0}
-    missing = {"conv": [], "quantize": []}  # shapes the profiler recorded nothing of
+    # the frame's int8 device time from the shapes alone: the 3x3 convs and
+    # their quantize, the 1x1 convs as they run now, and as they ran on the
+    # mma.sync kernel after a separate quantize
+    frame = dict.fromkeys(("3x3 conv", "3x3 quantize", "1x1 conv (quantize on load)",
+                           "1x1 on mma.sync + quantize (before)"), 0.0)
+    missing = {k: [] for k in frame}  # shapes the profiler recorded nothing of
     records = {}
     for k, cin, cout, h, w, per_frame in MAIN_INT8:
         pad = k // 2
@@ -325,11 +358,20 @@ def time_int8_shapes(g, card):
             x, weight, w_scale, bias, sx = sets[s]
             sets[s] = (x, weight, w_scale, bias, sx, int8_quantize(x, sx),
                        weight.to(torch.bfloat16))
+            _reciprocal(sx)  # kept on the scale, as a static scale's is on the main path
         idx = list(range(n)) * max(1, math.ceil(20 / n))
 
         def conv(i):
             x, wt, ws, b, sx, xq, _ = sets[i]
             return int8_conv(xq, wt, ws, sx, b, pad, torch.bfloat16)
+
+        def conv2d(i):
+            x, wt, ws, b, sx, _, _ = sets[i]
+            return int8_conv2d(x, wt, ws, sx, b, pad)
+
+        def old_mma(i):
+            x, wt, ws, b, sx, xq, _ = sets[i]
+            return _launch(_mma_plan(M, cout, K, sms), xq, wt, ws, sx, b, pad, torch.bfloat16)
 
         def conv_one_block_a_unit(i):
             x, wt, ws, b, sx, xq, _ = sets[i]
@@ -345,10 +387,13 @@ def time_int8_shapes(g, card):
 
         t = {"conv": device_us(conv, idx), "quantize": device_us(quant, idx),
              "cudnn": device_us(cudnn, idx)}
+        if k == 1:
+            t["conv2d"], t["old_mma"] = device_us(conv2d, idx), device_us(old_mma, idx)
         conv_ms = cuda_ms(conv, idx)
         # the persistent schedule against one block per unit of work
         one_each = (device_us(conv_one_block_a_unit, idx)
-                    if plan.route != "mma" and plan.blocks < math.prod(plan.grid) else None)
+                    if plan.route in ("wgmma", "splitk") and plan.blocks < math.prod(plan.grid)
+                    else None)
         # torch._int_mm on a pre-built im2col matrix (leaves out the im2col)
         intmm = None
         if M > 16 and K % 8 == 0 and cout % 8 == 0:
@@ -366,21 +411,35 @@ def time_int8_shapes(g, card):
         ops = 2.0 * M * cout * K
         nbytes = h * w * cin + cout * K + M * cout * 2 + cout * 6
         bms, by = bound(ops, nbytes)
+        # int8_conv2d reads the bf16 activation in place of the int8 one
+        fused_bms, fused_by = bound(ops, nbytes + h * w * cin)
         q_bms, _ = bound(0, h * w * cin * 3)
         share = bms * 1e3 / t["conv"] if t["conv"] > 0 else float("nan")
         rate = ops / (t["conv"] * 1e-6) / 1e12 if t["conv"] > 0 else float("nan")
-        for kind in frame:
-            if math.isnan(t[kind]):
+        parts = ({"1x1 conv (quantize on load)": t["conv2d"],
+                  "1x1 on mma.sync + quantize (before)": t["old_mma"] + t["quantize"]}
+                 if k == 1 else {"3x3 conv": t["conv"], "3x3 quantize": t["quantize"]})
+        for kind, us in parts.items():
+            if math.isnan(us):
                 missing[kind].append(f"{k}x{k} {cin}->{cout} at {h}x{w}")
             else:
-                frame[kind] += per_frame * t[kind]
+                frame[kind] += per_frame * us
+        fused_note = ""
+        if k == 1:
+            fused_share = (fused_bms * 1e3 / t["conv2d"] if t["conv2d"] > 0
+                           else float("nan"))
+            fused_note = (f"; int8_conv2d on the bf16 input (conv and the quantize it "
+                          f"absorbs, one launch) {t['conv2d']!r} us, bound "
+                          f"{fused_bms * 1e3!r} us by {fused_by}, share {fused_share!r}; "
+                          f"PR 2's mma.sync kernel on the same int8 inputs "
+                          f"{t['old_mma']!r} us (+ quantize {t['quantize']!r} us)")
         print(f"int8 shape {k}x{k} {cin}->{cout} at {h}x{w} (M {M}, N {cout}, K {K}), "
               f"{per_frame} per frame, route {plan.route} grid {plan.grid}, "
               f"{plan.blocks} blocks, {card}: "
               f"conv {t['conv']!r} us ({rate!r} TOP/s; CUDA events {conv_ms * 1e3!r} us"
               + (f"; one block per unit of work {one_each!r} us" if one_each else "")
-              + f"), bound {bms * 1e3!r} us by {by}, share {share!r}; bf16 cuDNN conv "
-              f"{t['cudnn']!r} us; torch._int_mm on im2col (no im2col) "
+              + f"), bound {bms * 1e3!r} us by {by}, share {share!r}{fused_note}; bf16 "
+              f"cuDNN conv {t['cudnn']!r} us; torch._int_mm on im2col (no im2col) "
               + (f"{intmm!r} us" if intmm is not None else "not taken (M <= 16 or N % 8)")
               + f"; quantize {t['quantize']!r} us (bound {q_bms * 1e3!r} us, share "
               f"{q_bms * 1e3 / t['quantize'] if t['quantize'] > 0 else float('nan')!r}); "
@@ -392,17 +451,23 @@ def time_int8_shapes(g, card):
                 continue
             x, wt, ws, b, sx, xq, _ = sets[0]
             one = [0] * 5
+            lib = intmm / 1e3 if intmm is not None else None  # the same accumulators
             if name == "int8_quantize":
                 records[name] = dict(
                     ms=t["quantize"] / 1e3, bound_ms=q_bms, bound_by="bytes", library_ms=None,
                     plain_ms=device_us(lambda i: int8_quantize_plain(sets[i][0], sets[i][4]),
                                        idx[:5]) / 1e3)
-            else:
-                lib = None
-                if name == "int8_conv_mma" and intmm is not None:
-                    lib = intmm / 1e3  # a 1x1 conv's accumulators are this GEMM's
+            elif name in ("int8_conv_pointwise", "int8_conv_dot"):
+                # the kernel as the main path runs it: the bf16 input, quantized on load
                 records[name] = dict(
-                    ms=t["conv"] / 1e3, bound_ms=bms, bound_by=by, library_ms=lib,
+                    ms=t["conv2d"] / 1e3, bound_ms=fused_bms, bound_by=fused_by,
+                    library_ms=lib, plain_ms=device_us(lambda i: int8_conv2d(
+                        x, wt, ws, sx, b, pad, plain=True), one) / 1e3)
+            else:
+                records[name] = dict(
+                    ms=(t["old_mma"] if name == "int8_conv_mma" else t["conv"]) / 1e3,
+                    bound_ms=bms, bound_by=by,
+                    library_ms=lib if name == "int8_conv_mma" else None,
                     plain_ms=device_us(lambda i: int8_conv_plain(
                         xq, wt, ws, sx, b, pad, torch.bfloat16), one) / 1e3)
         del sets
@@ -472,7 +537,8 @@ def read_counts():
     return {"fused_preprocess": fused_preprocess.launches,
             "int8_quantize": int8_quantize.launches, "int8_conv": int8_conv.launches,
             "int8_conv_wgmma": r["wgmma"] + r["splitk"], "int8_conv_splitk": r["splitk"],
-            "int8_conv_mma": r["mma"]}
+            "int8_conv_mma": r["mma"], "int8_conv_pointwise": r["pointwise"],
+            "int8_conv_dot": r["dot"]}
 
 
 def drive(pipe, pool, name, card):
@@ -574,6 +640,8 @@ def check_convs_on_path(pipe, frame):
 
 
 KINDS = (("int8 conv, wgmma and split-K", "int8_conv_wgmma_kernel"),
+         ("int8 conv, pointwise (quantize on load)", "int8_pointwise_kernel"),
+         ("int8 conv, dot (quantize on load)", "int8_dot_kernel"),
          ("int8 conv, mma.sync", "int8_conv_kernel"),
          ("int8 quantize", "quantize_kernel"),
          # the 12 split-K arrival counters, and the memsets of the rest of the frame
@@ -640,7 +708,7 @@ def profile_frames(pipe, pool, card):
 def conv_class(k, hw):
     """The route a main-path int8 conv takes, from its window and map."""
     if k == 1:
-        return "1x1 (mma.sync)"
+        return "1x1 SE (dot)" if hw[0] * hw[1] == 1 else "1x1 (pointwise)"
     return "3x3 from 40x80 up (wgmma)" if hw[0] * hw[1] >= 40 * 80 else "3x3 thin (split-K)"
 
 
@@ -732,9 +800,10 @@ def phase_int8(card, bf16_pipe):
     n = WARM + TIMED
     pool = frames(n, FRAME_HW, SEED + 5).cuda()
     launches = drive(pipe, pool, "int8", card)
-    expect_launches(launches, {"fused_preprocess": n, "int8_quantize": 72 * n,
+    expect_launches(launches, {"fused_preprocess": n, "int8_quantize": 30 * n,
                                "int8_conv": 72 * n, "int8_conv_wgmma": 30 * n,
-                               "int8_conv_splitk": 12 * n, "int8_conv_mma": 42 * n})
+                               "int8_conv_splitk": 12 * n, "int8_conv_pointwise": 22 * n,
+                               "int8_conv_dot": 20 * n, "int8_conv_mma": 0})
     check_convs_on_path(pipe, pool[0])
     profile_frames(pipe, pool, card)
     host_costs(bf16_pipe, pipe, pool, card)
@@ -804,9 +873,15 @@ def main():
         "int8_conv_wgmma": (pkg + "int8_conv_sm90.cu",
                             "autoware_vision_pilot_tpu/nn/layers.py:110"),
         "int8_conv_mma": (pkg + "int8_conv.cu", "autoware_vision_pilot_tpu/nn/layers.py:110"),
+        "int8_conv_pointwise": (pkg + "int8_pointwise.cu",
+                                "autoware_vision_pilot_tpu/nn/layers.py:81"),
+        "int8_conv_dot": (pkg + "int8_pointwise.cu", "autoware_vision_pilot_tpu/nn/layers.py:81"),
     }
+    # PR 2's mma.sync kernel keeps the windows > 1 with C < 128, which the
+    # main path has none of: it is checked and timed above, and launched 0
+    # times there
     for name in sources:
-        if launches[name] <= 0:
+        if launches[name] <= 0 and name != "int8_conv_mma":
             raise AssertionError(f"the main path never launched {name}")
     print(card)
     print(json.dumps({"kernels": [

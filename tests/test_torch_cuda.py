@@ -15,7 +15,8 @@ import torch
 
 from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
 from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
-    _launch, int8_conv, int8_conv_plain, int8_conv_plan, int8_quantize, int8_quantize_plain)
+    _launch, _mma_plan, int8_conv, int8_conv2d, int8_conv_plain, int8_conv_plan, int8_quantize,
+    int8_quantize_plain)
 from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
 from autoware_vision_pilot_tpu_torch.ops.preprocess import preprocess_imagenet
 from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused
@@ -59,6 +60,21 @@ def test_kernel_matches_plain_version(cuda, src, batch):
         else:
             assert bf16_ulps(out, ref) <= 1.0
     assert fused_preprocess.launches == before + 2
+
+
+@pytest.mark.parametrize("src,out_hw,batch", [((360, 640), (180, 321), 2),
+                                               ((375, 1242), (37, 75), 1)])
+def test_kernel_ragged_width_matches_plain_version(cuda, src, out_hw, batch):
+    """Output rows whose width is not a multiple of 8 pixels (a short last
+    group) and which start off 16 bytes, in a batch; bit-equal in f32, as
+    the plain version."""
+    f = frames(src, batch, seed=src[1]).to(cuda)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out = fused_preprocess(f, out_hw, out_dtype)
+        torch.cuda.synchronize()
+        ref = preprocess_imagenet(f, out_hw, out_dtype).permute(0, 3, 1, 2)
+        assert out.shape == ref.shape and out.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(out, ref) if out_dtype == torch.float32 else bf16_ulps(out, ref) <= 1.0
 
 
 def test_kernel_rejects_bad_frames_on_the_card(cuda):
@@ -141,13 +157,14 @@ def one_split(plan):
     ("splitk", 3, 1456, 768, (5, 9), 1),    # K = 13104 in 108 steps
     ("splitk", 3, 672, 100, (9, 13), 1),    # one output tile, channel tail, ragged N
     ("mma", 3, 64, 96, (20, 40), 1),        # a 3x3 window with C < 128
-    ("mma", 1, 1152, 48, (1, 1), 1),        # an SE squeeze: M = 1
+    ("mma", 1, 1152, 48, (1, 1), 1),        # an SE squeeze (M = 1) on PR 2's kernel
 ])
 def test_int8_conv_routes_match_plain_version(cuda, route, k, cin, cout, hw, batch):
     """Each route of int8_conv_plan against the plain version: int32
     accumulators and f32/bf16 outputs bit-equal, scalar and
     per-input-channel scales. A shape whose own plan splits K also runs
-    on the wgmma route through a one-split plan."""
+    on the wgmma route through a one-split plan, and a 1x1 conv on the
+    mma.sync route through its mma plan."""
     g = torch.Generator().manual_seed(cin + cout + k)
     x = torch.randn(batch, cin, *hw, generator=g)
     w = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
@@ -158,6 +175,8 @@ def test_int8_conv_routes_match_plain_version(cuda, route, k, cin, cout, hw, bat
     plan = int8_conv_plan(batch, *hw, cin, cout, k, k, k // 2, sm_count())
     if route == "wgmma" and plan.route == "splitk":
         plan = one_split(plan)
+    if route == "mma" and k == 1:
+        plan = _mma_plan(batch * hw[0] * hw[1], cout, cin, sm_count())
     assert plan.route == route
 
     def conv(xq, sx, bias, dtype):
@@ -178,6 +197,52 @@ def test_int8_conv_routes_match_plain_version(cuda, route, k, cin, cout, hw, bat
             assert y.dtype == dtype and y.is_contiguous(memory_format=CL)
             assert torch.equal(y, int8_conv_plain(xq, w, w_scale, sx, bias, k // 2, dtype))
     assert int8_conv.route_launches[route] == before + 8
+
+
+# (cin, cout, h, w, batch): the main path's ten 1x1 int8 convs, then a
+# ragged N and a batch of two on each route
+ONE_BY_ONE = ((320, 1280, 10, 20, 1), (1152, 320, 10, 20, 1), (672, 112, 20, 40, 1),
+              (1152, 192, 10, 20, 1), (480, 112, 20, 40, 1), (480, 80, 20, 40, 1),
+              (672, 192, 10, 20, 1), (1152, 48, 1, 1, 1), (672, 28, 1, 1, 1),
+              (480, 20, 1, 1, 1), (672, 100, 9, 13, 1), (480, 112, 20, 40, 2),
+              (1152, 48, 1, 1, 2), (480, 21, 1, 1, 3))
+
+
+@pytest.mark.parametrize("cin,cout,h,w,batch", ONE_BY_ONE,
+                         ids=[f"{c}-{n}-{h}x{w}-b{b}" for c, n, h, w, b in ONE_BY_ONE])
+def test_int8_1x1_routes_match_plain_versions(cuda, cin, cout, h, w, batch):
+    """The pointwise and dot routes against int8_quantize_plain +
+    int8_conv_plain: the float input through int8_conv2d (one launch, the
+    quantize fused into the load, no quantize launch) and the int8 input
+    through int8_conv; int32 accumulators and bf16/f32 outputs bit-equal,
+    scalar and per-input-channel scales."""
+    plan = int8_conv_plan(batch, h, w, cin, cout, 1, 1, 0, sm_count())
+    route = "dot" if batch * h * w <= 8 else "pointwise"
+    assert plan.route == route
+    g = torch.Generator().manual_seed(cin + cout + batch)
+    x = torch.randn(batch, cin, h, w, generator=g) * torch.linspace(0.5, 2.0, cin).reshape(1, -1, 1, 1)
+    wq = torch.randint(-127, 128, (cout, cin, 1, 1), generator=g,
+                       dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+    w_scale = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).to(cuda)
+    scales = [torch.tensor(float(x.abs().max()) * 0.9 / 127.0),  # some values clip
+              (x.double().abs().amax(dim=(0, 2, 3)) / 127.0).float()]
+    before = int8_quantize.launches, int8_conv.route_launches[route]
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype).contiguous(memory_format=CL).to(cuda)
+        bias = (torch.randn(cout, generator=g) * 0.1).to(dtype).to(cuda)
+        for sx in scales:
+            sx = sx.to(cuda)
+            xq = int8_quantize_plain(xd, sx)
+            want = int8_conv_plain(xq, wq, w_scale, sx, bias, 0, dtype)
+            y = int8_conv2d(xd, wq, w_scale, sx, bias, 0)
+            acc = int8_conv(xq, wq, w_scale, sx, None, 0, torch.int32)
+            y_q = int8_conv(xq, wq, w_scale, sx, bias, 0, dtype)
+            torch.cuda.synchronize()
+            assert y.dtype == dtype and y.is_contiguous(memory_format=CL)
+            assert torch.equal(acc, int8_conv_plain(xq, wq, w_scale, sx, None, 0, torch.int32))
+            assert torch.equal(y, want) and torch.equal(y_q, want)
+    assert int8_quantize.launches == before[0]
+    assert int8_conv.route_launches[route] == before[1] + 12
 
 
 @pytest.mark.parametrize("route,blocks", [("wgmma", 5), ("splitk", 7)])
@@ -241,6 +306,15 @@ def test_int8_wrappers_raise_on_the_card(cuda):
         int8_quantize(x.contiguous(), s)
     with pytest.raises(TypeError, match="x_scale"):
         int8_quantize(x, s.cpu())
+    # no route takes K = 133,152 channels (int32 could overflow), in either entry point
+    big = torch.zeros(1, 133_152, 1, 1, device=cuda).contiguous(memory_format=CL)
+    w_big = torch.zeros(8, 133_152, 1, 1, dtype=torch.int8, device=cuda).contiguous(memory_format=CL)
+    with pytest.raises(ValueError, match="overflow"):
+        int8_conv2d(big, w_big, w_scale, s)
+    with pytest.raises(ValueError, match="overflow"):
+        int8_conv(big.to(torch.int8), w_big, w_scale, s)
+    with pytest.raises(TypeError, match="int8 input"):  # a float input on an int8-only route
+        _launch(int8_conv_plan(1, 4, 5, 32, 8, 3, 3, 1), x, w, w_scale, s, None, 1, torch.float32)
 
 
 def int8_calls(pipe, forced=None):

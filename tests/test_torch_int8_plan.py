@@ -3,7 +3,8 @@ and the K decomposition its wgmma routes run, on the CPU.
 
 The kernels run only on the card; what surrounds them is plain Python and is
 held here: every main-path conv gets a route whose tiles cover M and N,
-the K steps (tap r, tap s, 128-channel chunk) cover every (r, s, c) once,
+the K steps (tap r, tap s, 128-channel chunk) cover every (r, s, c) once
+(the 1x1 routes' K ranges: tests/test_torch_int8_pointwise.py),
 a torch replay of split-K over those steps sums to the plain version's
 int32 accumulators exactly in any order of arrival, shapes that no
 route takes raise, and the weights' TMA map is kept on the weight. Integer
@@ -20,7 +21,8 @@ import torch.nn.functional as F
 
 from autoware_vision_pilot_tpu_torch.ops.kernels import int8_conv as int8_mod
 from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
-    MAX_K, ROUTES, SMS, TILE, int8_conv_plain, int8_conv_plan)
+    DOT_MAX_M, DOT_WARPS, MAX_CLUSTER, MAX_K, PW_BN, ROUTES, SMS, TILE, int8_conv_plain,
+    int8_conv_plan)
 
 CL = torch.channels_last
 # (window, cin, cout, h, w, convs per frame): the 24 distinct int8 convs of
@@ -57,13 +59,23 @@ def test_main_path_table():
 def test_plan_covers_main_path_shape(k, cin, cout, h, w, per_frame):
     plan = int8_conv_plan(1, h, w, cin, cout, k, k, k // 2)
     M, K = h * w, k * k * cin
-    expected = ("mma" if k == 1 else "wgmma" if h * w >= 40 * 80 else "splitk")
+    expected = ("dot" if k == 1 and M <= DOT_MAX_M else "pointwise" if k == 1
+                else "wgmma" if h * w >= 40 * 80 else "splitk")
     assert plan.route == expected
     m_tiles, n_tiles, splits = plan.grid
-    if plan.route == "mma":
-        assert plan.bm == plan.bn and m_tiles * plan.bm >= M > (m_tiles - 1) * plan.bm
+    if plan.route == "dot":  # one warp an output channel, each over all M rows
+        assert plan.bm == M == 1 and plan.bn == DOT_WARPS and m_tiles == splits == 1
+        assert n_tiles * DOT_WARPS >= cout > (n_tiles - 1) * DOT_WARPS
+        assert plan.blocks == n_tiles
+        return
+    if plan.route == "pointwise":  # flat rows, 64 channels, K over a cluster
+        assert plan.bm in (64, 32) and plan.bn == PW_BN
+        assert m_tiles * plan.bm >= M > (m_tiles - 1) * plan.bm
         assert n_tiles * plan.bn >= cout > (n_tiles - 1) * plan.bn
-        assert splits == 1 and plan.iters == math.ceil(K / plan.bk)
+        assert 1 <= splits <= MAX_CLUSTER and plan.iters * plan.bk >= K
+        assert splits * plan.per_split >= plan.iters > (splits - 1) * plan.per_split
+        # the clusters fill at least 90 % of the SMs, at most one wave over
+        assert 0.9 * SMS <= plan.blocks == m_tiles * n_tiles * splits <= SMS + 8
         return
     # M: rectangles of th x tw output pixels that tile the h x w map
     assert plan.th * plan.tw <= plan.bm == TILE
@@ -159,6 +171,7 @@ def test_splitk_replay_matches_plain_accumulators(per_split):
     ((1, 8, 8, 64, 32, 3, 3, -1), "no int8 conv"),
     ((1, 8, 8, 128, 65536 * TILE, 3, 3, 1), "grid holds"),
     ((2 ** 16, 256, 256, 16, 32, 1, 1, 0), "int32 indexes"),
+    ((1, 10, 20, 64, 65536 * PW_BN, 1, 1, 0), "grid holds"),
 ])
 def test_plan_rejects_shapes_no_route_takes(shape, match):
     with pytest.raises(ValueError, match=match):
@@ -170,11 +183,13 @@ def test_plan_rejects_shapes_no_route_takes(shape, match):
     ("wgmma", (1, 80, 160, 512, 512, 3, 3, 1)),   # decode_layer_4: 400 tiles
     ("splitk", (1, 20, 40, 1456, 768, 3, 3, 1)),  # decode_layer_0: 42 tiles
     ("mma", (1, 20, 40, 64, 96, 3, 3, 1)),        # a 3x3 window with C < 128
+    ("pointwise", (1, 20, 40, 672, 112, 1, 1, 0)),  # a stage-5 MBConv project
+    ("dot", (1, 1, 1, 1152, 48, 1, 1, 0)),         # an SE squeeze, M = 1
 ], ids=ROUTES)
 def test_every_route_is_taken_by_a_natural_shape(route, shape):
     plan = int8_conv_plan(*shape)
     assert plan.route == route
-    assert (plan.splits > 1) == (route == "splitk")
+    assert (plan.splits > 1) == (route in ("splitk", "pointwise"))
 
 
 class FakeLib:
