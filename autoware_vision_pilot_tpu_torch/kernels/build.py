@@ -49,6 +49,8 @@ SIGNATURES = {
     # x, in_kind, scale, rcp, per_channel, w, w_scale, bias, out, M, C, N,
     # out_kind, stream
     "avp_int8_conv_dot": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 4 + (_P,),
+    # masks, weights, starts, H, W, stream
+    "avp_lane_filter_walk": (_P, _P, _P, _I, _I, _P),
 }
 
 

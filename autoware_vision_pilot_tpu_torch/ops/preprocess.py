@@ -14,6 +14,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .device import constant_on
+
 IMAGENET_MEAN = torch.tensor([0.485, 0.456, 0.406], dtype=torch.float32)
 IMAGENET_STD = torch.tensor([0.229, 0.224, 0.225], dtype=torch.float32)
 
@@ -39,13 +41,13 @@ def bilinear_taps(n_in: int, n_out: int):
 def device_taps(n_in: int, n_out: int, device: torch.device):
     """``bilinear_taps`` as tensors on ``device``, built once per shape;
     the plain version and the kernel read the same tables."""
-    return tuple(torch.from_numpy(a).to(device)
+    return tuple(constant_on(torch.from_numpy(a), device)
                  for a in bilinear_taps(n_in, n_out))
 
 
 @functools.lru_cache(maxsize=4)
 def device_mean_std(device: torch.device):
-    return IMAGENET_MEAN.to(device), IMAGENET_STD.to(device)
+    return constant_on(IMAGENET_MEAN, device), constant_on(IMAGENET_STD, device)
 
 
 def _lerp(x, dim: int, n_out: int):

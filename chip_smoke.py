@@ -10,8 +10,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   2. build:  compiles each autoware_vision_pilot_tpu_torch/csrc/*.cu with its
              own nvcc for sm_90a, all at once, into build/torch_kernels/.
   3. kernel: the fused-preprocess kernel against its plain PyTorch version
-             on the card, 720x1280 and 375x1242 -> 320x640 and 360x640 ->
-             180x321 (a width that is not a multiple of 8), f32 and bf16,
+             on the card, 720x1280 and 375x1242 -> 320x640, 360x640 ->
+             180x321 (a width that is not a multiple of 8) and the lateral
+             step's crop 720x1280[420:] -> 320x640, f32 and bf16,
              bit-equal, with CUDA-event and torch.profiler device times.
   4. int8 kernels: the int8 quantize and conv kernels against their plain
              versions at shapes that between them take every route of
@@ -30,13 +31,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              and two yardsticks that the port never calls: the bf16 cuDNN
              conv of the same shape and torch._int_mm on a pre-built im2col
              matrix.
-  5. f32:    the main path (build_pipeline_fused, full width and depth) on
+  5. lane filter: the lane-filter walk kernel against its plain version
+             (torch.equal on the weight images and start points) on 30 mask
+             sets from the script's own rasteriser (10 kinds of scene x 2
+             seeds at 80x160, and at 24x48); its profiler time and bound,
+             the plain version's time and launches.
+  6. f32:    the main path (build_pipeline_fused, full width and depth) on
              one 720p frame, on the card with TF32 off against the CPU, same
              seeded weights: logits within 1e-3 * max|CPU|.
-  6. bf16:   the main path on 60 distinct seeded 720p frames held on the
+  7. bf16:   the main path on 60 distinct seeded 720p frames held on the
              card, 10 warm-up and 50 timed with CUDA events; checks shapes,
              dtypes, ranges and that every frame launched the kernel.
-  7. int8:   the same on the selective-int8 main path (int8=True, min_ch
+  8. int8:   the same on the selective-int8 main path (int8=True, min_ch
              256, bench.py's default): 72 int8 conv launches per frame by
              route (18 wgmma, 12 split-K, 22 pointwise, 20 dot, none on
              mma.sync) and 30 quantize launches (the 1x1 convs quantize as
@@ -51,8 +57,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              versions (masks >= 99.9 % equal, logits within 1e-2 * max|ref|),
              and the int8-vs-bf16 mask agreement for information (random
              weights: no bar).
-Then one JSON line {"kernels": [...]} and, last, the device line
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+  9. lateral f32: the lateral program (build_lateral_pipeline, full width)
+             in f32 on the card against the CPU over 3 frames: the networks'
+             logits within 1e-3 * max|CPU|; fed the CPU's logits, the
+             classical chain's masks and flags equal and its lane fits
+             within 5e-3 * max|CPU|.
+ 10. lateral: the lateral program in bf16 on 60 distinct 720p frames with
+             the state carried, each step under sync-debug "error" (no host
+             synchronisation), 10 warm-up and 50 timed with CUDA events:
+             one preprocess and one lane-filter launch a frame, finite
+             outputs of the right shapes, and device time by kind of kernel
+             over 20 frames (torch.profiler).
 """
 from __future__ import annotations
 
@@ -70,8 +85,11 @@ REPO = pathlib.Path(__file__).resolve().parent
 FRAME_HW = (720, 1280)
 ODD_HW = (375, 1242)  # a KITTI-sized frame: upscale rows, downscale columns
 OUT_HW = (320, 640)
-# (source, output) of phase 3; the last output width is not a multiple of 8
-PREPROCESS_SIZES = ((FRAME_HW, OUT_HW), (ODD_HW, OUT_HW), ((360, 640), (180, 321)))
+LATERAL_CROP = 420  # the lateral step's crop, frame[420:]: 300x1280
+# (source, output, first source row) of phase 3; the third output width is
+# not a multiple of 8; the last is the lateral step's crop
+PREPROCESS_SIZES = ((FRAME_HW, OUT_HW, 0), (ODD_HW, OUT_HW, 0), ((360, 640), (180, 321), 0),
+                    (FRAME_HW, OUT_HW, LATERAL_CROP))
 CTX_HW = (10, 20)
 SEED = 0
 WARM, TIMED = 10, 50
@@ -213,43 +231,52 @@ def preprocess_bytes(hw, out_hw):
 
 
 def phase_kernel():
+    """-> (the JSON record of the main path's shape, the lateral crop's
+    bf16 timings)."""
     from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
     from autoware_vision_pilot_tpu_torch.ops.preprocess import preprocess_imagenet
 
-    record = None
-    for hw, out_hw in PREPROCESS_SIZES:
+    record = crop_record = None
+    for hw, out_hw, y0 in PREPROCESS_SIZES:
         pool = frames(32, hw, SEED + 1).cuda()  # 88 MB at 720p, above the L2
+        src = [f[y0:] for f in pool]  # frame[420:] of a contiguous frame is contiguous
+        src_hw = (hw[0] - y0, hw[1])
+        name = f"{hw[0]}x{hw[1]}" + (f"[{y0}:]" if y0 else "")
         for dtype in (torch.float32, torch.bfloat16):
             before = fused_preprocess.launches
-            out = fused_preprocess(pool[0], out_hw, dtype)
+            out = fused_preprocess(src[0], out_hw, dtype)
             torch.cuda.synchronize()
             if fused_preprocess.launches != before + 1:
                 raise AssertionError("fused_preprocess did not count its launch")
-            ref = preprocess_imagenet(pool[0][None], out_hw, dtype).permute(0, 3, 1, 2)
+            ref = preprocess_imagenet(src[0][None], out_hw, dtype).permute(0, 3, 1, 2)
             if out.shape != (1, 3, *out_hw) or out.dtype != dtype or \
                     not out.is_contiguous(memory_format=torch.channels_last):
                 raise AssertionError(f"kernel output {out.shape} {out.dtype}")
             err = (out.float() - ref.float()).abs().max().item()
             kernel = lambda x: fused_preprocess(x, out_hw, dtype)  # noqa: E731
             plain = lambda x: preprocess_imagenet(x[None], out_hw, dtype)  # noqa: E731
-            ms, plain_ms = cuda_ms(kernel, pool), cuda_ms(plain, pool)
-            us, plain_us = device_us(kernel, pool), device_us(plain, pool)
-            print(f"kernel fused_preprocess {hw[0]}x{hw[1]}->{out_hw[0]}x"
+            ms, plain_ms = cuda_ms(kernel, src), cuda_ms(plain, src)
+            us, plain_us = device_us(kernel, src), device_us(plain, src)
+            print(f"kernel fused_preprocess {name}->{out_hw[0]}x"
                   f"{out_hw[1]} {str(dtype)[6:]}: max_abs_err {err!r} (tol 0: "
                   f"bit-equal), kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA events); "
                   f"kernel {us!r} us, plain {plain_us!r} us (profiler device time)")
             if not torch.equal(out, ref):
                 raise AssertionError("fused_preprocess disagrees with its plain version")
-            if hw == FRAME_HW and dtype == torch.bfloat16:
-                nbytes = preprocess_bytes(FRAME_HW, OUT_HW)
+            if dtype == torch.bfloat16 and (hw, y0) in ((FRAME_HW, 0), (FRAME_HW, LATERAL_CROP)):
+                nbytes = preprocess_bytes(src_hw, out_hw)
                 bound_ms, bound_by = bound(0, nbytes)
-                print(f"fused_preprocess bound: {nbytes} bytes read once and written "
+                print(f"fused_preprocess {name} bound: {nbytes} bytes read once and written "
                       f"once, {bound_ms * 1e3!r} us at 3.35 TB/s; share "
                       f"{bound_ms * 1e3 / us!r}")
-                record = dict(max_abs_err=err, ms=us / 1e3, plain_ms=plain_us / 1e3,
-                              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        del pool
-    return record
+                rec = dict(max_abs_err=err, ms=us / 1e3, plain_ms=plain_us / 1e3,
+                           bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                if y0:
+                    crop_record = rec
+                else:
+                    record = rec
+        del pool, src
+    return record, crop_record
 
 
 def int8_inputs(g, shape, dtype):
@@ -466,8 +493,7 @@ def time_int8_shapes(g, card):
             else:
                 records[name] = dict(
                     ms=(t["old_mma"] if name == "int8_conv_mma" else t["conv"]) / 1e3,
-                    bound_ms=bms, bound_by=by,
-                    library_ms=lib if name == "int8_conv_mma" else None,
+                    bound_ms=bms, bound_by=by, library_ms=lib,
                     plain_ms=device_us(lambda i: int8_conv_plain(
                         xq, wt, ws, sx, b, pad, torch.bfloat16), one) / 1e3)
         del sets
@@ -522,8 +548,9 @@ def phase_f32():
 def reset_counts():
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
         ROUTES, int8_conv, int8_quantize)
+    from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
     from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
-    for fn in (fused_preprocess, int8_quantize, int8_conv):
+    for fn in (fused_preprocess, int8_quantize, int8_conv, lane_filter_walk):
         fn.launches = 0
     int8_conv.route_launches = dict.fromkeys(ROUTES, 0)
 
@@ -532,9 +559,11 @@ def read_counts():
     """Launches by kernel since reset_counts(); int8_conv counts its two
     conv kernels together, by route."""
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv, int8_quantize
+    from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
     from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
     r = int8_conv.route_launches
     return {"fused_preprocess": fused_preprocess.launches,
+            "lane_filter_walk": lane_filter_walk.launches,
             "int8_quantize": int8_quantize.launches, "int8_conv": int8_conv.launches,
             "int8_conv_wgmma": r["wgmma"] + r["splitk"], "int8_conv_splitk": r["splitk"],
             "int8_conv_mma": r["mma"], "int8_conv_pointwise": r["pointwise"],
@@ -838,6 +867,275 @@ def phase_int8(card, bf16_pipe):
     return launches
 
 
+# ---------- the lateral program ----------
+
+LANE_HW = (OUT_HW[0] // 4, OUT_HW[1] // 4)  # EgoLanes' masks at 320x640: 80x160
+LANE_KINDS = ("straight", "curved", "dashed", "other-lane fallback", "one-sided",
+              "empty", "noise", "random 0.05", "random 0.3", "random 0.6")
+
+
+def lane_masks(hw, kind, seed):
+    """(H, W, 3) f32 masks [ego_left, ego_right, other] of a ``kind`` of
+    scene: 3-pixel-wide lanes x = f(y) below row H/8 (a slope and a bend
+    drawn from ``seed``), dashed, the left lane only in the other mask above
+    the bottom quarter, one side only, empty, speckle in the other mask, or
+    uniform random at a density."""
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    if kind.startswith("random"):
+        return (rng.random((h, w, 3)) < float(kind.split()[1])).astype(np.float32)
+    m = np.zeros((h, w, 3), np.float32)
+    if kind == "empty":
+        return m
+    slope, bend = rng.uniform(-0.25, 0.25, 2), rng.uniform(-2.0, 2.0, 2) / h
+    for y in range(h // 8, h):
+        for c, x0 in ((0, 0.32 * w), (1, 0.66 * w)):
+            if (kind == "one-sided" and c == 1) or (kind == "dashed" and (y // 4) % 2 == c):
+                continue
+            d = y - h
+            bent = bend[c] * d * d if kind == "curved" else 0.0
+            x = int(round(x0 + slope[c] * d + bent))
+            ch = 2 if kind == "other-lane fallback" and c == 0 and y < 3 * h // 4 else c
+            m[y, max(0, x - 1):max(0, x + 2), ch] = 1.0
+    if kind == "noise":
+        m[rng.integers(h // 2, h, h * w // 20), rng.integers(0, w, h * w // 20), 2] = 1.0
+    return m
+
+
+def profile_launches(fn, x):
+    """Device kernels (and memsets/copies) one call of fn(x) launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(x)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_lane_filter(card):
+    """The lane-filter walk kernel against its plain version (torch.equal on
+    the weight images and the start points) on 2 seeds of every LANE_KINDS
+    at 80x160 and 1 at 24x48, then its time, bound, and the plain version's
+    time and launches. -> the JSON record."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
+    from autoware_vision_pilot_tpu_torch.perception.lane_filter import lane_filter_walk_plain
+
+    cases = [(LANE_HW, k, s) for k in LANE_KINDS for s in (0, 1)]
+    cases += [((24, 48), k, 2) for k in LANE_KINDS]
+    worst = 0
+    for hw, kind, seed in cases:
+        masks = torch.from_numpy(lane_masks(hw, kind, seed)).cuda()
+        before = lane_filter_walk.launches
+        weights, starts = lane_filter_walk(masks)
+        torch.cuda.synchronize()
+        if lane_filter_walk.launches != before + 1:
+            raise AssertionError("lane_filter_walk did not count its launch")
+        ref_w, ref_s = lane_filter_walk_plain(masks)
+        err = max((weights - ref_w).abs().max().item(), (starts - ref_s).abs().max().item())
+        worst = max(worst, err)
+        if not (torch.equal(weights, ref_w) and torch.equal(starts, ref_s)):
+            raise AssertionError(f"lane_filter_walk disagrees with its plain version on "
+                                 f"{kind} {hw} seed {seed}: {starts.tolist()} vs "
+                                 f"{ref_s.tolist()}, max_abs_err {err}")
+    print(f"kernel lane_filter_walk: {len(cases)} mask sets ({len(LANE_KINDS)} kinds at "
+          f"{LANE_HW[0]}x{LANE_HW[1]} x 2 seeds and at 24x48), weight images and start "
+          f"points bit-equal to the plain version (max_abs_err {worst}; tol 0)")
+
+    pool = [torch.from_numpy(lane_masks(LANE_HW, LANE_KINDS[i % len(LANE_KINDS)], 10 + i))
+            .cuda() for i in range(40)]  # 6 MB: in the L2, as the thresholded masks are
+    us, ms = device_us(lane_filter_walk, pool), cuda_ms(lane_filter_walk, pool)
+    plain_us = device_us(lane_filter_walk_plain, pool[:4])
+    plain_launches = profile_launches(lane_filter_walk_plain, pool[0])
+    h, w = LANE_HW
+    nbytes = h * w * 3 * 4 + 2 * h * w * 4 + 2 * 3 * 4
+    bound_ms, bound_by = bound(0, nbytes)
+    print(f"kernel lane_filter_walk {h}x{w}, {card}: {us!r} us (profiler device time; "
+          f"CUDA events {ms * 1e3!r} us a call), bound {bound_ms * 1e3!r} us by {bound_by} "
+          f"({nbytes} bytes), share {bound_ms * 1e3 / us!r}; plain version {plain_us!r} us "
+          f"of device time in {plain_launches} launches a call")
+    return dict(max_abs_err=float(worst), ms=us / 1e3, plain_ms=plain_us / 1e3,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+LATERAL_KINDS = (("lane-filter walk", ("lane_filter_walk_kernel",)),
+                 ("preprocess", ("fused_preprocess_kernel",)),
+                 ("convolutions", ("conv", "xmma", "cudnn", "fprop", "implicit")),
+                 ("matrix products", ("gemm", "gemv", "cutlass", "dot_kernel")),
+                 ("top-k and sorts", ("topk", "sort", "Sort", "radix")),
+                 ("copies and memsets", ("Memcpy", "Memset")))
+
+
+def check_lateral_outputs(outs):
+    for i, out in enumerate(outs):
+        sc, co, lm = out["scalars"], out["coeffs"], out["lane_masks"]
+        if (sc.shape, co.shape, lm.shape) != ((8,), (3, 6), (*LANE_HW, 3)) or \
+                sc.dtype != torch.float32 or co.dtype != torch.float32:
+            raise AssertionError(f"frame {i}: outputs {sc.shape} {co.shape} {lm.shape}")
+        if not torch.isfinite(sc).all():
+            raise AssertionError(f"frame {i}: non-finite scalars {sc.tolist()}")
+        if not ((lm == 0) | (lm == 1)).all():
+            raise AssertionError(f"frame {i}: lane masks not in {{0, 1}}")
+        deg = sc[2]
+        if not (deg == torch.round(deg) and -30 <= deg <= 30 and
+                ((sc[6:] == 0) | (sc[6:] == 1)).all()):
+            raise AssertionError(f"frame {i}: scalars {sc.tolist()}")
+
+
+def profile_lateral(pipe, pool, state, card):
+    """torch.profiler device time per lateral frame by kind of kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(PROFILE_FRAMES):
+                _, state = pipe(pool[i], state)
+            torch.cuda.synchronize()
+        by_kind = dict.fromkeys([k for k, _ in LATERAL_KINDS] + ["the rest"], 0.0)
+        count = dict.fromkeys(by_kind, 0)
+        for e in prof.key_averages():
+            kind = next((k for k, pats in LATERAL_KINDS if any(p in e.key for p in pats)),
+                        "the rest")
+            by_kind[kind] += e.self_device_time_total / PROFILE_FRAMES
+            count[kind] += e.count / PROFILE_FRAMES
+        total = sum(by_kind.values())
+        if total > 0:
+            break
+    if total <= 0:
+        print("lateral device time per frame: not measured (no profiler device time)")
+        return
+    print(f"lateral device time per frame by kind (torch.profiler, {PROFILE_FRAMES} frames, "
+          f"{card}): " + "; ".join(f"{k} {v!r} us in {count[k]:g} kernels"
+                                   for k, v in by_kind.items())
+          + f"; total {total!r} us in {sum(count.values()):g} device operations")
+
+
+def phase_lateral(card):
+    """The lateral program at full width (build_lateral_pipeline, bf16):
+    60 distinct 720p frames, the state carried, each step under
+    sync-debug "error"; -> its launch counts."""
+    from autoware_vision_pilot_tpu_torch.runtime.pipeline import build_lateral_pipeline
+
+    t0 = time.perf_counter()
+    pipe = build_lateral_pipeline("cuda", torch.bfloat16, SEED)
+    n = WARM + TIMED
+    pool = frames(n, FRAME_HW, SEED + 6).cuda()
+    state = pipe.init_state(SEED)
+    torch.cuda.synchronize()
+    print(f"lateral build: {time.perf_counter() - t0:.1f} s")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    latencies, enqueue, outs = [], [], []
+    reset_counts()  # count only this path's launches
+    for i in range(n):
+        start.record()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")  # any host sync inside the step raises
+        try:
+            out, state = pipe(pool[i], state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        enqueue.append(time.perf_counter() - t0)
+        end.record()
+        end.synchronize()
+        latencies.append(start.elapsed_time(end))
+        outs.append(out)
+    launches = read_counts()
+    check_lateral_outputs(outs)
+    expect_launches(launches, {"fused_preprocess": n, "lane_filter_walk": n,
+                               "int8_quantize": 0, "int8_conv": 0})
+    timed = np.asarray(latencies[WARM:])
+    p50, p99 = (float(np.percentile(timed, q)) for q in (50, 99))
+    last = dict(zip(("steering_filtered", "steering_raw", "autosteer_deg", "cte"),
+                    outs[-1]["scalars"].tolist()))
+    print(f"bf16 lateral step, {FRAME_HW[0]}x{FRAME_HW[1]}[{LATERAL_CROP}:] -> "
+          f"{OUT_HW[0]}x{OUT_HW[1]}, {card}: p50 {p50!r} ms, p99 {p99!r} ms, mean "
+          f"{float(timed.mean())!r} ms over {len(timed)} frames after {WARM} warm-up (CUDA "
+          f"events per frame); host enqueue p50 {1e3 * float(np.median(enqueue[WARM:]))!r} "
+          f"ms; no host sync in any step (sync-debug \"error\"); launches {launches}; "
+          f"last frame {last}")
+    profile_lateral(pipe, pool, state, card)
+    del pipe, pool
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lateral_f32():
+    """The lateral program in f32 on the card, TF32 off, against the CPU,
+    same seeded weights, 3 frames with the states carried and the same
+    PathFinder noise. Each frame the card's EgoLanes and AutoSteer run on
+    their own input and are held to the CPU's logits (1e-3 * max|CPU|),
+    then return the CPU's logits, so that the classical chain on the card
+    gets the CPU's input: its lane masks, AutoSteer angle and flags must
+    be equal and its lane fits within 5e-3 * max|CPU| (the lane filter's
+    f32 normal equations summed in another order). PathFinder's outputs
+    are printed, not held: its unnormalized f32 fit has a condition number
+    of ~3e9 at this geometry."""
+    from autoware_vision_pilot_tpu_torch.runtime.pipeline import (SCALAR_FIELDS,
+                                                                  build_lateral_pipeline)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cpu = build_lateral_pipeline("cpu", torch.float32, SEED)
+    card = build_lateral_pipeline("cuda", torch.float32, SEED)
+    fs = frames(3, FRAME_HW, SEED + 7)
+    cs, gs = cpu.init_state(SEED), card.init_state(SEED)
+    noise = torch.zeros(14)
+    ref, own = {}, {}
+
+    def keep(name):
+        return lambda m, a, y: ref.__setitem__(name, y)
+
+    def force(name):
+        def hook(m, a, y):
+            own[name] = y
+            return tuple(v.cuda() for v in ref[name]) if name == "steer" else ref[name].cuda()
+        return hook
+
+    hooks = [cpu.lanes.register_forward_hook(keep("lanes")),
+             cpu.steer_net.register_forward_hook(keep("steer")),
+             card.lanes.register_forward_hook(force("lanes")),
+             card.steer_net.register_forward_hook(force("steer"))]
+    flags = [SCALAR_FIELDS.index(f) for f in ("autosteer_deg", "fused_valid", "path_valid")]
+    try:
+        for i in range(3):
+            cout, cs = cpu(fs[i], cs, noise=noise)
+            gout, gs = card(fs[i].cuda(), gs, noise=noise.cuda())
+            lanes_err = (own["lanes"].cpu() - ref["lanes"]).abs().max().item()
+            lanes_tol = 1e-3 * ref["lanes"].abs().max().item()
+            steer_err = (own["steer"][1].cpu() - ref["steer"][1]).abs().max().item()
+            steer_tol = 1e-3 * ref["steer"][1].abs().max().item()
+            g = {k: v.cpu() for k, v in gout.items()}
+            fin = torch.isfinite(cout["coeffs"])
+            same_nonfinite = torch.equal(torch.isnan(g["coeffs"]), torch.isnan(cout["coeffs"])) \
+                and torch.equal(torch.where(fin | torch.isnan(cout["coeffs"]), 0.0, g["coeffs"]),
+                                torch.where(fin | torch.isnan(cout["coeffs"]), 0.0, cout["coeffs"]))
+            scale = torch.where(fin, cout["coeffs"], 0.0).abs().amax(-1, keepdim=True)
+            fit_err = ((torch.where(fin, g["coeffs"], 0.0) - torch.where(fin, cout["coeffs"], 0.0))
+                       .abs() / scale.clamp_min(1e-30)).max().item()
+            print(f"f32 lateral frame {i}, card vs CPU: lane logits max_abs_err {lanes_err!r} "
+                  f"(tol {lanes_tol!r}), AutoSteer logits {steer_err!r} (tol {steer_tol!r}); "
+                  f"fed the CPU's logits: lane masks equal "
+                  f"{torch.equal(g['lane_masks'], cout['lane_masks'])}, scalars card "
+                  f"{g['scalars'].tolist()} CPU {cout['scalars'].tolist()}, lane fits "
+                  f"{fit_err!r} * max|CPU| (tol 5e-3)")
+            if not (lanes_err <= lanes_tol and steer_err <= steer_tol):
+                raise AssertionError(f"frame {i}: the card's networks and the CPU's disagree")
+            if not (torch.equal(g["lane_masks"], cout["lane_masks"])
+                    and torch.equal(g["scalars"][flags], cout["scalars"][flags])
+                    and same_nonfinite and fit_err <= 5e-3):
+                raise AssertionError(f"frame {i}: the card's classical chain and the CPU's "
+                                     "disagree")
+    finally:
+        for h in hooks:
+            h.remove()
+    print(f"f32 lateral card vs CPU: {time.perf_counter() - t0:.1f} s")
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
 def host_costs_of(root):
     """--host-costs ROOT: phase 7's host-cost measurement alone, over the
     port package found in ROOT (this repository, or an earlier commit of it
@@ -861,10 +1159,20 @@ def main():
     card = phase_device()
     sys.path.insert(0, str(REPO))
     phase_build()
-    records = {"fused_preprocess": phase_kernel(), **phase_int8_kernels(card)}
+    preprocess, crop = phase_kernel()
+    records = {"fused_preprocess": preprocess, **phase_int8_kernels(card),
+               "lane_filter_walk": phase_lane_filter(card)}
     phase_f32()
     bf16_pipe = phase_bf16(card)
-    launches = phase_int8(card, bf16_pipe)  # the slice's main path
+    launches = phase_int8(card, bf16_pipe)  # the selective-int8 main path
+    del bf16_pipe
+    torch.cuda.empty_cache()
+    phase_lateral_f32()
+    lateral = phase_lateral(card)  # the lateral program
+    launches["lane_filter_walk"] = lateral["lane_filter_walk"]
+    print(f"fused_preprocess on the lateral crop {FRAME_HW[0]}x{FRAME_HW[1]}[{LATERAL_CROP}:]"
+          f" -> {OUT_HW[0]}x{OUT_HW[1]} bf16, {card}: {crop['ms'] * 1e3!r} us, bound "
+          f"{crop['bound_ms'] * 1e3!r} us, plain {crop['plain_ms'] * 1e3!r} us (profiler)")
     pkg = "autoware_vision_pilot_tpu_torch/csrc/"
     sources = {
         "fused_preprocess": (pkg + "preprocess.cu",
@@ -876,13 +1184,18 @@ def main():
         "int8_conv_pointwise": (pkg + "int8_pointwise.cu",
                                 "autoware_vision_pilot_tpu/nn/layers.py:81"),
         "int8_conv_dot": (pkg + "int8_pointwise.cu", "autoware_vision_pilot_tpu/nn/layers.py:81"),
+        "lane_filter_walk": (pkg + "lane_filter.cu",
+                             "autoware_vision_pilot_tpu/perception/lane_filter.py:113"),
     }
     # PR 2's mma.sync kernel keeps the windows > 1 with C < 128, which the
     # main path has none of: it is checked and timed above, and launched 0
-    # times there
+    # times there. Each path's own kernels: the int8 path's counts above,
+    # the lateral program's here.
     for name in sources:
         if launches[name] <= 0 and name != "int8_conv_mma":
             raise AssertionError(f"the main path never launched {name}")
+    if lateral["fused_preprocess"] <= 0:
+        raise AssertionError("the lateral program never launched fused_preprocess")
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -1,7 +1,7 @@
-"""Tests of the port that need an NVIDIA GPU: the fused-preprocess and int8
-CUDA kernels against their plain PyTorch versions, and the main path, bf16
-and int8, on the card against the CPU. They skip where there is no CUDA
-device.
+"""Tests of the port that need an NVIDIA GPU: the fused-preprocess, int8 and
+lane-filter CUDA kernels against their plain PyTorch versions, the main
+path, bf16 and int8, and the lateral step on the card against the CPU. They
+skip where there is no CUDA device.
 
 This file imports no JAX, so it also runs on a machine that has none:
 
@@ -13,13 +13,17 @@ import numpy as np
 import pytest
 import torch
 
+from autoware_vision_pilot_tpu_torch.models.efficientnet import B0_DRYRUN_STAGES
 from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
 from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
     _launch, _mma_plan, int8_conv, int8_conv2d, int8_conv_plain, int8_conv_plan, int8_quantize,
     int8_quantize_plain)
+from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
 from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
 from autoware_vision_pilot_tpu_torch.ops.preprocess import preprocess_imagenet
+from autoware_vision_pilot_tpu_torch.perception.lane_filter import lane_filter_walk_plain
 from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused
+from autoware_vision_pilot_tpu_torch.runtime.pipeline import SCALAR_FIELDS, build_lateral_pipeline
 
 pytestmark = pytest.mark.cuda
 CL = torch.channels_last
@@ -369,3 +373,147 @@ def test_int8_main_path_on_card_matches_cpu(cuda):
                                        atol=1e-3 * b.abs().max().item())
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_kernel_on_the_lateral_crop_matches_plain_version(cuda):
+    """frame[420:] of a contiguous 720p frame (1,612,800 bytes in) ->
+    320x640, bit-equal in f32 and bf16."""
+    f = frames((720, 1280), 1, seed=420)[0].to(cuda)
+    crop = f[420:]
+    assert crop.is_contiguous() and crop.data_ptr() - f.data_ptr() == 1_612_800
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out = fused_preprocess(crop, (320, 640), out_dtype)
+        torch.cuda.synchronize()
+        ref = preprocess_imagenet(crop[None], (320, 640), out_dtype).permute(0, 3, 1, 2)
+        assert torch.equal(out, ref)
+
+
+def lane_masks(hw, kind, seed):
+    """(H, W, 3) f32 masks [ego_left, ego_right, other]: 3-pixel-wide lanes
+    from row H/8 down, dashed, one-sided, empty, or random."""
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return torch.from_numpy((rng.random((h, w, 3)) < rng.uniform(0.02, 0.7)).astype(np.float32))
+    m = np.zeros((h, w, 3), np.float32)
+    if kind == "empty":
+        return torch.from_numpy(m)
+    slope = rng.uniform(-0.2, 0.2, 2)
+    for y in range(h // 8, h):
+        for c, x0 in ((0, 0.3 * w), (1, 0.65 * w)):
+            if kind == "one-sided" and c == 1 or kind == "dashed" and (y // 4) % 2 == c:
+                continue
+            x = int(round(x0 + slope[c] * (y - h)))
+            m[y, max(0, x - 1):max(0, x + 2), c] = 1.0
+    m[rng.integers(h // 2, h, 20), rng.integers(0, w, 20), 2] = 1.0
+    return torch.from_numpy(m)
+
+
+@pytest.mark.parametrize("hw", [(80, 160), (24, 48), (37, 91)])
+@pytest.mark.parametrize("kind", ["lanes", "dashed", "one-sided", "empty", "random"])
+def test_lane_filter_kernel_matches_plain_version(cuda, hw, kind):
+    """Weight images and start points bit-equal, for 4 seeds each."""
+    before = lane_filter_walk.launches
+    for seed in range(4):
+        masks = lane_masks(hw, kind, seed).to(cuda)
+        weights, starts = lane_filter_walk(masks)
+        torch.cuda.synchronize()
+        ref_w, ref_s = lane_filter_walk_plain(masks)
+        assert weights.dtype == torch.int32 and weights.shape == (2, *hw)
+        assert torch.equal(starts, ref_s.to(torch.int32)), (seed, starts, ref_s)
+        assert torch.equal(weights, ref_w), seed
+    assert lane_filter_walk.launches == before + 4
+
+
+def test_lane_filter_kernel_rejects_bad_masks_on_the_card(cuda):
+    masks = lane_masks((24, 48), "random", 0).to(cuda)
+    with pytest.raises(ValueError):
+        lane_filter_walk(masks.transpose(0, 1))
+    with pytest.raises(TypeError):
+        lane_filter_walk(masks.half())
+    with pytest.raises(ValueError):
+        lane_filter_walk(torch.zeros((600, 600, 3), device=cuda))
+
+
+LATERAL = dict(frame_hw=(120, 200), crop_y=20, net_hw=(96, 192),
+               backbone_stages=B0_DRYRUN_STAGES)
+
+
+def coeffs_err(a, b):
+    """max |a - b| / max|b| per row over the finite entries of b; a lane
+    without points has NaN or inf coefficients, which must match exactly."""
+    fin = torch.isfinite(b)
+    torch.testing.assert_close(torch.where(fin, 0.0, a), torch.where(fin, 0.0, b), rtol=0,
+                               atol=0, equal_nan=True)
+    a, b = torch.where(fin, a, 0.0), torch.where(fin, b, 0.0)
+    scale = b.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return ((a - b).abs() / scale).max().item()
+
+
+def test_lateral_step_on_card_matches_cpu(cuda):
+    """The lateral step at a small size in f32, TF32 off, card against CPU
+    over 3 frames with the states carried: the lane logits within
+    1e-3 * max|CPU|; then, the card's networks returning the CPU's logits,
+    the lane masks, AutoSteer's angle and the flags exactly and the lane
+    fits within 5e-3 * max|CPU| (f32 normal equations summed in another
+    order). PathFinder's outputs are not compared: at this geometry its
+    f32 fit has a condition number of ~5e11 (PERF.md, ROADMAP Queue 3)."""
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = build_lateral_pipeline("cpu", torch.float32, **LATERAL)
+        card = build_lateral_pipeline(cuda, torch.float32, **LATERAL)
+        fs = frames((120, 200), 3, seed=5)
+        cs, gs = cpu.init_state(), card.init_state()
+        noise = torch.zeros(14)
+        forced = {}
+        hooks = [card.lanes.register_forward_hook(lambda m, a, y: forced.get("lanes", y)),
+                 card.steer_net.register_forward_hook(lambda m, a, y: forced.get("steer", y))]
+        try:
+            for i in range(3):
+                cpu_logits = []
+                h1 = cpu.lanes.register_forward_hook(lambda m, a, y: cpu_logits.append(y))
+                h2 = cpu.steer_net.register_forward_hook(lambda m, a, y: cpu_logits.append(y))
+                cout, cs = cpu(fs[i], cs, noise=noise)
+                h1.remove(), h2.remove()
+                if i == 0:  # the card's own EgoLanes on the same frame
+                    x = fused_preprocess(fs[i][20:].to(cuda), (96, 192), torch.float32)
+                    torch.testing.assert_close(card.lanes(x).cpu(), cpu_logits[0], rtol=0,
+                                               atol=1e-3 * cpu_logits[0].abs().max().item())
+                forced["lanes"] = cpu_logits[0].to(cuda)
+                forced["steer"] = tuple(v.to(cuda) for v in cpu_logits[1])
+                gout, gs = card(fs[i].to(cuda), gs, noise=noise.to(cuda))
+                assert torch.equal(gout["lane_masks"].cpu(), cout["lane_masks"])
+                flags = [SCALAR_FIELDS.index(f) for f in ("autosteer_deg", "fused_valid",
+                                                          "path_valid")]
+                assert torch.equal(gout["scalars"].cpu()[flags], cout["scalars"][flags])
+                assert coeffs_err(gout["coeffs"].cpu(), cout["coeffs"]) <= 5e-3
+                assert torch.isfinite(gout["scalars"]).all()
+        finally:
+            for h in hooks:
+                h.remove()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_lateral_step_makes_no_host_sync(cuda):
+    """Three bf16 frames under sync-debug "error": any host synchronisation
+    inside the step raises. One preprocess and one lane-filter launch each."""
+    pipe = build_lateral_pipeline(cuda, torch.bfloat16, **LATERAL)
+    state = pipe.init_state(seed=1)
+    fs = frames((120, 200), 3, seed=6).to(cuda)
+    torch.cuda.synchronize()
+    before = fused_preprocess.launches, lane_filter_walk.launches
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(3):
+            out, state = pipe(fs[i], state)
+            outs.append(out)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (fused_preprocess.launches, lane_filter_walk.launches) == (before[0] + 3, before[1] + 3)
+    for out in outs:
+        assert out["scalars"].shape == (8,) and out["coeffs"].shape == (3, 6)
+        assert torch.isfinite(out["scalars"]).all()
+        assert ((out["lane_masks"] == 0) | (out["lane_masks"] == 1)).all()

@@ -191,7 +191,8 @@ def test_kernel_binding_matches_c_signature():
     as c_int, long longs as c_int64, in order. The library itself is built
     only on a GPU machine."""
     assert [p.name for p in build.sources()] == ["int8_conv.cu", "int8_conv_sm90.cu",
-                                                 "int8_pointwise.cu", "preprocess.cu"]
+                                                 "int8_pointwise.cu", "lane_filter.cu",
+                                                 "preprocess.cu"]
     decls = {}
     for src in build.sources():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
