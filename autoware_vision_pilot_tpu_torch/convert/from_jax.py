@@ -5,6 +5,7 @@ Leaf transforms, by flax leaf name:
   ``w``  conv kernel HWIO            -> ``weight`` OIHW  (3, 2, 0, 1)
   ``wt`` conv-transpose (kh,kw,O,I)  -> ``weight`` IOHW  (3, 2, 0, 1)
   ``wl`` linear kernel (in, out)     -> ``weight`` (out, in)
+  ``w1`` Conv1d kernel (k, in, out)  -> ``weight`` (out, in, k) (2, 1, 0)
   ``b``, ``bias``                    -> ``bias``
   ``scale``                          -> ``weight``   (BatchNorm)
   ``mean``, ``var`` (batch_stats)    -> ``running_mean``, ``running_var``
@@ -29,8 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
-_TRANSPOSE = {"w": (3, 2, 0, 1), "wt": (3, 2, 0, 1), "wl": (1, 0)}
-_TORCH_LEAF = {"w": "weight", "wt": "weight", "wl": "weight", "b": "bias",
+_TRANSPOSE = {"w": (3, 2, 0, 1), "wt": (3, 2, 0, 1), "wl": (1, 0), "w1": (2, 1, 0)}
+_TORCH_LEAF = {"w": "weight", "wt": "weight", "wl": "weight", "w1": "weight", "b": "bias",
                "scale": "weight", "bias": "bias", "mean": "running_mean",
                "var": "running_var", "w_scale": "weight_scale",
                "x_scale": "input_scale"}

@@ -36,6 +36,16 @@
 // card in float64 with bilinear_taps's operations, in place of the
 // tables, were no faster: 4.7 us with the row's alone, 5.2 us with all.
 //
+// Letterbox mode (the port of XLA's fusion of autoware_vision_pilot_tpu/
+// ops/preprocess.py::letterbox): the frame is resized to nh x nw, placed at
+// row pad_y, column pad_x of the h x w output, and every other pixel is the
+// pad value, which goes through the same affine step; the channel tables
+// are then mean 0 and 1 / std 1, an identity (v - 0 = v, RN32(RN64(v) * 1)
+// = v). The one launch writes every output pixel, pad rows included: a pad
+// row's block reads no source row. The ImageNet mode is the case nh = h,
+// nw = w, no pad: it runs an instantiation of the kernel compiled without
+// the pad path, and computes what it computed before.
+//
 // Every multiply and add is an explicit round-to-nearest intrinsic, which
 // the compiler never contracts into an FMA: the kernel then computes the
 // plain PyTorch version's operations in the same order, bit for bit. The
@@ -112,20 +122,31 @@ __device__ __forceinline__ void store_row(T* dst, const T* src, int n) {
   for (int i = tail + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
-template <typename T>
+// Where the resized image sits in the output, and the value around it.
+struct Placement {
+  int nh, nw, pad_y, pad_x;
+  float pad;
+};
+
+// PLACED: the letterbox mode; without it the image fills the output and
+// the kernel is compiled with no pad path at all.
+template <typename T, bool PLACED>
 __global__ void __launch_bounds__(MAX_THREADS) fused_preprocess_kernel(
-    const uint8_t* __restrict__ frame, T* __restrict__ out, Tables t, int H, int W,
-    int h, int w) {
+    const uint8_t* __restrict__ frame, T* __restrict__ out, Tables t, Placement pl, int H,
+    int W, int h, int w) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int oy = blockIdx.x, b = blockIdx.y;
+  const int iy = PLACED ? oy - pl.pad_y : oy;  // the resized image's row, if in [0, nh)
+  const bool image_row = !PLACED || (iy >= 0 && iy < pl.nh);
+  const int nw = PLACED ? pl.nw : w;
   const int row = 3 * W;  // bytes of a source row
   const uint8_t* lo = frame;
   const uint8_t* hi = frame + (size_t)gridDim.y * H * row;
   const uint8_t* img = frame + (size_t)b * H * row;
-  // The column taps of a group of PX output pixels: one 8-byte chunk of
+  // The column taps of a group of PX image pixels: one 8-byte chunk of
   // each table (value by value for a short last group).
   auto taps = [&](int g, int (&x0)[PX], int (&x1)[PX], float (&fx)[PX]) {
-    const int ox0 = g * PX, n = min(PX, w - ox0);
+    const int ox0 = g * PX, n = min(PX, nw - ox0);
     if (n == PX) {
       const int2 a = __ldg(reinterpret_cast<const int2*>(t.x0 + ox0));
       const int2 c = __ldg(reinterpret_cast<const int2*>(t.x1 + ox0));
@@ -143,21 +164,41 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_preprocess_kernel(
       }
     }
   };
-  // the first group's taps and the channel tables, read while the rows load
-  int x0[PX], x1[PX];
-  float fx[PX];
-  if ((int)threadIdx.x * PX < w) taps(threadIdx.x, x0, x1, fx);
-  const float mean[3] = {t.mean[0], t.mean[1], t.mean[2]};
-  const double inv_std[3] = {t.inv_std[0], t.inv_std[1], t.inv_std[2]};
-  const uint8_t* r0 = copy_row(smem, img + (size_t)t.y0[oy] * row, row, lo, hi);
-  const uint8_t* r1 = copy_row(smem + span(row), img + (size_t)t.y1[oy] * row, row, lo, hi);
+  // the affine step: [0,1] scale, then the channel's mean and 1 / std
+  // (selected, not indexed: a pad value's channel is not known at compile
+  // time, and an indexed array would live in local memory)
+  const float m0 = t.mean[0], m1 = t.mean[1], m2 = t.mean[2];
+  const double s0 = t.inv_std[0], s1 = t.inv_std[1], s2 = t.inv_std[2];
+  auto affine = [&](float v, int c) {
+    v = __fsub_rn(__fmul_rn(v, 1.0f / 255.0f), c == 0 ? m0 : c == 1 ? m1 : m2);
+    const double inv_std = c == 0 ? s0 : c == 1 ? s1 : s2;
+    return cast_out<T>(__double2float_rn(__dmul_rn((double)v, inv_std)));  // v / std
+  };
   T* dst = out + ((size_t)b * h + oy) * w * 3;
   T* o = reinterpret_cast<T*>(smem + 2 * span(row) + (uintptr_t)dst % 16);
-  const float fy = t.fy[oy], gy = __fsub_rn(1.0f, fy);
+  if (!image_row) {  // a pad row: no source row
+    for (int i = threadIdx.x; i < w * 3; i += blockDim.x) o[i] = affine(pl.pad, i % 3);
+    __syncthreads();
+    store_row(dst, o, w * 3);
+    return;
+  }
+  // the first group's taps, read while the rows load
+  int x0[PX], x1[PX];
+  float fx[PX];
+  if ((int)threadIdx.x * PX < nw) taps(threadIdx.x, x0, x1, fx);
+  const uint8_t* r0 = copy_row(smem, img + (size_t)t.y0[iy] * row, row, lo, hi);
+  const uint8_t* r1 = copy_row(smem + span(row), img + (size_t)t.y1[iy] * row, row, lo, hi);
+  const float fy = t.fy[iy], gy = __fsub_rn(1.0f, fy);
+  if (PLACED) {  // the pad columns left and right of the image
+    const int right = (pl.pad_x + nw) * 3;
+    for (int i = threadIdx.x; i < pl.pad_x * 3; i += blockDim.x) o[i] = affine(pl.pad, i % 3);
+    for (int i = right + threadIdx.x; i < w * 3; i += blockDim.x) o[i] = affine(pl.pad, i % 3);
+  }
   __syncthreads();
 
-  for (int g = threadIdx.x; g * PX < w; g += blockDim.x) {
-    const int ox0 = g * PX, n = min(PX, w - ox0);
+  T* oi = PLACED ? o + pl.pad_x * 3 : o;  // the image's first pixel
+  for (int g = threadIdx.x; g * PX < nw; g += blockDim.x) {
+    const int ox0 = g * PX, n = min(PX, nw - ox0);
     if (g != (int)threadIdx.x) taps(g, x0, x1, fx);
 #pragma unroll
     for (int p = 0; p < PX; ++p) {
@@ -170,10 +211,7 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_preprocess_kernel(
                                      __fmul_rn((float)r1[x0[p] * 3 + ic], fy));
           const float t1 = __fadd_rn(__fmul_rn((float)r0[x1[p] * 3 + ic], gy),
                                      __fmul_rn((float)r1[x1[p] * 3 + ic], fy));
-          float v = __fadd_rn(__fmul_rn(t0, gx), __fmul_rn(t1, fx[p]));
-          v = __fsub_rn(__fmul_rn(v, 1.0f / 255.0f), mean[c]);
-          v = __double2float_rn(__dmul_rn((double)v, inv_std[c]));  // v / std
-          o[(ox0 + p) * 3 + c] = cast_out<T>(v);
+          oi[(ox0 + p) * 3 + c] = affine(__fadd_rn(__fmul_rn(t0, gx), __fmul_rn(t1, fx[p])), c);
         }
       }
     }
@@ -182,10 +220,10 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_preprocess_kernel(
   store_row(dst, o, w * 3);
 }
 
-template <typename T>
-cudaError_t launch(const uint8_t* frame, T* out, const Tables& t, int B, int H, int W,
-                   int h, int w, cudaStream_t s) {
-  const int groups = (w + PX - 1) / PX;
+template <typename T, bool PLACED>
+cudaError_t launch(const uint8_t* frame, T* out, const Tables& t, const Placement& pl, int B,
+                   int H, int W, int h, int w, cudaStream_t s) {
+  const int groups = (pl.nw + PX - 1) / PX;
   const int threads = min(MAX_THREADS, (groups + 31) / 32 * 32);
   const size_t smem = 2 * (size_t)span(3 * W) + span(3 * w * (int)sizeof(T));
   static bool ready[MAX_DEVICES] = {false};
@@ -194,13 +232,13 @@ cudaError_t launch(const uint8_t* frame, T* out, const Tables& t, int B, int H, 
   if (err != cudaSuccess) return err;
   if (smem > 48 * 1024 && (dev < 0 || dev >= MAX_DEVICES || !ready[dev])) {
     // the largest rows; the limit then holds for every smaller frame
-    err = cudaFuncSetAttribute(fused_preprocess_kernel<T>,
+    err = cudaFuncSetAttribute(fused_preprocess_kernel<T, PLACED>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
     if (err != cudaSuccess) return err;
     if (dev >= 0 && dev < MAX_DEVICES) ready[dev] = true;
   }
-  fused_preprocess_kernel<T><<<dim3((unsigned)h, (unsigned)B), threads, smem, s>>>(
-      frame, out, t, H, W, h, w);
+  fused_preprocess_kernel<T, PLACED><<<dim3((unsigned)h, (unsigned)B), threads, smem, s>>>(
+      frame, out, t, pl, H, W, h, w);
   return cudaGetLastError();
 }
 
@@ -208,17 +246,21 @@ cudaError_t launch(const uint8_t* frame, T* out, const Tables& t, int B, int H, 
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // frame: (B, H, W, 3) uint8; out: (B, h, w, 3) bf16 if out_bf16 else f32,
-// 16-byte aligned. y0, y1, x0, x1: int32 and fy, fx: f32, the taps of
-// bilinear_taps(H, h) and (W, w); mean[3]: f32; inv_std[3]: f64, 1 / std
-// correctly rounded (see Tables); each table 16-byte aligned. Two source
-// rows and an output row must fit in 227 KB of shared memory (W up to
-// ~30,000).
+// 16-byte aligned. The frame is resized to nh x nw and placed at row pad_y,
+// column pad_x of out; every other pixel is pad (0..255), which takes the
+// same affine step (ImageNet mode: nh = h, nw = w, no pad). y0, y1, x0, x1:
+// int32 and fy, fx: f32, the taps of bilinear_taps(H, nh) and (W, nw);
+// mean[3]: f32; inv_std[3]: f64, 1 / std correctly rounded (see Tables);
+// each table 16-byte aligned. Two source rows and an output row must fit
+// in 227 KB of shared memory (W up to ~30,000).
 extern "C" int avp_fused_preprocess(const void* frame, void* out, const void* y0,
                                     const void* y1, const void* fy, const void* x0,
                                     const void* x1, const void* fx, const void* mean,
                                     const void* inv_std, int B, int H, int W, int h,
-                                    int w, int out_bf16, void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || h <= 0 || w <= 0 ||
+                                    int w, int nh, int nw, int pad_y, int pad_x, int pad,
+                                    int out_bf16, void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || h <= 0 || w <= 0 || nh <= 0 || nw <= 0 ||
+      pad_y < 0 || pad_x < 0 || pad_y + nh > h || pad_x + nw > w || pad < 0 || pad > 255 ||
       2LL * span(3 * W) + span(3 * w * (out_bf16 ? 2 : 4)) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   const void* aligned[] = {out, y0, y1, fy, x0, x1, fx, mean, inv_std};
@@ -229,6 +271,14 @@ extern "C" int avp_fused_preprocess(const void* frame, void* out, const void* y0
   const Tables t{(const int*)y0,   (const int*)y1,   (const int*)x0,
                  (const int*)x1,   (const float*)fy, (const float*)fx,
                  (const float*)mean, (const double*)inv_std};
-  if (out_bf16) return (int)launch(f, (__nv_bfloat16*)out, t, B, H, W, h, w, s);
-  return (int)launch(f, (float*)out, t, B, H, W, h, w, s);
+  const Placement pl{nh, nw, pad_y, pad_x, (float)pad};
+  const bool placed = nh != h || nw != w;
+  if (out_bf16) {
+    __nv_bfloat16* o = (__nv_bfloat16*)out;
+    return (int)(placed ? launch<__nv_bfloat16, true>(f, o, t, pl, B, H, W, h, w, s)
+                        : launch<__nv_bfloat16, false>(f, o, t, pl, B, H, W, h, w, s));
+  }
+  float* o = (float*)out;
+  return (int)(placed ? launch<float, true>(f, o, t, pl, B, H, W, h, w, s)
+                      : launch<float, false>(f, o, t, pl, B, H, W, h, w, s));
 }

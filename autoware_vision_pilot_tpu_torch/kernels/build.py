@@ -26,12 +26,12 @@ LIBRARY = BUILD_DIR / "libavp_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C entry point -> argtypes; every function returns a cudaError_t as int.
 SIGNATURES = {
     # frame, out, y0, y1, fy, x0, x1, fx, mean, inv_std,
-    # B, H, W, h, w, out_bf16, stream
-    "avp_fused_preprocess": (_P,) * 10 + (_I,) * 6 + (_P,),
+    # B, H, W, h, w, nh, nw, pad_y, pad_x, pad, out_bf16, stream
+    "avp_fused_preprocess": (_P,) * 10 + (_I,) * 11 + (_P,),
     # x, xq, scale, per_channel, pixels, C, in_bf16, stream
     "avp_int8_quantize": (_P, _P, _P, _I, _L, _I, _I, _P),
     # xq, w, w_scale, x_scale, bias, out, B, H, W, C, N, KH, KW, pad,
@@ -51,6 +51,9 @@ SIGNATURES = {
     "avp_int8_conv_dot": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 4 + (_P,),
     # masks, weights, starts, H, W, stream
     "avp_lane_filter_walk": (_P, _P, _P, _I, _I, _P),
+    # boxes, scores, classes, out_boxes, out_scores, out_classes, out_valid,
+    # k, max_det, iou_thresh, conf_thresh, class_aware, stream
+    "avp_nms_greedy": (_P,) * 7 + (_I, _I, _F, _F, _I, _P),
 }
 
 
@@ -112,7 +115,7 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C
     signatures (pointers and the stream as c_void_p, ints as c_int or
-    c_int64)."""
+    c_int64, floats as c_float)."""
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

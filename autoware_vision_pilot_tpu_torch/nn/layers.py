@@ -133,10 +133,13 @@ class Linear(nn.Module):
 
 
 class BatchNorm2d(nn.Module):
-    """Eval-mode BatchNorm over channels (dim 1) with running statistics."""
+    """Eval-mode BatchNorm over channels (dim 1) with running statistics.
+    ``eps`` is torch's default; the YOLO family uses 1e-3
+    (models/yolo_layers.py)."""
 
-    def __init__(self, num_features, *, device=None, dtype=None):
+    def __init__(self, num_features, *, eps=BN_EPS, device=None, dtype=None):
         super().__init__()
+        self.eps = eps
         self.weight = _param((num_features,), device, dtype)
         self.bias = _param((num_features,), device, dtype)
         self.register_buffer(
@@ -146,12 +149,34 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x):
         return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, BN_EPS)
+                            self.weight, self.bias, False, 0.0, self.eps)
+
+
+class Conv1dCenter(nn.Module):
+    """torch Conv1d(in_ch, out_ch, 3, 1, 1) applied to a length-1 sequence:
+    both neighbours of the one input are zero padding, so only the centre
+    tap sees data and the conv is a product with ``weight[:, :, 1]``. The
+    full (out, in, 3) weight is kept, as the reference's checkpoints hold
+    it. Takes (B, in_ch) -> (B, out_ch)."""
+
+    def __init__(self, in_ch, out_ch, *, device=None, dtype=None):
+        super().__init__()
+        self.weight = _param((out_ch, in_ch, 3), device, dtype)
+        self.bias = _param((out_ch,), device, dtype)
+
+    def forward(self, y):
+        return F.linear(y, self.weight[:, :, 1], self.bias)
 
 
 def max_pool2d(x, kernel: int, stride: int | None = None, padding: int = 0):
     """torch nn.MaxPool2d semantics (padding counts as -inf)."""
     return F.max_pool2d(x, kernel, stride or kernel, padding)
+
+
+def upsample2x_nearest(x):
+    """torch nn.Upsample(scale_factor=2) (mode 'nearest'): each pixel
+    repeated 2x2, in the memory format of ``x``."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
 @torch.no_grad()
@@ -161,7 +186,8 @@ def init_seeded(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
     Weights are normal with std sqrt(2 / fan_in), where fan_in counts the
     inputs summed into one output (for the k == s transposed conv, its
-    input channels), so activations keep their scale through the random
+    input channels; for ``Conv1dCenter``, the in_ch of its centre tap),
+    so activations keep their scale through the random
     network; biases are normal with std 0.1. BatchNorm gets non-trivial
     affine terms and running statistics, as tests/support/torch_b0.py's
     ``randomize_bn_stats`` gives the reference's.
@@ -172,8 +198,9 @@ def init_seeded(module: nn.Module, generator: torch.Generator) -> nn.Module:
         t.copy_(cpu)
 
     for m in module.modules():
-        if isinstance(m, (Conv2d, ConvTranspose2d, Linear)):
+        if isinstance(m, (Conv2d, ConvTranspose2d, Linear, Conv1dCenter)):
             fan_in = (m.weight.shape[0] if isinstance(m, ConvTranspose2d)
+                      else m.weight.shape[1] if isinstance(m, Conv1dCenter)
                       else m.weight[0].numel())
             std = (2.0 / fan_in) ** 0.5
             fill(m.weight, lambda t: t.normal_(0.0, std, generator=generator))

@@ -1,10 +1,11 @@
 """Frame preprocessing in plain PyTorch, the port of
 autoware_vision_pilot_tpu/ops/preprocess.py.
 
-``preprocess_imagenet`` is the plain version of the fused-preprocess kernel
-(ops/kernels/preprocess_kernel.py) and performs the kernel's f32 operations
-in the same order. Functions take and return NHWC, as the JAX package's do.
-Resize matches cv2.INTER_LINEAR (half-pixel sampling, no antialiasing).
+``preprocess_imagenet`` and ``letterbox`` are the plain versions of the
+fused-preprocess kernel's two modes (ops/kernels/preprocess_kernel.py) and
+perform the kernel's f32 operations in the same order. Functions take and
+return NHWC, as the JAX package's do. Resize matches cv2.INTER_LINEAR
+(half-pixel sampling, no antialiasing).
 """
 from __future__ import annotations
 
@@ -13,11 +14,13 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .device import constant_on
 
 IMAGENET_MEAN = torch.tensor([0.485, 0.456, 0.406], dtype=torch.float32)
 IMAGENET_STD = torch.tensor([0.229, 0.224, 0.225], dtype=torch.float32)
+LETTERBOX_PAD = 114  # AutoSpeed's gray (autospeed/onnxruntime_engine.cpp:71-113)
 
 
 def bilinear_taps(n_in: int, n_out: int):
@@ -72,3 +75,29 @@ def preprocess_imagenet(frame_bgr_u8, out_hw: Tuple[int, int],
     x = x * (1.0 / 255.0)
     mean, std = device_mean_std(x.device)
     return ((x - mean) / std).to(dtype)
+
+
+def letterbox_geometry(out_hw: Tuple[int, int], orig_hw: Tuple[int, int]):
+    """The letterbox of an ``orig_hw`` frame into ``out_hw``, with the JAX
+    package's Python arithmetic: -> (scale, (nh, nw) of the resized image,
+    (pad_x, pad_y) of its top-left corner)."""
+    th, tw = out_hw
+    oh, ow = orig_hw
+    scale = min(tw / ow, th / oh)
+    nw, nh = int(ow * scale), int(oh * scale)
+    return scale, (nh, nw), ((tw - nw) // 2, (th - nh) // 2)
+
+
+def letterbox(frame_bgr_u8, out_hw: Tuple[int, int], orig_hw: Tuple[int, int],
+              pad_value: int = LETTERBOX_PAD, dtype=torch.float32):
+    """AutoSpeed letterbox: scale to fit, centre-pad with ``pad_value``,
+    RGB, [0, 1], in the JAX package's order (resize, pad, flip, * 1/255).
+    (..., H, W, 3) uint8 -> ((..., th, tw, 3) ``dtype``, scale, (pad_x,
+    pad_y)), scale and pads Python numbers."""
+    th, tw = out_hw
+    scale, (nh, nw), (pad_x, pad_y) = letterbox_geometry(out_hw, orig_hw)
+    x = resize_bilinear(frame_bgr_u8, (nh, nw))
+    x = F.pad(x, (0, 0, pad_x, tw - nw - pad_x, pad_y, th - nh - pad_y),
+              value=float(pad_value))
+    x = x.flip(-1) * (1.0 / 255.0)
+    return x.to(dtype), scale, (pad_x, pad_y)

@@ -68,6 +68,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              one preprocess and one lane-filter launch a frame, finite
              outputs of the right shapes, and device time by kind of kernel
              over 20 frames (torch.profiler).
+ 11. letterbox: the preprocess kernel's letterbox mode against its plain
+             version (ops/preprocess.py::letterbox), bit-equal in f32 and
+             bf16, at 720x1280 -> 640x640, 375x1242 -> 640x640 and 360x640
+             -> 181x333 (pad columns, a width that is not a multiple of 8);
+             its profiler time at 720p, bound, and the plain version's time.
+ 12. longitudinal f32: the longitudinal program (build_longitudinal_pipeline,
+             AutoSpeed "n" at 640x640) in f32 on the card against the CPU,
+             same seeded weights, 3 frames: pred within 1e-3 * max|CPU|;
+             fed the CPU's pred, the packed (64, 7) table equal.
+ 13. NMS: the NMS kernel against its plain version (torch.equal on every
+             output) on 35 candidate sets: the CPU's head outputs of phase
+             12, and random, dense same-class, all-below-threshold, grid
+             (more than 64 survivors), tied-score and small (A < 256) scenes,
+             class-aware and not; its profiler time on the head outputs,
+             its bound, and the plain version's time and launches.
+ 14. longitudinal: the longitudinal program in bf16 on 60 distinct 720p
+             frames, each step under sync-debug "error", 10 warm-up and 50
+             timed with CUDA events (and the host's enqueue time): one
+             letterbox and one NMS launch a frame, a well-formed table, and
+             device time by kind of kernel over 20 frames (torch.profiler).
 """
 from __future__ import annotations
 
@@ -96,6 +116,7 @@ WARM, TIMED = 10, 50
 CL = torch.channels_last
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 INT8_OPS_PER_S = 1979e12    # H100 SXM int8 tensor cores, dense, published
+F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores, published
 L2_BYTES = 50e6
 # (window, cin, cout, h, w, batch, route) checked bit for bit in every
 # variant: main-path shapes (every 1x1 one), then more shapes for each route
@@ -186,10 +207,11 @@ def device_us(fn, inputs):
     return float("nan")
 
 
-def bound(ops, nbytes):
-    """-> (ms, "operations" or "bytes"): the least time for ``ops`` int8
-    operations and ``nbytes`` moved once, at the published peaks."""
-    t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound(ops, nbytes, ops_per_s=INT8_OPS_PER_S):
+    """-> (ms, "operations" or "bytes"): the least time for ``ops``
+    operations (int8 unless ``ops_per_s`` says otherwise) and ``nbytes``
+    moved once, at the published peaks."""
+    t_ops, t_bytes = ops / ops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -549,8 +571,11 @@ def reset_counts():
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
         ROUTES, int8_conv, int8_quantize)
     from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
-    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
-    for fn in (fused_preprocess, int8_quantize, int8_conv, lane_filter_walk):
+    from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import nms_greedy
+    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (fused_letterbox,
+                                                                               fused_preprocess)
+    for fn in (fused_preprocess, int8_quantize, int8_conv, lane_filter_walk, fused_letterbox,
+               nms_greedy):
         fn.launches = 0
     int8_conv.route_launches = dict.fromkeys(ROUTES, 0)
 
@@ -560,10 +585,13 @@ def read_counts():
     conv kernels together, by route."""
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv, int8_quantize
     from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
-    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
+    from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import nms_greedy
+    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (fused_letterbox,
+                                                                               fused_preprocess)
     r = int8_conv.route_launches
     return {"fused_preprocess": fused_preprocess.launches,
             "lane_filter_walk": lane_filter_walk.launches,
+            "fused_letterbox": fused_letterbox.launches, "nms_greedy": nms_greedy.launches,
             "int8_quantize": int8_quantize.launches, "int8_conv": int8_conv.launches,
             "int8_conv_wgmma": r["wgmma"] + r["splitk"], "int8_conv_splitk": r["splitk"],
             "int8_conv_mma": r["mma"], "int8_conv_pointwise": r["pointwise"],
@@ -983,32 +1011,41 @@ def check_lateral_outputs(outs):
             raise AssertionError(f"frame {i}: scalars {sc.tolist()}")
 
 
-def profile_lateral(pipe, pool, state, card):
-    """torch.profiler device time per lateral frame by kind of kernel."""
+def profile_by_kind(run, kinds, label, card):
+    """torch.profiler device time a frame by kind of kernel, over
+    PROFILE_FRAMES calls of run(i)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(PROFILE_FRAMES):
-                _, state = pipe(pool[i], state)
+                run(i)
             torch.cuda.synchronize()
-        by_kind = dict.fromkeys([k for k, _ in LATERAL_KINDS] + ["the rest"], 0.0)
+        by_kind = dict.fromkeys([k for k, _ in kinds] + ["the rest"], 0.0)
         count = dict.fromkeys(by_kind, 0)
         for e in prof.key_averages():
-            kind = next((k for k, pats in LATERAL_KINDS if any(p in e.key for p in pats)),
-                        "the rest")
+            kind = next((k for k, pats in kinds if any(p in e.key for p in pats)), "the rest")
             by_kind[kind] += e.self_device_time_total / PROFILE_FRAMES
             count[kind] += e.count / PROFILE_FRAMES
         total = sum(by_kind.values())
         if total > 0:
             break
     if total <= 0:
-        print("lateral device time per frame: not measured (no profiler device time)")
+        print(f"{label} device time per frame: not measured (no profiler device time)")
         return
-    print(f"lateral device time per frame by kind (torch.profiler, {PROFILE_FRAMES} frames, "
+    print(f"{label} device time per frame by kind (torch.profiler, {PROFILE_FRAMES} frames, "
           f"{card}): " + "; ".join(f"{k} {v!r} us in {count[k]:g} kernels"
                                    for k, v in by_kind.items())
           + f"; total {total!r} us in {sum(count.values()):g} device operations")
+
+
+def profile_lateral(pipe, pool, state, card):
+    """torch.profiler device time per lateral frame by kind of kernel."""
+    def run(i):
+        nonlocal state
+        _, state = pipe(pool[i], state)
+
+    profile_by_kind(run, LATERAL_KINDS, "lateral", card)
 
 
 def phase_lateral(card):
@@ -1136,6 +1173,299 @@ def phase_lateral_f32():
     torch.cuda.empty_cache()
 
 
+# ---------- the longitudinal program ----------
+
+LON_HW = (640, 640)  # AutoSpeed's input: 720x1280 letterboxes to 360x640, pad_y 140
+# (source, output) of phase 11: landscape (pad rows), the KITTI size (an
+# odd pad), and pad columns with a width that is not a multiple of 8
+LETTERBOX_SIZES = ((FRAME_HW, LON_HW), (ODD_HW, LON_HW), ((360, 640), (181, 333)))
+CONF, IOU, MAX_DET = 0.5, 0.5, 64  # runtime/config.py's LongitudinalConfig
+IOU_OPS = 13  # f32 operations of one IoU test: 4 max/min, 2 sub, 2 clamps, mul, add, sub, div, >
+
+
+def letterbox_bytes(hw, out_hw):
+    """The bytes the letterbox must move: the source pixels its lerp reads
+    (the union of the taps' rows by their columns), 3 bytes each, and the
+    bf16 output, pad included."""
+    from autoware_vision_pilot_tpu_torch.ops.preprocess import bilinear_taps, letterbox_geometry
+    _, inner, _ = letterbox_geometry(out_hw, hw)
+    rows, cols = (len(np.union1d(*bilinear_taps(n, m)[:2])) for n, m in zip(hw, inner))
+    return rows * cols * 3 + out_hw[0] * out_hw[1] * 3 * 2
+
+
+def phase_letterbox(card):
+    """The letterbox mode bit-equal to its plain version; its time at 720p.
+    -> the JSON record."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (fused_letterbox,
+                                                                               fused_preprocess)
+    from autoware_vision_pilot_tpu_torch.ops.preprocess import letterbox
+
+    record = None
+    for hw, out_hw in LETTERBOX_SIZES:
+        pool = frames(32, hw, SEED + 8).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            before = fused_letterbox.launches, fused_preprocess.launches
+            out, scale, pad = fused_letterbox(pool[0], out_hw, dtype)
+            torch.cuda.synchronize()
+            if (fused_letterbox.launches, fused_preprocess.launches) != (before[0] + 1, before[1]):
+                raise AssertionError("fused_letterbox did not count its launch alone")
+            ref, rscale, rpad = letterbox(pool[0][None], out_hw, hw, dtype=dtype)
+            ref = ref.permute(0, 3, 1, 2)
+            if out.shape != (1, 3, *out_hw) or out.dtype != dtype or (scale, pad) != (rscale, rpad) \
+                    or not out.is_contiguous(memory_format=torch.channels_last):
+                raise AssertionError(f"letterbox output {out.shape} {out.dtype} {scale} {pad}")
+            err = (out.float() - ref.float()).abs().max().item()
+            kernel = lambda x: fused_letterbox(x, out_hw, dtype)  # noqa: E731
+            plain = lambda x: letterbox(x[None], out_hw, hw, dtype=dtype)  # noqa: E731
+            us, plain_us = device_us(kernel, pool), device_us(plain, pool)
+            print(f"kernel fused_letterbox {hw[0]}x{hw[1]}->{out_hw[0]}x{out_hw[1]} "
+                  f"{str(dtype)[6:]} (scale {scale!r}, pad {pad}): max_abs_err {err!r} (tol 0: "
+                  f"bit-equal); kernel {us!r} us, plain {plain_us!r} us (profiler device time)")
+            if not torch.equal(out, ref):
+                raise AssertionError("fused_letterbox disagrees with its plain version")
+            if dtype == torch.bfloat16 and hw == FRAME_HW:
+                nbytes = letterbox_bytes(hw, out_hw)
+                bound_ms, bound_by = bound(0, nbytes)
+                print(f"fused_letterbox {hw[0]}x{hw[1]} bound, {card}: {nbytes} bytes read once "
+                      f"and written once, {bound_ms * 1e3!r} us at 3.35 TB/s; share "
+                      f"{bound_ms * 1e3 / us!r}")
+                record = dict(max_abs_err=err, ms=us / 1e3, plain_ms=plain_us / 1e3,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        del pool
+    return record
+
+
+def phase_longitudinal_f32():
+    """The longitudinal program in f32 on the card, TF32 off, against the
+    CPU, same seeded weights, 3 frames: AutoSpeed's pred within 1e-3 *
+    max|CPU|; then the card's network returns the CPU's pred, and the
+    packed table must be equal. -> the CPU's decoded candidates of each
+    frame (boxes, scores, classes), the head outputs for phase 13."""
+    from autoware_vision_pilot_tpu_torch.ops.postprocess import decode_yolo_to_original
+    from autoware_vision_pilot_tpu_torch.ops.preprocess import letterbox_geometry
+    from autoware_vision_pilot_tpu_torch.runtime.pipeline import build_longitudinal_pipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cpu = build_longitudinal_pipeline("cpu", torch.float32, SEED)
+    gpu = build_longitudinal_pipeline("cuda", torch.float32, SEED)
+    fs = frames(3, FRAME_HW, SEED + 9)
+    seen, forced = {}, {}
+
+    def force(m, a, y):
+        seen["card"] = y
+        return forced["pred"]
+
+    hooks = [cpu.net.register_forward_hook(lambda m, a, y: seen.__setitem__("cpu", y)),
+             gpu.net.register_forward_hook(force)]
+    scale, _, pad = letterbox_geometry(LON_HW, FRAME_HW)
+    heads = []
+    try:
+        for i in range(3):
+            ref = cpu(fs[i])
+            forced["pred"] = seen["cpu"].cuda()
+            out = gpu(fs[i].cuda()).cpu()
+            err = (seen["card"].cpu() - seen["cpu"]).abs().max().item()
+            tol = 1e-3 * seen["cpu"].abs().max().item()
+            n_valid = int(ref[:, 6].sum())
+            print(f"f32 longitudinal frame {i}, card vs CPU: pred {tuple(seen['cpu'].shape)} "
+                  f"max_abs_err {err!r} (tol {tol!r}); fed the CPU's pred, packed table equal "
+                  f"{torch.equal(out, ref)} ({n_valid} of {MAX_DET} rows valid)")
+            if not err <= tol:
+                raise AssertionError(f"frame {i}: the card's AutoSpeed and the CPU's disagree")
+            if not torch.equal(out, ref):
+                raise AssertionError(f"frame {i}: the card's decode + NMS and the CPU's disagree")
+            heads.append(decode_yolo_to_original(seen["cpu"][0], scale, pad, FRAME_HW))
+    finally:
+        for h in hooks:
+            h.remove()
+    print(f"f32 longitudinal card vs CPU: {time.perf_counter() - t0:.1f} s")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return heads
+
+
+def nms_candidates(kind, seed, A=2000):
+    """(boxes (A, 4) f32 xyxy, scores (A,) f32, classes (A,) int32) of a
+    ``kind`` of scene in a 1280x720 frame, as CPU tensors: random boxes
+    (some inverted, of zero area), dense same-class clusters, all below
+    0.5, a grid of disjoint boxes (more survivors than max_det), or scores
+    with many ties."""
+    rng = np.random.default_rng(seed)
+    if kind == "grid":
+        gx, gy = np.meshgrid(np.arange(50) * 25.0, np.arange(40) * 18.0)
+        xy = np.stack([gx.ravel(), gy.ravel()], 1)[:A]
+        boxes, cls = np.concatenate([xy, xy + 20.0], 1), rng.integers(0, 4, len(xy))
+        scores = rng.uniform(0.5, 1.0, len(xy))
+    else:
+        if kind == "dense":
+            c = rng.uniform(100, 600, (5, 2))[rng.integers(0, 5, A)] + rng.normal(0, 8, (A, 2))
+            wh = rng.uniform(60, 90, (A, 2))
+            boxes, cls = np.concatenate([c - wh / 2, c + wh / 2], 1), np.zeros(A)
+        else:
+            xy, wh = rng.uniform(0, 1100, (A, 2)), rng.uniform(-10, 300, (A, 2))
+            boxes, cls = np.concatenate([xy, xy + wh], 1), rng.integers(0, 4, A)
+        scores = rng.uniform(0, 1, A)
+        if kind == "below":
+            scores = scores * 0.4999
+        if kind == "ties":
+            scores = rng.choice([0.3, 0.5, 0.6, 0.75, 1.0], A)
+    return (torch.from_numpy(boxes.astype(np.float32)),
+            torch.from_numpy(scores.astype(np.float32)),
+            torch.from_numpy(cls.astype(np.int32)))
+
+
+# (kind, A, class_aware) of phase 13, 2 seeds each
+NMS_SETS = (("random", 8400, True), ("random", 2000, False), ("dense", 2000, True),
+            ("dense", 2000, False), ("below", 2000, True), ("grid", 2000, True),
+            ("ties", 2000, True), ("ties", 2000, False), ("random", 100, True),
+            ("dense", 200, True), ("dense", 40, False), ("ties", 60, True),
+            ("grid", 8400, False), ("below", 8400, False), ("random", 300, True),
+            ("dense", 8400, True))
+
+
+def nms_ops(top, class_aware):
+    """The f32 operations the NMS kernel must do on these candidates: the
+    IoU tests of every pair i < j whose row i is above the threshold (and
+    of one class, class-aware), and the areas."""
+    boxes, scores, cls = top
+    live = scores >= CONF
+    pairs = live[:, None] & torch.ones(len(scores), len(scores), dtype=torch.bool,
+                                       device=scores.device).triu(1)
+    if class_aware:
+        pairs &= cls[:, None] == cls[None, :]
+    return int(pairs.sum()) * IOU_OPS + 4 * len(scores)
+
+
+def phase_nms(card, heads):
+    """The NMS kernel bit-equal to its plain version on the head outputs
+    and 2 seeds of NMS_SETS; its time on the head outputs. -> the JSON
+    record."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import nms_greedy
+    from autoware_vision_pilot_tpu_torch.ops.postprocess import nms_greedy_plain, nms_topk
+
+    sets = [(f"head output {i}", tuple(t.cuda() for t in h), True) for i, h in enumerate(heads)]
+    sets += [(f"{kind} A={A} seed {seed}" + ("" if aware else " class-agnostic"),
+              tuple(t.cuda() for t in nms_candidates(kind, seed, A)), aware)
+             for seed in (1, 2) for kind, A, aware in NMS_SETS]
+    worst, kept = 0.0, []
+    for name, cand, aware in sets:
+        top = nms_topk(*cand, max_det=MAX_DET, conf_thresh=CONF)
+        kw = dict(max_det=MAX_DET, iou_thresh=IOU, conf_thresh=CONF, class_aware=aware)
+        before = nms_greedy.launches
+        out = nms_greedy(*top, **kw)
+        torch.cuda.synchronize()
+        if nms_greedy.launches != before + 1:
+            raise AssertionError("nms_greedy did not count its launch")
+        ref = nms_greedy_plain(*top, **kw)
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(out, ref))
+        worst = max(worst, err)
+        if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(out, ref)):
+            raise AssertionError(f"nms_greedy disagrees with its plain version on {name}: "
+                                 f"max_abs_err {err}")
+        kept.append(f"{name}: {int(ref[3].sum())}")
+    print(f"kernel nms_greedy: {len(sets)} candidate sets, every output bit-equal to the plain "
+          f"version (max_abs_err {worst}; tol 0); kept boxes by set: {'; '.join(kept)}")
+
+    tops = [nms_topk(*sets[i][1], max_det=MAX_DET, conf_thresh=CONF) for i in range(len(heads))]
+    kw = dict(max_det=MAX_DET, iou_thresh=IOU, conf_thresh=CONF)
+    kernel = lambda top: nms_greedy(*top, **kw)  # noqa: E731
+    plain = lambda top: nms_greedy_plain(*top, **kw)  # noqa: E731
+    pool = tops * 10
+    us, ms = device_us(kernel, pool), cuda_ms(kernel, pool)
+    plain_us = device_us(plain, tops)
+    plain_launches = profile_launches(plain, tops[0])
+    k = len(tops[0][1])
+    nbytes = k * (16 + 4 + 4) + MAX_DET * (16 + 4 + 4 + 1)
+    ops = max(nms_ops(top, True) for top in tops)
+    bound_ms, bound_by = bound(ops, nbytes, F32_OPS_PER_S)
+    live = [int((top[1] >= CONF).sum()) for top in tops]
+    print(f"kernel nms_greedy k={k} on the head outputs ({live} of {k} candidates above "
+          f"{CONF}), {card}: {us!r} us (profiler device time; CUDA events {ms * 1e3!r} us a "
+          f"call), bound {bound_ms * 1e3!r} us by {bound_by} ({nbytes} bytes, {ops} f32 "
+          f"operations at 67 TFLOP/s), share {bound_ms * 1e3 / us!r}: latency sets its time; "
+          f"plain version {plain_us!r} us of device time in {plain_launches} launches a call; "
+          f"no PyTorch call computes NMS here (library: none)")
+    return dict(max_abs_err=float(worst), ms=us / 1e3, plain_ms=plain_us / 1e3,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+LON_KINDS = (("NMS (the kernel)", ("nms_greedy_kernel",)),
+             ("letterbox (the preprocess kernel)", ("fused_preprocess_kernel",)),
+             ("convolutions", ("conv", "xmma", "cudnn", "fprop", "implicit")),
+             ("matrix products", ("gemm", "gemv", "cutlass", "dot_kernel")),
+             ("top-k and sorts", ("topk", "sort", "Sort", "radix")),
+             ("copies and memsets", ("Memcpy", "Memset")))
+
+
+def check_tables(tables):
+    for i, t in enumerate(tables):
+        if t.shape != (MAX_DET, 7) or t.dtype != torch.float32 or not t.is_cuda:
+            raise AssertionError(f"frame {i}: table {tuple(t.shape)} {t.dtype} {t.device}")
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"frame {i}: non-finite table")
+        valid = t[:, 6]
+        n = int(valid.sum())
+        if not (((valid == 0) | (valid == 1)).all() and (valid[:n] == 1).all()):
+            raise AssertionError(f"frame {i}: valid flags {valid.tolist()}")
+        rows, rest = t[:n], t[n:]
+        if not ((rest == 0).all() and (rows[:, 4] >= CONF).all()
+                and ((rows[:, 5] >= 0) & (rows[:, 5] <= 3) & (rows[:, 5] == rows[:, 5].round())).all()
+                and (rows[:, [0, 2]] >= 0).all() and (rows[:, [0, 2]] <= FRAME_HW[1]).all()
+                and (rows[:, [1, 3]] >= 0).all() and (rows[:, [1, 3]] <= FRAME_HW[0]).all()):
+            raise AssertionError(f"frame {i}: malformed table {t[:max(n, 1)].tolist()}")
+
+
+def phase_longitudinal(card):
+    """The longitudinal program at full width (build_longitudinal_pipeline,
+    bf16): 60 distinct 720p frames, each step under sync-debug "error";
+    -> its launch counts."""
+    from autoware_vision_pilot_tpu_torch.runtime.pipeline import build_longitudinal_pipeline
+
+    t0 = time.perf_counter()
+    pipe = build_longitudinal_pipeline("cuda", torch.bfloat16, SEED)
+    n = WARM + TIMED
+    pool = frames(n, FRAME_HW, SEED + 10).cuda()
+    torch.cuda.synchronize()
+    print(f"longitudinal build: {time.perf_counter() - t0:.1f} s")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    latencies, enqueue, tables = [], [], []
+    reset_counts()  # count only this path's launches
+    for i in range(n):
+        start.record()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")  # any host sync inside the step raises
+        try:
+            table = pipe(pool[i])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        enqueue.append(time.perf_counter() - t0)
+        end.record()
+        end.synchronize()
+        latencies.append(start.elapsed_time(end))
+        tables.append(table)
+    launches = read_counts()
+    check_tables(tables)
+    expect_launches(launches, {"fused_letterbox": n, "nms_greedy": n, "fused_preprocess": 0,
+                               "int8_quantize": 0, "int8_conv": 0, "lane_filter_walk": 0})
+    timed = np.asarray(latencies[WARM:])
+    p50, p99 = (float(np.percentile(timed, q)) for q in (50, 99))
+    kept = [int(t[:, 6].sum()) for t in tables]
+    print(f"bf16 longitudinal step, {FRAME_HW[0]}x{FRAME_HW[1]} -> letterbox {LON_HW[0]}x"
+          f"{LON_HW[1]} -> AutoSpeed n -> NMS, {card}: p50 {p50!r} ms, p99 {p99!r} ms, mean "
+          f"{float(timed.mean())!r} ms over {len(timed)} frames after {WARM} warm-up (CUDA "
+          f"events per frame); host enqueue p50 {1e3 * float(np.median(enqueue[WARM:]))!r} "
+          f"ms; no host sync in any step (sync-debug \"error\"); launches {launches}; kept "
+          f"boxes a frame {min(kept)}-{max(kept)}; first rows of the last table "
+          f"{tables[-1][:2].tolist()}")
+    profile_by_kind(lambda i: pipe(pool[i]), LON_KINDS, "longitudinal", card)
+    del pipe, pool
+    torch.cuda.empty_cache()
+    return launches
+
+
 def host_costs_of(root):
     """--host-costs ROOT: phase 7's host-cost measurement alone, over the
     port package found in ROOT (this repository, or an earlier commit of it
@@ -1170,6 +1500,12 @@ def main():
     phase_lateral_f32()
     lateral = phase_lateral(card)  # the lateral program
     launches["lane_filter_walk"] = lateral["lane_filter_walk"]
+    records["fused_letterbox"] = phase_letterbox(card)
+    heads = phase_longitudinal_f32()
+    records["nms_greedy"] = phase_nms(card, heads)
+    longitudinal = phase_longitudinal(card)  # the longitudinal program
+    launches["fused_letterbox"] = longitudinal["fused_letterbox"]
+    launches["nms_greedy"] = longitudinal["nms_greedy"]
     print(f"fused_preprocess on the lateral crop {FRAME_HW[0]}x{FRAME_HW[1]}[{LATERAL_CROP}:]"
           f" -> {OUT_HW[0]}x{OUT_HW[1]} bf16, {card}: {crop['ms'] * 1e3!r} us, bound "
           f"{crop['bound_ms'] * 1e3!r} us, plain {crop['plain_ms'] * 1e3!r} us (profiler)")
@@ -1186,11 +1522,14 @@ def main():
         "int8_conv_dot": (pkg + "int8_pointwise.cu", "autoware_vision_pilot_tpu/nn/layers.py:81"),
         "lane_filter_walk": (pkg + "lane_filter.cu",
                              "autoware_vision_pilot_tpu/perception/lane_filter.py:113"),
+        "fused_letterbox": (pkg + "preprocess.cu",
+                            "autoware_vision_pilot_tpu/ops/preprocess.py:86"),
+        "nms_greedy": (pkg + "nms.cu", "autoware_vision_pilot_tpu/ops/postprocess.py:88"),
     }
     # PR 2's mma.sync kernel keeps the windows > 1 with C < 128, which the
     # main path has none of: it is checked and timed above, and launched 0
     # times there. Each path's own kernels: the int8 path's counts above,
-    # the lateral program's here.
+    # the lateral and longitudinal programs' here.
     for name in sources:
         if launches[name] <= 0 and name != "int8_conv_mma":
             raise AssertionError(f"the main path never launched {name}")

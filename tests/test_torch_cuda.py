@@ -1,7 +1,7 @@
-"""Tests of the port that need an NVIDIA GPU: the fused-preprocess, int8 and
-lane-filter CUDA kernels against their plain PyTorch versions, the main
-path, bf16 and int8, and the lateral step on the card against the CPU. They
-skip where there is no CUDA device.
+"""Tests of the port that need an NVIDIA GPU: the fused-preprocess (both
+modes), int8, lane-filter and NMS CUDA kernels against their plain PyTorch
+versions, the main path, bf16 and int8, and the lateral and longitudinal
+steps on the card against the CPU. They skip where there is no CUDA device.
 
 This file imports no JAX, so it also runs on a machine that has none:
 
@@ -18,12 +18,18 @@ from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
 from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
     _launch, _mma_plan, int8_conv, int8_conv2d, int8_conv_plain, int8_conv_plan, int8_quantize,
     int8_quantize_plain)
+from autoware_vision_pilot_tpu_torch.ops.kernels import nms_kernel, preprocess_kernel
 from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
-from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
-from autoware_vision_pilot_tpu_torch.ops.preprocess import preprocess_imagenet
+from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import nms_greedy
+from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (fused_letterbox,
+                                                                           fused_preprocess)
+from autoware_vision_pilot_tpu_torch.ops.postprocess import nms_greedy_plain, nms_topk
+from autoware_vision_pilot_tpu_torch.ops.preprocess import letterbox, preprocess_imagenet
 from autoware_vision_pilot_tpu_torch.perception.lane_filter import lane_filter_walk_plain
 from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused
-from autoware_vision_pilot_tpu_torch.runtime.pipeline import SCALAR_FIELDS, build_lateral_pipeline
+from autoware_vision_pilot_tpu_torch.runtime.pipeline import (SCALAR_FIELDS,
+                                                              build_lateral_pipeline,
+                                                              build_longitudinal_pipeline)
 
 pytestmark = pytest.mark.cuda
 CL = torch.channels_last
@@ -517,3 +523,185 @@ def test_lateral_step_makes_no_host_sync(cuda):
         assert out["scalars"].shape == (8,) and out["coeffs"].shape == (3, 6)
         assert torch.isfinite(out["scalars"]).all()
         assert ((out["lane_masks"] == 0) | (out["lane_masks"] == 1)).all()
+
+
+# ---------- the longitudinal program ----------
+
+@pytest.mark.parametrize("src,out_hw,batch", [((720, 1280), (640, 640), 1),
+                                               ((375, 1242), (640, 640), 2),
+                                               ((1280, 720), (640, 640), 1),
+                                               ((360, 640), (181, 333), 2)])
+def test_letterbox_kernel_matches_plain_version(cuda, src, out_hw, batch):
+    """The letterbox mode, bit-equal in f32 and bf16: pad rows (landscape),
+    pad columns (portrait), an odd pad and a width that is not a multiple
+    of 8, in a batch. One fused_letterbox launch a call, none counted as
+    fused_preprocess."""
+    f = frames(src, batch, seed=src[1] + 1).to(cuda)
+    before = fused_letterbox.launches, fused_preprocess.launches
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out, scale, pad = fused_letterbox(f, out_hw, out_dtype)
+        torch.cuda.synchronize()
+        ref, rscale, rpad = letterbox(f, out_hw, src, dtype=out_dtype)
+        assert out.shape == (batch, 3, *out_hw) and out.dtype == out_dtype
+        assert out.is_contiguous(memory_format=torch.channels_last)
+        assert (scale, pad) == (rscale, rpad)
+        assert torch.equal(out.permute(0, 2, 3, 1), ref)
+    assert (fused_letterbox.launches, fused_preprocess.launches) == (before[0] + 2, before[1])
+
+
+def test_preprocess_mode_is_unchanged_beside_letterbox(cuda):
+    """The ImageNet mode after a letterbox launch: bit-equal to its plain
+    version at 720p and the KITTI size, one fused_preprocess launch each."""
+    fused_letterbox(frames((720, 1280), 1, seed=7)[0].to(cuda), (640, 640))
+    for src in ((720, 1280), (375, 1242)):
+        f = frames(src, 1, seed=8).to(cuda)
+        before = fused_preprocess.launches
+        out = fused_preprocess(f, (320, 640), torch.float32)
+        ref = preprocess_imagenet(f, (320, 640)).permute(0, 3, 1, 2)
+        assert torch.equal(out, ref)
+        assert fused_preprocess.launches == before + 1
+
+
+def nms_candidates(kind, seed, A=2000):
+    """(boxes (A, 4) f32 xyxy, scores (A,) f32, classes (A,) int32) of a
+    ``kind`` of scene in a 1280x720 frame: random boxes (some inverted, of
+    zero area), dense same-class clusters, all below 0.5, a grid of
+    disjoint boxes (more survivors than max_det), or scores with many
+    ties. numpy arrays."""
+    rng = np.random.default_rng(seed)
+    if kind == "grid":
+        gx, gy = np.meshgrid(np.arange(50) * 25.0, np.arange(40) * 18.0)
+        xy = np.stack([gx.ravel(), gy.ravel()], 1)[:A]
+        boxes = np.concatenate([xy, xy + 20.0], 1)
+        return (boxes.astype(np.float32), rng.uniform(0.5, 1.0, len(xy)).astype(np.float32),
+                rng.integers(0, 4, len(xy)).astype(np.int32))
+    if kind == "dense":
+        c = rng.uniform(100, 600, (5, 2))[rng.integers(0, 5, A)] + rng.normal(0, 8, (A, 2))
+        wh = rng.uniform(60, 90, (A, 2))
+        boxes = np.concatenate([c - wh / 2, c + wh / 2], 1)
+        cls = np.zeros(A, np.int32)
+    else:
+        xy = rng.uniform(0, 1100, (A, 2))
+        wh = rng.uniform(-10, 300, (A, 2))  # a few inverted: zero area
+        boxes = np.concatenate([xy, xy + wh], 1)
+        cls = rng.integers(0, 4, A).astype(np.int32)
+    scores = rng.uniform(0, 1, A)
+    if kind == "below":
+        scores = scores * 0.4999
+    if kind == "ties":
+        scores = rng.choice([0.3, 0.5, 0.6, 0.75, 1.0], A)
+    return boxes.astype(np.float32), scores.astype(np.float32), cls
+
+
+# (kind, seed, A, class_aware, max_det): k = min(4 * max_det, A) is 256,
+# 100 and 40 (not multiples of 32), 1 and 1024 (shared memory above 48 KB)
+NMS_CARD_CASES = [("random", 1, 8400, True, 64), ("random", 2, 2000, False, 64),
+                  ("dense", 3, 2000, True, 64), ("dense", 4, 2000, False, 64),
+                  ("below", 5, 2000, True, 64), ("grid", 6, 2000, True, 64),
+                  ("ties", 7, 2000, True, 64), ("ties", 8, 2000, False, 64),
+                  ("random", 9, 100, True, 64), ("dense", 10, 40, True, 64),
+                  ("dense", 11, 2000, True, 256), ("random", 12, 1, True, 64)]
+
+
+@pytest.mark.parametrize("kind,seed,A,class_aware,max_det", NMS_CARD_CASES)
+def test_nms_kernel_matches_plain_version(cuda, kind, seed, A, class_aware, max_det):
+    boxes, scores, cls = (torch.from_numpy(a).to(cuda) for a in nms_candidates(kind, seed, A))
+    top = nms_topk(boxes, scores, cls, max_det=max_det, conf_thresh=0.5)
+    kw = dict(max_det=max_det, iou_thresh=0.5, conf_thresh=0.5, class_aware=class_aware)
+    before = nms_greedy.launches
+    out = nms_greedy(*top, **kw)
+    torch.cuda.synchronize()
+    assert nms_greedy.launches == before + 1
+    ref = nms_greedy_plain(*top, **kw)
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape and a.device == b.device
+        assert torch.equal(a, b), kind
+
+
+def test_nms_kernel_rejects_bad_candidates_on_the_card(cuda):
+    boxes, scores, cls = (torch.from_numpy(a).to(cuda) for a in nms_candidates("random", 13))
+    with pytest.raises(ValueError):  # k = 1200 > 1024
+        nms_greedy(boxes[:1200], scores[:1200], cls[:1200], max_det=300)
+    with pytest.raises(ValueError):
+        nms_greedy(boxes[:256], scores[:256], cls[:256].cpu())
+    with pytest.raises(ValueError):
+        nms_greedy(boxes[:256].t().contiguous().t(), scores[:256], cls[:256])
+    with pytest.raises(RuntimeError):  # boxes off 16 bytes
+        nms_greedy(boxes.flatten()[1:1025].view(256, 4), scores[:256], cls[:256])
+
+
+def test_cuda_tensors_never_reach_a_plain_version(cuda, monkeypatch):
+    """With the plain versions replaced by functions that raise, the kernels
+    still run on CUDA tensors: no wrapper falls back."""
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(nms_kernel, "nms_greedy_plain", boom)
+    monkeypatch.setattr(preprocess_kernel, "letterbox", boom)
+    monkeypatch.setattr(preprocess_kernel, "preprocess_imagenet", boom)
+    f = frames((720, 1280), 1, seed=9)[0].to(cuda)
+    fused_letterbox(f, (640, 640))
+    fused_preprocess(f, (320, 640))
+    boxes, scores, cls = (torch.from_numpy(a).to(cuda) for a in nms_candidates("dense", 14))
+    nms_kernel.nms_fixed(boxes, scores, cls)
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        nms_kernel.nms_fixed(boxes.cpu(), scores.cpu(), cls.cpu())
+
+
+LONGITUDINAL = dict(frame_hw=(180, 320), input_hw=(128, 128))
+
+
+def test_longitudinal_step_on_card_matches_cpu(cuda):
+    """The longitudinal step at a small size in f32, TF32 off, card against
+    CPU over 3 frames: pred within 1e-3 * max|CPU|; the card's network then
+    returning the CPU's pred, the packed table equal."""
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = build_longitudinal_pipeline("cpu", torch.float32, **LONGITUDINAL)
+        card = build_longitudinal_pipeline(cuda, torch.float32, **LONGITUDINAL)
+        fs = frames((180, 320), 3, seed=10)
+        seen, forced = {}, {}
+        h_cpu = cpu.net.register_forward_hook(lambda m, a, y: seen.__setitem__("cpu", y))
+
+        def force(m, a, y):
+            seen["card"] = y
+            return forced["pred"]
+
+        h_card = card.net.register_forward_hook(force)
+        try:
+            for i in range(3):
+                ref = cpu(fs[i])
+                forced["pred"] = seen["cpu"].to(cuda)
+                out = card(fs[i].to(cuda))
+                assert out.shape == (64, 7) and out.dtype == torch.float32 and out.is_cuda
+                torch.testing.assert_close(seen["card"].cpu(), seen["cpu"], rtol=0,
+                                           atol=1e-3 * seen["cpu"].abs().max().item())
+                assert torch.equal(out.cpu(), ref)
+                assert ref[:, 6].sum() >= 1
+        finally:
+            h_cpu.remove(), h_card.remove()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_longitudinal_step_makes_no_host_sync(cuda):
+    """Three bf16 frames under sync-debug "error": any host synchronisation
+    inside the step raises. One letterbox and one NMS launch each."""
+    pipe = build_longitudinal_pipeline(cuda, torch.bfloat16, seed=1, **LONGITUDINAL)
+    fs = frames((180, 320), 3, seed=11).to(cuda)
+    torch.cuda.synchronize()
+    before = fused_letterbox.launches, nms_greedy.launches
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(3):
+            outs.append(pipe(fs[i]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (fused_letterbox.launches, nms_greedy.launches) == (before[0] + 3, before[1] + 3)
+    for out in outs:
+        assert out.shape == (64, 7) and out.dtype == torch.float32 and out.is_cuda
+        assert torch.isfinite(out).all()
+        assert ((out[:, 6] == 0) | (out[:, 6] == 1)).all()

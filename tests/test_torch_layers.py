@@ -41,6 +41,8 @@ def seeded_variables(model, *inputs, seed=0):
             return normal(shape, 0.0, np.prod(shape[:-1]) ** -0.5)
         if name == "wt":  # (kh, kw, O, I): each output sums I inputs
             return normal(shape, 0.0, shape[-1] ** -0.5)
+        if name == "w1":  # Conv1d (3, I, O) on a length-1 sequence: its centre tap sums I
+            return normal(shape, 0.0, shape[1] ** -0.5)
         if name == "b":
             return normal(shape, 0.0, 0.1)
         if name == "scale":

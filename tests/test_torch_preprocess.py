@@ -188,17 +188,18 @@ def test_depth_minmax_scale():
 def test_kernel_binding_matches_c_signature():
     """The ctypes argtypes in kernels/build.py against the extern "C"
     declarations in csrc/*.cu: pointers (and the stream) as c_void_p, ints
-    as c_int, long longs as c_int64, in order. The library itself is built
-    only on a GPU machine."""
+    as c_int, long longs as c_int64, floats as c_float, in order. The
+    library itself is built only on a GPU machine."""
     assert [p.name for p in build.sources()] == ["int8_conv.cu", "int8_conv_sm90.cu",
                                                  "int8_pointwise.cu", "lane_filter.cu",
-                                                 "preprocess.cu"]
+                                                 "nms.cu", "preprocess.cu"]
     decls = {}
     for src in build.sources():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
                                        src.read_text()):
             decls[name] = [ctypes.c_void_p if "*" in p else
-                           ctypes.c_int64 if "long long" in p else ctypes.c_int
+                           ctypes.c_int64 if "long long" in p else
+                           ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
                            for p in params.split(",")]
     assert decls.keys() == build.SIGNATURES.keys()
     for name, argtypes in build.SIGNATURES.items():
