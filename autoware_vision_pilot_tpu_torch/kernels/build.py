@@ -49,11 +49,13 @@ SIGNATURES = {
     # x, in_kind, scale, rcp, per_channel, w, w_scale, bias, out, M, C, N,
     # out_kind, stream
     "avp_int8_conv_dot": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 4 + (_P,),
-    # masks, weights, starts, H, W, stream
-    "avp_lane_filter_walk": (_P, _P, _P, _I, _I, _P),
+    # blocks, threads, cluster, stream
+    "avp_launch_floor": (_I, _I, _I, _P),
+    # masks, weights, starts, H, W, stamps, stream
+    "avp_lane_filter_walk": (_P, _P, _P, _I, _I, _P, _P),
     # boxes, scores, classes, out_boxes, out_scores, out_classes, out_valid,
-    # k, max_det, iou_thresh, conf_thresh, class_aware, stream
-    "avp_nms_greedy": (_P,) * 7 + (_I, _I, _F, _F, _I, _P),
+    # k, max_det, iou_thresh, conf_thresh, class_aware, cs, stamps, stream
+    "avp_nms_greedy": (_P,) * 7 + (_I, _I, _F, _F, _I, _I, _P, _P),
 }
 
 

@@ -3,8 +3,9 @@ counterpart of XLA's fusion of the JAX package's start-point scan and
 window-walk ``lax.scan``s (autoware_vision_pilot_tpu/perception/
 lane_filter.py:80-199, ``_find_start`` and both ``direction_scan``s).
 
-On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it runs
-the plain version, perception/lane_filter.py::lane_filter_walk_plain.
+On a CUDA tensor it launches the kernel, a thread-block cluster of 8 blocks,
+or raises; on a CPU tensor it runs the plain version,
+perception/lane_filter.py::lane_filter_walk_plain.
 """
 from __future__ import annotations
 
@@ -12,8 +13,11 @@ import torch
 
 from ...kernels import build
 
-# the kernel holds the mask, one byte a pixel, in shared memory
-MAX_PIXELS = 227 * 1024 - 64
+# what fits the kernel's shared memory: each of its 8 blocks stages an
+# eighth of the mask, the two walking blocks hold the mask as two bitmasks,
+# and every block the four walks' logs, a step per 4 rows
+MAX_PIXELS = 320 * 320
+MAX_ROWS = 4096
 
 
 def lane_filter_walk(masks: torch.Tensor):
@@ -39,14 +43,24 @@ def lane_filter_walk(masks: torch.Tensor):
         return lane_filter_walk_plain(masks)
     if masks.device.type != "cuda":
         raise ValueError(f"no lane-filter walk for device {masks.device}")
-    if H * W > MAX_PIXELS:
-        raise ValueError(f"{H}x{W} masks: the kernel takes at most {MAX_PIXELS} pixels")
+    if H * W > MAX_PIXELS or H > MAX_ROWS:
+        raise ValueError(f"{H}x{W} masks: the kernel takes at most {MAX_PIXELS} pixels "
+                         f"and {MAX_ROWS} rows")
 
+    return _launch(masks)
+
+
+def _launch(masks: torch.Tensor, stamps: torch.Tensor | None = None):
+    """One launch of the kernel on checked CUDA masks. ``stamps``, a (16,)
+    int64 CUDA tensor, receives each side's %globaltimer at its stages (see
+    csrc/lane_filter.cu); the path passes none."""
+    H, W, _ = masks.shape
     weights = torch.empty((2, H, W), dtype=torch.int32, device=masks.device)
     starts = torch.empty((2, 3), dtype=torch.int32, device=masks.device)
     with torch.cuda.device(masks.device):
         err = build.load().avp_lane_filter_walk(
             masks.data_ptr(), weights.data_ptr(), starts.data_ptr(), H, W,
+            None if stamps is None else stamps.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"avp_lane_filter_walk failed: cudaError_t {err}")

@@ -3,8 +3,9 @@ counterpart of XLA's lowering of the JAX package's ``nms_fixed`` after its
 top-k (autoware_vision_pilot_tpu/ops/postprocess.py:51-111, the greedy
 ``fori_loop`` at :88-97).
 
-On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it runs
-the plain version, ops/postprocess.py::nms_greedy_plain. The top-k before
+On a CUDA tensor it launches the kernel, a thread-block cluster of
+``cluster_size(k)`` blocks, or raises; on a CPU tensor it runs the plain
+version, ops/postprocess.py::nms_greedy_plain. The top-k before
 it stays a PyTorch sort (ops/postprocess.py::nms_topk), as it is XLA's
 ``top_k`` in the JAX package.
 """
@@ -16,6 +17,13 @@ from ...kernels import build
 from ..postprocess import nms_greedy_plain, nms_topk
 
 MAX_K = 1024  # the kernel's greedy warp holds the alive bitmask, a word a lane
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+
+
+def cluster_size(k: int) -> int:
+    """The blocks of the kernel's cluster for k candidates: one for each
+    32-row word of the suppression matrix, at most 8."""
+    return min(MAX_CLUSTER, -(-k // 32))
 
 
 def nms_greedy(top_boxes: torch.Tensor, top_scores: torch.Tensor, top_cls: torch.Tensor, *,
@@ -55,6 +63,16 @@ def nms_greedy(top_boxes: torch.Tensor, top_scores: torch.Tensor, top_cls: torch
             and top_cls.is_contiguous()):
         raise ValueError("candidates must be contiguous")
 
+    return _launch(top_boxes, top_scores, top_cls, max_det, iou_thresh, conf_thresh,
+                   class_aware, cluster_size(k))
+
+
+def _launch(top_boxes, top_scores, top_cls, max_det, iou_thresh, conf_thresh, class_aware,
+            cs, stamps=None):
+    """One launch of the kernel, a cluster of ``cs`` blocks, on checked CUDA
+    candidates. ``stamps``, a (5,) int64 CUDA tensor, receives block 0's
+    %globaltimer at its stages (see csrc/nms.cu); the path passes none."""
+    device = top_scores.device
     boxes = torch.empty((max_det, 4), dtype=torch.float32, device=device)
     scores = torch.empty(max_det, dtype=torch.float32, device=device)
     classes = torch.empty(max_det, dtype=torch.int32, device=device)
@@ -63,7 +81,8 @@ def nms_greedy(top_boxes: torch.Tensor, top_scores: torch.Tensor, top_cls: torch
         err = build.load().avp_nms_greedy(
             top_boxes.data_ptr(), top_scores.data_ptr(), top_cls.data_ptr(),
             boxes.data_ptr(), scores.data_ptr(), classes.data_ptr(), valid.data_ptr(),
-            k, max_det, iou_thresh, conf_thresh, int(class_aware),
+            top_scores.shape[0], max_det, iou_thresh, conf_thresh, int(class_aware), cs,
+            None if stamps is None else stamps.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"avp_nms_greedy failed: cudaError_t {err}")

@@ -2,13 +2,22 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parent ROOT       # also time the lane-filter walk
+                                              # and NMS kernels of the port in
+                                              # ROOT (an earlier commit, from
+                                              # git archive) against this
+                                              # tree's: parent, this, this,
+                                              # parent
     python3 chip_smoke.py --host-costs ROOT   # phase 7's host costs alone, of
                                               # the package in ROOT
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. device: CUDA must be available; prints the card's name and power limit.
   2. build:  compiles each autoware_vision_pilot_tpu_torch/csrc/*.cu with its
-             own nvcc for sm_90a, all at once, into build/torch_kernels/.
+             own nvcc for sm_90a, all at once, into build/torch_kernels/;
+             then the launch floor: the profiler device time of an empty
+             kernel (csrc/launch_floor.cu) at the launch shapes of the walk
+             and NMS kernels.
   3. kernel: the fused-preprocess kernel against its plain PyTorch version
              on the card, 720x1280 and 375x1242 -> 320x640, 360x640 ->
              180x321 (a width that is not a multiple of 8) and the lateral
@@ -34,8 +43,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   5. lane filter: the lane-filter walk kernel against its plain version
              (torch.equal on the weight images and start points) on 30 mask
              sets from the script's own rasteriser (10 kinds of scene x 2
-             seeds at 80x160, and at 24x48); its profiler time and bound,
-             the plain version's time and launches.
+             seeds at 80x160, and at 24x48) and 19 edge sets (widths not a
+             multiple of 32, 320x320, 4096x25, 1x1, windows at the four
+             edges, masks 4 bytes off 16); its profiler time and bound, its
+             stage split from the kernel's own %globaltimer stamps, the plain
+             version's time and launches (and with --parent the parent's
+             kernel, in turns).
   6. f32:    the main path (build_pipeline_fused, full width and depth) on
              one 720p frame, on the card with TF32 off against the CPU, same
              seeded weights: logits within 1e-3 * max|CPU|.
@@ -81,8 +94,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              output) on 35 candidate sets: the CPU's head outputs of phase
              12, and random, dense same-class, all-below-threshold, grid
              (more than 64 survivors), tied-score and small (A < 256) scenes,
-             class-aware and not; its profiler time on the head outputs,
-             its bound, and the plain version's time and launches.
+             class-aware and not; then at k = 1, 31, 32, 33, 255, 256, 257
+             and 1024, live, all-dead, degenerate (clamped, tied) and NaN
+             candidates, at clusters of 1, 2, 4 and 8 blocks and the
+             wrapper's choice, bit for bit; its profiler time on the head
+             outputs, its stage split from its stamps, its bound, and the
+             plain version's time and launches (and with --parent the
+             parent's kernel, in turns).
  14. longitudinal: the longitudinal program in bf16 on 60 distinct 720p
              frames, each step under sync-debug "error", 10 warm-up and 50
              timed with CUDA events (and the host's enqueue time): one
@@ -190,8 +208,10 @@ def cuda_ms(fn, inputs):
 def device_us(fn, inputs):
     """Mean device microseconds per call of fn(x) over ``inputs``: the sum
     of every kernel's own time in a torch.profiler trace of the run. A
-    trace that recorded no device time is taken again, up to five times;
-    then the time is NaN (not measured)."""
+    trace that recorded no device time, or fewer device operations than
+    calls (each call launches at least one: a trace that dropped records),
+    is taken again, up to five times; then the calls are timed queued
+    (queued_us)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(inputs[0])
@@ -202,9 +222,34 @@ def device_us(fn, inputs):
                 fn(x)
             torch.cuda.synchronize()
         total = sum(e.self_device_time_total for e in prof.key_averages())
-        if total > 0:
+        ops = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0 and ops >= len(inputs):
             return total / len(inputs)
-    return float("nan")
+    us = queued_us(fn, inputs)
+    print(f"device_us: the profiler's traces of {getattr(fn, '__name__', fn)} dropped records "
+          f"five times; {us!r} us a call from CUDA events around the calls queued behind a "
+          f"sleep (back to back on the card, the gaps between them included)")
+    return us
+
+
+def queued_us(fn, inputs):
+    """Mean device microseconds per call of fn(x) over ``inputs``, from CUDA
+    events around the calls while the card runs them back to back: a
+    sleep kernel holds the stream for twice the host's time to enqueue
+    them, so the host's launch rate does not set the time."""
+    t0 = time.perf_counter()
+    fn(inputs[0])
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2 * host_s * len(inputs) * 2e9))  # cycles at up to 2 GHz
+    start.record()
+    for x in inputs:
+        fn(x)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / len(inputs)
 
 
 def bound(ops, nbytes, ops_per_s=INT8_OPS_PER_S):
@@ -942,11 +987,208 @@ def profile_launches(fn, x):
     return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def phase_lane_filter(card):
+# (shape, kind, seed) of phase 5 beyond the 30 sets: widths that are not a
+# multiple of 32, an H * W * 3 that is not a multiple of 4 (33x65), the
+# largest mask the wrapper admits (320x320) and the most rows (4096x25)
+LANE_EDGE_SETS = (((33, 65), "random 0.3", 3), ((33, 65), "curved", 3), ((80, 150), "noise", 3),
+                  ((80, 150), "other-lane fallback", 3), ((37, 91), "dashed", 3),
+                  ((320, 320), "random 0.3", 3), ((320, 320), "curved", 3),
+                  ((4096, 25), "straight", 3), ((1, 1), "random 0.6", 3), ((3, 1000), "random 0.6", 3))
+LANE_STAGES = ("staging", "bits packed and landed", "start point", "up walk", "down walk",
+               "logs landed (the other side's walk)", "count and write-out")
+
+
+def edge_lane_masks(hw, near):
+    """Masks whose lanes run down columns ``near`` and W - 1 - ``near`` (a
+    window at the left and right edges), with the other mask's bottom row
+    and top third set (windows at the bottom and top)."""
+    h, w = hw
+    m = np.zeros((h, w, 3), np.float32)
+    m[:, near, 0] = m[:, min(near + 1, w - 1), 0] = 1.0
+    m[:, w - 1 - near, 1] = m[:, max(w - 2 - near, 0), 1] = 1.0
+    m[h - 1, :, 2] = 1.0
+    m[:h // 3, :, 2] = 1.0
+    return m
+
+
+def walk_equal(masks, name):
+    """The walk kernel on ``masks`` against its plain version: torch.equal
+    on the weight images and start points, else raise. -> max |error|."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
+    from autoware_vision_pilot_tpu_torch.perception.lane_filter import lane_filter_walk_plain
+
+    before = lane_filter_walk.launches
+    weights, starts = lane_filter_walk(masks)
+    torch.cuda.synchronize()
+    if lane_filter_walk.launches != before + 1:
+        raise AssertionError("lane_filter_walk did not count its launch")
+    ref_w, ref_s = lane_filter_walk_plain(masks)
+    err = max((weights - ref_w).abs().max().item(), (starts - ref_s).abs().max().item())
+    if not (torch.equal(weights, ref_w) and torch.equal(starts, ref_s)):
+        raise AssertionError(f"lane_filter_walk disagrees with its plain version on {name}: "
+                             f"{starts.tolist()} vs {ref_s.tolist()}, max_abs_err {err}")
+    return err
+
+
+def parent_kernels(root):
+    """--parent ROOT: the lane-filter walk and NMS entry points of the port
+    in ROOT (an earlier commit unpacked with git archive), compiled from its
+    csrc/ with its own flags into ROOT/build/parent_kernels/ and bound with
+    its own C signatures. -> (walk(masks), nms(top, kw), each allocating
+    its outputs as this tree's wrappers do; and the stamped copies of
+    stamped_parent, where the parent's kernels have no stamps), or None
+    without ROOT."""
+    if root is None:
+        return None
+    import ctypes
+    import importlib.util
+
+    pkg = pathlib.Path(root).resolve() / "autoware_vision_pilot_tpu_torch"
+    spec = importlib.util.spec_from_file_location("parent_build", pkg / "kernels" / "build.py")
+    pb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pb)
+    out = pkg.parent / "build" / "parent_kernels"
+    out.mkdir(parents=True, exist_ok=True)
+    objs = [out / f"{n}.o" for n in ("lane_filter", "nms")]
+    pb._run_all([[pb._nvcc(), *pb.NVCC_FLAGS, "-I", str(pkg / "csrc"), "-c", "-o", str(o),
+                  str(pkg / "csrc" / f"{o.stem}.cu")] for o in objs])
+    lib_path = out / "libparent.so"
+    pb._run_all([[pb._nvcc(), *pb.NVCC_FLAGS, "-shared", "-o", str(lib_path), *map(str, objs)]])
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("avp_lane_filter_walk", "avp_nms_greedy"):
+        getattr(lib, name).argtypes = pb.SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    walk_args = len(pb.SIGNATURES["avp_lane_filter_walk"])  # 6: no stamps
+    nms_args = len(pb.SIGNATURES["avp_nms_greedy"])  # 13: no cluster size, no stamps
+
+    def walk(masks):
+        h, w, _ = masks.shape
+        weights = torch.empty((2, h, w), dtype=torch.int32, device=masks.device)
+        starts = torch.empty((2, 3), dtype=torch.int32, device=masks.device)
+        extra = () if walk_args == 6 else (None,)
+        err = lib.avp_lane_filter_walk(masks.data_ptr(), weights.data_ptr(), starts.data_ptr(),
+                                       h, w, *extra, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's avp_lane_filter_walk failed: {err}")
+        return weights, starts
+
+    def nms(top, kw):
+        from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import cluster_size
+        k, md, dev = top[1].shape[0], kw["max_det"], top[1].device
+        outs = (torch.empty((md, 4), device=dev), torch.empty(md, device=dev),
+                torch.empty(md, dtype=torch.int32, device=dev),
+                torch.empty(md, dtype=torch.bool, device=dev))
+        extra = () if nms_args == 13 else (cluster_size(k), None)
+        err = lib.avp_nms_greedy(*(t.data_ptr() for t in top), *(t.data_ptr() for t in outs), k,
+                                 md, kw["iou_thresh"], kw["conf_thresh"],
+                                 int(kw.get("class_aware", True)), *extra,
+                                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's avp_nms_greedy failed: {err}")
+        return outs
+
+    print(f"parent kernels built from {pkg}")
+    return walk, nms, stamped_parent(pkg, pb, out) if walk_args == 6 else None
+
+
+# Stage stamps for the parent's kernels when they have none of their own (the
+# single-block walk and NMS kernels before the cluster designs): (source,
+# [(anchor, text put before it)]), each anchor found once in the parent's
+# source
+PARENT_STAMPS = {
+    "lane_filter.cu": [
+        ("__device__ void walk(", "__device__ unsigned long long* g_stamps;\n"
+         "#define STAMP(i) if (g_stamps) { unsigned long long t; asm volatile("
+         "\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); g_stamps[8 * blockIdx.x + (i)] = t; }\n"),
+        ("  if (threadIdx.x == 0) {\n    best_row = -1;", "  if (threadIdx.x == 0) STAMP(0)\n"),
+        ("\n  // _find_start: the ROI", "\n  if (threadIdx.x == 0) STAMP(1)"),
+        ("  // keys are distinct", "  if (threadIdx.x == 0) STAMP(2)\n"),
+        ("}\n\n}  // namespace", "  if (warp < 2 && threadIdx.x % 32 == 0) STAMP(3 + warp)\n"),
+        ('extern "C" int avp_lane_filter_walk', 'extern "C" int avp_set_stamps(void* p) {\n'
+         "  return (int)cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));\n}\n")],
+    "nms.cu": [
+        ("__global__ void __launch_bounds__(THREADS) nms_greedy_kernel(",
+         "__device__ unsigned long long* g_stamps;\n"
+         "#define STAMP(i) if (g_stamps && threadIdx.x == 0) { unsigned long long t; asm "
+         "volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); g_stamps[i] = t; }\n"),
+        ("\n  for (int i = threadIdx.x; i < k; i += THREADS) {\n    const float4 b",
+         "\n  STAMP(0)"),
+        ("\n  // the suppression bits", "\n  STAMP(1)"),
+        ("\n  if (warp == 0) {\n    unsigned alive", "\n  STAMP(2)"),
+        ("\n  for (int i = threadIdx.x; i < k; i += THREADS) {\n    const unsigned word",
+         "\n  STAMP(3)"),
+        ("}\n\nsize_t smem_bytes", "  STAMP(4)\n"),
+        ('extern "C" int avp_nms_greedy', 'extern "C" int avp_set_stamps(void* p) {\n'
+         "  return (int)cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));\n}\n")],
+}
+
+
+def stamped_parent(pkg, pb, out):
+    """The parent's walk and NMS kernels again, each with %globaltimer stamps
+    at its stages (PARENT_STAMPS) written into build/parent_kernels/, each
+    in its own library. -> {source: (library, stamps tensor)}, or None if an
+    anchor is missing."""
+    import ctypes
+
+    libs = {}
+    for src, edits in PARENT_STAMPS.items():
+        text = (pkg / "csrc" / src).read_text()
+        for anchor, stamp in edits:
+            if text.count(anchor) != 1:
+                print(f"parent stage split: not measured ({src} has no single {anchor!r})")
+                return None
+            text = text.replace(anchor, stamp + anchor)
+        path = out / f"stamped_{src}"
+        path.write_text(text)
+        lib_path = out / f"libstamped_{path.stem}.so"
+        pb._run_all([[pb._nvcc(), *pb.NVCC_FLAGS, "-shared", "-o", str(lib_path), str(path)]])
+        lib = ctypes.CDLL(str(lib_path))
+        name = "avp_lane_filter_walk" if src == "lane_filter.cu" else "avp_nms_greedy"
+        getattr(lib, name).argtypes = pb.SIGNATURES[name]
+        stamps = torch.zeros(16, dtype=torch.int64, device="cuda")
+        if lib.avp_set_stamps(ctypes.c_void_p(stamps.data_ptr())):
+            raise RuntimeError("could not set the stamped parent's stamp buffer")
+        libs[src] = (lib, stamps)
+    return libs
+
+
+def launch_floor(card):
+    """The profiler device time of an empty kernel (csrc/launch_floor.cu) at
+    the launch shapes of this script's hand kernels. -> {shape: us}."""
+    from autoware_vision_pilot_tpu_torch.kernels import build
+
+    lib, floors = build.load(), {}
+    for blocks, threads, cluster in ((1, 32, 1), (2, 1024, 1), (8, 1024, 8), (8, 512, 8)):
+        def launch(_):
+            err = lib.avp_launch_floor(blocks, threads, cluster,
+                                       torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"avp_launch_floor failed: cudaError_t {err}")
+        floors[(blocks, threads, cluster)] = device_us(launch, [None] * 50)
+    print(f"launch floor, {card}: an empty kernel's profiler device time, " + "; ".join(
+        f"{b} block(s) of {t} threads in clusters of {c}: {us!r} us"
+        for (b, t, c), us in floors.items()))
+    return floors
+
+
+def alternate(label, fns, inputs, card):
+    """Profiler device time of parent, new, new, parent in turns (``fns``:
+    name -> fn); prints each. -> {name: [us, us]}."""
+    times = {name: [] for name in fns}
+    for name in (*fns, *reversed(list(fns))):
+        times[name].append(device_us(fns[name], inputs))
+        print(f"{label} {name}, {card}: {times[name][-1]!r} us (profiler device time)")
+    return times
+
+
+def phase_lane_filter(card, parent=None):
     """The lane-filter walk kernel against its plain version (torch.equal on
     the weight images and the start points) on 2 seeds of every LANE_KINDS
-    at 80x160 and 1 at 24x48, then its time, bound, and the plain version's
-    time and launches. -> the JSON record."""
+    at 80x160 and 1 at 24x48, LANE_EDGE_SETS, windows at the four edges and
+    masks off 16 bytes; then its time, stage split (from the kernel's
+    stamps), bound, the plain version's time and launches, and with
+    --parent the parent's kernel on the same inputs. -> the JSON record."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels import lane_filter_kernel as lk
     from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
     from autoware_vision_pilot_tpu_torch.perception.lane_filter import lane_filter_walk_plain
 
@@ -955,21 +1197,24 @@ def phase_lane_filter(card):
     worst = 0
     for hw, kind, seed in cases:
         masks = torch.from_numpy(lane_masks(hw, kind, seed)).cuda()
-        before = lane_filter_walk.launches
-        weights, starts = lane_filter_walk(masks)
-        torch.cuda.synchronize()
-        if lane_filter_walk.launches != before + 1:
-            raise AssertionError("lane_filter_walk did not count its launch")
-        ref_w, ref_s = lane_filter_walk_plain(masks)
-        err = max((weights - ref_w).abs().max().item(), (starts - ref_s).abs().max().item())
-        worst = max(worst, err)
-        if not (torch.equal(weights, ref_w) and torch.equal(starts, ref_s)):
-            raise AssertionError(f"lane_filter_walk disagrees with its plain version on "
-                                 f"{kind} {hw} seed {seed}: {starts.tolist()} vs "
-                                 f"{ref_s.tolist()}, max_abs_err {err}")
+        worst = max(worst, walk_equal(masks, f"{kind} {hw} seed {seed}"))
     print(f"kernel lane_filter_walk: {len(cases)} mask sets ({len(LANE_KINDS)} kinds at "
           f"{LANE_HW[0]}x{LANE_HW[1]} x 2 seeds and at 24x48), weight images and start "
           f"points bit-equal to the plain version (max_abs_err {worst}; tol 0)")
+    edge = [(f"{kind} {hw}", torch.from_numpy(lane_masks(hw, kind, seed)).cuda())
+            for hw, kind, seed in LANE_EDGE_SETS]
+    edge += [(f"lanes on columns {near} and W-1-{near} {hw}",
+              torch.from_numpy(edge_lane_masks(hw, near)).cuda())
+             for hw in (LANE_HW, (33, 65)) for near in (0, 1, 2)]
+    for name, masks in list(edge[:3]):  # 4 bytes off 16
+        buf = torch.zeros(masks.numel() + 4, device="cuda")
+        buf[1:1 + masks.numel()] = masks.flatten()
+        edge.append((f"{name} 4 bytes off 16", buf[1:1 + masks.numel()].view(masks.shape)))
+    for name, masks in edge:
+        worst = max(worst, walk_equal(masks, name))
+    print(f"kernel lane_filter_walk: {len(edge)} edge sets (ragged widths, 320x320, 4096x25, "
+          f"1x1, windows at the four edges, masks 4 bytes off 16) bit-equal (max_abs_err "
+          f"{worst}; tol 0)")
 
     pool = [torch.from_numpy(lane_masks(LANE_HW, LANE_KINDS[i % len(LANE_KINDS)], 10 + i))
             .cuda() for i in range(40)]  # 6 MB: in the L2, as the thresholded masks are
@@ -980,9 +1225,44 @@ def phase_lane_filter(card):
     nbytes = h * w * 3 * 4 + 2 * h * w * 4 + 2 * 3 * 4
     bound_ms, bound_by = bound(0, nbytes)
     print(f"kernel lane_filter_walk {h}x{w}, {card}: {us!r} us (profiler device time; "
-          f"CUDA events {ms * 1e3!r} us a call), bound {bound_ms * 1e3!r} us by {bound_by} "
+          f"CUDA events {ms * 1e3!r} us a call, {queued_us(lane_filter_walk, pool)!r} us queued "
+          f"back to back), bound {bound_ms * 1e3!r} us by {bound_by} "
           f"({nbytes} bytes), share {bound_ms * 1e3 / us!r}; plain version {plain_us!r} us "
           f"of device time in {plain_launches} launches a call")
+    # the stage split: each walking block's %globaltimer stamps, over the pool
+    stamps = torch.zeros(16, dtype=torch.int64, device="cuda")
+    split = []
+    for masks in pool:
+        lk._launch(masks, stamps)
+        t = stamps.view(2, 8).cpu().numpy().astype(np.float64)
+        for g in t:
+            split.append([g[1] - g[0], g[2] - g[1], g[3] - g[2], g[4] - g[3], g[5] - g[3],
+                          g[6] - max(g[4], g[5]), g[7] - g[6], g[7] - g[0]])
+    split = np.asarray(split)
+    print(f"kernel lane_filter_walk {h}x{w} stage split, {card} (ns, mean over 40 mask sets "
+          f"x 2 sides, %globaltimer): " + ", ".join(
+              f"{name} {split[:, i].mean():.0f}" for i, name in enumerate(LANE_STAGES)) +
+          f"; first stamp to last {split[:, -1].mean():.0f} of {us * 1e3:.0f} device")
+    if parent is not None:
+        alternate(f"kernel lane_filter_walk {h}x{w}", {"parent": parent[0], "this tree":
+                                                       lane_filter_walk}, pool, card)
+    if parent is not None and parent[2] is not None:
+        lib, stamps = parent[2]["lane_filter.cu"]
+        split = []
+        for masks in pool:
+            weights = torch.empty((2, h, w), dtype=torch.int32, device="cuda")
+            starts = torch.empty((2, 3), dtype=torch.int32, device="cuda")
+            lib.avp_lane_filter_walk(masks.data_ptr(), weights.data_ptr(), starts.data_ptr(), h,
+                                     w, torch.cuda.current_stream().cuda_stream)
+            t = stamps.view(2, 8).cpu().numpy().astype(np.float64)
+            split += [[g[1] - g[0], g[2] - g[1], g[3] - g[2], g[4] - g[2],
+                       max(g[3], g[4]) - g[0]] for g in t]
+        split = np.asarray(split)
+        print(f"parent's lane_filter_walk {h}x{w} stage split, {card} (ns, mean over 40 mask "
+              f"sets x 2 sides, %globaltimer in a stamped copy): " + ", ".join(
+                  f"{name} {split[:, i].mean():.0f}" for i, name in enumerate(
+                      ("staging", "start scan", "up walk", "down walk"))) +
+              f"; first stamp to last {split[:, -1].mean():.0f}")
     return dict(max_abs_err=float(worst), ms=us / 1e3, plain_ms=plain_us / 1e3,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
@@ -1338,10 +1618,50 @@ def nms_ops(top, class_aware):
     return int(pairs.sum()) * IOU_OPS + 4 * len(scores)
 
 
-def phase_nms(card, heads):
-    """The NMS kernel bit-equal to its plain version on the head outputs
-    and 2 seeds of NMS_SETS; its time on the head outputs. -> the JSON
-    record."""
+# (k, kind) of phase 13's edge sets: every cluster size 1, 2, 4 and 8 and
+# the one the wrapper picks at k = 1, 31, 32, 33, 255, 256, 257 and 1024, on
+# random live boxes, all candidates below the threshold, all live on
+# degenerate clamped boxes with tied scores (as seeded AutoSpeed gives),
+# and NaN coordinates
+NMS_EDGE_K = (1, 31, 32, 33, 255, 256, 257, 1024)
+NMS_EDGE_KINDS = ("live", "dead", "degenerate", "nan")
+NMS_STAGES = ("staging", "matrix built and landed", "greedy pass", "output")
+
+
+def nms_edge_candidates(k, kind, seed):
+    """``nms_topk``-shaped candidates on the card: (k, 4) f32 boxes in a
+    1280x720 frame, (k,) f32 scores sorted descending (all -1 for "dead"),
+    (k,) int32 classes of 4."""
+    rng = np.random.default_rng(seed)
+    xy, wh = rng.uniform(0, 1200, (k, 2)), rng.uniform(0, 200, (k, 2))
+    boxes = np.concatenate([xy, xy + wh], 1)
+    scores = np.sort(rng.uniform(0.5, 1.0, k))[::-1].copy()
+    if kind == "dead":
+        scores[:] = -1.0
+    if kind == "degenerate":
+        boxes, scores[:] = np.clip(np.round(boxes / 400) * 400, 0, 1280), 1.0
+    if kind == "nan":
+        boxes[rng.random((k, 4)) < 0.1] = np.nan
+    return (torch.from_numpy(boxes.astype(np.float32)).cuda(),
+            torch.from_numpy(scores.astype(np.float32)).cuda(),
+            torch.from_numpy(rng.integers(0, 4, k).astype(np.int32)).cuda())
+
+
+def bits_equal(a, b):
+    """Equal dtype, shape and bits (NaN payloads included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def phase_nms(card, heads, parent=None):
+    """The NMS kernel bit-equal to its plain version on the head outputs,
+    2 seeds of NMS_SETS and the edge sets at every cluster size; its time
+    and stage split (from the kernel's stamps) on the head outputs, and with
+    --parent the parent's kernel on the same inputs. -> the JSON record."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels import nms_kernel as nk
     from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import nms_greedy
     from autoware_vision_pilot_tpu_torch.ops.postprocess import nms_greedy_plain, nms_topk
 
@@ -1367,6 +1687,24 @@ def phase_nms(card, heads):
         kept.append(f"{name}: {int(ref[3].sum())}")
     print(f"kernel nms_greedy: {len(sets)} candidate sets, every output bit-equal to the plain "
           f"version (max_abs_err {worst}; tol 0); kept boxes by set: {'; '.join(kept)}")
+    n_edge = 0
+    for k in NMS_EDGE_K:
+        for kind in NMS_EDGE_KINDS:
+            top = nms_edge_candidates(k, kind, k)
+            kw = dict(max_det=MAX_DET, iou_thresh=IOU, conf_thresh=CONF, class_aware=True)
+            ref = nms_greedy_plain(*top, **kw)
+            outs = {f"cluster {cs}": nk._launch(*top, MAX_DET, IOU, CONF, True, cs)
+                    for cs in (1, 2, 4, 8)}
+            outs[f"the wrapper's cluster {nk.cluster_size(k)}"] = nms_greedy(*top, **kw)
+            torch.cuda.synchronize()
+            for how, out in outs.items():
+                n_edge += 1
+                if not all(bits_equal(a, b) for a, b in zip(out, ref)):
+                    raise AssertionError(f"nms_greedy disagrees with its plain version at k={k} "
+                                         f"on {kind} candidates, {how}")
+    print(f"kernel nms_greedy: {n_edge} edge runs (k in {NMS_EDGE_K} x {NMS_EDGE_KINDS} x "
+          f"clusters of 1, 2, 4, 8 and the wrapper's min(8, ceil(k / 32))) bit-equal, NaN "
+          f"payloads included")
 
     tops = [nms_topk(*sets[i][1], max_det=MAX_DET, conf_thresh=CONF) for i in range(len(heads))]
     kw = dict(max_det=MAX_DET, iou_thresh=IOU, conf_thresh=CONF)
@@ -1382,11 +1720,44 @@ def phase_nms(card, heads):
     bound_ms, bound_by = bound(ops, nbytes, F32_OPS_PER_S)
     live = [int((top[1] >= CONF).sum()) for top in tops]
     print(f"kernel nms_greedy k={k} on the head outputs ({live} of {k} candidates above "
-          f"{CONF}), {card}: {us!r} us (profiler device time; CUDA events {ms * 1e3!r} us a "
-          f"call), bound {bound_ms * 1e3!r} us by {bound_by} ({nbytes} bytes, {ops} f32 "
-          f"operations at 67 TFLOP/s), share {bound_ms * 1e3 / us!r}: latency sets its time; "
-          f"plain version {plain_us!r} us of device time in {plain_launches} launches a call; "
-          f"no PyTorch call computes NMS here (library: none)")
+          f"{CONF}; a cluster of {nk.cluster_size(k)}), {card}: {us!r} us (profiler device "
+          f"time; CUDA events {ms * 1e3!r} us a call, {queued_us(kernel, pool)!r} us queued back "
+          f"to back), bound {bound_ms * 1e3!r} us by "
+          f"{bound_by} ({nbytes} bytes, {ops} f32 operations at 67 TFLOP/s), share "
+          f"{bound_ms * 1e3 / us!r}: latency sets its time; plain version {plain_us!r} us of "
+          f"device time in {plain_launches} launches a call; no PyTorch call computes NMS "
+          f"here (library: none)")
+    stamps = torch.zeros(5, dtype=torch.int64, device="cuda")
+    split = []
+    for top in pool:
+        nk._launch(*top, MAX_DET, IOU, CONF, True, nk.cluster_size(k), stamps)
+        g = stamps.cpu().numpy().astype(np.float64)
+        split.append([*np.diff(g), g[4] - g[0]])
+    split = np.asarray(split)
+    print(f"kernel nms_greedy k={k} stage split, {card} (ns, mean over {len(pool)} calls, "
+          f"%globaltimer of block 0): " + ", ".join(
+              f"{name} {split[:, i].mean():.0f}" for i, name in enumerate(NMS_STAGES)) +
+          f"; first stamp to last {split[:, -1].mean():.0f} of {us * 1e3:.0f} device")
+    if parent is not None:
+        alternate(f"kernel nms_greedy k={k}", {"parent": lambda top: parent[1](top, kw),
+                                               "this tree": kernel}, pool, card)
+    if parent is not None and parent[2] is not None:
+        lib, stamps = parent[2]["nms.cu"]
+        split = []
+        for top in pool:
+            outs = (torch.empty((MAX_DET, 4), device="cuda"), torch.empty(MAX_DET, device="cuda"),
+                    torch.empty(MAX_DET, dtype=torch.int32, device="cuda"),
+                    torch.empty(MAX_DET, dtype=torch.bool, device="cuda"))
+            lib.avp_nms_greedy(*(t.data_ptr() for t in top), *(t.data_ptr() for t in outs), k,
+                               MAX_DET, IOU, CONF, 1, torch.cuda.current_stream().cuda_stream)
+            g = stamps[:5].cpu().numpy().astype(np.float64)
+            split.append([*np.diff(g), g[4] - g[0]])
+        split = np.asarray(split)
+        print(f"parent's nms_greedy k={k} stage split, {card} (ns, mean over {len(pool)} calls, "
+              f"%globaltimer in a stamped copy): " + ", ".join(
+                  f"{name} {split[:, i].mean():.0f}" for i, name in enumerate(
+                      ("staging", "matrix", "greedy pass", "output"))) +
+              f"; first stamp to last {split[:, -1].mean():.0f}")
     return dict(max_abs_err=float(worst), ms=us / 1e3, plain_ms=plain_us / 1e3,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
@@ -1486,12 +1857,15 @@ def host_costs_of(root):
 def main():
     if sys.argv[1:2] == ["--host-costs"]:
         return host_costs_of(sys.argv[2])
+    parent_root = sys.argv[2] if sys.argv[1:2] == ["--parent"] else None
     card = phase_device()
     sys.path.insert(0, str(REPO))
     phase_build()
+    parent = parent_kernels(parent_root)
+    launch_floor(card)
     preprocess, crop = phase_kernel()
     records = {"fused_preprocess": preprocess, **phase_int8_kernels(card),
-               "lane_filter_walk": phase_lane_filter(card)}
+               "lane_filter_walk": phase_lane_filter(card, parent)}
     phase_f32()
     bf16_pipe = phase_bf16(card)
     launches = phase_int8(card, bf16_pipe)  # the selective-int8 main path
@@ -1502,7 +1876,7 @@ def main():
     launches["lane_filter_walk"] = lateral["lane_filter_walk"]
     records["fused_letterbox"] = phase_letterbox(card)
     heads = phase_longitudinal_f32()
-    records["nms_greedy"] = phase_nms(card, heads)
+    records["nms_greedy"] = phase_nms(card, heads, parent)
     longitudinal = phase_longitudinal(card)  # the longitudinal program
     launches["fused_letterbox"] = longitudinal["fused_letterbox"]
     launches["nms_greedy"] = longitudinal["nms_greedy"]

@@ -18,7 +18,8 @@ from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
 from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
     _launch, _mma_plan, int8_conv, int8_conv2d, int8_conv_plain, int8_conv_plan, int8_quantize,
     int8_quantize_plain)
-from autoware_vision_pilot_tpu_torch.ops.kernels import nms_kernel, preprocess_kernel
+from autoware_vision_pilot_tpu_torch.ops.kernels import (lane_filter_kernel, nms_kernel,
+                                                        preprocess_kernel)
 from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
 from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import nms_greedy
 from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (fused_letterbox,
@@ -415,7 +416,8 @@ def lane_masks(hw, kind, seed):
     return torch.from_numpy(m)
 
 
-@pytest.mark.parametrize("hw", [(80, 160), (24, 48), (37, 91)])
+# widths that are not a multiple of 32; 33 * 65 * 3 is not a multiple of 4
+@pytest.mark.parametrize("hw", [(80, 160), (24, 48), (37, 91), (33, 65), (80, 150)])
 @pytest.mark.parametrize("kind", ["lanes", "dashed", "one-sided", "empty", "random"])
 def test_lane_filter_kernel_matches_plain_version(cuda, hw, kind):
     """Weight images and start points bit-equal, for 4 seeds each."""
@@ -439,6 +441,105 @@ def test_lane_filter_kernel_rejects_bad_masks_on_the_card(cuda):
         lane_filter_walk(masks.half())
     with pytest.raises(ValueError):
         lane_filter_walk(torch.zeros((600, 600, 3), device=cuda))
+
+
+def edge_lane_masks(hw, near):
+    """Lanes down columns ``near`` and W - 1 - ``near`` (windows at the left
+    and right edges), the other mask's bottom row and top third set
+    (windows at the bottom and top)."""
+    h, w = hw
+    m = np.zeros((h, w, 3), np.float32)
+    m[:, near, 0] = m[:, min(near + 1, w - 1), 0] = 1.0
+    m[:, w - 1 - near, 1] = m[:, max(w - 2 - near, 0), 1] = 1.0
+    m[h - 1, :, 2] = 1.0
+    m[:h // 3, :, 2] = 1.0
+    return torch.from_numpy(m)
+
+
+def assert_walk_equal(masks):
+    weights, starts = lane_filter_walk(masks)
+    torch.cuda.synchronize()
+    ref_w, ref_s = lane_filter_walk_plain(masks)
+    assert torch.equal(starts, ref_s.to(torch.int32)), (starts, ref_s)
+    assert torch.equal(weights, ref_w)
+
+
+# 320x320 is the most pixels the wrapper admits, 4096x25 the most rows
+@pytest.mark.parametrize("hw", [(320, 320), (4096, 25), (1, 1), (3, 1000)])
+def test_lane_filter_kernel_edge_sizes(cuda, hw):
+    for kind, seed in (("random", 5), ("lanes", 6), ("dashed", 7)):
+        assert_walk_equal(lane_masks(hw, kind, seed).to(cuda))
+
+
+@pytest.mark.parametrize("hw", [(80, 160), (33, 65)])
+def test_lane_filter_kernel_windows_at_the_edges(cuda, hw):
+    for near in (0, 1, 2):
+        masks = edge_lane_masks(hw, near).to(cuda)
+        assert_walk_equal(masks)
+        buf = torch.zeros(masks.numel() + 4, device=cuda)  # 4 bytes off 16
+        buf[1:1 + masks.numel()] = masks.flatten()
+        assert_walk_equal(buf[1:1 + masks.numel()].view(masks.shape))
+
+
+def test_lane_filter_kernel_limits_on_the_card(cuda):
+    with pytest.raises(ValueError):  # one pixel too many
+        lane_filter_walk(torch.zeros((321, 320, 3), device=cuda))
+    with pytest.raises(ValueError):  # one row too many
+        lane_filter_walk(torch.zeros((lane_filter_kernel.MAX_ROWS + 1, 1, 3), device=cuda))
+
+
+def nms_edge_candidates(k, kind, seed, device):
+    """Sorted top-k candidates: live random boxes, all below the threshold,
+    all live on degenerate clamped boxes with tied scores (as seeded
+    AutoSpeed gives), or NaN coordinates."""
+    rng = np.random.default_rng(seed)
+    xy, wh = rng.uniform(0, 1200, (k, 2)), rng.uniform(0, 200, (k, 2))
+    boxes = np.concatenate([xy, xy + wh], 1)
+    scores = np.sort(rng.uniform(0.5, 1.0, k))[::-1].copy()
+    if kind == "dead":
+        scores[:] = -1.0
+    if kind == "degenerate":
+        boxes, scores[:] = np.clip(np.round(boxes / 400) * 400, 0, 1280), 1.0
+    if kind == "nan":
+        boxes[rng.random((k, 4)) < 0.1] = np.nan
+    return (torch.from_numpy(boxes.astype(np.float32)).to(device),
+            torch.from_numpy(scores.astype(np.float32)).to(device),
+            torch.from_numpy(rng.integers(0, 4, k).astype(np.int32)).to(device))
+
+
+def bits_equal(a, b):
+    """Equal dtype, shape and bits, NaN payloads included."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 255, 256, 257, 1024])
+@pytest.mark.parametrize("kind", ["live", "dead", "degenerate", "nan"])
+def test_nms_kernel_every_cluster_size(cuda, k, kind):
+    """Every output bit-equal to the plain version at clusters of 1-8
+    blocks, the wrapper's own choice among them."""
+    top = nms_edge_candidates(k, kind, k, cuda)
+    kw = dict(max_det=64, iou_thresh=0.5, conf_thresh=0.5, class_aware=True)
+    ref = nms_greedy_plain(*top, **kw)
+    before = nms_greedy.launches
+    out = nms_greedy(*top, **kw)
+    torch.cuda.synchronize()
+    assert nms_greedy.launches == before + 1
+    assert all(bits_equal(a, b) for a, b in zip(out, ref))
+    for cs in range(1, 9):
+        out = nms_kernel._launch(*top, 64, 0.5, 0.5, True, cs)
+        torch.cuda.synchronize()
+        assert all(bits_equal(a, b) for a, b in zip(out, ref)), cs
+
+
+def test_nms_kernel_refuses_a_bad_cluster(cuda):
+    top = nms_edge_candidates(64, "live", 0, cuda)
+    for cs in (0, 9):  # the C entry point takes 1-8 blocks
+        with pytest.raises(RuntimeError):
+            nms_kernel._launch(*top, 64, 0.5, 0.5, True, cs)
 
 
 LATERAL = dict(frame_hw=(120, 200), crop_y=20, net_hw=(96, 192),

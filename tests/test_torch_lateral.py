@@ -58,6 +58,7 @@ from autoware_vision_pilot_tpu_torch.control import steering as tst
 from autoware_vision_pilot_tpu_torch.models.auto_steer_temporal import (
     AutoSteerTemporalNet, steering_from_logits)
 from autoware_vision_pilot_tpu_torch.models.efficientnet import B0_DRYRUN_STAGES
+from autoware_vision_pilot_tpu_torch.ops.kernels import lane_filter_kernel
 from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
 from autoware_vision_pilot_tpu_torch.ops.preprocess import preprocess_imagenet
 from autoware_vision_pilot_tpu_torch.ops.smallsolve import solve3x3
@@ -397,6 +398,22 @@ def test_lane_filter_walk_checks_its_input():
     weights, starts = lane_filter_walk(masks)
     assert (weights.shape, weights.dtype) == ((2, 16, 32), torch.int32)
     assert (starts.shape, starts.dtype) == ((2, 3), torch.int32)
+
+
+@pytest.mark.parametrize("hw", [(320, 320), (4096, 25), (1, 320 * 320), (80, 160)])
+def test_lane_filter_walk_limits_fit_the_kernel(hw):
+    """The wrapper's limits on the card against the walk kernel's shared
+    memory (csrc/lane_filter.cu): each of the 8 blocks stages its eighth of
+    the masks (12 bytes a pixel, or its two 16-bit weight images, and 16
+    bytes of skew), the two bitmasks with a word to spare, and the four
+    walks' logs (12 bytes a step, a step per 4 rows) fit the 227 KB a block
+    may have, less 1 KB."""
+    H, W = hw
+    assert H * W <= lane_filter_kernel.MAX_PIXELS and H <= lane_filter_kernel.MAX_ROWS
+    nwr = -(-H * W // 32)
+    pix = 32 * -(-nwr // 8)
+    region = max(12 * pix + 16, 4 * (-(-pix // 2) * 2)) // 16 * 16 + 16
+    assert region + 8 * (nwr + 1) + 48 * (H // 4) <= 227 * 1024 - 1024
 
 
 # ---------- the networks, the weight bridge, the config ----------

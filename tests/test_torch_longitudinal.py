@@ -41,6 +41,7 @@ from autoware_vision_pilot_tpu_torch.models import auto_speed as tas
 from autoware_vision_pilot_tpu_torch.models import yolo_layers as tyl
 from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded, upsample2x_nearest
 from autoware_vision_pilot_tpu_torch.ops import postprocess as tpost
+from autoware_vision_pilot_tpu_torch.ops.kernels import nms_kernel
 from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import nms_fixed, nms_greedy
 from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_letterbox
 from autoware_vision_pilot_tpu_torch.ops.preprocess import letterbox, letterbox_geometry
@@ -300,6 +301,20 @@ def test_nms_greedy_checks_its_input():
         nms_greedy(top[0][:, :3], *top[1:])
     with pytest.raises(ValueError):
         nms_greedy(*top, max_det=0)
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 255, 256, 257, 1024])
+def test_nms_cluster_size_choice(k):
+    """The wrapper's cluster: a block per 32-row word of the suppression
+    matrix, at most the 8 blocks of a portable cluster, so that every block
+    has rows to build; block 0's shared memory (candidates, then the matrix
+    by word, rows padded to 32 plus 4) fits the 227 KB a block may have."""
+    cs = nms_kernel.cluster_size(k)
+    assert cs == min(8, -(-k // 32)) and 1 <= cs <= nms_kernel.MAX_CLUSTER
+    assert all((k - rank + cs - 1) // cs >= 1 for rank in range(cs))
+    nw = -(-k // 32)
+    assert -(-24 * k // 16) * 16 + nw * (32 * nw + 4) * 4 <= 227 * 1024
+    assert k <= nms_kernel.MAX_K
 
 
 # ---------- the whole step ----------
