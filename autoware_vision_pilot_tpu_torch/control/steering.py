@@ -58,10 +58,11 @@ class SteeringState(NamedTuple):
     ring_len: torch.Tensor         # () int32
 
 
-def steering_init(device="cuda") -> SteeringState:
-    return SteeringState(torch.zeros((), device=device),
-                         torch.zeros(10, device=device),
-                         torch.zeros((), dtype=torch.int32, device=device))
+def steering_init(device="cuda", streams=()) -> SteeringState:
+    """``streams``: the leading axes, () for one stream or (N,)."""
+    return SteeringState(torch.zeros(streams, device=device),
+                         torch.zeros((*streams, 10), device=device),
+                         torch.zeros(streams, dtype=torch.int32, device=device))
 
 
 def steering_step(state: SteeringState, cte, yaw_error, feed_forward,
@@ -71,7 +72,9 @@ def steering_step(state: SteeringState, cte, yaw_error, feed_forward,
     moving-average ring takes the angle (0 on a fused-invalid frame) only
     when ``bev_valid``. ``yaw_error`` in degrees, ``cte`` in meters,
     ``feed_forward`` the fused curvature channel. Flags default to True.
-    -> (filtered, angle, new state), 0-d f32 tensors on the state's device.
+    Every input and the state may carry leading stream axes.
+    -> (filtered, angle, new state), f32 tensors (one value a stream) on
+    the state's device.
     """
     ones = torch.ones((), dtype=torch.bool, device=state.ring.device)
     fused_valid = ones if fused_valid is None else fused_valid
@@ -81,11 +84,11 @@ def steering_step(state: SteeringState, cte, yaw_error, feed_forward,
              + torch.atan(K_i * cte) + K_p * yaw_error + feed_forward * K_S)
     angle = torch.where(compute, angle, 0.0)
     prev_yaw = torch.where(compute, yaw_error, state.prev_yaw_error)
-    pushed = torch.cat([angle.reshape(1), state.ring[:-1]])
-    ring = torch.where(bev_valid, pushed, state.ring)
+    pushed = torch.cat([angle[..., None], state.ring[..., :-1]], -1)
+    ring = torch.where(bev_valid[..., None], pushed, state.ring)
     n = torch.where(bev_valid, torch.clamp(state.ring_len + 1, max=10),
                     state.ring_len)
-    live = torch.arange(10, device=ring.device) < n
-    mean = (ring * live).sum() / torch.clamp(n, min=1)
+    live = torch.arange(10, device=ring.device) < n[..., None]
+    mean = (ring * live).sum(-1) / torch.clamp(n, min=1)
     filtered = torch.where(bev_valid, mean, 0.0)
     return filtered, angle, SteeringState(prev_yaw, ring, n)

@@ -19,7 +19,9 @@ a float key, or the other way round, raises like a shape mismatch.
 Flax paths merge a torch index into its parent (``encoder_1_0``); whether a
 ``_0`` is such an index (``encoder.1.0``) or part of a name
 (``context_layer_0``) is read off the target module's own keys. Leaves come
-as numpy arrays or anything ``np.asarray`` takes; nothing here imports JAX.
+as numpy arrays, anything ``np.asarray`` takes, or CPU tensors (the
+bfloat16 leaves of export/checkpoints.py::load_msgpack); nothing here
+imports JAX.
 """
 from __future__ import annotations
 
@@ -81,6 +83,9 @@ def variables_to_state_dict(flax_vars: Mapping, module: nn.Module
             if key is None:
                 raise KeyError(f"{collection}/{path} has no key in "
                                f"{type(module).__name__}")
+            if isinstance(value, torch.Tensor):  # a bfloat16 leaf of load_msgpack
+                value = value.float() if value.dtype == torch.bfloat16 else value
+                value = value.numpy()
             a = np.asarray(value)
             if (a.dtype == np.int8) != (targets[key].dtype == torch.int8):
                 raise ValueError(f"dtype mismatch at {key}: flax {a.dtype} vs "

@@ -3,7 +3,9 @@
 // 4-byte words into another block's shared memory with st.async, each store
 // completing 4 bytes of the receiving block's mbarrier transaction, and the
 // receiver waits for the bytes it expects. Plus %globaltimer, which their
-// stage stamps read.
+// stage stamps read. A batch launches a cluster a stream, on a grid whose y
+// extent is the streams: `mapa` (in_rank) names a block of the caller's own
+// cluster, so no stream's stores reach another's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,6 +21,25 @@ __device__ __forceinline__ uint64_t global_ns() {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// this block's rank in its cluster, the cluster's size, and the cluster's
+// place in the grid along y (a stream of a batch, where each cluster spans
+// the grid's x extent)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_id_y() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.y;" : "=r"(r));
+  return r;
 }
 
 // the same shared-memory offset in block `rank` of the cluster

@@ -15,7 +15,10 @@
 // latency: k dependent greedy steps.
 //
 // Design: a thread-block cluster of cs blocks (cs = min(8, ceil(k / 32)),
-// chosen by the wrapper), 512 threads each.
+// chosen by the wrapper), 512 threads each. A batch of N streams is one
+// launch of N clusters, a grid of cs x N blocks: the cluster's y index
+// picks its stream's candidates and output rows, and its st.async stores
+// go to block 0 of its own cluster.
 //   1. Every block stages the candidates in its shared memory. Block r
 //      builds the suppression bits of rows r, r + cs, ... (row i, word w:
 //      bit b says candidate i suppresses candidate 32w + b), dealt to its
@@ -102,17 +105,6 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return r;
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ uint32_t cluster_blocks() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return r;
-}
-
 // Shared memory: the candidates (box, area, class), then the suppression
 // bits by word: words[w * tstride + i] is word w of row i (tstride =
 // k rounded up to 32, plus 4: lanes reading their own word of one row fall
@@ -131,6 +123,12 @@ __global__ void __launch_bounds__(THREADS) nms_greedy_kernel(
   __shared__ __align__(8) uint64_t built;  // block 0: the matrix has landed
   const int rank = (int)cluster_rank(), cs = (int)cluster_blocks();
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  // this cluster's stream of the batch: its k candidates and max_det rows
+  const size_t stream = cluster_id_y();
+  boxes += stream * k, scores += stream * k, classes += stream * k;
+  out_boxes += stream * max_det, out_scores += stream * max_det;
+  out_classes += stream * max_det, out_valid += stream * max_det;
+  if (stream != 0) stamps = nullptr;
   const int nw = (k + 31) / 32, tstride = 32 * nw + 4;
   float4* box = reinterpret_cast<float4*>(smem);
   float* area = reinterpret_cast<float*>(box + k);
@@ -282,22 +280,23 @@ size_t smem_bytes(int k) {
 
 }  // namespace
 
-// Launches a cluster of cs blocks on `stream` and returns the launch's
-// error, or cudaGetLastError() (0 on success).
-// boxes: (k, 4) f32 [x1, y1, x2, y2], 16-byte aligned; scores: (k,) f32,
-// sorted descending, those below conf_thresh already -1; classes: (k,)
-// int32. out_boxes (max_det, 4) f32, 16-byte aligned; out_scores (max_det,)
-// f32; out_classes (max_det,) int32; out_valid (max_det,) bytes 0/1.
-// 1 <= k <= 1024, max_det >= 1, 1 <= cs <= 8. stamps: null, or 5 uint64
-// that receive %globaltimer (ns) in block 0: start, staged, matrix built,
+// Launches N clusters of cs blocks, one a stream, on `stream` and returns
+// the launch's error, or cudaGetLastError() (0 on success).
+// boxes: (N, k, 4) f32 [x1, y1, x2, y2], 16-byte aligned; scores: (N, k)
+// f32, each stream's sorted descending, those below conf_thresh already
+// -1; classes: (N, k) int32. out_boxes (N, max_det, 4) f32, 16-byte
+// aligned; out_scores (N, max_det) f32; out_classes (N, max_det) int32;
+// out_valid (N, max_det) bytes 0/1. 1 <= N <= 65535, 1 <= k <= 1024,
+// max_det >= 1, 1 <= cs <= 8. stamps: null, or 5 uint64 that receive
+// %globaltimer (ns) in stream 0's block 0: start, staged, matrix built,
 // greedy pass done, written out (chip_smoke.py reads them; the path
 // passes null).
 extern "C" int avp_nms_greedy(const void* boxes, const void* scores, const void* classes,
                               void* out_boxes, void* out_scores, void* out_classes,
-                              void* out_valid, int k, int max_det, float iou_thresh,
+                              void* out_valid, int N, int k, int max_det, float iou_thresh,
                               float conf_thresh, int class_aware, int cs, void* stamps,
                               void* stream) {
-  if (k < 1 || k > MAX_K || max_det < 1 || cs < 1 || cs > MAX_CLUSTER)
+  if (N < 1 || N > 65535 || k < 1 || k > MAX_K || max_det < 1 || cs < 1 || cs > MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;
   if ((uintptr_t)boxes % 16 || (uintptr_t)out_boxes % 16)
     return (int)cudaErrorMisalignedAddress;
@@ -314,7 +313,7 @@ extern "C" int avp_nms_greedy(const void* boxes, const void* scores, const void*
     if (dev >= 0 && dev < MAX_DEVICES) ready[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)cs, 1, 1);
+  cfg.gridDim = dim3((unsigned)cs, (unsigned)N, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;

@@ -132,17 +132,21 @@ struct Placement {
 // the kernel is compiled with no pad path at all.
 template <typename T, bool PLACED>
 __global__ void __launch_bounds__(MAX_THREADS) fused_preprocess_kernel(
-    const uint8_t* __restrict__ frame, T* __restrict__ out, Tables t, Placement pl, int H,
-    int W, int h, int w) {
+    const uint8_t* __restrict__ frame, T* __restrict__ out, Tables t, Placement pl,
+    long long frame_stride, int H, int W, int h, int w) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int oy = blockIdx.x, b = blockIdx.y;
   const int iy = PLACED ? oy - pl.pad_y : oy;  // the resized image's row, if in [0, nh)
   const bool image_row = !PLACED || (iy >= 0 && iy < pl.nh);
   const int nw = PLACED ? pl.nw : w;
   const int row = 3 * W;  // bytes of a source row
-  const uint8_t* lo = frame;
-  const uint8_t* hi = frame + (size_t)gridDim.y * H * row;
-  const uint8_t* img = frame + (size_t)b * H * row;
+  // image b starts frame_stride bytes after image b - 1 (its rows are
+  // contiguous, the images need not be: a crop of a batch); 16-byte reads
+  // stay inside the image, the bytes of a word that crosses its ends are
+  // read one by one
+  const uint8_t* img = frame + (size_t)b * (size_t)frame_stride;
+  const uint8_t* lo = img;
+  const uint8_t* hi = img + (size_t)H * row;
   // The column taps of a group of PX image pixels: one 8-byte chunk of
   // each table (value by value for a short last group).
   auto taps = [&](int g, int (&x0)[PX], int (&x1)[PX], float (&fx)[PX]) {
@@ -221,8 +225,8 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_preprocess_kernel(
 }
 
 template <typename T, bool PLACED>
-cudaError_t launch(const uint8_t* frame, T* out, const Tables& t, const Placement& pl, int B,
-                   int H, int W, int h, int w, cudaStream_t s) {
+cudaError_t launch(const uint8_t* frame, T* out, const Tables& t, const Placement& pl,
+                   long long stride, int B, int H, int W, int h, int w, cudaStream_t s) {
   const int groups = (pl.nw + PX - 1) / PX;
   const int threads = min(MAX_THREADS, (groups + 31) / 32 * 32);
   const size_t smem = 2 * (size_t)span(3 * W) + span(3 * w * (int)sizeof(T));
@@ -238,14 +242,16 @@ cudaError_t launch(const uint8_t* frame, T* out, const Tables& t, const Placemen
     if (dev >= 0 && dev < MAX_DEVICES) ready[dev] = true;
   }
   fused_preprocess_kernel<T, PLACED><<<dim3((unsigned)h, (unsigned)B), threads, smem, s>>>(
-      frame, out, t, pl, H, W, h, w);
+      frame, out, t, pl, stride, H, W, h, w);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// frame: (B, H, W, 3) uint8; out: (B, h, w, 3) bf16 if out_bf16 else f32,
+// frame: B images of (H, W, 3) uint8, each contiguous, frame_stride bytes
+// apart (any stride >= 0, such as a row crop of a batch: frames[:, y0:]);
+// out: (B, h, w, 3) bf16 if out_bf16 else f32,
 // 16-byte aligned. The frame is resized to nh x nw and placed at row pad_y,
 // column pad_x of out; every other pixel is pad (0..255), which takes the
 // same affine step (ImageNet mode: nh = h, nw = w, no pad). y0, y1, x0, x1:
@@ -256,10 +262,11 @@ cudaError_t launch(const uint8_t* frame, T* out, const Tables& t, const Placemen
 extern "C" int avp_fused_preprocess(const void* frame, void* out, const void* y0,
                                     const void* y1, const void* fy, const void* x0,
                                     const void* x1, const void* fx, const void* mean,
-                                    const void* inv_std, int B, int H, int W, int h,
+                                    const void* inv_std, long long frame_stride, int B,
+                                    int H, int W, int h,
                                     int w, int nh, int nw, int pad_y, int pad_x, int pad,
                                     int out_bf16, void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || h <= 0 || w <= 0 || nh <= 0 || nw <= 0 ||
+  if (B <= 0 || B > 65535 || frame_stride < 0 || H <= 0 || W <= 0 || h <= 0 || w <= 0 || nh <= 0 || nw <= 0 ||
       pad_y < 0 || pad_x < 0 || pad_y + nh > h || pad_x + nw > w || pad < 0 || pad > 255 ||
       2LL * span(3 * W) + span(3 * w * (out_bf16 ? 2 : 4)) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
@@ -275,10 +282,10 @@ extern "C" int avp_fused_preprocess(const void* frame, void* out, const void* y0
   const bool placed = nh != h || nw != w;
   if (out_bf16) {
     __nv_bfloat16* o = (__nv_bfloat16*)out;
-    return (int)(placed ? launch<__nv_bfloat16, true>(f, o, t, pl, B, H, W, h, w, s)
-                        : launch<__nv_bfloat16, false>(f, o, t, pl, B, H, W, h, w, s));
+    return (int)(placed ? launch<__nv_bfloat16, true>(f, o, t, pl, frame_stride, B, H, W, h, w, s)
+                        : launch<__nv_bfloat16, false>(f, o, t, pl, frame_stride, B, H, W, h, w, s));
   }
   float* o = (float*)out;
-  return (int)(placed ? launch<float, true>(f, o, t, pl, B, H, W, h, w, s)
-                      : launch<float, false>(f, o, t, pl, B, H, W, h, w, s));
+  return (int)(placed ? launch<float, true>(f, o, t, pl, frame_stride, B, H, W, h, w, s)
+                      : launch<float, false>(f, o, t, pl, frame_stride, B, H, W, h, w, s));
 }

@@ -29,9 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C entry point -> argtypes; every function returns a cudaError_t as int.
 SIGNATURES = {
-    # frame, out, y0, y1, fy, x0, x1, fx, mean, inv_std,
+    # frame, out, y0, y1, fy, x0, x1, fx, mean, inv_std, frame_stride,
     # B, H, W, h, w, nh, nw, pad_y, pad_x, pad, out_bf16, stream
-    "avp_fused_preprocess": (_P,) * 10 + (_I,) * 11 + (_P,),
+    "avp_fused_preprocess": (_P,) * 10 + (_L,) + (_I,) * 11 + (_P,),
     # x, xq, scale, per_channel, pixels, C, in_bf16, stream
     "avp_int8_quantize": (_P, _P, _P, _I, _L, _I, _I, _P),
     # xq, w, w_scale, x_scale, bias, out, B, H, W, C, N, KH, KW, pad,
@@ -51,11 +51,11 @@ SIGNATURES = {
     "avp_int8_conv_dot": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 4 + (_P,),
     # blocks, threads, cluster, stream
     "avp_launch_floor": (_I, _I, _I, _P),
-    # masks, weights, starts, H, W, stamps, stream
-    "avp_lane_filter_walk": (_P, _P, _P, _I, _I, _P, _P),
+    # masks, weights, starts, N, H, W, stamps, stream
+    "avp_lane_filter_walk": (_P, _P, _P, _I, _I, _I, _P, _P),
     # boxes, scores, classes, out_boxes, out_scores, out_classes, out_valid,
-    # k, max_det, iou_thresh, conf_thresh, class_aware, cs, stamps, stream
-    "avp_nms_greedy": (_P,) * 7 + (_I, _I, _F, _F, _I, _I, _P, _P),
+    # N, k, max_det, iou_thresh, conf_thresh, class_aware, cs, stamps, stream
+    "avp_nms_greedy": (_P,) * 7 + (_I, _I, _I, _F, _F, _I, _I, _P, _P),
 }
 
 

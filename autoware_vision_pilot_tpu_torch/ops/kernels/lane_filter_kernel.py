@@ -3,9 +3,9 @@ counterpart of XLA's fusion of the JAX package's start-point scan and
 window-walk ``lax.scan``s (autoware_vision_pilot_tpu/perception/
 lane_filter.py:80-199, ``_find_start`` and both ``direction_scan``s).
 
-On a CUDA tensor it launches the kernel, a thread-block cluster of 8 blocks,
-or raises; on a CPU tensor it runs the plain version,
-perception/lane_filter.py::lane_filter_walk_plain.
+On a CUDA tensor it launches the kernel, a thread-block cluster of 8 blocks
+for each stream of a batch, or raises; on a CPU tensor it runs the plain
+version, perception/lane_filter.py::lane_filter_walk_plain.
 """
 from __future__ import annotations
 
@@ -20,22 +20,27 @@ MAX_PIXELS = 320 * 320
 MAX_ROWS = 4096
 
 
+MAX_STREAMS = 65535  # the grid's y extent
+
+
 def lane_filter_walk(masks: torch.Tensor):
-    """(H, W, 3) f32 contiguous masks [ego_left, ego_right, other] ->
-    (weights (2, H, W) int32, starts (2, 3) int32 [x, y, found]), left
-    then right: each side's start point and the sum of its up and down
-    walks' weight images.
+    """(H, W, 3) or (N, H, W, 3) f32 contiguous masks [ego_left, ego_right,
+    other], a stream each -> (weights (..., 2, H, W) int32, starts (..., 2,
+    3) int32 [x, y, found]), left then right: each side's start point and
+    the sum of its up and down walks' weight images. A batch is one launch,
+    a cluster a stream, and every stream's result is the one a call on it
+    alone gives.
 
     Counts its kernel launches in ``lane_filter_walk.launches``.
     """
     if masks.dtype != torch.float32:
         raise TypeError(f"masks must be float32, got {masks.dtype}")
-    if masks.dim() != 3 or masks.shape[-1] != 3:
-        raise ValueError(f"masks must be (H, W, 3), got {tuple(masks.shape)}")
+    if masks.dim() not in (3, 4) or masks.shape[-1] != 3:
+        raise ValueError(f"masks must be (H, W, 3) or (N, H, W, 3), got {tuple(masks.shape)}")
     if not masks.is_contiguous():
         raise ValueError("masks must be contiguous")
-    H, W, _ = masks.shape
-    if H < 1 or W < 1:
+    H, W = masks.shape[-3:-1]
+    if H < 1 or W < 1 or masks.numel() == 0:
         raise ValueError(f"empty masks {tuple(masks.shape)}")
 
     if masks.device.type == "cpu":
@@ -46,20 +51,25 @@ def lane_filter_walk(masks: torch.Tensor):
     if H * W > MAX_PIXELS or H > MAX_ROWS:
         raise ValueError(f"{H}x{W} masks: the kernel takes at most {MAX_PIXELS} pixels "
                          f"and {MAX_ROWS} rows")
+    if masks.dim() == 4 and masks.shape[0] > MAX_STREAMS:
+        raise ValueError(f"{masks.shape[0]} streams: the kernel takes at most {MAX_STREAMS}")
 
     return _launch(masks)
 
 
 def _launch(masks: torch.Tensor, stamps: torch.Tensor | None = None):
-    """One launch of the kernel on checked CUDA masks. ``stamps``, a (16,)
-    int64 CUDA tensor, receives each side's %globaltimer at its stages (see
-    csrc/lane_filter.cu); the path passes none."""
-    H, W, _ = masks.shape
-    weights = torch.empty((2, H, W), dtype=torch.int32, device=masks.device)
-    starts = torch.empty((2, 3), dtype=torch.int32, device=masks.device)
+    """One launch of the kernel on checked CUDA masks, (H, W, 3) or (N, H,
+    W, 3). ``stamps``, a (16,) int64 CUDA tensor, receives stream 0's
+    walking blocks' %globaltimer at their stages (see csrc/lane_filter.cu);
+    the path passes none."""
+    H, W, _ = masks.shape[-3:]
+    lead = masks.shape[:-3]
+    n = masks.shape[0] if lead else 1
+    weights = torch.empty((*lead, 2, H, W), dtype=torch.int32, device=masks.device)
+    starts = torch.empty((*lead, 2, 3), dtype=torch.int32, device=masks.device)
     with torch.cuda.device(masks.device):
         err = build.load().avp_lane_filter_walk(
-            masks.data_ptr(), weights.data_ptr(), starts.data_ptr(), H, W,
+            masks.data_ptr(), weights.data_ptr(), starts.data_ptr(), n, H, W,
             None if stamps is None else stamps.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -4,7 +4,7 @@ top-k (autoware_vision_pilot_tpu/ops/postprocess.py:51-111, the greedy
 ``fori_loop`` at :88-97).
 
 On a CUDA tensor it launches the kernel, a thread-block cluster of
-``cluster_size(k)`` blocks, or raises; on a CPU tensor it runs the plain
+``cluster_size(k)`` blocks for each stream of a batch, or raises; on a CPU tensor it runs the plain
 version, ops/postprocess.py::nms_greedy_plain. The top-k before
 it stays a PyTorch sort (ops/postprocess.py::nms_topk), as it is XLA's
 ``top_k`` in the JAX package.
@@ -26,25 +26,33 @@ def cluster_size(k: int) -> int:
     return min(MAX_CLUSTER, -(-k // 32))
 
 
+MAX_STREAMS = 65535  # the grid's y extent
+
+
 def nms_greedy(top_boxes: torch.Tensor, top_scores: torch.Tensor, top_cls: torch.Tensor, *,
                max_det: int = 64, iou_thresh: float = 0.45, conf_thresh: float = 0.25,
                class_aware: bool = True):
-    """``nms_topk``'s candidates, (k, 4) f32, (k,) f32, (k,) int32, on one
-    device -> boxes (max_det, 4) f32, scores (max_det,) f32, classes
-    (max_det,) int32, valid (max_det,) bool: the kept candidates in score
-    order, zeros after them.
+    """``nms_topk``'s candidates, (k, 4) f32, (k,) f32, (k,) int32, or a
+    batch of streams (N, k, 4), (N, k), (N, k), on one device -> boxes
+    (..., max_det, 4) f32, scores (..., max_det) f32, classes (...,
+    max_det) int32, valid (..., max_det) bool: each stream's kept
+    candidates in score order, zeros after them. A batch is one launch, a
+    cluster a stream, and every stream's result is the one a call on it
+    alone gives.
 
     Counts its kernel launches in ``nms_greedy.launches``.
     """
-    k = top_scores.shape[0] if top_scores.dim() == 1 else -1
     if top_boxes.dtype != torch.float32 or top_scores.dtype != torch.float32:
         raise TypeError(f"boxes and scores must be float32, got {top_boxes.dtype}, "
                         f"{top_scores.dtype}")
     if top_cls.dtype != torch.int32:
         raise TypeError(f"classes must be int32, got {top_cls.dtype}")
-    if k < 1 or tuple(top_boxes.shape) != (k, 4) or tuple(top_cls.shape) != (k,):
-        raise ValueError(f"expected (k, 4), (k,), (k,) with k >= 1, got "
-                         f"{tuple(top_boxes.shape)}, {tuple(top_scores.shape)}, "
+    lead = tuple(top_scores.shape[:-1]) if top_scores.dim() in (1, 2) else None
+    k = top_scores.shape[-1] if top_scores.dim() else 0
+    if lead is None or k < 1 or tuple(top_boxes.shape) != (*lead, k, 4) or \
+            tuple(top_cls.shape) != (*lead, k) or (lead and lead[0] < 1):
+        raise ValueError(f"expected (k, 4), (k,), (k,) or (N, k, 4), (N, k), (N, k) with "
+                         f"k >= 1, got {tuple(top_boxes.shape)}, {tuple(top_scores.shape)}, "
                          f"{tuple(top_cls.shape)}")
     if not (isinstance(max_det, int) and max_det >= 1):
         raise ValueError(f"max_det must be a positive int, got {max_det}")
@@ -59,6 +67,8 @@ def nms_greedy(top_boxes: torch.Tensor, top_scores: torch.Tensor, top_cls: torch
         raise ValueError(f"no NMS for device {device}")
     if k > MAX_K:
         raise ValueError(f"{k} candidates: the kernel takes at most {MAX_K}")
+    if lead and lead[0] > MAX_STREAMS:
+        raise ValueError(f"{lead[0]} streams: the kernel takes at most {MAX_STREAMS}")
     if not (top_boxes.is_contiguous() and top_scores.is_contiguous()
             and top_cls.is_contiguous()):
         raise ValueError("candidates must be contiguous")
@@ -69,19 +79,22 @@ def nms_greedy(top_boxes: torch.Tensor, top_scores: torch.Tensor, top_cls: torch
 
 def _launch(top_boxes, top_scores, top_cls, max_det, iou_thresh, conf_thresh, class_aware,
             cs, stamps=None):
-    """One launch of the kernel, a cluster of ``cs`` blocks, on checked CUDA
-    candidates. ``stamps``, a (5,) int64 CUDA tensor, receives block 0's
-    %globaltimer at its stages (see csrc/nms.cu); the path passes none."""
+    """One launch of the kernel, a cluster of ``cs`` blocks a stream, on
+    checked CUDA candidates, one stream or a batch. ``stamps``, a (5,)
+    int64 CUDA tensor, receives stream 0's block 0's %globaltimer at its
+    stages (see csrc/nms.cu); the path passes none."""
     device = top_scores.device
-    boxes = torch.empty((max_det, 4), dtype=torch.float32, device=device)
-    scores = torch.empty(max_det, dtype=torch.float32, device=device)
-    classes = torch.empty(max_det, dtype=torch.int32, device=device)
-    valid = torch.empty(max_det, dtype=torch.bool, device=device)
+    lead, k = top_scores.shape[:-1], top_scores.shape[-1]
+    n = lead[0] if lead else 1
+    boxes = torch.empty((*lead, max_det, 4), dtype=torch.float32, device=device)
+    scores = torch.empty((*lead, max_det), dtype=torch.float32, device=device)
+    classes = torch.empty((*lead, max_det), dtype=torch.int32, device=device)
+    valid = torch.empty((*lead, max_det), dtype=torch.bool, device=device)
     with torch.cuda.device(device):
         err = build.load().avp_nms_greedy(
             top_boxes.data_ptr(), top_scores.data_ptr(), top_cls.data_ptr(),
             boxes.data_ptr(), scores.data_ptr(), classes.data_ptr(), valid.data_ptr(),
-            top_scores.shape[0], max_det, iou_thresh, conf_thresh, int(class_aware), cs,
+            n, k, max_det, iou_thresh, conf_thresh, int(class_aware), cs,
             None if stamps is None else stamps.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -96,8 +109,9 @@ nms_greedy.launches = 0
 def nms_fixed(boxes_xyxy, scores, class_ids, *, max_det: int = 64, iou_thresh: float = 0.45,
               conf_thresh: float = 0.25, class_aware: bool = True):
     """The JAX package's ``nms_fixed``: ``nms_topk``, then ``nms_greedy``
-    (the kernel on the card). (A, 4) f32, (A,) f32, (A,) int32 -> boxes
-    (max_det, 4), scores, classes, valid (max_det,)."""
+    (the kernel on the card), for one stream or a batch. (..., A, 4) f32,
+    (..., A) f32, (..., A) int32 -> boxes (..., max_det, 4), scores,
+    classes, valid (..., max_det)."""
     top = nms_topk(boxes_xyxy, scores, class_ids, max_det=max_det, conf_thresh=conf_thresh)
     return nms_greedy(*top, max_det=max_det, iou_thresh=iou_thresh, conf_thresh=conf_thresh,
                       class_aware=class_aware)

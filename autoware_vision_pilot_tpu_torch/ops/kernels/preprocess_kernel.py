@@ -40,6 +40,16 @@ def _identity(device: torch.device):
             constant_on(torch.ones(3, dtype=torch.float64), device))
 
 
+def _rows_contiguous(frame_u8: torch.Tensor) -> bool:
+    """Whether each (H, W, 3) frame of ``frame_u8`` is contiguous, whatever
+    the stride between the frames of a batch (a crop ``frames[:, y0:]`` of
+    a contiguous batch is)."""
+    H, W = frame_u8.shape[-3:-1]
+    want = (3 * W, 3, 1)
+    return all(n == 1 or st == w
+               for n, st, w in zip(frame_u8.shape[-3:], frame_u8.stride()[-3:], want))
+
+
 def _frames(frame_u8: torch.Tensor, out_hw, out_dtype) -> torch.Tensor:
     """Checks the arguments -> the frames as (B, H, W, 3)."""
     if frame_u8.dtype != torch.uint8:
@@ -47,8 +57,9 @@ def _frames(frame_u8: torch.Tensor, out_hw, out_dtype) -> torch.Tensor:
     if frame_u8.dim() not in (3, 4) or frame_u8.shape[-1] != 3:
         raise ValueError(f"frame must be (H, W, 3) or (B, H, W, 3), got "
                          f"{tuple(frame_u8.shape)}")
-    if not frame_u8.is_contiguous():
-        raise ValueError("frame must be contiguous")
+    if not _rows_contiguous(frame_u8):
+        raise ValueError("each frame must be contiguous (its rows and pixels; the frames "
+                         f"of a batch may be any stride apart), got strides {frame_u8.stride()}")
     h, w = out_hw
     if not (isinstance(h, int) and isinstance(w, int) and h > 0 and w > 0):
         raise ValueError(f"out_hw must be two positive ints, got {out_hw}")
@@ -71,9 +82,10 @@ def _launch(frames, out_hw, out_dtype, channel_tables, inner_hw, pad_xy, pad_val
     tables = (*device_taps(H, nh, frames.device), *device_taps(W, nw, frames.device),
               *channel_tables)
     out = torch.empty((B, h, w, 3), dtype=out_dtype, device=frames.device)
+    stride = frames.stride(0) if B > 1 else H * W * 3
     with torch.cuda.device(frames.device):
         err = build.load().avp_fused_preprocess(
-            frames.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables),
+            frames.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables), stride,
             B, H, W, h, w, nh, nw, pad_y, pad_x, pad_value,
             int(out_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -83,7 +95,8 @@ def _launch(frames, out_hw, out_dtype, channel_tables, inner_hw, pad_xy, pad_val
 
 def fused_preprocess(frame_u8: torch.Tensor, out_hw: Tuple[int, int] = (320, 640),
                      out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """uint8 BGR frame(s), (H, W, 3) or (B, H, W, 3), contiguous ->
+    """uint8 BGR frame(s), (H, W, 3) or (B, H, W, 3), each contiguous (the
+    frames of a batch any stride apart, as in a crop ``frames[:, y0:]``) ->
     resized, RGB, ImageNet-normalised (B, 3, h, w) ``out_dtype`` in
     channels_last memory (B = 1 for a single frame).
 
@@ -103,7 +116,7 @@ fused_preprocess.launches = 0
 def fused_letterbox(frame_u8: torch.Tensor, out_hw: Tuple[int, int] = (640, 640),
                     out_dtype: torch.dtype = torch.bfloat16):
     """The letterbox mode of the same kernel: uint8 BGR frame(s), (H, W, 3)
-    or (B, H, W, 3), contiguous -> (image (B, 3, h, w) ``out_dtype`` in
+    or (B, H, W, 3), each contiguous -> (image (B, 3, h, w) ``out_dtype`` in
     channels_last memory, scale, (pad_x, pad_y)): scaled to fit, centred
     on gray 114, RGB, [0, 1]. Every pixel, pad included, is written by the
     one launch.

@@ -58,19 +58,20 @@ class LaneFilterState(NamedTuple):
     prev_right_valid: torch.Tensor
 
     @staticmethod
-    def init(device="cuda") -> "LaneFilterState":
+    def init(device="cuda", streams=()) -> "LaneFilterState":
+        """``streams``: the leading axes, () for one stream or (N,)."""
         return LaneFilterState(
-            torch.zeros(6, device=device),
-            torch.zeros((), dtype=torch.bool, device=device),
-            torch.zeros(6, device=device),
-            torch.zeros((), dtype=torch.bool, device=device))
+            torch.zeros((*streams, 6), device=device),
+            torch.zeros(streams, dtype=torch.bool, device=device),
+            torch.zeros((*streams, 6), device=device),
+            torch.zeros(streams, dtype=torch.bool, device=device))
 
 
 def _find_start(ego, is_left: bool, width: int):
     """Lowest ROI row with a mask pixel on this side of the mid column, and
-    in that row the pixel nearest to it. ego: (H, W) float mask.
-    -> (x, y, found): 0-d int32, int32, bool."""
-    h, w = ego.shape
+    in that row the pixel nearest to it. ego: (..., H, W) float masks.
+    -> (x, y, found), each (...): int32, int32, bool."""
+    h, w = ego.shape[-2:]
     mid = width // 2
     cols = torch.arange(w, device=ego.device)
     if is_left:
@@ -79,16 +80,16 @@ def _find_start(ego, is_left: bool, width: int):
     else:
         valid_x = cols >= mid
         xkey = torch.where(valid_x, w - cols, -1)  # prefer smaller x
-    roi = ego[_roi_y_min(h):] > 0.5
-    rowhit = (roi & valid_x).any(1)
-    roi_h = roi.shape[0]
+    roi = ego[..., _roi_y_min(h):, :] > 0.5
+    rowhit = (roi & valid_x).any(-1)
+    roi_h = roi.shape[-2]
     rows = torch.arange(roi_h, device=ego.device)
-    best_row = torch.where(rowhit, rows, -1).max()  # bottom-most hit row
+    best_row = torch.where(rowhit, rows, -1).amax(-1)  # bottom-most hit row
     found = best_row >= 0
     row = best_row.clamp(0, roi_h - 1)
-    rowmask = roi.index_select(0, row.reshape(1))[0]
+    rowmask = roi.gather(-2, row[..., None, None].expand(*row.shape, 1, w))[..., 0, :]
     key = torch.where(rowmask, xkey, -1)
-    x = torch.argmax(key)  # the first index of the largest key, as jnp.argmax
+    x = torch.argmax(key, -1)  # the first index of the largest key, as jnp.argmax
     y = row + _roi_y_min(h)
     return x.to(torch.int32), y.to(torch.int32), found
 
@@ -98,31 +99,32 @@ def _round_away(v):
     return torch.where(v >= 0, torch.floor(v + 0.5), torch.ceil(v - 0.5))
 
 
-def _sliding_search(ego, other, start_xy, found):
-    """Bi-directional momentum window walk from ``start_xy`` (0-d int32
-    tensors). -> (H, W) int32 weight image counting how many windows
-    contributed each pixel. The up and down walks run side by side, as a
-    batch of two, over the fixed budget of H / WIN_H steps."""
-    h, w = ego.shape
+def _sliding_search(ego, other, start_x, start_y, found):
+    """Bi-directional momentum window walk from (start_x, start_y). ego,
+    other: (B, H, W) masks; start_x, start_y (B,) int32, found (B,) bool.
+    -> (B, H, W) int32 weight images counting how many windows contributed
+    each pixel. The up and down walks of every image run side by side, as
+    a batch of 2B, over the fixed budget of H / WIN_H steps."""
+    h, w = ego.shape[-2:]
     dev = ego.device
     i32 = torch.int32
-    ys = torch.arange(h, device=dev)[None, :, None]
-    xs = torch.arange(w, device=dev)[None, None, :]
-    ego_b = ego > 0.5
-    other_b = other > 0.5
+    ys = torch.arange(h, device=dev)[None, None, :, None]
+    xs = torch.arange(w, device=dev)[None, None, None, :]
+    ego_b = (ego > 0.5)[:, None]
+    other_b = (other > 0.5)[:, None]
     step_y = torch.arange(2, dtype=i32, device=dev) * 2 - 1  # up, down
-    up = step_y < 0
+    up = (step_y < 0).expand(ego.shape[0], 2)
 
-    px = start_xy[0].expand(2)
-    py = start_xy[1] + torch.where(up, 0, WIN_H).to(i32)
-    dx = torch.zeros(2, device=dev)
-    dy = step_y.to(torch.float32)
-    empty = torch.zeros(2, dtype=i32, device=dev)
-    stopped = (~found).expand(2)
-    weights = torch.zeros((2, h, w), dtype=i32, device=dev)
+    px = start_x[:, None].expand(-1, 2)
+    py = start_y[:, None] + torch.where(up, 0, WIN_H).to(i32)
+    dx = torch.zeros(px.shape, device=dev)
+    dy = step_y.to(torch.float32).expand(px.shape)
+    empty = torch.zeros(px.shape, dtype=i32, device=dev)
+    stopped = (~found)[:, None].expand(-1, 2)
+    weights = torch.zeros((*px.shape, h, w), dtype=i32, device=dev)
 
     def win(v):
-        return v[:, None, None]
+        return v[..., None, None]
 
     for _ in range(h // WIN_H):
         oob = (px < 0) | (px >= w) | torch.where(up, py < 0, py >= h)
@@ -139,17 +141,17 @@ def _sliding_search(ego, other, start_xy, found):
                   & (xs >= win(wx0)) & (xs < win(wx1)))
         ego_win = in_win & ego_b
         oth_win = in_win & other_b & ~win(strict)
-        n_ego = ego_win.sum((1, 2))
-        n_oth = oth_win.sum((1, 2))
+        n_ego = ego_win.sum((-2, -1))
+        n_oth = oth_win.sum((-2, -1))
 
         use_ego = n_ego >= 3
         use_oth = (~use_ego) & (n_oth >= 3)
         found_valid = use_ego | use_oth
         sel = torch.where(win(use_ego), ego_win, oth_win & win(use_oth))
 
-        cnt = torch.clamp(sel.sum((1, 2)), min=1).to(torch.float32)
-        cx = (sel * xs).sum((1, 2)).to(torch.float32) / cnt
-        cy = (sel * ys).sum((1, 2)).to(torch.float32) / cnt
+        cnt = torch.clamp(sel.sum((-2, -1)), min=1).to(torch.float32)
+        cx = (sel * xs).sum((-2, -1)).to(torch.float32) / cnt
+        cy = (sel * ys).sum((-2, -1)).to(torch.float32) / cnt
 
         take = found_valid & ~stopped
         weights = weights + (sel & win(take)).to(i32)
@@ -182,22 +184,28 @@ def _sliding_search(ego, other, start_xy, found):
 
         px = torch.where(stopped, px, new_px)
         py = torch.where(stopped, py, new_py)
-    return weights[0] + weights[1]
+    return weights[:, 0] + weights[:, 1]
 
 
 def lane_filter_walk_plain(masks):
-    """The plain version of the lane-filter walk kernel. masks: (H, W, 3)
-    f32 [ego_left, ego_right, other]. -> (weights (2, H, W) int32, starts
-    (2, 3) int32 [x, y, found]), left then right."""
-    w = masks.shape[1]
-    other = masks[..., 2]
-    weights, starts = [], []
-    for side in (0, 1):
-        ego = masks[..., side]
-        sx, sy, found = _find_start(ego, side == 0, w)
-        weights.append(_sliding_search(ego, other, (sx, sy), found))
-        starts.append(torch.stack([sx, sy, found.to(torch.int32)]))
-    return torch.stack(weights), torch.stack(starts)
+    """The plain version of the lane-filter walk kernel. masks: (H, W, 3) or
+    (N, H, W, 3) f32 [ego_left, ego_right, other], a stream each. ->
+    (weights (..., 2, H, W) int32, starts (..., 2, 3) int32 [x, y, found]),
+    left then right; every stream's the same as a call on it alone."""
+    if masks.dim() == 3:
+        weights, starts = lane_filter_walk_plain(masks[None])
+        return weights[0], starts[0]
+    w = masks.shape[-2]
+    # the two sides of every stream side by side: (N, 2, ...) -> (2N, ...)
+    ego = masks[..., :2].permute(0, 3, 1, 2)
+    left = _find_start(ego[:, 0], True, w)
+    right = _find_start(ego[:, 1], False, w)
+    sx, sy, found = (torch.stack([a, b], 1) for a, b in zip(left, right))
+    other = masks[..., 2][:, None].expand(-1, 2, -1, -1)
+    weights = _sliding_search(ego.flatten(0, 1), other.flatten(0, 1), sx.flatten(),
+                              sy.flatten(), found.flatten())
+    starts = torch.stack([sx, sy, found.to(torch.int32)], -1)
+    return weights.view(*ego.shape), starts
 
 
 def _weighted_fit(weights):
@@ -250,26 +258,30 @@ def _weighted_fit(weights):
 
 
 def lane_filter_update(masks, state: LaneFilterState):
-    """One LaneFilter::update step, on the masks' device.
+    """One LaneFilter::update step, on the masks' device, for one stream or
+    a batch of them.
 
-    masks: (H, W, 3) f32 binary masks [ego_left, ego_right, other], the
-    layout ``threshold_channels`` gives (the JAX function takes the three
-    channels as separate arguments). Returns (left_coeffs6, left_valid,
-    right_coeffs6, right_valid, new_state, left_weights, right_weights).
+    masks: (..., H, W, 3) f32 binary masks [ego_left, ego_right, other],
+    the layout ``threshold_channels`` gives (the JAX function takes the
+    three channels as separate arguments); the state's fields carry the
+    same leading axes. Returns (left_coeffs6, left_valid, right_coeffs6,
+    right_valid, new_state, left_weights, right_weights).
     """
     weights, starts = lane_filter_walk(masks)
     coeffs, valid = _weighted_fit(weights)
-    found = starts[:, 2] > 0
+    found = starts[..., 2] > 0
     valid = valid & found
-    prev = torch.stack([state.prev_left, state.prev_right])
-    prev_valid = torch.stack([state.prev_left_valid, state.prev_right_valid])
-    smoothed = torch.where(prev_valid[:, None],
+    prev = torch.stack([state.prev_left, state.prev_right], -2)
+    prev_valid = torch.stack([state.prev_left_valid, state.prev_right_valid], -1)
+    smoothed = torch.where(prev_valid[..., None],
                            SMOOTHING * coeffs + (1 - SMOOTHING) * prev, coeffs)
-    out = torch.where(valid[:, None], smoothed, coeffs)
+    out = torch.where(valid[..., None], smoothed, coeffs)
     # reference semantics: start not found -> invalidate history; valid
     # fit -> smoothed fit becomes history; invalid fit with start found ->
     # history untouched
-    new_prev = torch.where(valid[:, None], out, prev)
+    new_prev = torch.where(valid[..., None], out, prev)
     new_valid = found & (valid | prev_valid)
-    new_state = LaneFilterState(new_prev[0], new_valid[0], new_prev[1], new_valid[1])
-    return out[0], valid[0], out[1], valid[1], new_state, weights[0], weights[1]
+    new_state = LaneFilterState(new_prev[..., 0, :], new_valid[..., 0], new_prev[..., 1, :],
+                                new_valid[..., 1])
+    return (out[..., 0, :], valid[..., 0], out[..., 1, :], valid[..., 1], new_state,
+            weights[..., 0, :, :], weights[..., 1, :, :])

@@ -11,6 +11,8 @@ Rebuild of production_release/src/lane_tracking/lane_tracking.cpp:
 
 Point lists are fixed-size (MAX_PTS, 2) tensors with validity masks; every
 step is a tensor op on the inputs' device, with no host synchronisation.
+Every function takes leading stream axes (..., ·): a batch of streams is
+one set of launches, each stream on its own.
 """
 from __future__ import annotations
 
@@ -55,10 +57,11 @@ class LaneTrackerState(NamedTuple):
     has_width_history: torch.Tensor  # () bool
 
     @staticmethod
-    def init(device="cuda") -> "LaneTrackerState":
+    def init(device="cuda", streams=()) -> "LaneTrackerState":
+        """``streams``: the leading axes, () for one stream or (N,)."""
         return LaneTrackerState(
-            torch.full((), DEFAULT_BEV_WIDTH, device=device),
-            torch.zeros((), dtype=torch.bool, device=device))
+            torch.full(streams, DEFAULT_BEV_WIDTH, device=device),
+            torch.zeros(streams, dtype=torch.bool, device=device))
 
 
 @functools.lru_cache(maxsize=32)
@@ -106,39 +109,40 @@ def warp_points(pts, H):
 
 
 def _masked_quadfit(pts, mask):
-    """Least-squares x = a*y^2 + b*y + c on masked points; returns
-    ([0,a,b,c,ymin,ymax], ok). y normalized internally for conditioning."""
-    y = pts[:, 1]
-    x = pts[:, 0]
+    """Least-squares x = a*y^2 + b*y + c on masked points (..., P, 2) and
+    (..., P); returns ([0,a,b,c,ymin,ymax] (..., 6), ok (...)). y
+    normalized internally for conditioning."""
+    y = pts[..., 1]
+    x = pts[..., 0]
     m = mask.to(torch.float32)
-    n = m.sum()
-    ysc = 1.0 / torch.clamp((y.abs() * m).max(), min=1.0)
-    yn = y * ysc
+    n = m.sum(-1)
+    ysc = 1.0 / torch.clamp((y.abs() * m).amax(-1), min=1.0)
+    yn = y * ysc[..., None]
     A = torch.stack([yn * yn, yn, torch.ones_like(yn)], -1)
-    Am = A * m[:, None]
-    AtA = Am.T @ A + 1e-8 * torch.eye(3, device=pts.device)
-    Atb = Am.T @ x
+    Am = A * m[..., None]
+    AtA = Am.transpose(-1, -2) @ A + 1e-8 * torch.eye(3, device=pts.device)
+    Atb = (Am.transpose(-1, -2) @ x[..., None])[..., 0]
     q = solve3x3(AtA, Atb)
-    a = q[0] * ysc * ysc
-    b = q[1] * ysc
-    c = q[2]
-    ymin = torch.where(mask, y, float("inf")).min()
-    ymax = torch.where(mask, y, float("-inf")).max()
+    a = q[..., 0] * ysc * ysc
+    b = q[..., 1] * ysc
+    c = q[..., 2]
+    ymin = torch.where(mask, y, float("inf")).amin(-1)
+    ymax = torch.where(mask, y, float("-inf")).amax(-1)
     ok = n >= 3
-    return torch.stack([torch.zeros_like(a), a, b, c, ymin, ymax]), ok
+    return torch.stack([torch.zeros_like(a), a, b, c, ymin, ymax], -1), ok
 
 
 def _offset(c6, y):
-    return c6[1] * y * y + c6[2] * y + c6[3]
+    return c6[..., 1] * y * y + c6[..., 2] * y + c6[..., 3]
 
 
 def _yaw(c6, y):
-    return torch.atan(2 * c6[1] * y + c6[2])
+    return torch.atan(2 * c6[..., 1] * y + c6[..., 2])
 
 
 def _curvature(c6, y):
-    dxdy = 2 * c6[1] * y + c6[2]
-    d2 = 2 * c6[1]
+    dxdy = 2 * c6[..., 1] * y + c6[..., 2]
+    d2 = 2 * c6[..., 1]
     denom = (1 + dxdy * dxdy) ** 1.5
     return torch.where(denom.abs() < 1e-6, 0.0, d2.abs() / denom)
 
@@ -166,20 +170,22 @@ class LaneTrackerOutput(NamedTuple):
 def _last_valid_x(bev, mask):
     """x of the bottom-most valid sample (of sample 0 if none is valid)."""
     rows = torch.arange(MAX_PTS, device=bev.device)
-    idx = torch.where(mask, rows, -1).max().clamp(0, MAX_PTS - 1)
-    return bev[:, 0].gather(0, idx.reshape(1))[0]
+    idx = torch.where(mask, rows, -1).amax(-1).clamp(0, MAX_PTS - 1)
+    return bev[..., 0].gather(-1, idx[..., None])[..., 0]
 
 
 def lane_tracker_update(left_c6, left_valid, right_c6, right_valid,
                         state: LaneTrackerState,
                         model_hw=(80, 160), image_hw=(640, 1280)):
-    """One LaneTracker::update step; -> (LaneTrackerOutput, new state)."""
+    """One LaneTracker::update step, for one stream or a batch (leading
+    axes on every input and on the state); -> (LaneTrackerOutput, new
+    state)."""
     H, H_inv = homographies(left_c6.device)
 
     def side_points(c6, valid):
         up = upscale_coeffs(c6, model_hw, image_hw)
         pts, mask = _gen_points(up)
-        return warp_points(pts, H), mask & valid
+        return warp_points(pts, H), mask & valid[..., None]
 
     left_bev, lmask = side_points(left_c6, left_valid)
     right_bev, rmask = side_points(right_c6, right_valid)
@@ -201,11 +207,12 @@ def lane_tracker_update(left_c6, left_valid, right_c6, right_valid,
     recover_left = (~left_valid) & right_valid & can_recover
     recover_right = left_valid & (~right_valid) & can_recover
 
-    shift = torch.stack([new_width, torch.zeros_like(new_width)])
-    left_bev = torch.where(recover_left, right_bev - shift, left_bev)
-    lmask = torch.where(recover_left, rmask, lmask)
-    right_bev = torch.where(recover_right, left_bev + shift, right_bev)
-    rmask = torch.where(recover_right, lmask, rmask)
+    shift = torch.stack([new_width, torch.zeros_like(new_width)], -1)[..., None, :]
+    rec_l, rec_r = recover_left[..., None], recover_right[..., None]
+    left_bev = torch.where(rec_l[..., None], right_bev - shift, left_bev)
+    lmask = torch.where(rec_l, rmask, lmask)
+    right_bev = torch.where(rec_r[..., None], left_bev + shift, right_bev)
+    rmask = torch.where(rec_r, lmask, rmask)
 
     # reproject recovered lanes to model space and refit for output coeffs
     (mh, mw), (ih, iw) = model_hw, image_hw
@@ -214,12 +221,12 @@ def lane_tracker_update(left_c6, left_valid, right_c6, right_valid,
     def refit_model(bev, mask):
         return _masked_quadfit(warp_points(bev, H_inv) / scale, mask)
 
-    rec_l, _ = refit_model(left_bev, lmask)
-    left_out = torch.where(recover_left, rec_l, left_c6)
-    rec_r, _ = refit_model(right_bev, rmask)
-    right_out = torch.where(recover_right, rec_r, right_c6)
+    fit_l, _ = refit_model(left_bev, lmask)
+    left_out = torch.where(rec_l, fit_l, left_c6)
+    fit_r, _ = refit_model(right_bev, rmask)
+    right_out = torch.where(rec_r, fit_r, right_c6)
 
-    have_both_pts = lmask.any() & rmask.any()
+    have_both_pts = lmask.any(-1) & rmask.any(-1)
 
     # BEV center fit + metrics at the vehicle row (y = 640)
     center_bev = (left_bev + right_bev) * 0.5
@@ -237,7 +244,8 @@ def lane_tracker_update(left_c6, left_valid, right_c6, right_valid,
     orig_curv = _curvature(center_c6, orig_car_y)
 
     def gated(v):
-        return torch.where(have_both_pts, v, 0.0)
+        lead = have_both_pts.shape
+        return torch.where(have_both_pts.reshape(lead + (1,) * (v.dim() - len(lead))), v, 0.0)
 
     return LaneTrackerOutput(
         left_coeffs=left_out,

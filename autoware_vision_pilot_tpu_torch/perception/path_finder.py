@@ -16,6 +16,8 @@ curv_right, curv_fused, lane_width, width_aux].
 
 Tensor ops only, on any device, with no host synchronisation. NaN is data
 here (a fit with fewer than 3 points, the unmeasured states) and is kept.
+Every function takes leading stream axes: a batch of streams is one set of
+launches, each stream on its own.
 """
 from __future__ import annotations
 
@@ -45,11 +47,12 @@ class BayesState(NamedTuple):
     var: torch.Tensor       # (14,)
 
     @staticmethod
-    def init(default_lane_width: float = 4.0, device="cuda") -> "BayesState":
-        mean = torch.zeros(STATE_DIM, device=device)
-        var = torch.full((STATE_DIM,), 1e3, device=device)
-        mean[12] = default_lane_width
-        var[12] = 0.25
+    def init(default_lane_width: float = 4.0, device="cuda", streams=()) -> "BayesState":
+        """``streams``: the leading axes, () for one stream or (N,)."""
+        mean = torch.zeros((*streams, STATE_DIM), device=device)
+        var = torch.full((*streams, STATE_DIM), 1e3, device=device)
+        mean[..., 12] = default_lane_width
+        var[..., 12] = 0.25
         return BayesState(mean, var)
 
 
@@ -68,38 +71,39 @@ def bayes_update(s: BayesState, meas_mean, meas_var) -> BayesState:
     mean = torch.where(isnan, m0, m2)
 
     for start, end in FUSION_RULES:
-        g_var = var[start:end]
-        g_mean = mean[start:end]
+        g_var = var[..., start:end]
+        g_mean = mean[..., start:end]
         pos = g_var > 0.0
         inv = torch.where(pos, 1.0 / g_var, 0.0)
         wsum = torch.where(pos, g_mean / g_var, 0.0)
-        inv_sum = inv.sum()
+        inv_sum = inv.sum(-1)
         fused_var = 1.0 / torch.clamp(inv_sum, min=1e-30)
-        fused_mean = fused_var * wsum.sum()
+        fused_mean = fused_var * wsum.sum(-1)
         ok = inv_sum > 0.0
-        var = _set(var, end, torch.where(ok, fused_var, var[end]))
-        mean = _set(mean, end, torch.where(ok, fused_mean, mean[end]))
+        var = _set(var, end, torch.where(ok, fused_var, var[..., end]))
+        mean = _set(mean, end, torch.where(ok, fused_mean, mean[..., end]))
     return BayesState(mean, var)
 
 
 def _set(v: torch.Tensor, i: int, value: torch.Tensor) -> torch.Tensor:
-    """``v`` with ``v[i] = value`` (0-d), as a new tensor: jnp's .at[i].set."""
-    return torch.cat([v[:i], value.reshape(1), v[i + 1:]])
+    """``v`` with ``v[..., i] = value`` (one value a stream), as a new
+    tensor: jnp's .at[i].set."""
+    return torch.cat([v[..., :i], value[..., None], v[..., i + 1:]], -1)
 
 
 def fit_quad_poly(pts, mask):
     """Masked least-squares x = c0*y^2 + c1*y + c2 (poly_fit.cpp fitQuadPoly)
-    on (N, 2) points [x, y] and an (N,) mask. -> (3,) coeffs, NaN when
-    fewer than 3 points."""
+    on (..., P, 2) points [x, y] and a (..., P) mask. -> (..., 3) coeffs,
+    NaN when fewer than 3 points."""
     m = mask.to(torch.float32)
-    n = m.sum()
-    y, x = pts[:, 1], pts[:, 0]
+    n = m.sum(-1)
+    y, x = pts[..., 1], pts[..., 0]
     A = torch.stack([y * y, y, torch.ones_like(y)], -1)
-    Am = A * m[:, None]
-    AtA = Am.T @ A + 1e-9 * torch.eye(3, device=pts.device)
-    Atb = Am.T @ x
+    Am = A * m[..., None]
+    AtA = Am.transpose(-1, -2) @ A + 1e-9 * torch.eye(3, device=pts.device)
+    Atb = (Am.transpose(-1, -2) @ x[..., None])[..., 0]
     c = solve3x3(AtA, Atb)
-    return torch.where(n > 2, c, NAN)
+    return torch.where(n[..., None] > 2, c, NAN)
 
 
 class PathFinderOutput(NamedTuple):
@@ -118,11 +122,15 @@ class PathFinderOutput(NamedTuple):
     fused_valid: torch.Tensor
 
 
-def process_noise(generator: torch.Generator, device) -> torch.Tensor:
+def process_noise(generator, device) -> torch.Tensor:
     """(14,) f32 drawn from U(-NOISE_EPS, NOISE_EPS) with ``generator``, a
     generator on ``device``: the port's counterpart of the JAX package's
-    draw from a key (the two give different numbers)."""
-    u = torch.rand(STATE_DIM, generator=generator, device=device)
+    draw from a key (the two give different numbers). A tuple of N
+    generators, one a stream, draws (N, 14), a row from each."""
+    if isinstance(generator, (tuple, list)):
+        u = torch.stack([torch.rand(STATE_DIM, generator=g, device=device) for g in generator])
+    else:
+        u = torch.rand(STATE_DIM, generator=generator, device=device)
     return u * (2 * NOISE_EPS) - NOISE_EPS
 
 
@@ -131,9 +139,11 @@ def path_finder_update(state: BayesState, left_pts_m, left_mask,
                        generator: Optional[torch.Generator] = None,
                        noise: Optional[torch.Tensor] = None,
                        default_lane_width: float = 4.0):
-    """One PathFinder::update step (path_finder.cpp:47-194). The process
+    """One PathFinder::update step (path_finder.cpp:47-194), for one stream
+    or a batch (leading axes on every input and on the state). The process
     noise mean is ``noise`` when given (a test passes in the JAX package's
-    draw), else drawn from ``generator``. -> (PathFinderOutput, new state)."""
+    draw), else drawn from ``generator`` (a tuple of them for a batch, one
+    a stream). -> (PathFinderOutput, new state)."""
     if noise is None:
         if generator is None:
             raise ValueError("path_finder_update needs a generator or a noise tensor")
@@ -143,13 +153,13 @@ def path_finder_update(state: BayesState, left_pts_m, left_mask,
     lc = fit_quad_poly(left_pts_m, left_mask)
     rc = fit_quad_poly(right_pts_m, right_mask)
     # derived metrics at y=0 (vehicle position), poly_fit.cpp FittedCurve
-    one = torch.ones_like(lc[1])
-    l_cte = -lc[2]
-    l_yaw = -torch.atan2(lc[1], one)
-    r_cte = -rc[2]
-    r_yaw = -torch.atan2(rc[1], one)
+    one = torch.ones_like(lc[..., 1])
+    l_cte = -lc[..., 2]
+    l_yaw = -torch.atan2(lc[..., 1], one)
+    r_cte = -rc[..., 2]
+    r_yaw = -torch.atan2(rc[..., 1], one)
 
-    width = state.mean[12]
+    width = state.mean[..., 12]
     steering = autosteer_rad
 
     meas_var = _meas_var(state.mean.device)
@@ -165,17 +175,17 @@ def path_finder_update(state: BayesState, left_pts_m, left_mask,
         nan, l_yaw, r_yaw, nan,                               # yaw
         nan, steering, steering, nan,                         # curvature
         width_meas, nan,                                      # width
-    ])
+    ], -1)
     state = bayes_update(state, meas_mean, meas_var)
 
-    cte = state.mean[3]
-    yaw = state.mean[7]
+    cte = state.mean[..., 3]
+    yaw = state.mean[..., 7]
     curv = steering  # AutoSteer feed-forward substitutes curvature
     out = PathFinderOutput(
         cte=cte, yaw_error=yaw, curvature=curv,
-        lane_width=state.mean[12],
-        cte_variance=state.var[3], yaw_variance=state.var[7],
-        curv_variance=state.var[11], lane_width_variance=state.var[12],
+        lane_width=state.mean[..., 12],
+        cte_variance=state.var[..., 3], yaw_variance=state.var[..., 7],
+        curv_variance=state.var[..., 11], lane_width_variance=state.var[..., 12],
         left_coeff=lc, right_coeff=rc,
         left_valid=~torch.isnan(l_cte), right_valid=~torch.isnan(r_cte),
         fused_valid=~(torch.isnan(cte) | torch.isnan(yaw) | torch.isnan(curv)),

@@ -106,6 +106,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              timed with CUDA events (and the host's enqueue time): one
              letterbox and one NMS launch a frame, a well-formed table, and
              device time by kind of kernel over 20 frames (torch.profiler).
+ 15. batched kernels: the preprocess kernel on the lateral crop
+             frames[:, 420:] of an (N, 720, 1280, 3) batch (read in place),
+             the letterbox mode, the walk and NMS at N = 1, 3 and 8, one
+             launch a batch: every stream bit-equal to the plain version
+             and to a launch on that stream alone; the time at N = 8 beside
+             8 x the time at N = 1.
+ 16. fleet f32: the batched lateral and longitudinal steps at N = 3 in
+             f32 against 3 single-stream pipelines on the card over 3
+             ticks: the networks within 1e-3 * max|single|; fed the single
+             streams' network outputs, masks, flags and AutoSteer equal,
+             lane fits within 5e-3 * max|single|, detection tables equal.
+ 17. engine: app.py::build_engine(Config()) in bf16 at full width on 60
+             distinct 720p host frames, pipeline depth 1, 2, 2, 1, every
+             dispatch under sync-debug "error": in-order finite results,
+             the tracker fed every frame's detections, one launch of each
+             of the four kernels a frame; host-loop and CUDA-event p50/p99
+             and the device's busy share.
+ 18. fleet: FleetEngine over 8 streams in bf16 at full width, 30 ticks,
+             every dispatch under sync-debug "error": one launch of each of
+             the four kernels a tick; tick p50/p99 and frames a second.
+The run prints its wall time.
 """
 from __future__ import annotations
 
@@ -1058,16 +1079,20 @@ def parent_kernels(root):
     for name in ("avp_lane_filter_walk", "avp_nms_greedy"):
         getattr(lib, name).argtypes = pb.SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
-    walk_args = len(pb.SIGNATURES["avp_lane_filter_walk"])  # 6: no stamps
-    nms_args = len(pb.SIGNATURES["avp_nms_greedy"])  # 13: no cluster size, no stamps
+    # the walk: 6 arguments (no stamps), 7 (stamps), 8 (a batch of N streams);
+    # NMS: 13 (no cluster size, no stamps), 15, 16 (a batch of N streams)
+    walk_args = len(pb.SIGNATURES["avp_lane_filter_walk"])
+    nms_args = len(pb.SIGNATURES["avp_nms_greedy"])
 
     def walk(masks):
         h, w, _ = masks.shape
         weights = torch.empty((2, h, w), dtype=torch.int32, device=masks.device)
         starts = torch.empty((2, 3), dtype=torch.int32, device=masks.device)
         extra = () if walk_args == 6 else (None,)
+        streams = (1,) if walk_args == 8 else ()
         err = lib.avp_lane_filter_walk(masks.data_ptr(), weights.data_ptr(), starts.data_ptr(),
-                                       h, w, *extra, torch.cuda.current_stream().cuda_stream)
+                                       *streams, h, w, *extra,
+                                       torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"the parent's avp_lane_filter_walk failed: {err}")
         return weights, starts
@@ -1079,7 +1104,9 @@ def parent_kernels(root):
                 torch.empty(md, dtype=torch.int32, device=dev),
                 torch.empty(md, dtype=torch.bool, device=dev))
         extra = () if nms_args == 13 else (cluster_size(k), None)
-        err = lib.avp_nms_greedy(*(t.data_ptr() for t in top), *(t.data_ptr() for t in outs), k,
+        streams = (1,) if nms_args == 16 else ()
+        err = lib.avp_nms_greedy(*(t.data_ptr() for t in top), *(t.data_ptr() for t in outs),
+                                 *streams, k,
                                  md, kw["iou_thresh"], kw["conf_thresh"],
                                  int(kw.get("class_aware", True)), *extra,
                                  torch.cuda.current_stream().cuda_stream)
@@ -1837,6 +1864,345 @@ def phase_longitudinal(card):
     return launches
 
 
+# ---------- the stream axis, the engine and the fleet ----------
+
+STREAMS = (1, 3, 8)
+ENGINE_FRAMES = 60
+FLEET_N, FLEET_TICKS = 8, 30
+
+
+def batched_times(label, fn, pools, card):
+    """Profiler device time of fn on batches of 8 streams against 8 times
+    its time on one: ``pools`` {1: [x], 8: [x]}. -> (us at N = 8, us at
+    N = 1)."""
+    us8, us1 = device_us(fn, pools[8]), device_us(fn, pools[1])
+    print(f"{label}, {card}: N = 8 {us8!r} us a launch against 8 x N = 1 {8 * us1!r} us "
+          f"(N = 1: {us1!r} us; profiler device time)")
+    return us8, us1
+
+
+def phase_batched(card):
+    """The preprocess (on the lateral crop frames[:, 420:] of a batch, read
+    in place), letterbox, walk and NMS kernels at N in STREAMS, one launch
+    a batch: every stream bit-equal to the plain version and to a launch on
+    that stream alone; the time of N = 8 beside 8 x N = 1. -> {kernel:
+    (us at 8, us at 1)}."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
+    from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import nms_greedy
+    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (fused_letterbox,
+                                                                               fused_preprocess)
+    from autoware_vision_pilot_tpu_torch.ops.postprocess import nms_greedy_plain
+    from autoware_vision_pilot_tpu_torch.ops.preprocess import letterbox, preprocess_imagenet
+    from autoware_vision_pilot_tpu_torch.perception.lane_filter import lane_filter_walk_plain
+
+    def crop(b):
+        return b[:, LATERAL_CROP:]
+
+    kw = dict(max_det=MAX_DET, iou_thresh=IOU, conf_thresh=CONF)
+    cases = {
+        "fused_preprocess": (lambda x: fused_preprocess(crop(x), OUT_HW),
+                             lambda x: preprocess_imagenet(crop(x), OUT_HW, torch.bfloat16)
+                             .permute(0, 3, 1, 2),
+                             lambda n, s: frames(n, FRAME_HW, s).cuda(), fused_preprocess),
+        "fused_letterbox": (lambda x: fused_letterbox(x, LON_HW)[0],
+                            lambda x: letterbox(x, LON_HW, FRAME_HW, dtype=torch.bfloat16)[0]
+                            .permute(0, 3, 1, 2),
+                            lambda n, s: frames(n, FRAME_HW, s).cuda(), fused_letterbox),
+        "lane_filter_walk": (lane_filter_walk, lane_filter_walk_plain,
+                             lambda n, s: torch.stack([torch.from_numpy(lane_masks(
+                                 LANE_HW, LANE_KINDS[(s + i) % len(LANE_KINDS)], s + i))
+                                 for i in range(n)]).cuda(), lane_filter_walk),
+        "nms_greedy": (lambda top: nms_greedy(*top, **kw),
+                       lambda top: nms_greedy_plain(*top, **kw),
+                       lambda n, s: tuple(torch.stack(p) for p in zip(*[
+                           nms_edge_candidates(256, NMS_EDGE_KINDS[(s + i) % 4], s + i)
+                           for i in range(n)])), nms_greedy),
+    }
+    times = {}
+    for name, (kernel, plain, make, counted) in cases.items():
+        for n in STREAMS:
+            x = make(n, 70 + n)
+            before = counted.launches
+            out = kernel(x)
+            torch.cuda.synchronize()
+            if counted.launches != before + 1:
+                raise AssertionError(f"{name} at N = {n}: {counted.launches - before} launches")
+            outs = out if isinstance(out, tuple) else (out,)
+            ref = plain(x)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            if not all(bits_equal(a, b) for a, b in zip(outs, refs)):
+                raise AssertionError(f"{name} at N = {n} disagrees with its plain version")
+            for i in range(n):
+                xi = tuple(t[i:i + 1] for t in x) if isinstance(x, tuple) else x[i:i + 1]
+                one = kernel(xi)
+                ones = one if isinstance(one, tuple) else (one,)
+                if not all(bits_equal(a[i:i + 1], b) for a, b in zip(outs, ones)):
+                    raise AssertionError(f"{name} at N = {n}: stream {i} differs from a launch "
+                                         "on it alone")
+        pools = {n: [make(n, 80 + n * 10 + j) for j in range(4 if n == 8 else 16)]
+                 for n in (1, 8)}
+        times[name] = batched_times(f"kernel {name}, a batch of streams", kernel, pools, card)
+        del pools
+    print(f"batched kernels: preprocess (the crop frames[:, {LATERAL_CROP}:] in place), "
+          f"letterbox, walk and NMS at N in {STREAMS}: every stream bit-equal to the plain "
+          "version and to a launch on it alone (tol 0), one launch a batch")
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_fleet_f32():
+    """The batched lateral and longitudinal steps at N = 3 in f32 (TF32
+    off) against 3 single-stream pipelines on the card, the same networks,
+    3 ticks, the states carried: each network's batch-3 outputs within
+    1e-3 * max|single| of the single-stream ones; then, the batched
+    networks returning the single-stream outputs (hooks) and the same
+    noise, the masks, AutoSteer's angle and the flags equal, the lane fits
+    within 5e-3 * max|single|, the detection tables equal. PathFinder's
+    outputs are printed, not held (its f32 fit, section 6 of PERF.md)."""
+    from autoware_vision_pilot_tpu_torch.runtime.config import Config
+    from autoware_vision_pilot_tpu_torch.runtime.fleet import (FleetLateralPipeline,
+                                                               FleetLongitudinalPipeline)
+    from autoware_vision_pilot_tpu_torch.runtime.pipeline import (SCALAR_FIELDS,
+                                                                  build_lateral_pipeline,
+                                                                  build_longitudinal_pipeline)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0, n = time.perf_counter(), 3
+    lat = build_lateral_pipeline("cuda", torch.float32, SEED)
+    lon = build_longitudinal_pipeline("cuda", torch.float32, SEED)
+    fleet = FleetLateralPipeline(lat.lanes, lat.steer_net, Config(), n, dtype=torch.float32)
+    fleet_lon = FleetLongitudinalPipeline(lon.net, Config(), n, dtype=torch.float32)
+    fs = frames(3 * n, FRAME_HW, SEED + 11).cuda().view(3, n, *FRAME_HW, 3)
+    states = fleet.init_states(SEED)
+    singles = [lat.init_state(SEED) for _ in range(n)]
+    noise = torch.zeros((n, 14), device="cuda")
+    seen, forced = {}, {}
+
+    def hook(name):
+        def fn(m, a, y):
+            if name not in forced:  # a single-stream call: keep its output
+                seen.setdefault(name, []).append(y)
+                return None
+            seen[name + " batched"] = y
+            return forced[name]
+        return fn
+
+    hooks = [lat.lanes.register_forward_hook(hook("lanes")),
+             lat.steer_net.register_forward_hook(hook("steer")),
+             lon.net.register_forward_hook(hook("pred"))]
+    flags = [SCALAR_FIELDS.index(f) for f in ("autosteer_deg", "fused_valid", "path_valid")]
+    worst = {}
+    try:
+        for tick in range(3):
+            seen.clear(), forced.clear()
+            ones = []
+            for i in range(n):
+                out, singles[i] = lat(fs[tick, i], singles[i], noise=noise[i])
+                ones.append((out, lon(fs[tick, i])))
+            forced["lanes"] = torch.cat(seen["lanes"])
+            forced["steer"] = tuple(torch.cat(p) for p in zip(*seen["steer"]))
+            forced["pred"] = torch.cat(seen["pred"])
+            out, states = fleet(fs[tick], states, noise=noise)
+            tables = fleet_lon(fs[tick])
+            for name in ("lanes", "steer", "pred"):
+                own = seen[name + " batched"]
+                own, ref = (own[1], forced[name][1]) if name == "steer" else (own, forced[name])
+                err = (own - ref).abs().max().item() / ref.abs().max().item()
+                worst[name] = max(worst.get(name, 0.0), err)
+                if not err <= 1e-3:
+                    raise AssertionError(f"tick {tick}: the batch-3 {name} network is "
+                                         f"{err!r} * max|single| from the single-stream one")
+            for i, (one, table) in enumerate(ones):
+                fin = torch.isfinite(one["coeffs"])
+                scale = torch.where(fin, one["coeffs"], 0.0).abs().amax(-1, keepdim=True)
+                fit = ((torch.where(fin, out["coeffs"][i], 0.0) - torch.where(fin, one["coeffs"],
+                                                                              0.0)).abs()
+                       / scale.clamp_min(1e-30)).max().item()
+                worst["fits"] = max(worst.get("fits", 0.0), fit)
+                if not (torch.equal(out["lane_masks"][i], one["lane_masks"])
+                        and torch.equal(out["scalars"][i][flags], one["scalars"][flags])
+                        and torch.equal(torch.isnan(out["coeffs"][i]), torch.isnan(one["coeffs"]))
+                        and fit <= 5e-3 and torch.equal(tables[i], table)):
+                    raise AssertionError(f"tick {tick} stream {i}: the batched step and the "
+                                         "single-stream one disagree")
+            print(f"f32 fleet tick {tick}, N = {n} against {n} single-stream pipelines: "
+                  f"scalars batched {out['scalars'][:, :6].tolist()} single "
+                  f"{[o['scalars'][:6].tolist() for o, _ in ones]}")
+    finally:
+        for h in hooks:
+            h.remove()
+    print(f"f32 fleet N = {n} vs single streams on the card: networks within "
+          f"{ {k: v for k, v in worst.items() if k != 'fits'} } * max|single| (tol 1e-3), fed "
+          f"the single streams' outputs masks, flags and AutoSteer equal, lane fits "
+          f"{worst['fits']!r} * max|single| (tol 5e-3), detection tables equal; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del lat, lon, fleet, fleet_lon
+    torch.cuda.empty_cache()
+
+
+def busy_share(run):
+    """The device's busy share of ``run()``: kernel device time (profiler)
+    over the run's wall time. -> (share, device ms, wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return dev / (wall * 1e3), dev, wall * 1e3
+
+
+def percentiles(xs):
+    a = np.asarray(xs, np.float64)
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def phase_engine(card):
+    """app.py::build_engine(Config()) in bf16 at full width on ENGINE_FRAMES
+    distinct 720p frames from a host source, at pipeline depth 1, 2, 2 and
+    1 in turns (the host's pace moves between runs), every dispatch under
+    sync-debug "error": results in order and finite,
+    the tracker fed the live detections of every frame, one preprocess,
+    walk, letterbox and NMS launch a frame; p50/p99 end to end from
+    PerformanceMetrics (host) and from CUDA events (upload to results on
+    the host), and the device's busy share. -> the launch counts."""
+    from autoware_vision_pilot_tpu_torch.app import build_engine
+    from autoware_vision_pilot_tpu_torch.runtime.config import Config
+
+    cfg = Config()
+    cfg.target_fps = 0.0  # unpaced: as fast as the host and the card go
+    rng = np.random.default_rng(SEED + 12)
+    host = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(ENGINE_FRAMES)]
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, None, dtype=torch.bfloat16, device="cuda")
+    engine.warmup()
+    print(f"engine build and warm-up: {time.perf_counter() - t0:.1f} s")
+    fed = []
+    update = engine.object_finder.update_and_get_cipo
+
+    def counting(dets, frame=None):
+        fed.append(len(dets))
+        return update(dets, frame)
+
+    engine.object_finder.update_and_get_cipo = counting
+    launches = dict.fromkeys(("fused_preprocess", "lane_filter_walk", "fused_letterbox",
+                              "nms_greedy"), 0)
+    for depth in (1, 2, 2, 1):
+        it = iter(host)
+        engine.frame_source = lambda: next(it, None)
+        engine.metrics = type(engine.metrics)(report_every=10 ** 9)
+        engine.device_ms, fed[:] = [], []
+        torch.cuda.synchronize()
+        reset_counts()  # count only this path's launches
+        t0 = time.perf_counter()
+        results = engine.run(pipeline_depth=depth, sync_check=True)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        expect_launches(counts, {k: ENGINE_FRAMES for k in launches} |
+                        {"int8_quantize": 0, "int8_conv": 0})
+        for k in launches:
+            launches[k] += counts[k]
+        if [r.frame_num for r in results] != list(range(ENGINE_FRAMES)):
+            raise AssertionError(f"engine results out of order: {[r.frame_num for r in results]}")
+        for r in results:
+            vals = [r.steering_deg, r.cte, r.yaw_error, r.set_speed, r.accel_effort,
+                    r.safe_distance]
+            if not np.isfinite(vals).all():
+                raise AssertionError(f"frame {r.frame_num}: non-finite result {r}")
+        if len(fed) != ENGINE_FRAMES or min(fed) <= 0:
+            raise AssertionError(f"the tracker was fed {fed} detections a frame")
+        host_p = percentiles(np.asarray(engine.metrics.e2e_samples[WARM:]) * 1e3)
+        dev_p = percentiles(engine.device_ms[WARM:])
+        print(f"bf16 engine (build_engine: EgoLanes 320x640, AutoSteer, AutoSpeed n 640x640, "
+              f"tracking, RSS planning, PID), depth {depth}, {ENGINE_FRAMES} distinct 720p host "
+              f"frames, {card}: host loop p50 {host_p[0]!r} ms, p99 {host_p[1]!r} ms "
+              f"(PerformanceMetrics, frames {WARM}-{ENGINE_FRAMES - 1}); upload to results on "
+              f"the host p50 {dev_p[0]!r} ms, p99 {dev_p[1]!r} ms (CUDA events); "
+              f"{ENGINE_FRAMES / wall!r} frames/s over the run; no host sync in any dispatch "
+              f"(sync-debug \"error\"); launches {counts}; detections fed to the tracker a "
+              f"frame {min(fed)}-{max(fed)}, tracks {min(r.n_tracks for r in results)}-"
+              f"{max(r.n_tracks for r in results)}, CIPO on "
+              f"{sum(r.cipo_distance >= 0 for r in results)} frames")
+    it = iter(host[:20])
+    engine.frame_source = lambda: next(it, None)
+    share, dev, wall = busy_share(lambda: engine.run(pipeline_depth=2))
+    print(f"bf16 engine, depth 2, 20 frames under torch.profiler, {card}: device busy "
+          f"{share!r} of the wall time ({dev!r} ms of kernels in {wall!r} ms)")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fleet(card):
+    """FleetEngine over FLEET_N streams in bf16 at full width (EgoLanes
+    320x640 and AutoSpeed n 640x640 at batch FLEET_N, an ObjectFinder,
+    SpeedPlanner and PID a stream), FLEET_TICKS ticks of distinct 720p host
+    frames, each dispatch under sync-debug "error": one preprocess, walk,
+    letterbox and NMS launch a tick; tick p50/p99 (host, between ticks; and
+    CUDA events, upload to results on the host) and the aggregate frames a
+    second. -> the launch counts."""
+    from autoware_vision_pilot_tpu_torch.perception.tracking import ObjectFinder
+    from autoware_vision_pilot_tpu_torch.runtime.config import Config
+    from autoware_vision_pilot_tpu_torch.runtime.fleet import (FleetEngine,
+                                                               FleetLateralPipeline,
+                                                               FleetLongitudinalPipeline)
+    from autoware_vision_pilot_tpu_torch.runtime.pipeline import (build_lateral_pipeline,
+                                                                  build_longitudinal_pipeline)
+
+    cfg = Config()
+    lat = build_lateral_pipeline("cuda", torch.bfloat16, SEED)
+    lon = build_longitudinal_pipeline("cuda", torch.bfloat16, SEED)
+    fleet = FleetLateralPipeline(lat.lanes, lat.steer_net, cfg, FLEET_N)
+    fleet_lon = FleetLongitudinalPipeline(lon.net, cfg, FLEET_N)
+    rng = np.random.default_rng(SEED + 13)
+    base = rng.integers(0, 256, (FLEET_N, *FRAME_HW, 3), dtype=np.uint8)
+    ticks = [np.roll(base, 37 * t, axis=2) ^ np.uint8(t) for t in range(FLEET_TICKS)]
+    finders = [ObjectFinder(np.eye(3), FRAME_HW[1], FRAME_HW[0]) for _ in range(FLEET_N)]
+    stamps = []
+
+    def source(it):
+        def next_tick():
+            stamps.append(time.perf_counter())
+            return next(it, None)
+        return next_tick
+
+    warm = FleetEngine(cfg, fleet, fleet_lon, finders, frame_source=source(iter(ticks[:3])))
+    warm.run()
+    engine = FleetEngine(cfg, fleet, fleet_lon,
+                         [ObjectFinder(np.eye(3), FRAME_HW[1], FRAME_HW[0])
+                          for _ in range(FLEET_N)], frame_source=source(iter(ticks)))
+    stamps.clear()
+    torch.cuda.synchronize()
+    reset_counts()  # count only this path's launches
+    t0 = time.perf_counter()
+    results = engine.run(pipeline_depth=1, sync_check=True)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expect_launches(counts, {"fused_preprocess": FLEET_TICKS, "lane_filter_walk": FLEET_TICKS,
+                             "fused_letterbox": FLEET_TICKS, "nms_greedy": FLEET_TICKS,
+                             "int8_quantize": 0, "int8_conv": 0})
+    if len(results) != FLEET_TICKS or any(len(r) != FLEET_N for r in results) or \
+            any(x.frame_num != t for t, r in enumerate(results) for x in r):
+        raise AssertionError("the fleet's ticks are out of order or short")
+    if not all(np.isfinite([x.steering_deg, x.set_speed, x.accel_effort]).all()
+               for r in results for x in r):
+        raise AssertionError("non-finite fleet results")
+    host_p = percentiles(np.diff(stamps)[3:] * 1e3)
+    dev_p = percentiles(engine.device_ms[3:])
+    print(f"bf16 FleetEngine, N = {FLEET_N} streams at full width, {FLEET_TICKS} ticks, "
+          f"{card}: tick p50 {host_p[0]!r} ms, p99 {host_p[1]!r} ms (host, between ticks, "
+          f"after 3); upload to results on the host p50 {dev_p[0]!r} ms, p99 {dev_p[1]!r} ms "
+          f"(CUDA events); aggregate {FLEET_N * FLEET_TICKS / wall!r} frames/s "
+          f"({FLEET_TICKS / wall!r} ticks/s); no host sync in any dispatch; launches {counts}")
+    del lat, lon, fleet, fleet_lon, engine, warm
+    torch.cuda.empty_cache()
+    return counts
+
+
 def host_costs_of(root):
     """--host-costs ROOT: phase 7's host-cost measurement alone, over the
     port package found in ROOT (this repository, or an earlier commit of it
@@ -1852,6 +2218,9 @@ def host_costs_of(root):
     int8_pipe = build_pipeline_fused("cuda", torch.bfloat16, SEED, CTX_HW, OUT_HW,
                                      int8=True, min_ch=256)
     host_costs(bf16_pipe, int8_pipe, frames(HOST_FRAMES, FRAME_HW, SEED + 5).cuda(), card)
+
+
+T0 = time.perf_counter()
 
 
 def main():
@@ -1880,6 +2249,16 @@ def main():
     longitudinal = phase_longitudinal(card)  # the longitudinal program
     launches["fused_letterbox"] = longitudinal["fused_letterbox"]
     launches["nms_greedy"] = longitudinal["nms_greedy"]
+    batched = phase_batched(card)
+    phase_fleet_f32()
+    engine = phase_engine(card)  # the serving engine (app.py::build_engine)
+    fleet = phase_fleet(card)  # the N-stream fleet
+    for name in ("fused_preprocess", "lane_filter_walk", "fused_letterbox", "nms_greedy"):
+        if engine[name] <= 0 or fleet[name] <= 0:
+            raise AssertionError(f"the engine or the fleet never launched {name}")
+        launches[name] += engine[name] + fleet[name]
+    print("batched kernel times at N = 8 against 8 x N = 1, " + card + ": " + "; ".join(
+        f"{k} {v[0]!r} us vs {8 * v[1]!r} us" for k, v in batched.items()))
     print(f"fused_preprocess on the lateral crop {FRAME_HW[0]}x{FRAME_HW[1]}[{LATERAL_CROP}:]"
           f" -> {OUT_HW[0]}x{OUT_HW[1]} bf16, {card}: {crop['ms'] * 1e3!r} us, bound "
           f"{crop['bound_ms'] * 1e3!r} us, plain {crop['plain_ms'] * 1e3!r} us (profiler)")
@@ -1909,6 +2288,7 @@ def main():
             raise AssertionError(f"the main path never launched {name}")
     if lateral["fused_preprocess"] <= 0:
         raise AssertionError("the lateral program never launched fused_preprocess")
+    print(f"chip_smoke wall time: {time.perf_counter() - T0:.1f} s")
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the fused-preprocess (both
 modes), int8, lane-filter and NMS CUDA kernels against their plain PyTorch
-versions, the main path, bf16 and int8, and the lateral and longitudinal
-steps on the card against the CPU. They skip where there is no CUDA device.
+versions, one stream and a batch of them, the main path, bf16 and int8, the
+lateral and longitudinal steps on the card against the CPU, and the fleet
+and the engines on the card. They skip where there is no CUDA device.
 
 This file imports no JAX, so it also runs on a machine that has none:
 
@@ -806,3 +807,151 @@ def test_longitudinal_step_makes_no_host_sync(cuda):
         assert out.shape == (64, 7) and out.dtype == torch.float32 and out.is_cuda
         assert torch.isfinite(out).all()
         assert ((out[:, 6] == 0) | (out[:, 6] == 1)).all()
+
+
+# ---------- the stream axis: batched kernels, the fleet, the engines ----------
+
+def bits_equal_all(a, b):
+    return all(bits_equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("src,y0", [((720, 1280), 420), ((121, 203), 7), ((64, 88), 0)])
+def test_preprocess_kernel_on_a_cropped_batch(cuda, n, src, y0):
+    """frames[:, y0:] of an (N, H, W, 3) batch, its frames not contiguous
+    with one another (and 121 * 203 * 3 bytes apart, not a multiple of 16),
+    read in place: every frame's image bit-equal to the plain version and
+    to a launch on that frame alone, in f32 and bf16; one launch a call."""
+    batch = frames(src, n, seed=n + src[0]).to(cuda)
+    crop = batch[:, y0:]
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = fused_preprocess.launches
+        out = fused_preprocess(crop, (64, 96), out_dtype)
+        assert fused_preprocess.launches == before + 1
+        ref = preprocess_imagenet(crop, (64, 96), out_dtype).permute(0, 3, 1, 2)
+        assert torch.equal(out, ref)
+        for i in range(n):
+            assert torch.equal(fused_preprocess(crop[i], (64, 96), out_dtype)[0], out[i])
+
+
+def test_preprocess_kernel_rejects_a_frame_whose_rows_are_apart(cuda):
+    batch = frames((40, 64), 2, seed=3).to(cuda)
+    with pytest.raises(ValueError):
+        fused_preprocess(batch[:, :, :32], (16, 16))  # rows not contiguous
+    with pytest.raises(ValueError):
+        fused_preprocess(batch[..., [2, 1, 0]].transpose(1, 2), (16, 16))
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_letterbox_kernel_on_a_batch(cuda, n):
+    batch = frames((720, 1280), n, seed=20 + n).to(cuda)
+    out, scale, pad = fused_letterbox(batch, (640, 640))
+    ref, _, _ = letterbox(batch, (640, 640), (720, 1280), dtype=torch.bfloat16)
+    assert torch.equal(out, ref.permute(0, 3, 1, 2))
+    for i in range(n):
+        assert torch.equal(fused_letterbox(batch[i], (640, 640))[0][0], out[i])
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("hw", [(80, 160), (33, 65)])
+def test_lane_filter_kernel_on_a_batch(cuda, n, hw):
+    """N streams in one launch (a cluster each): every stream's weight
+    images and start points bit-equal to the plain version and to a launch
+    on that stream alone."""
+    kinds = ("lanes", "dashed", "one-sided", "empty", "random")
+    masks = torch.stack([lane_masks(hw, kinds[i % 5], 30 + i) for i in range(n)]).to(cuda)
+    before = lane_filter_walk.launches
+    weights, starts = lane_filter_walk(masks)
+    assert lane_filter_walk.launches == before + 1
+    assert weights.shape == (n, 2, *hw) and starts.shape == (n, 2, 3)
+    ref_w, ref_s = lane_filter_walk_plain(masks)
+    assert torch.equal(weights, ref_w) and torch.equal(starts, ref_s)
+    for i in range(n):
+        w1, s1 = lane_filter_walk(masks[i])
+        assert torch.equal(w1, weights[i]) and torch.equal(s1, starts[i])
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("k", [33, 256, 1024])
+def test_nms_kernel_on_a_batch(cuda, n, k):
+    """N candidate sets in one launch (a cluster each): every stream's
+    outputs bit-equal (NaN payloads included) to the plain version and to
+    a launch on that stream alone."""
+    kinds = ("live", "dead", "degenerate", "nan")
+    tops = [nms_edge_candidates(k, kinds[i % 4], 40 + i, cuda) for i in range(n)]
+    top = tuple(torch.stack(parts) for parts in zip(*tops))
+    kw = dict(max_det=64, iou_thresh=0.5, conf_thresh=0.5)
+    before = nms_greedy.launches
+    out = nms_greedy(*top, **kw)
+    assert nms_greedy.launches == before + 1
+    assert bits_equal_all(out, nms_greedy_plain(*top, **kw))
+    for i in range(n):
+        assert bits_equal_all([o[i] for o in out], nms_greedy(*tops[i], **kw))
+
+
+def lat_cfg():
+    from autoware_vision_pilot_tpu_torch.runtime.config import Config
+    return Config()
+
+
+def test_fleet_on_card_makes_no_host_sync(cuda):
+    """The batched lateral and longitudinal steps at N = 3 in bf16, each
+    tick under sync-debug "error": one preprocess, walk, letterbox and NMS
+    launch a tick for the 3 streams, and well-formed outputs."""
+    from autoware_vision_pilot_tpu_torch.runtime.fleet import (FleetLateralPipeline,
+                                                               FleetLongitudinalPipeline)
+    lat = build_lateral_pipeline(cuda, torch.bfloat16, **LATERAL)
+    lon = build_longitudinal_pipeline(cuda, torch.bfloat16, seed=1, frame_hw=(120, 200),
+                                      input_hw=(128, 128))
+    fl = FleetLateralPipeline(lat.lanes, lat.steer_net, lat_cfg(), 3, frame_hw=(120, 200),
+                              crop_y=20, dtype=torch.bfloat16, net_hw=(96, 192))
+    fo = FleetLongitudinalPipeline(lon.net, lat_cfg(), 3, frame_hw=(120, 200),
+                                   input_hw=(128, 128))
+    fs = frames((120, 200), 3, seed=12).to(cuda)
+    states = fl.init_states(0)
+    torch.cuda.synchronize()
+    before = (fused_preprocess.launches, lane_filter_walk.launches, fused_letterbox.launches,
+              nms_greedy.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            out, states = fl(fs, states)
+            tables = fo(fs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (fused_preprocess.launches, lane_filter_walk.launches, fused_letterbox.launches,
+            nms_greedy.launches) == tuple(b + 2 for b in before)
+    assert out["scalars"].shape == (3, 8) and tables.shape == (3, 64, 7)
+    assert torch.isfinite(tables).all()
+    assert ((out["lane_masks"] == 0) | (out["lane_masks"] == 1)).all()
+
+
+def test_engines_on_card(cuda):
+    """PipelineEngine and FleetEngine on the card at the small geometry, the
+    dispatch under sync-debug "error" (run(sync_check=True)): in-order
+    results, finite, device times from their CUDA events."""
+    from autoware_vision_pilot_tpu_torch.perception.tracking import ObjectFinder
+    from autoware_vision_pilot_tpu_torch.runtime.fleet import (FleetEngine,
+                                                               FleetLateralPipeline,
+                                                               FleetLongitudinalPipeline)
+    from autoware_vision_pilot_tpu_torch.runtime.pipeline import PipelineEngine
+    cfg = lat_cfg()
+    cfg.target_fps = 0.0
+    lat = build_lateral_pipeline(cuda, torch.bfloat16, **LATERAL)
+    lon = build_longitudinal_pipeline(cuda, torch.bfloat16, seed=1, frame_hw=(120, 200),
+                                      input_hw=(128, 128))
+    host = frames((120, 200), 6, seed=13).numpy()
+    it = iter(host)
+    eng = PipelineEngine(cfg, lat, lon, ObjectFinder(np.eye(3), 200, 120),
+                         frame_source=lambda: next(it, None))
+    res = eng.run(pipeline_depth=2, sync_check=True)
+    assert [r.frame_num for r in res] == list(range(6)) and len(eng.device_ms) == 6
+    assert all(np.isfinite([r.steering_deg, r.set_speed]).all() for r in res)
+    fl = FleetLateralPipeline(lat.lanes, lat.steer_net, cfg, 3, frame_hw=(120, 200), crop_y=20,
+                              dtype=torch.bfloat16, net_hw=(96, 192))
+    fo = FleetLongitudinalPipeline(lon.net, cfg, 3, frame_hw=(120, 200), input_hw=(128, 128))
+    ticks = iter(host.reshape(2, 3, 120, 200, 3))
+    feng = FleetEngine(cfg, fl, fo, [ObjectFinder(np.eye(3), 200, 120) for _ in range(3)],
+                       frame_source=lambda: next(ticks, None))
+    out = feng.run(pipeline_depth=1, sync_check=True)
+    assert len(out) == 2 and all(len(r) == 3 for r in out) and len(feng.device_ms) == 2
