@@ -48,12 +48,24 @@ class AutoSpeedBackbone(nn.Module):
         self.p5_2 = SPPF(W[5], W[5], **kw)
         self.p5_3 = C2PSA(W[5], W[5], **kw)
 
-    def forward(self, x):
+    def pyramid(self, x):
+        """-> (p2, p3, p4, p5)."""
         p2 = self.p2_1(self.p2_0(self.p1(x)))
         p3 = self.p3_1(self.p3_0(p2))
         p4 = self.p4_1(self.p4_0(p3))
         p5 = self.p5_3(self.p5_2(self.p5_1(self.p5_0(p4))))
-        return p3, p4, p5
+        return p2, p3, p4, p5
+
+    def forward(self, x):
+        return self.pyramid(x)[1:]
+
+
+def top_down(h1, h2, p3, p4, p5):
+    """The neck's two top-down stages: p5 -> h1 (with p4) -> h2 (with p3)
+    -> (p3, p4)."""
+    p4 = h1(torch.cat([upsample2x_nearest(p5), p4], 1))
+    p3 = h2(torch.cat([upsample2x_nearest(p4), p3], 1))
+    return p3, p4
 
 
 class AutoSpeedNeck(nn.Module):
@@ -69,8 +81,7 @@ class AutoSpeedNeck(nn.Module):
 
     def forward(self, feats):
         p3, p4, p5 = feats
-        p4 = self.h1(torch.cat([upsample2x_nearest(p5), p4], 1))
-        p3 = self.h2(torch.cat([upsample2x_nearest(p4), p3], 1))
+        p3, p4 = top_down(self.h1, self.h2, p3, p4, p5)
         p4 = self.h4(torch.cat([self.h3(p3), p4], 1))
         p5 = self.h6(torch.cat([self.h5(p4), p5], 1))
         return p3, p4, p5

@@ -40,3 +40,35 @@ class SharedPerceptionStack(nn.Module):
         if self.DomainSegHead is not None:
             domain = self.DomainSegHead(s_neck, feats)
         return seg, depth, domain
+
+
+def import_from_individual_checkpoints(stack_state, scene_seg_state, scene_3d_state=None,
+                                       domain_seg_state=None):
+    """Map the separate networks' state_dicts onto the fused stack's, the
+    port of the JAX package's function of the same name, which maps flax
+    trees: each named subtree of a source replaces the stack's subtree of
+    that name whole. Returns a new state_dict for ``stack.load_state_dict``.
+
+    scene_seg_state: a SceneSegNetwork's (Backbone, SceneContext,
+    SceneNeck, SceneSegHead copied 1:1). scene_3d_state: a Scene3DNetwork's
+    (DepthContext, DepthNeck, SuperDepthHead; its PreTrainedBackbone must
+    equal SceneSeg's Backbone). domain_seg_state: a DomainSegNetwork's
+    (DomainSegHead).
+    """
+    out = dict(stack_state)
+
+    def merge(src, names):
+        for name in names:
+            taken = {k: v for k, v in src.items() if k.startswith(name + ".")}
+            if not taken:
+                continue
+            for k in [k for k in out if k.startswith(name + ".")]:
+                del out[k]
+            out.update(taken)
+
+    merge(scene_seg_state, ("Backbone", "SceneContext", "SceneNeck", "SceneSegHead"))
+    if scene_3d_state is not None:
+        merge(scene_3d_state, ("DepthContext", "DepthNeck", "SuperDepthHead"))
+    if domain_seg_state is not None:
+        merge(domain_seg_state, ("DomainSegHead",))
+    return out

@@ -1,7 +1,7 @@
 """Per-frame post-processing, the port of
-autoware_vision_pilot_tpu/ops/postprocess.py: the main path's mask ops, and
-the longitudinal program's YOLO decode and fixed-shape greedy NMS. NHWC in,
-JAX layouts out."""
+autoware_vision_pilot_tpu/ops/postprocess.py: the mask ops, the colour
+overlay, and the longitudinal program's YOLO decode and fixed-shape greedy
+NMS. NHWC in, JAX layouts out."""
 from __future__ import annotations
 
 import functools
@@ -16,6 +16,21 @@ def argmax_mask(logits_nhwc):
     """(B,H,W,C) logits -> (B,H,W) int32 class ids; ties take the first
     index, as jnp.argmax does."""
     return torch.argmax(logits_nhwc, dim=-1).to(torch.int32)
+
+
+def colorize_mask(mask, palette):
+    """(B,H,W) ids + (C,3) uint8 palette -> (B,H,W,3) uint8 colour image."""
+    palette = torch.as_tensor(palette, dtype=torch.uint8, device=mask.device)
+    return palette[mask.long()]
+
+
+def blend_overlay(image_u8, color_u8, alpha: float = 0.5):
+    """The 50/50 overlay of masks_visualization_engine.cpp:28-30, as the JAX
+    package computes it: image * (1 - alpha) + color * alpha in f32, each
+    product and the sum rounded on its own (no FMA), then truncated toward
+    zero to uint8."""
+    out = image_u8.to(torch.float32) * (1 - alpha) + color_u8.to(torch.float32) * alpha
+    return out.to(torch.uint8)
 
 
 def threshold_channels(logits_nhwc, threshold: float = 0.0):

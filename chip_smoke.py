@@ -126,6 +126,39 @@ Phases, each of which raises on failure (exit code != 0, no result line):
  18. fleet: FleetEngine over 8 streams in bf16 at full width, 30 ticks,
              every dispatch under sync-debug "error": one launch of each of
              the four kernels a tick; tick p50/p99 and frames a second.
+ 19. wrappers f32: the six wrappers of inference/infer.py (SceneSeg,
+             Scene3D, DomainSeg, EgoLanes, AutoSpeed, AutoSteer) at full
+             width in f32 with TF32 off, on the card against the same
+             wrapper on the CPU, one 720p frame: raw forwards within 1e-3 *
+             max|CPU|, masks equal wherever the CPU's logits decide them by
+             more than twice that, Scene3D's scaled depth within the bar
+             over the logits' range; fed the CPU's pred, AutoSpeed's boxes,
+             scores, classes and valid flags equal; AutoSteer's degrees.
+ 20. wrappers bf16: each wrapper's _fwd on 60 distinct 720p frames on the
+             card (AutoSteer: 60 logit stacks), 10 warm-up and 50 timed
+             with CUDA events, host enqueue time; one preprocess launch a
+             frame (AutoSpeed: one letterbox and one NMS launch).
+ 21. int8 wrappers: SceneSeg, Scene3D, DomainSeg and EgoLanes with
+             precision="int8" at int8_min_channels 128, bf16: int8 convs
+             by route and launches a frame, every int8 conv of one frame
+             bit-equal to its plain version on its own input, p50/p99.
+ 22. min_channels-128 shapes: the 12 int8 conv shapes that phase 21 adds
+             to the main path's (N = 1, 3 and 64 on 128-wide wgmma tiles at
+             320x640 and 80x160, 128 -> 128 at M = 204,800, the split-K
+             128 -> 256 at 10x20, B0's 1x1 and SE convs with 144-240 input
+             channels), each at full size bit-equal to the plain versions
+             on every variant of phase 4, then timed as in phase 4.
+ 23. backend: middleware backend_from_params for each of the four
+             families (by file stem, seeded weights, bf16): do_inference
+             equal to the matching wrapper's raw forward.
+ 24. clip: BASELINE config 3 (bench.py::bench_clip): EgoLanes + DomainSeg
+             in bf16 on 10-frame windows sliding by one through a 720p clip
+             on the card: the preprocess kernel at batch 10 bit-equal to its
+             plain version, window p50/p99 and clip frames a second.
+ 25. AutoSteer 2.0 and AutoDrive at 512x1024 (two frames for AutoDrive)
+             and the legacy EgoPath heads (BEVPathContext at 10x20, the
+             AutoSteerHead on a 40x80 neck): f32 card vs CPU within 1e-3 *
+             max|CPU|, then bf16 p50/p99.
 The run prints its wall time.
 """
 from __future__ import annotations
@@ -378,18 +411,18 @@ def int8_inputs(g, shape, dtype):
     return x.cuda(), weight.cuda(), w_scale.cuda(), bias.cuda(), sx.cuda()
 
 
-def check_int8_kernels(g):
-    """Every route bit-equal to the plain versions at INT8_SHAPES, through
-    int8_conv (int8 input) and int8_conv2d (float input; the pointwise and
-    dot routes quantize it as they load it, with no quantize launch). ->
-    worst error by kernel."""
+def check_int8_kernels(g, shapes=None):
+    """Every route bit-equal to the plain versions at ``shapes`` (by
+    default INT8_SHAPES), through int8_conv (int8 input) and int8_conv2d
+    (float input; the pointwise and dot routes quantize it as they load
+    it, with no quantize launch). -> worst error by kernel."""
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
         FUSED_ROUTES, int8_conv, int8_conv2d, int8_conv_plain, int8_conv_plan, int8_quantize,
         int8_quantize_plain)
 
     worst = dict.fromkeys(("int8_quantize", *CONV_KERNEL.values()), 0.0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for shape in INT8_SHAPES:
+    for shape in shapes or INT8_SHAPES:
         k, cin, cout, h, w, batch, route = shape
         pad = k // 2
         plan = int8_conv_plan(batch, h, w, cin, cout, k, k, pad, sms)
@@ -443,12 +476,13 @@ def check_int8_kernels(g):
     return worst
 
 
-def time_int8_shapes(g, card):
-    """The 24 main-path int8 conv shapes, bf16 with a scalar scale, each
-    timed over rotating inputs (and weights) that together exceed the L2
-    where the shape allows. At a 1x1 shape also int8_conv2d (one launch
-    that quantizes on load: what the main path runs) and PR 2's mma.sync
-    kernel on the same int8 inputs. -> the JSON records' timings."""
+def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
+    """The int8 conv shapes of ``table`` (by default the 24 of the main
+    path), bf16 with a scalar scale, each timed over rotating inputs (and
+    weights) that together exceed the L2 where the shape allows. At a 1x1
+    shape also int8_conv2d (one launch that quantizes on load: what the
+    paths run) and the "mma" route's mma.sync kernel on the same int8 inputs. -> the
+    JSON records' timings (of RECORD_SHAPES found in ``table``)."""
     import torch.nn.functional as F
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
         _launch, _mma_plan, _reciprocal, int8_conv, int8_conv2d, int8_conv_plain,
@@ -462,7 +496,7 @@ def time_int8_shapes(g, card):
                            "1x1 on mma.sync + quantize (before)"), 0.0)
     missing = {k: [] for k in frame}  # shapes the profiler recorded nothing of
     records = {}
-    for k, cin, cout, h, w, per_frame in MAIN_INT8:
+    for k, cin, cout, h, w, per_frame in table:
         pad = k // 2
         plan = int8_conv_plan(1, h, w, cin, cout, k, k, pad, sms)
         M, K = h * w, k * k * cin
@@ -511,15 +545,17 @@ def time_int8_shapes(g, card):
                     else None)
         # torch._int_mm on a pre-built im2col matrix (leaves out the im2col)
         intmm = None
-        if M > 16 and K % 8 == 0 and cout % 8 == 0:
+        n8 = -(-cout // 8) * 8  # _int_mm takes N in multiples of 8: pad a thin N with zeros
+        if M > 16 and K % 8 == 0:
             cols = []
-            for s in range(min(n, max(1, math.ceil(1.2 * L2_BYTES / (M * K + cout * K))))):
+            for s in range(min(n, max(1, math.ceil(1.2 * L2_BYTES / (M * K + n8 * K))))):
                 xq, wt = sets[s][5], sets[s][1]
                 # K in (c, r, s) order on both sides: unfold's, and OIHW's
                 a = F.unfold(xq.float(), k, padding=pad) if k > 1 else xq.float().flatten(2)
                 a = a.transpose(1, 2).reshape(M, K).to(torch.int8).contiguous()
-                b2 = wt.contiguous().reshape(cout, K).t()  # (K, N), column-major
-                cols.append((a, b2))
+                b2 = torch.zeros(n8, K, dtype=torch.int8, device=wt.device)
+                b2[:cout] = wt.contiguous().reshape(cout, K)
+                cols.append((a, b2.t()))  # (K, N), column-major
             intmm = device_us(lambda i: torch._int_mm(*cols[i % len(cols)]),
                               list(range(len(cols))) * max(1, math.ceil(20 / len(cols))))
             del cols
@@ -555,7 +591,8 @@ def time_int8_shapes(g, card):
               + (f"; one block per unit of work {one_each!r} us" if one_each else "")
               + f"), bound {bms * 1e3!r} us by {by}, share {share!r}{fused_note}; bf16 "
               f"cuDNN conv {t['cudnn']!r} us; torch._int_mm on im2col (no im2col) "
-              + (f"{intmm!r} us" if intmm is not None else "not taken (M <= 16 or N % 8)")
+              + (f"{intmm!r} us" + (f" (N padded to {n8})" if n8 != cout else "")
+                 if intmm is not None else "not taken (M <= 16)")
               + f"; quantize {t['quantize']!r} us (bound {q_bms * 1e3!r} us, share "
               f"{q_bms * 1e3 / t['quantize'] if t['quantize'] > 0 else float('nan')!r}); "
               f"rotation {n} input sets, "
@@ -586,7 +623,7 @@ def time_int8_shapes(g, card):
                         xq, wt, ws, sx, b, pad, torch.bfloat16), one) / 1e3)
         del sets
         torch.cuda.empty_cache()
-    print(f"int8 per frame from the 24 shapes x their counts, {card}: "
+    print(f"int8 per frame from {what} x their counts, {card}: "
           + ", ".join(f"{kind} {frame[kind]!r} us"
                       + (f" without {missing[kind]} (not measured)" if missing[kind] else "")
                       for kind in frame)
@@ -2203,6 +2240,467 @@ def phase_fleet(card):
     return counts
 
 
+# ---------- the per-network wrappers, the backend and the clip ----------
+
+# (window, cin, cout, h, w, batch, route) of phase 22: the int8 conv shapes
+# that precision="int8" at min_channels 128 adds to the main path's, checked
+# bit for bit at their full size
+MIN128_SHAPES = (
+    (3, 128, 1, 320, 640, 1, "wgmma"),     # Scene3D's SuperDepthHead.decode_layer_10
+    (3, 128, 3, 80, 160, 1, "wgmma"),      # EgoLanesHead.decode_layer_8
+    (3, 128, 64, 320, 640, 1, "wgmma"),    # SegHead.decode_layer_9 (SceneSeg, DomainSeg)
+    (3, 128, 128, 320, 640, 1, "wgmma"),   # SegHead / DepthHead decode_layer_8, M = 204,800
+    (3, 128, 256, 10, 20, 1, "splitk"),    # ContextBlock.context_layer_4
+    (1, 144, 24, 80, 160, 1, "pointwise"),   # stage-2 project
+    (1, 144, 40, 40, 80, 1, "pointwise"),    # stage-3 first project
+    (1, 240, 40, 40, 80, 1, "pointwise"),    # stage-3 project
+    (1, 240, 80, 20, 40, 1, "pointwise"),    # stage-4 first project
+    (1, 192, 1152, 10, 20, 1, "pointwise"),  # stage-6/7 expand
+    (1, 144, 6, 1, 1, 1, "dot"),           # SE squeeze of stage 2
+    (1, 240, 10, 1, 1, 1, "dot"),          # SE squeeze of stage 3
+)
+# (window, cin, cout, h, w, convs): those shapes with their count over one
+# frame of each of the four int8 wrappers (60 convs)
+MIN128_INT8 = tuple((*s[:5], n) for s, n in zip(
+    MIN128_SHAPES, (1, 1, 2, 4, 4, 4, 4, 4, 4, 16, 8, 8)))
+# int8 convs a frame by route at min_channels 128, from the networks' modules
+# (tests/test_torch_int8_plan.py counts the same shapes)
+WRAPPER_INT8 = {"SceneSeg": {"wgmma": 8, "splitk": 5, "pointwise": 19, "dot": 14},
+                "Scene3D": {"wgmma": 9, "splitk": 5, "pointwise": 19, "dot": 14},
+                "DomainSeg": {"wgmma": 8, "splitk": 5, "pointwise": 19, "dot": 14},
+                "EgoLanes": {"wgmma": 7, "splitk": 5, "pointwise": 19, "dot": 14}}
+CLIP_BATCH = 10   # BASELINE config 3: EgoLanes + DomainSeg over a clip, 10 frames a window
+STEER2_HW = (512, 1024)  # AutoSteer 2.0 and AutoDrive: the reference's input
+
+
+def seg_wrappers():
+    from autoware_vision_pilot_tpu_torch.inference import (DomainSegInfer, EgoLanesInfer,
+                                                           Scene3DInfer, SceneSegInfer)
+    return {"SceneSeg": SceneSegInfer, "Scene3D": Scene3DInfer, "DomainSeg": DomainSegInfer,
+            "EgoLanes": EgoLanesInfer}
+
+
+def no_tf32():
+    """Full f32 on the card: cuDNN convs and matmuls default to TF32, which
+    keeps ~3 decimal digits and could not be held to the CPU at 1e-3."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def held(name, got, ref, rel=1e-3):
+    """max |got - ref| within rel * max|ref|, or raise; -> the error."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    if got.shape != ref.shape:
+        raise AssertionError(f"{name}: {tuple(got.shape)} vs {tuple(ref.shape)}")
+    err = (got - ref).abs().max().item()
+    tol = rel * ref.abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{name}: card and CPU disagree, {err} > {tol}")
+    return err, tol
+
+
+MIN_DECIDED = 0.9  # the least share of mask values the CPU's logits must decide
+
+
+def decided_equal(name, got, ref, logits, margin):
+    """The masks ``got`` and ``ref`` equal wherever the reference logits
+    (1, h, w, C) decide them by more than ``margin`` (a class margin for
+    C > 2 argmax masks, else the distance from 0), and more than
+    MIN_DECIDED of the values decided. -> the decided share."""
+    lg = logits[0].float().cpu()
+    if name == "SceneSeg":
+        top = lg.topk(2, dim=-1).values
+        where = top[..., 0] - top[..., 1] > margin
+    else:
+        where = lg.abs() > margin
+        where = where[..., 0] if name == "DomainSeg" else where
+    share = where.float().mean().item()
+    if not share > MIN_DECIDED:
+        raise AssertionError(f"{name}: the CPU's logits decide only {share} of the mask")
+    got, ref = got.cpu(), ref.cpu()
+    if not torch.equal(got[where], ref[where]):
+        raise AssertionError(f"{name}: card and CPU masks differ where the logits decide them")
+    return share
+
+
+def phase_wrappers_f32():
+    """Phase 19: the six wrappers of inference/infer.py at full width in
+    f32 with TF32 off, on the card against the same wrapper on the CPU
+    (same seeded weights, one 720p frame): raw forwards within 1e-3 *
+    max|CPU|, masks equal wherever the CPU's logits decide them by more than
+    twice that bar, depth within the bar; AutoSpeed's rows equal when the
+    card is fed the CPU's pred; AutoSteer's degrees equal."""
+    from autoware_vision_pilot_tpu_torch.inference import AutoSpeedInfer, AutoSteerInfer
+
+    no_tf32()
+    frame = frames(1, FRAME_HW, SEED + 20)[0]
+    for name, cls in seg_wrappers().items():
+        cpu = cls(dtype=torch.float32, device="cpu")
+        ref_logits, ref = cpu.logits(frame), cpu._fwd(frame)
+        del cpu
+        gpu = cls(dtype=torch.float32)
+        logits, out = gpu.logits(frame.cuda()), gpu._fwd(frame.cuda())
+        del gpu
+        err, tol = held(f"{name} logits", logits, ref_logits)
+        if name == "EgoLanes":
+            ref, out = ref[1], out[1]  # the thresholded masks (the raw logits held above)
+        if name == "Scene3D":
+            # the min-max scaling divides the logits' error by their range
+            span = (ref_logits.max() - ref_logits.min()).item()
+            derr, dtol = held("Scene3D depth01", out, ref, rel=2 * tol / span)
+            note = f"depth01 max_abs_err {derr!r} (tol {dtol!r}: twice the logits' over their range)"
+        else:
+            share = decided_equal(name, out, ref, ref_logits, 2 * tol)
+            note = (f"mask equal on the {share!r} of values the CPU's logits decide by more "
+                    f"than {2 * tol!r}; overall agreement "
+                    f"{(out.cpu() == ref).float().mean().item()!r}")
+        print(f"f32 {name}Infer, card vs CPU, {FRAME_HW[0]}x{FRAME_HW[1]} frame: logits "
+              f"{tuple(ref_logits.shape)} max_abs_err {err!r} (tol {tol!r}); {note}")
+        torch.cuda.empty_cache()
+
+    cpu, gpu = (AutoSpeedInfer(dtype=torch.float32, device=d) for d in ("cpu", "cuda"))
+    seen = {}
+    hooks = [cpu.model.register_forward_hook(lambda m, a, y: seen.__setitem__("cpu", y)),
+             gpu.model.register_forward_hook(lambda m, a, y: seen.__setitem__("card", y))]
+    ref = cpu._fwd(frame)
+    out = gpu._fwd(frame.cuda())
+    err, tol = held("AutoSpeed pred", seen["card"], seen["cpu"])
+    hooks[1].remove()
+    gpu.model.register_forward_hook(lambda m, a, y: seen["cpu"].cuda())
+    fed = gpu._fwd(frame.cuda())
+    for a, b, what in zip(fed, ref, ("boxes", "scores", "classes", "valid")):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"AutoSpeedInfer {what}: fed the CPU's pred, card and CPU differ")
+    rows = gpu.inference(frames(1, FRAME_HW, SEED + 20)[0].numpy())
+    print(f"f32 AutoSpeedInfer (letterbox 640x640, AutoSpeed n, conf 0.25, IoU 0.45), card vs "
+          f"CPU: pred max_abs_err {err!r} (tol {tol!r}); fed the CPU's pred, boxes, scores, "
+          f"classes and valid equal ({int(ref[3].sum())} kept); inference() -> {rows.shape} "
+          f"rows")
+    del cpu, gpu
+
+    rng = np.random.default_rng(SEED + 21)
+    prev, curr = (rng.standard_normal((80, 160, 3)).astype(np.float32) * 4 for _ in range(2))
+    cpu, gpu = (AutoSteerInfer(dtype=torch.float32, device=d) for d in ("cpu", "cuda"))
+    stacked = torch.from_numpy(np.concatenate([prev, curr], -1))
+    with torch.no_grad():
+        x = stacked.permute(2, 0, 1)[None].contiguous(memory_format=CL)
+        lc, lg = cpu.model(x)[1], gpu.model(x.cuda())[1]
+    err, tol = held("AutoSteer logits", lg, lc)
+    d_cpu, d_card = cpu.inference(prev, curr), gpu.inference(prev, curr)
+    margin = lc.topk(2).values[0]
+    if float(margin[0] - margin[1]) > 2 * tol and d_cpu != d_card:
+        raise AssertionError(f"AutoSteerInfer: {d_card} degrees on the card, {d_cpu} on the CPU")
+    print(f"f32 AutoSteerInfer, card vs CPU: logits max_abs_err {err!r} (tol {tol!r}); "
+          f"steering {d_card!r} vs {d_cpu!r} degrees")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+
+NO_KERNELS = {"fused_preprocess": 0, "fused_letterbox": 0, "nms_greedy": 0,
+              "lane_filter_walk": 0, "int8_quantize": 0, "int8_conv": 0}
+
+
+def time_calls(fn, pool, expected, label, card):
+    """fn(pool[i]) for every i, the counts set to 0 just before and read
+    just after: CUDA events per call, host enqueue per call; checks the
+    launches against ``expected`` (per call; NO_KERNELS for the rest).
+    -> (p50, p99, enqueue p50 ms, the counts, the outputs)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    latencies, enqueue, outs = [], [], []
+    torch.cuda.synchronize()
+    reset_counts()  # count only this path's launches
+    for i in range(len(pool)):
+        start.record()
+        t0 = time.perf_counter()
+        out = fn(pool[i])
+        enqueue.append(time.perf_counter() - t0)
+        end.record()
+        end.synchronize()
+        latencies.append(start.elapsed_time(end))
+        outs.append(out)
+    counts = read_counts()
+    expect_launches(counts, {k: v * len(pool) for k, v in (NO_KERNELS | expected).items()})
+    p50, p99 = percentiles(latencies[WARM:])
+    enq = 1e3 * float(np.median(enqueue[WARM:]))
+    print(f"{label}, {card}: p50 {p50!r} ms, p99 {p99!r} ms over {len(pool) - WARM} distinct "
+          f"inputs after {WARM} warm-up (CUDA events a call); host enqueue p50 {enq!r} ms; "
+          f"launches {counts}")
+    return p50, p99, enq, counts, outs
+
+
+def check_finite(name, outs):
+    for i, out in enumerate(outs):
+        for t in (out if isinstance(out, tuple) else (out,)):
+            if not torch.isfinite(t.float()).all():
+                raise AssertionError(f"{name}, input {i}: non-finite output")
+
+
+def phase_wrappers_bf16(card):
+    """Phase 20: each wrapper's ``_fwd`` in bf16 on WARM + TIMED distinct
+    720p frames held on the card (AutoSteer: distinct (80, 160, 6) logit
+    stacks): p50/p99 from CUDA events, host enqueue, one preprocess launch
+    a frame (AutoSpeed: one letterbox and one NMS launch). -> the
+    launches."""
+    from autoware_vision_pilot_tpu_torch.inference import AutoSpeedInfer, AutoSteerInfer
+
+    n = WARM + TIMED
+    pool = frames(n, FRAME_HW, SEED + 22).cuda()
+    launches = dict.fromkeys(("fused_preprocess", "fused_letterbox", "nms_greedy"), 0)
+    shapes = {"SceneSeg": (OUT_HW, torch.int32), "Scene3D": (OUT_HW, torch.float32),
+              "DomainSeg": (OUT_HW, torch.bool)}
+    for name, cls in seg_wrappers().items():
+        w = cls(dtype=torch.bfloat16)
+        *_, counts, outs = time_calls(w._fwd, pool, {"fused_preprocess": 1},
+                                      f"bf16 {name}Infer._fwd, 720p -> 320x640", card)
+        check_finite(name, outs)
+        got = outs[-1][1] if name == "EgoLanes" else outs[-1]
+        want = (((OUT_HW[0] // 4, OUT_HW[1] // 4, 3), torch.float32) if name == "EgoLanes"
+                else shapes[name])
+        if (tuple(got.shape), got.dtype) != (tuple(want[0]), want[1]):
+            raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype}, expected {want}")
+        launches["fused_preprocess"] += counts["fused_preprocess"]
+        del w, outs
+    w = AutoSpeedInfer(dtype=torch.bfloat16)
+    *_, counts, outs = time_calls(w._fwd, pool, {"fused_letterbox": 1, "nms_greedy": 1},
+                                  "bf16 AutoSpeedInfer._fwd, 720p -> letterbox 640x640 -> "
+                                  "AutoSpeed n -> NMS (conf 0.25, IoU 0.45)", card)
+    check_finite("AutoSpeed", outs)
+    for k in ("fused_letterbox", "nms_greedy"):
+        launches[k] += counts[k]
+    del w, outs
+    w = AutoSteerInfer(dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(SEED + 23)
+    stacks = (torch.randn(n, 80, 160, 6, generator=g) * 4).cuda()
+    *_, _, outs = time_calls(w._fwd, stacks, {}, "bf16 AutoSteerInfer._fwd, two "
+                             "80x160x3 logit maps -> degrees", card)
+    if not all(-30 <= float(d) <= 30 for d in outs):
+        raise AssertionError("AutoSteerInfer: degrees outside -30..30")
+    del w, pool, stacks
+    torch.cuda.empty_cache()
+    return launches
+
+
+def wrapper_int8_convs(model):
+    from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
+    return [m for m in model.modules() if isinstance(m, Int8Conv2d)]
+
+
+def check_wrapper_convs(name, w, frame, expected):
+    """One int8 frame; a hook on each Int8Conv2d holds the kernels' output
+    against the plain versions on the same input (torch.equal)."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv2d
+
+    checked, bad = [], []
+
+    def hook(m, args, y):
+        if m.input_scale is None:
+            raise AssertionError(f"an int8 conv of {name} has no static scale")
+        x = args[0].contiguous(memory_format=CL)
+        ref = int8_conv2d(x, m.weight, m.weight_scale, m.input_scale, m.bias, m.padding,
+                          plain=True)
+        checked.append((m.weight.shape[-1], m.weight.shape[1], m.weight.shape[0],
+                        *x.shape[2:]))
+        if not torch.equal(y, ref):
+            bad.append((checked[-1], (y.float() - ref.float()).abs().max().item()))
+
+    handles = [m.register_forward_hook(hook) for m in wrapper_int8_convs(w.model)]
+    try:
+        w._fwd(frame)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    new = sorted({s for s in checked if s in {t[:5] for t in MIN128_INT8}})
+    print(f"int8 {name}, conv by conv: {len(checked)} int8 convs held against their plain "
+          f"versions on the frame's own input, {len(checked) - len(bad)} bit-equal "
+          f"(torch.equal), of them at the min_channels-128 shapes: {new}"
+          + (f"; differ: {bad[:8]}" if bad else ""))
+    if len(checked) != sum(expected.values()) or bad:
+        raise AssertionError(f"{name}: int8 convs disagree with their plain versions")
+
+
+def phase_int8_wrappers(card):
+    """Phase 21: SceneSeg, Scene3D, DomainSeg and EgoLanes with
+    precision="int8" at int8_min_channels 128 (bf16, calibrated on the four
+    noise batches): the int8 convs by route, each frame's launches, every
+    int8 conv of one frame bit-equal to its plain version, p50/p99 over
+    TIMED distinct frames. -> the launches."""
+    from autoware_vision_pilot_tpu_torch.export.quantize import int8_conv_count
+
+    n = WARM + TIMED
+    pool = frames(n, FRAME_HW, SEED + 24).cuda()
+    keys = ("fused_preprocess", "int8_quantize", "int8_conv_wgmma", "int8_conv_pointwise",
+            "int8_conv_dot", "int8_conv_mma")
+    launches = dict.fromkeys(keys, 0)
+    for name, cls in seg_wrappers().items():
+        t0 = time.perf_counter()
+        w = cls(dtype=torch.bfloat16, precision="int8")
+        torch.cuda.synchronize()
+        routes = WRAPPER_INT8[name]
+        convs = int8_conv_count(w.model)
+        print(f"int8 {name}Infer build (quantize at min_channels 128, calibrate on 4 noise "
+              f"batches): {time.perf_counter() - t0:.1f} s, {convs} int8 convs")
+        if convs != sum(routes.values()):
+            raise AssertionError(f"{name}: {convs} int8 convs, expected {routes}")
+        expected = {"fused_preprocess": 1, "int8_conv": convs,
+                    "int8_quantize": routes["wgmma"] + routes["splitk"],
+                    "int8_conv_wgmma": routes["wgmma"] + routes["splitk"],
+                    "int8_conv_splitk": routes["splitk"], "int8_conv_pointwise":
+                    routes["pointwise"], "int8_conv_dot": routes["dot"], "int8_conv_mma": 0}
+        *_, counts, outs = time_calls(w._fwd, pool, expected,
+                                      f"int8 {name}Infer._fwd (min_channels 128; per frame "
+                                      f"{routes})", card)
+        check_finite(name, outs)
+        for k in keys:
+            launches[k] += counts[k]
+        check_wrapper_convs(name, w, pool[0], routes)
+        del w, outs
+        torch.cuda.empty_cache()
+    del pool
+    return launches
+
+
+def phase_min128_shapes(card):
+    """Phase 22: the int8 conv shapes that min_channels 128 brings
+    (MIN128_SHAPES), each at its full size bit-equal to the plain versions
+    on every variant, then timed with its bound and the cuDNN and _int_mm
+    yardsticks. -> worst error by kernel."""
+    g = torch.Generator().manual_seed(SEED + 25)
+    worst = check_int8_kernels(g, MIN128_SHAPES)
+    time_int8_shapes(g, card, MIN128_INT8, "the min_channels-128 shapes (one frame of each "
+                                           "int8 wrapper)")
+    return worst
+
+
+def phase_backend():
+    """Phase 23: middleware backend_from_params for each family, chosen by
+    the file stem (no file at the path: weights from seed 0), bf16: its
+    do_inference output equals the matching wrapper's raw forward (the same
+    weights) bit for bit. -> the preprocess launches."""
+    from autoware_vision_pilot_tpu_torch.middleware import backend_from_params
+
+    frame = frames(1, FRAME_HW, SEED + 26)[0]
+    launches = 0
+    for (name, cls), stem in zip(seg_wrappers().items(),
+                                 ("scene_seg", "scene_3d", "domain_seg", "ego_lanes")):
+        b = backend_from_params({"model_path": f"/no/such/dir/{stem}.msgpack",
+                                 "precision": "bf16"})
+        w = cls(dtype=torch.bfloat16)
+        reset_counts()
+        got = b.do_inference(frame.numpy())
+        want = w.logits(frame.cuda())[0].float().cpu().numpy()
+        counts = read_counts()
+        expect_launches(counts, NO_KERNELS | {"fused_preprocess": 2})
+        launches += counts["fused_preprocess"]
+        if type(b.model) is not type(w.model) or got.shape != want.shape or \
+                not np.array_equal(got, want):
+            raise AssertionError(f"backend_from_params({stem}) differs from {name}Infer")
+        print(f"backend_from_params {stem}.msgpack (bf16): {type(b.model).__name__}, "
+              f"do_inference {got.shape} f32 equal to {name}Infer's raw forward "
+              f"(np.array_equal)")
+        del b, w
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_clip(card):
+    """Phase 24: BASELINE config 3 (bench.py::bench_clip): EgoLanes +
+    DomainSeg in bf16 on windows of CLIP_BATCH frames sliding by one
+    through a 720p clip held on the card, every window distinct: the
+    preprocess kernel at batch 10 bit-equal to its plain version, then
+    window p50/p99 (CUDA events) and clip frames a second. -> the
+    preprocess launches."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
+    from autoware_vision_pilot_tpu_torch.ops.postprocess import threshold_channels
+    from autoware_vision_pilot_tpu_torch.ops.preprocess import preprocess_imagenet
+
+    n = WARM + TIMED
+    clip = frames(n + CLIP_BATCH - 1, FRAME_HW, SEED + 27).cuda()
+    lanes = seg_wrappers()["EgoLanes"](dtype=torch.bfloat16).model
+    domain = seg_wrappers()["DomainSeg"](dtype=torch.bfloat16).model
+    window = clip[3:3 + CLIP_BATCH]
+    x = fused_preprocess(window, OUT_HW, torch.bfloat16)
+    ref = preprocess_imagenet(window, OUT_HW, torch.bfloat16).permute(0, 3, 1, 2)
+    if not torch.equal(x, ref):
+        raise AssertionError("the preprocess kernel at batch 10 differs from its plain version")
+    print(f"clip: fused_preprocess on a window of {CLIP_BATCH} 720p frames -> "
+          f"{tuple(x.shape)} bf16 equal to its plain version (torch.equal)")
+
+    @torch.inference_mode()
+    def step(j):
+        x = fused_preprocess(clip[j:j + CLIP_BATCH], OUT_HW, torch.bfloat16)
+        masks = threshold_channels(lanes(x).permute(0, 2, 3, 1).float())
+        return masks, domain(x).float() > 0
+
+    p50, p99, _, counts, outs = time_calls(
+        step, list(range(n)), {"fused_preprocess": 1},
+        f"bf16 clip window (EgoLanes + DomainSeg, batch {CLIP_BATCH}, sliding by one through "
+        f"a {len(clip)}-frame 720p clip on the card)", card)
+    masks, dom = outs[-1]
+    if tuple(masks.shape) != (CLIP_BATCH, OUT_HW[0] // 4, OUT_HW[1] // 4, 3) or \
+            tuple(dom.shape) != (CLIP_BATCH, 1, *OUT_HW):
+        raise AssertionError(f"clip outputs {tuple(masks.shape)}, {tuple(dom.shape)}")
+    check_finite("clip", outs)
+    # the clip as a stream: the timed windows queued back to back, one wait
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(WARM, n):
+        step(j)
+    torch.cuda.synchronize()
+    fps = CLIP_BATCH * (n - WARM) / (time.perf_counter() - t0)
+    print(f"bf16 clip, {card}: {fps!r} clip frames/s over windows {WARM}-{n - 1} queued back "
+          f"to back (host clock, one wait at the end); window p50 {p50!r} ms, p99 {p99!r} ms "
+          f"(each window waited for)")
+    del clip, lanes, domain, outs
+    torch.cuda.empty_cache()
+    return counts["fused_preprocess"]
+
+
+def phase_steer2_drive(card):
+    """Phase 25: AutoSteer 2.0 and AutoDrive at 512x1024 (AutoDrive on two
+    frames) and the legacy EgoPath heads (BEVPathContext at 10x20, the
+    AutoSteerHead on a 10x20 context and a 40x80 neck), seed 0: f32 on the
+    card, TF32 off, against the CPU within 1e-3 * max|CPU|; then bf16
+    p50/p99 over TIMED distinct inputs."""
+    from autoware_vision_pilot_tpu_torch.models.auto_drive import AutoDriveNetwork
+    from autoware_vision_pilot_tpu_torch.models.auto_steer import AutoSteerNetwork
+    from autoware_vision_pilot_tpu_torch.models.ego_path import AutoSteerHead, BEVPathContext
+    from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded
+
+    no_tf32()
+    h, w = STEER2_HW
+    nets = {"AutoSteer 2.0": (lambda: AutoSteerNetwork("n", h, w), [(1, 3, h, w)]),
+            "AutoDrive": (lambda: AutoDriveNetwork(h, w), [(1, 3, h, w), (1, 3, h, w)]),
+            "BEVPathContext": (lambda: BEVPathContext(), [(1, 1456, 10, 20)]),
+            "AutoSteerHead": (lambda: AutoSteerHead(256, 10, 20),
+                              [(1, 256, 10, 20), (1, 256, 40, 80), (1, 64, 10, 20)])}
+    g = torch.Generator().manual_seed(SEED + 28)
+    for name, (build, shapes) in nets.items():
+        net = build()
+        init_seeded(net, torch.Generator().manual_seed(SEED))
+        net.eval()
+        xs = [torch.randn(s, generator=g).contiguous(memory_format=CL) for s in shapes]
+        with torch.no_grad():
+            ref = net(*xs)
+            net.to("cuda", memory_format=CL)
+            out = net(*[x.cuda() for x in xs])
+        out, ref = (y if isinstance(y, tuple) else (y,) for y in (out, ref))
+        errs = [held(f"{name} output {i}", a, b) for i, (a, b) in enumerate(zip(out, ref))]
+        print(f"f32 {name}, card vs CPU: outputs {[tuple(t.shape) for t in ref]}, max_abs_err "
+              f"(tol) {[(e, t) for e, t in errs]}")
+        net.to(torch.bfloat16)
+        n = WARM + TIMED
+        pool = [[torch.randn(s, generator=g).to(torch.bfloat16).contiguous(
+            memory_format=CL).cuda() for s in shapes] for _ in range(n)]
+        with torch.no_grad():
+            p50, p99, enq, _, outs = time_calls(lambda xs: net(*xs), pool, {},
+                                                f"bf16 {name}, inputs {shapes}", card)
+        check_finite(name, outs)
+        del net, pool, outs
+        torch.cuda.empty_cache()
+
+
 def host_costs_of(root):
     """--host-costs ROOT: phase 7's host-cost measurement alone, over the
     port package found in ROOT (this repository, or an earlier commit of it
@@ -2257,6 +2755,30 @@ def main():
         if engine[name] <= 0 or fleet[name] <= 0:
             raise AssertionError(f"the engine or the fleet never launched {name}")
         launches[name] += engine[name] + fleet[name]
+    # the per-network wrappers (inference/infer.py), the backend and the clip,
+    # each phase's wall time kept
+    walls = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[phase] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed(19, phase_wrappers_f32)
+    paths = {"wrappers bf16": timed(20, phase_wrappers_bf16, card),
+             "int8 wrappers": timed(21, phase_int8_wrappers, card)}
+    for name, worst in timed(22, phase_min128_shapes, card).items():
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], worst)
+    paths["backend"] = {"fused_preprocess": timed(23, phase_backend)}
+    paths["clip"] = {"fused_preprocess": timed(24, phase_clip, card)}
+    timed(25, phase_steer2_drive, card)
+    print(f"wall time of phases 19-25 (s): {walls}, {sum(walls.values()):.1f} s in all")
+    for path, counts in paths.items():
+        for name, n in counts.items():
+            if n <= 0 and name != "int8_conv_mma":
+                raise AssertionError(f"the {path} never launched {name}")
+            launches[name] += n
     print("batched kernel times at N = 8 against 8 x N = 1, " + card + ": " + "; ".join(
         f"{k} {v[0]!r} us vs {8 * v[1]!r} us" for k, v in batched.items()))
     print(f"fused_preprocess on the lateral crop {FRAME_HW[0]}x{FRAME_HW[1]}[{LATERAL_CROP}:]"

@@ -955,3 +955,142 @@ def test_engines_on_card(cuda):
                        frame_source=lambda: next(ticks, None))
     out = feng.run(pipeline_depth=1, sync_check=True)
     assert len(out) == 2 and all(len(r) == 3 for r in out) and len(feng.device_ms) == 2
+
+
+# ---------- the per-network wrappers, the backend, min_channels 128 ----------
+
+# (window, cin, cout, h, w): the int8 conv shapes that the wrappers'
+# min_channels 128 brings (tests/test_torch_int8_plan.py::MIN128_INT8), the
+# 320x640 ones at 160x320 (400 tiles: still the wgmma route)
+MIN128_CARD = ((3, 128, 1, 160, 320), (3, 128, 3, 80, 160), (3, 128, 64, 160, 320),
+               (3, 128, 128, 160, 320), (3, 128, 256, 10, 20), (1, 144, 24, 80, 160),
+               (1, 144, 40, 40, 80), (1, 240, 40, 40, 80), (1, 240, 80, 20, 40),
+               (1, 192, 1152, 10, 20), (1, 144, 6, 1, 1), (1, 240, 10, 1, 1))
+
+
+@pytest.mark.parametrize("k,cin,cout,h,w", MIN128_CARD,
+                         ids=[f"{k}x{k}-{c}-{n}-{h}x{w}" for k, c, n, h, w in MIN128_CARD])
+def test_int8_min128_shapes_match_plain_version(cuda, k, cin, cout, h, w):
+    """N = 1, 3 and 64 on the wgmma route's 128-wide tiles (odd N: the
+    epilogue's scalar stores; a channels_last output of 1 or 3 channels),
+    the split-K 128 -> 256 at 10x20, and the 1x1 and SE convs with 144 and
+    240 input channels (a K range ending on half a 32-channel step): int32
+    accumulators and bf16/f32 outputs bit-equal, through int8_conv and
+    int8_conv2d, scalar and per-input-channel scales."""
+    route = int8_conv_plan(1, h, w, cin, cout, k, k, k // 2, sm_count()).route
+    assert route == ("dot" if h * w == 1 else "pointwise" if k == 1
+                     else "splitk" if h * w == 200 else "wgmma")
+    g = torch.Generator().manual_seed(cin * cout + k)
+    x = torch.randn(1, cin, h, w, generator=g) * torch.linspace(0.5, 2.0, cin).reshape(1, -1, 1, 1)
+    wq = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
+                       dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+    w_scale = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).to(cuda)
+    scales = [torch.tensor(float(x.abs().max()) * 0.9 / 127.0),
+              (x.double().abs().amax(dim=(0, 2, 3)) / 127.0).float()]
+    before = int8_conv.route_launches[route]
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype).contiguous(memory_format=CL).to(cuda)
+        bias = (torch.randn(cout, generator=g) * 0.1).to(dtype).to(cuda)
+        for sx in scales:
+            sx = sx.to(cuda)
+            xq = int8_quantize(xd, sx)
+            assert torch.equal(xq, int8_quantize_plain(xd, sx))
+            acc = int8_conv(xq, wq, w_scale, sx, None, k // 2, torch.int32)
+            want = int8_conv_plain(xq, wq, w_scale, sx, bias, k // 2, dtype)
+            y = int8_conv(xq, wq, w_scale, sx, bias, k // 2, dtype)
+            y2d = int8_conv2d(xd, wq, w_scale, sx, bias, k // 2)
+            torch.cuda.synchronize()
+            assert torch.equal(acc, int8_conv_plain(xq, wq, w_scale, sx, None, k // 2,
+                                                    torch.int32))
+            assert y.is_contiguous(memory_format=CL) and tuple(y.shape) == (1, cout, h, w)
+            assert torch.equal(y, want) and torch.equal(y2d, want)
+    assert int8_conv.route_launches[route] == before + 12
+
+
+SMALL = dict(input_hw=(64, 128))
+
+
+def small_wrappers():
+    from autoware_vision_pilot_tpu_torch import inference as tinfer
+    from autoware_vision_pilot_tpu_torch.models import (DomainSegNetwork, EgoLanesNetwork,
+                                                        Scene3DNetwork, SceneSegNetwork)
+    return {"scene_seg": (tinfer.SceneSegInfer, lambda: SceneSegNetwork((2, 4), B0_DRYRUN_STAGES)),
+            "scene_3d": (tinfer.Scene3DInfer, lambda: Scene3DNetwork((2, 4))),
+            "domain_seg": (tinfer.DomainSegInfer, lambda: DomainSegNetwork((2, 4))),
+            "ego_lanes": (tinfer.EgoLanesInfer,
+                          lambda: EgoLanesNetwork((2, 4), B0_DRYRUN_STAGES))}
+
+
+@pytest.mark.parametrize("name", ["scene_seg", "scene_3d", "domain_seg", "ego_lanes"])
+def test_wrappers_on_card_match_cpu(cuda, name):
+    """The seg wrappers at 64x128 in f32, TF32 off: the raw forward on the
+    card within 1e-3 * max|CPU| of the same wrapper on the CPU, one
+    preprocess launch a frame."""
+    cls, net = small_wrappers()[name]
+    frame = frames((128, 256), 1, seed=5)[0]
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = cls(model=net(), device="cpu", **SMALL).logits(frame)
+        w = cls(model=net(), **SMALL)
+        assert w.device.type == "cuda" and w.dtype == torch.float32
+        before = fused_preprocess.launches
+        out = w.logits(frame.to(cuda))
+        assert fused_preprocess.launches == before + 1
+        torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-3 * ref.abs().max().item())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_int8_wrapper_on_card_conv_by_conv(cuda):
+    """EgoLanes at 64x128 with precision="int8" (min_channels 128; its head's
+    3x3 128 -> 3 conv on a 128-wide tile), quantized and calibrated on the
+    CPU, copied to the card: each int8 conv fed the CPU conv's input gives
+    its output bit for bit."""
+    cls, net = small_wrappers()["ego_lanes"]
+    frame = frames((128, 256), 1, seed=6)[0]
+    cpu = cls(model=net(), device="cpu", precision="int8", **SMALL)
+    card = copy.deepcopy(cpu)
+    card.model.to(cuda)
+    card.device = cuda
+    mods = {n: [m for m in w.model.modules() if isinstance(m, Int8Conv2d)] for n, w in
+            (("cpu", cpu), ("card", card))}
+    assert len(mods["cpu"]) == len(mods["card"]) == 19
+    calls = {"cpu": [], "card": []}
+    forced = []
+
+    def hooks(key):
+        def pre(m, args):
+            if key == "card":
+                return (forced[len(calls[key])].to(cuda),)
+
+        def post(m, args, y):
+            calls[key].append(y)
+            if key == "cpu":
+                forced.append(args[0])
+        return [h for m in mods[key] for h in (m.register_forward_pre_hook(pre),
+                                               m.register_forward_hook(post))]
+
+    handles = hooks("cpu")
+    cpu.logits(frame)
+    handles += hooks("card")
+    card.logits(frame.to(cuda))
+    for h in handles:
+        h.remove()
+    assert len(calls["card"]) == 19
+    for i, (a, b) in enumerate(zip(calls["card"], calls["cpu"])):
+        assert torch.equal(a.cpu(), b), i
+
+
+def test_backend_on_card_matches_wrapper(cuda):
+    """backend_from_params (bf16, seeded weights, by file stem) on the card:
+    do_inference equals the EgoLanes wrapper's raw forward bit for bit."""
+    from autoware_vision_pilot_tpu_torch.inference import EgoLanesInfer
+    from autoware_vision_pilot_tpu_torch.middleware import backend_from_params
+
+    b = backend_from_params({"model_path": "/no/such/dir/ego_lanes.msgpack"})
+    assert b.device.type == "cuda" and b.dtype == torch.bfloat16
+    frame = frames((720, 1280), 1, seed=7)[0]
+    got = b.do_inference(frame.numpy())
+    want = EgoLanesInfer(dtype=torch.bfloat16).logits(frame.to(cuda))[0].float().cpu().numpy()
+    assert got.shape == (80, 160, 3) and np.array_equal(got, want)

@@ -218,3 +218,94 @@ def test_weight_map_is_kept_on_the_weight():
     assert lib.encoded == [w.data_ptr(), w2.data_ptr()]
     assert int8_mod._weight_map(lib, w, 24, 3, 3, 32) == first  # w's own map stayed
     assert len(lib.encoded) == 2
+
+
+# (window, cin, cout, h, w, convs): the int8 conv shapes that
+# precision="int8" at int8_min_channels=128 adds to MAIN_INT8's, counted over
+# the four int8 wrappers (SceneSeg, Scene3D, DomainSeg, EgoLanes) at 320x640:
+# the heads' 3x3 128-input convs (N = 1, 3 and 64 on 128-wide tiles, and the
+# full-resolution 128 -> 128), ContextBlock.context_layer_4, and B0's 1x1
+# convs and SE squeezes with 144 to 240 input channels (C % 32 == 16 on
+# 144 and 240: a K range that ends on half a 32-channel mma step)
+MIN128_INT8 = (
+    (3, 128, 1, 320, 640, 1), (3, 128, 3, 80, 160, 1), (3, 128, 64, 320, 640, 2),
+    (3, 128, 128, 320, 640, 4), (3, 128, 256, 10, 20, 4), (1, 144, 24, 80, 160, 4),
+    (1, 144, 40, 40, 80, 4), (1, 240, 40, 40, 80, 4), (1, 240, 80, 20, 40, 4),
+    (1, 192, 1152, 10, 20, 16), (1, 144, 6, 1, 1, 8), (1, 240, 10, 1, 1, 8),
+)
+MIN128_ROUTE = {(3, 128, 256, 10, 20): "splitk"}
+
+
+def test_min128_table():
+    assert not {s[:5] for s in MIN128_INT8} & {s[:5] for s in MAIN_INT8}
+    assert sum(n for *_, n in MIN128_INT8) == 60
+
+
+@pytest.mark.parametrize("k,cin,cout,h,w,convs", MIN128_INT8,
+                         ids=[f"{k}x{k}-{ci}-{co}-{h}x{w}" for k, ci, co, h, w, _ in MIN128_INT8])
+def test_plan_covers_min128_shape(k, cin, cout, h, w, convs):
+    """Each shape gets a route whose tiles cover the M pixels and N output
+    channels once, and whose K steps (3x3) or K ranges (1x1) cover every
+    tap and channel once."""
+    plan = int8_conv_plan(1, h, w, cin, cout, k, k, k // 2)
+    M = h * w
+    expected = ("dot" if k == 1 and M <= DOT_MAX_M else "pointwise" if k == 1
+                else MIN128_ROUTE.get((k, cin, cout, h, w), "wgmma"))
+    assert plan.route == expected
+    m_tiles, n_tiles, splits = plan.grid
+    if plan.route == "dot":
+        assert plan.bm == M and n_tiles * DOT_WARPS >= cout > (n_tiles - 1) * DOT_WARPS
+        return
+    if plan.route == "pointwise":
+        assert m_tiles * plan.bm >= M > (m_tiles - 1) * plan.bm
+        assert n_tiles * PW_BN >= cout > (n_tiles - 1) * PW_BN
+        seen = torch.zeros(cin, dtype=torch.int32)
+        step = plan.per_split * plan.bk
+        for z in range(splits):
+            lo, hi = z * step, min(cin, (z + 1) * step)
+            assert lo < hi and lo % plan.bk == 0
+            seen[lo:hi] += 1
+        assert bool((seen == 1).all())
+        assert plan.blocks == m_tiles * n_tiles * splits
+        return
+    # N < 128 falls on one 128-wide N tile, whose columns from N on are masked
+    assert n_tiles * TILE >= cout > (n_tiles - 1) * TILE
+    assert plan.th * plan.tw <= TILE
+    tiles_h, tiles_w = math.ceil(h / plan.th), math.ceil(w / plan.tw)
+    assert m_tiles == tiles_h * tiles_w
+    covered = torch.zeros(h, w, dtype=torch.int32)
+    for i in range(tiles_h):
+        for j in range(tiles_w):
+            covered[i * plan.th:(i + 1) * plan.th, j * plan.tw:(j + 1) * plan.tw] += 1
+    assert bool((covered == 1).all())
+    assert plan.iters == len(k_steps(k, k, cin)) == 9
+    assert splits * plan.per_split >= plan.iters > (splits - 1) * plan.per_split
+    units = m_tiles * n_tiles * splits
+    assert plan.blocks == min(units, SMS)
+    taken = sorted(u for b in range(plan.blocks) for u in range(b, units, plan.blocks))
+    assert taken == list(range(units))
+
+
+@pytest.mark.parametrize("cout", [1, 3, 64])
+@pytest.mark.parametrize("per_split", [9, 4])
+def test_k_steps_at_small_n(cout, per_split):
+    """The heads' 3x3 128 -> N convs at N = 1, 3 and 64: the K steps cover
+    every (tap, channel) once, and a replay of them in one split (the
+    wgmma route the heads take) or in splits of 4 steps gives the plain
+    version's int32 accumulators at every N, the columns past N never
+    written."""
+    steps = k_steps(3, 3, 128)
+    seen = torch.zeros(3, 3, 128, dtype=torch.int32)
+    for r, s, c0 in steps:
+        seen[r, s, c0:c0 + TILE] += 1
+    assert len(steps) == 9 and bool((seen == 1).all())
+    g = torch.Generator().manual_seed(cout + per_split)
+    xq = torch.randint(-127, 128, (1, 128, 6, 10), generator=g,
+                       dtype=torch.int8).contiguous(memory_format=CL)
+    w = torch.randint(-127, 128, (cout, 128, 3, 3), generator=g,
+                      dtype=torch.int8).contiguous(memory_format=CL)
+    partials = splitk_replay(xq, w, 1, per_split)
+    assert len(partials) == math.ceil(9 / per_split)
+    want = int8_conv_plain(xq, w, torch.ones(cout), torch.tensor(1.0), None, 1, torch.int32)
+    assert torch.equal(sum(partials).to(torch.int32), want)
+    assert int8_conv_plan(1, 320, 640, 128, cout, 3, 3, 1).grid[1] == 1
