@@ -18,10 +18,13 @@ a float key, or the other way round, raises like a shape mismatch.
 
 Flax paths merge a torch index into its parent (``encoder_1_0``); whether a
 ``_0`` is such an index (``encoder.1.0``) or part of a name
-(``context_layer_0``) is read off the target module's own keys. Leaves come
-as numpy arrays, anything ``np.asarray`` takes, or CPU tensors (the
-bfloat16 leaves of export/checkpoints.py::load_msgpack); nothing here
-imports JAX.
+(``context_layer_0``) is read off the target module's own keys. So is
+whether a path part ``bn`` is the inner module of the JAX ``BatchNorm2d``
+wrapper, which is dropped (``bn.scale`` -> ``weight``), or a BatchNorm of
+that name, which is kept (the Lite ``ConvBNReLU``: ``aspp.b0.bn.scale`` ->
+``aspp.b0.bn.weight``). Leaves come as numpy arrays, anything
+``np.asarray`` takes, or CPU tensors (the bfloat16 leaves of
+export/checkpoints.py::load_msgpack); nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -75,10 +78,11 @@ def variables_to_state_dict(flax_vars: Mapping, module: nn.Module
         for path, value in _flatten(flax_vars.get(collection, {})).items():
             parts = path.split(".")
             leaf = parts.pop()
-            if parts and parts[-1] == "bn":  # nn/layers.py BatchNorm2d wrapper
-                parts.pop()
             if leaf not in _TORCH_LEAF:
                 raise KeyError(f"no torch counterpart for flax leaf {path}")
+            if parts and parts[-1] == "bn" and \
+                    ".".join([*parts, _TORCH_LEAF[leaf]]) not in by_merged:
+                parts.pop()  # the inner module of nn/layers.py's BatchNorm2d wrapper
             key = by_merged.get(".".join([*parts, _TORCH_LEAF[leaf]]))
             if key is None:
                 raise KeyError(f"{collection}/{path} has no key in "

@@ -1,7 +1,7 @@
 """YOLOv11-style building blocks, the port of
 autoware_vision_pilot_tpu/models/yolo_layers.py: ConvBN, the CSP/C3K2
-bottleneck stacks, the SPPF pooling pyramid, C2PSA local attention, the CTX
-global-context block and the DFL box decode.
+bottleneck stacks, the SPPF pooling pyramid, PSA and C2PSA local attention,
+the CTX global-context block and the DFL box decode.
 
 Modules take and return NCHW (channels_last in the pipeline). Attribute
 names are the flax module names, so the JAX package's variables load through
@@ -135,6 +135,23 @@ class PSABlock(nn.Module):
     def forward(self, x):
         x = x + self.conv1(x)
         return x + self.conv2_1(self.conv2_0(x))
+
+
+class PSA(nn.Module):
+    """Split in two halves, ``n`` PSABlocks (``ch // 128`` heads) on the
+    second, concatenate, 1x1. No network of the repo uses it; it completes
+    the module."""
+
+    def __init__(self, ch, n=1, **kw):
+        super().__init__()
+        self.half = half = ch // 2
+        self.conv1 = YoloConv(ch, 2 * half, **kw)
+        self.res_m = nn.Sequential(*(PSABlock(half, ch // 128, **kw) for _ in range(n)))
+        self.conv2 = YoloConv(2 * half, ch, **kw)
+
+    def forward(self, x):
+        a, b = self.conv1(x).split(self.half, 1)
+        return self.conv2(torch.cat([a, self.res_m(b)], 1))
 
 
 class C2PSA(nn.Module):

@@ -134,6 +134,21 @@ def int8_quantize_plain(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
     return q.contiguous(memory_format=CL)
 
 
+def padded_channels(c: int) -> int:
+    """The channels the kernels see: C rounded up to a multiple of 16 (they
+    copy 16 channels at a time). int8_conv and int8_quantize pad the rest
+    with zeros on every call."""
+    return c + -c % 16
+
+
+def pad_channels(t: torch.Tensor, c: int) -> torch.Tensor:
+    """``t`` (B, C, H, W) with zero channels up to ``c``, channels_last: the
+    pad int8_conv and int8_quantize apply to x and the weights."""
+    if t.shape[1] == c:
+        return t
+    return F.pad(t, (0, 0, 0, 0, 0, c - t.shape[1])).contiguous(memory_format=CL)
+
+
 def int8_quantize(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) f32/bf16 channels_last -> int8 channels_last.
     Counts its kernel launches in ``int8_quantize.launches``."""
@@ -150,11 +165,10 @@ def int8_quantize(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
         with torch.cuda.device(index):
             return int8_quantize(x, x_scale)
     B, C, H, W = x.shape
-    if C % 16:  # the kernel takes 16 channels a thread; the pad is cut off again
-        extra = 16 - C % 16
-        xp = F.pad(x, (0, 0, 0, 0, 0, extra)).contiguous(memory_format=CL)
-        sp = F.pad(x_scale, (0, extra), value=1.0) if x_scale.dim() == 1 else x_scale
-        return int8_quantize(xp, sp)[:, :C].contiguous(memory_format=CL)
+    Cp = padded_channels(C)
+    if Cp != C:  # the kernel takes 16 channels a thread; the pad is cut off again
+        sp = F.pad(x_scale, (0, Cp - C), value=1.0) if x_scale.dim() == 1 else x_scale
+        return int8_quantize(pad_channels(x, Cp), sp)[:, :C].contiguous(memory_format=CL)
     xq = torch.empty_like(x, dtype=torch.int8, memory_format=CL)
     _check_aligned(x, xq)
     scale = x_scale.contiguous()
@@ -245,7 +259,7 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
                          f"window {KH}x{KW} pad {pad}")
     if OH <= 0 or OW <= 0:
         raise ValueError(f"window {KH}x{KW} larger than the padded input {H}x{W}")
-    if C % 16:
+    if padded_channels(C) != C:
         raise ValueError(f"C = {C}: the kernels take multiples of 16 channels "
                          "(int8_conv pads the rest with zeros)")
     if KH * KW * C > MAX_K:
@@ -402,13 +416,12 @@ def _conv(x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor,
     OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
     if OH <= 0 or OW <= 0:
         raise ValueError(f"window {KH}x{KW} larger than the padded input {H}x{W}")
-    if C % 16:  # the kernels copy 16 channels at a time; zeros add nothing
-        extra = 16 - C % 16
-        x = F.pad(x, (0, 0, 0, 0, 0, extra)).contiguous(memory_format=CL)
-        weight = F.pad(weight, (0, 0, 0, 0, 0, extra)).contiguous(memory_format=CL)
+    Cp = padded_channels(C)
+    if Cp != C:  # the kernels copy 16 channels at a time; zeros add nothing
+        x, weight = pad_channels(x, Cp), pad_channels(weight, Cp)
         if x_scale.dim() == 1:
-            x_scale = F.pad(x_scale, (0, extra), value=1.0)
-        C += extra
+            x_scale = F.pad(x_scale, (0, Cp - C), value=1.0)
+        C = Cp
     plan = int8_conv_plan(B, H, W, C, N, KH, KW, pad, _sm_count(index))
     if not quantized and plan.route not in FUSED_ROUTES:
         x = int8_quantize(x, x_scale)

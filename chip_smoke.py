@@ -159,7 +159,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              and the legacy EgoPath heads (BEVPathContext at 10x20, the
              AutoSteerHead on a 40x80 neck): f32 card vs CPU within 1e-3 *
              max|CPU|, then bf16 p50/p99.
-The run prints its wall time.
+ 26. Lite f32: DeepLabV3+ on each Lite config (SceneSegLite, Scene3DLite,
+             EgoLanesLite) at 320x640 and UNet++ (SceneSegLite's config,
+             model unetplusplus) at 96x192, full width and depth, seed 0,
+             eval_lite's forward on a uint8 frame: f32 card vs CPU within
+             1e-3 * max|CPU|.
+ 27. Lite: each of the four at 320x640, bf16 then int8 at min_channels
+             128 (40, 38, 38 and 48 int8 convs): p50/p99 over TIMED
+             distinct frames, the int8 convs by route and launches a frame,
+             every int8 conv of one frame bit-equal to its plain version;
+             UNet++'s eight 3x3 shapes with C % 128 != 0 bit-equal on every
+             variant of phase 4; the 21 new int8 shapes timed as in phase 4.
+ 28. Lite CLI: export/eval_lite.py::main on SceneSegLite, --synthetic 4
+             --bench, bf16 and --int8: its summary line and launches.
+The run prints its wall time, and that of phases 19-25 and 26-28.
 """
 from __future__ import annotations
 
@@ -259,30 +272,59 @@ def cuda_ms(fn, inputs):
     return start.elapsed_time(end) / len(inputs)
 
 
+# the runtime calls that put work on the card, as a trace names them
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
+GUARDS = 4  # device_us: torch.cuda._sleep kernels (spin_kernel) before and after the calls
+CUDA_RECORD = torch.autograd.DeviceType.CUDA
+
+
+def trace_counts(prof):
+    """-> (device records, launches the host made) of a torch.profiler trace."""
+    events = prof.events()
+    ops = sum(1 for e in events if e.device_type == CUDA_RECORD)
+    launches = sum(1 for e in events if e.device_type != CUDA_RECORD
+                   and e.name.startswith(LAUNCH_CALLS))
+    return ops, launches
+
+
 def device_us(fn, inputs):
     """Mean device microseconds per call of fn(x) over ``inputs``: the sum
-    of every kernel's own time in a torch.profiler trace of the run. A
-    trace that recorded no device time, or fewer device operations than
-    calls (each call launches at least one: a trace that dropped records),
-    is taken again, up to five times; then the calls are timed queued
-    (queued_us)."""
+    of every kernel's own time in a torch.profiler trace of the run. The
+    trace is taken only when it holds a device record for each launch the
+    host made in it (the runtime's launch, copy and set calls), else it is
+    taken again, up to five times, and then the calls are timed queued
+    (queued_us). A trace can drop device records: from phase 10 on, traces
+    on the card lost one to four. GUARDS tiny kernels on each side
+    of the calls are left out of the count and the time, so that a record
+    lost at either end of the trace is one of theirs."""
     from torch.profiler import ProfilerActivity, profile
+
+    def guards():
+        for _ in range(GUARDS):
+            torch.cuda._sleep(100)
 
     fn(inputs[0])
     torch.cuda.synchronize()
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            guards()
             for x in inputs:
                 fn(x)
+            guards()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages())
-        ops = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total > 0 and ops >= len(inputs):
+        spins = sum(1 for e in prof.events()
+                    if e.device_type == CUDA_RECORD and "spin_kernel" in e.name)
+        ops, launches = trace_counts(prof)
+        ops, launches = ops - spins, launches - 2 * GUARDS
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if "spin_kernel" not in e.key)
+        if total > 0 and launches >= len(inputs) and ops >= launches:
             return total / len(inputs)
     us = queued_us(fn, inputs)
     print(f"device_us: the profiler's traces of {getattr(fn, '__name__', fn)} dropped records "
-          f"five times; {us!r} us a call from CUDA events around the calls queued behind a "
-          f"sleep (back to back on the card, the gaps between them included)")
+          f"five times (last: {ops} device records for {launches} launches); {us!r} us a call "
+          f"from CUDA events around the calls queued behind a sleep (back to back on the card, "
+          f"the gaps between them included)")
     return us
 
 
@@ -418,14 +460,14 @@ def check_int8_kernels(g, shapes=None):
     it, with no quantize launch). -> worst error by kernel."""
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
         FUSED_ROUTES, int8_conv, int8_conv2d, int8_conv_plain, int8_conv_plan, int8_quantize,
-        int8_quantize_plain)
+        int8_quantize_plain, padded_channels)
 
     worst = dict.fromkeys(("int8_quantize", *CONV_KERNEL.values()), 0.0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for shape in shapes or INT8_SHAPES:
         k, cin, cout, h, w, batch, route = shape
         pad = k // 2
-        plan = int8_conv_plan(batch, h, w, cin, cout, k, k, pad, sms)
+        plan = int8_conv_plan(batch, h, w, padded_channels(cin), cout, k, k, pad, sms)
         if plan.route != route:
             raise AssertionError(f"{shape}: plan {plan}, expected route {route}")
         x = torch.randn(batch, cin, h, w, generator=g)
@@ -486,19 +528,20 @@ def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
     import torch.nn.functional as F
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
         _launch, _mma_plan, _reciprocal, int8_conv, int8_conv2d, int8_conv_plain,
-        int8_conv_plan, int8_quantize, int8_quantize_plain)
+        int8_conv_plan, int8_quantize, int8_quantize_plain, pad_channels, padded_channels)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # the frame's int8 device time from the shapes alone: the 3x3 convs and
     # their quantize, the 1x1 convs as they run now, and as they ran on the
     # mma.sync kernel after a separate quantize
-    frame = dict.fromkeys(("3x3 conv", "3x3 quantize", "1x1 conv (quantize on load)",
+    frame = dict.fromkeys(("3x3 conv", "3x3 quantize", "3x3 channel pads (C % 16 != 0)",
+                           "1x1 conv (quantize on load)",
                            "1x1 on mma.sync + quantize (before)"), 0.0)
     missing = {k: [] for k in frame}  # shapes the profiler recorded nothing of
     records = {}
     for k, cin, cout, h, w, per_frame in table:
         pad = k // 2
-        plan = int8_conv_plan(1, h, w, cin, cout, k, k, pad, sms)
+        plan = int8_conv_plan(1, h, w, padded_channels(cin), cout, k, k, pad, sms)
         M, K = h * w, k * k * cin
         set_bytes = h * w * cin * 3 + cout * K * 3  # x bf16 + xq, w int8 + w bf16
         n = max(2, min(64, math.ceil(1.2 * L2_BYTES / set_bytes)))
@@ -509,33 +552,44 @@ def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
                        weight.to(torch.bfloat16))
             _reciprocal(sx)  # kept on the scale, as a static scale's is on the main path
         idx = list(range(n)) * max(1, math.ceil(20 / n))
+        # the kernels' inputs: int8_conv pads C to a multiple of 16 (x and the
+        # weights) on every call; the kernels are timed on the padded inputs,
+        # the pads apart
+        cp = padded_channels(cin)
+        extra = cp - cin
+        ksets = [(pad_channels(x, cp), pad_channels(wt, cp), ws, b, sx,
+                  pad_channels(xq, cp), w16) for x, wt, ws, b, sx, xq, w16 in sets]
 
         def conv(i):
-            x, wt, ws, b, sx, xq, _ = sets[i]
+            x, wt, ws, b, sx, xq, _ = ksets[i]
             return int8_conv(xq, wt, ws, sx, b, pad, torch.bfloat16)
 
         def conv2d(i):
-            x, wt, ws, b, sx, _, _ = sets[i]
+            x, wt, ws, b, sx, _, _ = ksets[i]
             return int8_conv2d(x, wt, ws, sx, b, pad)
 
         def old_mma(i):
-            x, wt, ws, b, sx, xq, _ = sets[i]
+            x, wt, ws, b, sx, xq, _ = ksets[i]
             return _launch(_mma_plan(M, cout, K, sms), xq, wt, ws, sx, b, pad, torch.bfloat16)
 
         def conv_one_block_a_unit(i):
-            x, wt, ws, b, sx, xq, _ = sets[i]
+            x, wt, ws, b, sx, xq, _ = ksets[i]
             return _launch(plan._replace(blocks=math.prod(plan.grid)), xq, wt, ws, sx,
                            b, pad, torch.bfloat16)
 
         def quant(i):
-            return int8_quantize(sets[i][0], sets[i][4])
+            return int8_quantize(ksets[i][0], ksets[i][4])
+
+        def channel_pads(i):  # what int8_conv2d adds to a call at this C
+            return pad_channels(sets[i][0], cp), pad_channels(sets[i][1], cp)
 
         def cudnn(i):
             x, _, _, b, _, _, w16 = sets[i]
             return F.conv2d(x, w16, b, 1, pad)
 
         t = {"conv": device_us(conv, idx), "quantize": device_us(quant, idx),
-             "cudnn": device_us(cudnn, idx)}
+             "cudnn": device_us(cudnn, idx),
+             "pad": device_us(channel_pads, idx) if extra else 0.0}
         if k == 1:
             t["conv2d"], t["old_mma"] = device_us(conv2d, idx), device_us(old_mma, idx)
         conv_ms = cuda_ms(conv, idx)
@@ -569,7 +623,8 @@ def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
         rate = ops / (t["conv"] * 1e-6) / 1e12 if t["conv"] > 0 else float("nan")
         parts = ({"1x1 conv (quantize on load)": t["conv2d"],
                   "1x1 on mma.sync + quantize (before)": t["old_mma"] + t["quantize"]}
-                 if k == 1 else {"3x3 conv": t["conv"], "3x3 quantize": t["quantize"]})
+                 if k == 1 else {"3x3 conv": t["conv"], "3x3 quantize": t["quantize"],
+                                 "3x3 channel pads (C % 16 != 0)": t["pad"]})
         for kind, us in parts.items():
             if math.isnan(us):
                 missing[kind].append(f"{k}x{k} {cin}->{cout} at {h}x{w}")
@@ -587,7 +642,9 @@ def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
         print(f"int8 shape {k}x{k} {cin}->{cout} at {h}x{w} (M {M}, N {cout}, K {K}), "
               f"{per_frame} per frame, route {plan.route} grid {plan.grid}, "
               f"{plan.blocks} blocks, {card}: "
-              f"conv {t['conv']!r} us ({rate!r} TOP/s; CUDA events {conv_ms * 1e3!r} us"
+              + (f"C padded to {cp} on every call (int8_conv pads x and the weights: "
+                 f"{t['pad']!r} us, not in the conv or quantize time), " if extra else "")
+              + f"conv {t['conv']!r} us ({rate!r} TOP/s; CUDA events {conv_ms * 1e3!r} us"
               + (f"; one block per unit of work {one_each!r} us" if one_each else "")
               + f"), bound {bms * 1e3!r} us by {by}, share {share!r}{fused_note}; bf16 "
               f"cuDNN conv {t['cudnn']!r} us; torch._int_mm on im2col (no im2col) "
@@ -621,7 +678,7 @@ def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
                     bound_ms=bms, bound_by=by, library_ms=lib,
                     plain_ms=device_us(lambda i: int8_conv_plain(
                         xq, wt, ws, sx, b, pad, torch.bfloat16), one) / 1e3)
-        del sets
+        del sets, ksets
         torch.cuda.empty_cache()
     print(f"int8 per frame from {what} x their counts, {card}: "
           + ", ".join(f"{kind} {frame[kind]!r} us"
@@ -833,7 +890,7 @@ def profile_frames(pipe, pool, card):
                 pipe(pool[i])
             torch.cuda.synchronize()
         launches = sorted((e for e in prof.events() if "int8_conv_wgmma_kernel" in e.name
-                           and e.device_type == torch.autograd.DeviceType.CUDA),
+                           and e.device_type == CUDA_RECORD),
                           key=lambda e: e.time_range.start)
         if len(launches) == len(order) * PROFILE_FRAMES:
             break
@@ -1034,7 +1091,8 @@ def lane_masks(hw, kind, seed):
 
 
 def profile_launches(fn, x):
-    """Device kernels (and memsets/copies) one call of fn(x) launches."""
+    """Kernels (and memsets/copies) one call of fn(x) launches, counted on
+    the host's side of a trace (a trace can drop device records)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(x)
@@ -1042,7 +1100,7 @@ def profile_launches(fn, x):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn(x)
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return trace_counts(prof)[1]
 
 
 # (shape, kind, seed) of phase 5 beyond the 30 sets: widths that are not a
@@ -2486,11 +2544,14 @@ def wrapper_int8_convs(model):
     return [m for m in model.modules() if isinstance(m, Int8Conv2d)]
 
 
-def check_wrapper_convs(name, w, frame, expected):
-    """One int8 frame; a hook on each Int8Conv2d holds the kernels' output
-    against the plain versions on the same input (torch.equal)."""
+def check_int8_convs(name, model, run, count, new_shapes=None):
+    """run() once (one int8 frame); a hook on each Int8Conv2d of ``model``
+    holds the kernels' output against the plain versions on the same input
+    (torch.equal). There must be ``count`` int8 convs. -> the (window,
+    cin, cout, h, w) of each conv, in call order."""
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv2d
 
+    new_shapes = MIN128_INT8 if new_shapes is None else new_shapes
     checked, bad = [], []
 
     def hook(m, args, y):
@@ -2504,20 +2565,21 @@ def check_wrapper_convs(name, w, frame, expected):
         if not torch.equal(y, ref):
             bad.append((checked[-1], (y.float() - ref.float()).abs().max().item()))
 
-    handles = [m.register_forward_hook(hook) for m in wrapper_int8_convs(w.model)]
+    handles = [m.register_forward_hook(hook) for m in wrapper_int8_convs(model)]
     try:
-        w._fwd(frame)
+        run()
         torch.cuda.synchronize()
     finally:
         for h in handles:
             h.remove()
-    new = sorted({s for s in checked if s in {t[:5] for t in MIN128_INT8}})
+    new = sorted({s for s in checked if s in {t[:5] for t in new_shapes}})
     print(f"int8 {name}, conv by conv: {len(checked)} int8 convs held against their plain "
           f"versions on the frame's own input, {len(checked) - len(bad)} bit-equal "
-          f"(torch.equal), of them at the min_channels-128 shapes: {new}"
+          f"(torch.equal), of them at the new shapes: {new}"
           + (f"; differ: {bad[:8]}" if bad else ""))
-    if len(checked) != sum(expected.values()) or bad:
+    if len(checked) != count or bad:
         raise AssertionError(f"{name}: int8 convs disagree with their plain versions")
+    return checked
 
 
 def phase_int8_wrappers(card):
@@ -2554,7 +2616,7 @@ def phase_int8_wrappers(card):
         check_finite(name, outs)
         for k in keys:
             launches[k] += counts[k]
-        check_wrapper_convs(name, w, pool[0], routes)
+        check_int8_convs(name, w.model, lambda: w._fwd(pool[0]), sum(routes.values()))
         del w, outs
         torch.cuda.empty_cache()
     del pool
@@ -2701,6 +2763,195 @@ def phase_steer2_drive(card):
         torch.cuda.empty_cache()
 
 
+# ---------- the Lite family (models/lite, export/eval_lite.py) ----------
+
+LITE_NETS = ("SceneSegLite", "Scene3DLite", "EgoLanesLite", "UNet++")
+# phase 26's input where the CPU reference at 320x640 would take too long
+# (UNet++: ~0.7 TFLOP a frame)
+LITE_F32_HW = {"UNet++": (96, 192)}
+# int8 convs a 320x640 frame by route at eval_lite's --int8-min-ch 128
+# (tests/test_torch_lite_int8.py holds the selection against JAX's)
+LITE_INT8 = {"SceneSegLite": {"wgmma": 1, "splitk": 0, "pointwise": 24, "dot": 15},
+             "Scene3DLite": {"wgmma": 0, "splitk": 0, "pointwise": 23, "dot": 15},
+             "EgoLanesLite": {"wgmma": 0, "splitk": 0, "pointwise": 23, "dot": 15},
+             "UNet++": {"wgmma": 13, "splitk": 3, "pointwise": 18, "dot": 14}}
+# (window, cin, cout, h, w, batch, route): UNet++'s 3x3 convs whose C is not
+# a multiple of 128 (the last 128-channel K step partial; C % 16 = 8 is
+# padded to 16 by int8_conv), at 320x640, checked bit for bit in every variant
+LITE_SHAPES = (
+    (3, 136, 64, 40, 80, 1, "splitk"),     # x_2_2_a, C padded to 144
+    (3, 152, 64, 40, 80, 1, "splitk"),     # x_2_1_a, C padded to 160
+    (3, 216, 128, 80, 160, 1, "wgmma"),    # x_1_2_a, C padded to 224
+    (3, 344, 128, 80, 160, 1, "wgmma"),    # x_1_3_a, C padded to 352
+    (3, 416, 256, 160, 320, 1, "wgmma"),   # x_0_2_a
+    (3, 432, 32, 20, 40, 1, "splitk"),     # x_3_1_a
+    (3, 672, 256, 160, 320, 1, "wgmma"),   # x_0_3_a
+    (3, 928, 256, 160, 320, 1, "wgmma"),   # x_0_4_a, K = 8,352
+)
+# (window, cin, cout, h, w, convs): every int8 conv shape of the Lite nets
+# at 320x640 that no earlier path ran, with its count over one frame of
+# each of the four nets (59 convs)
+LITE_INT8_SHAPES = tuple((*s[:5], 1) for s in LITE_SHAPES) + (
+    (3, 128, 128, 80, 160, 3),    # UNet++ x_1_{1,2,3}_b
+    (3, 256, 3, 160, 320, 1),     # UNet++ head, N = 3 on 400 tiles
+    (3, 256, 3, 80, 160, 1),      # SceneSegLite head
+    (1, 304, 256, 80, 160, 1),    # SceneSegLite fuse.pw (decoder 256 + 48)
+    (1, 1280, 256, 20, 40, 1),    # SceneSegLite aspp.proj
+    (1, 320, 256, 20, 40, 4),     # SceneSegLite aspp.b0 and b1-b3.pw, stride 16
+    (1, 320, 64, 20, 40, 10),     # Scene3DLite, EgoLanesLite: the same and proj
+    (1, 320, 256, 1, 1, 1),       # SceneSegLite aspp.pool, M = 1
+    (1, 320, 64, 1, 1, 2),        # Scene3DLite, EgoLanesLite aspp.pool
+    (1, 192, 1152, 20, 40, 12),   # stage-6/7 expand, dilated (stride 16)
+    (1, 672, 192, 20, 40, 3),     # stage-5 -> 6 project, dilated
+    (1, 1152, 192, 20, 40, 9),    # stage-6 project, dilated
+    (1, 1152, 320, 20, 40, 3),    # stage-7 project, dilated
+)
+
+
+def lite_config(name):
+    """configs/<name>.yaml; UNet++: SceneSegLite's with model unetplusplus."""
+    from autoware_vision_pilot_tpu_torch.train.lite_trainer import load_experiment_config
+    cfg = load_experiment_config(REPO / "configs" / (
+        "SceneSegLite.yaml" if name == "UNet++" else f"{name}.yaml"))
+    if name == "UNet++":
+        cfg["network"]["model"] = "unetplusplus"
+    return cfg
+
+
+def lite_net(name, device, dtype):
+    """The Lite net ``name`` at full width and depth, weights from seed 0,
+    on ``device`` in ``dtype`` (eval_lite's smoke mode)."""
+    from autoware_vision_pilot_tpu_torch.inference.infer import load_weights
+    from autoware_vision_pilot_tpu_torch.models.lite import build_lite_model
+    return load_weights(build_lite_model(lite_config(name)), device=device, dtype=dtype)
+
+
+def phase_lite_f32():
+    """Phase 26: DeepLabV3+ on each of the three Lite configs at 320x640 and
+    UNet++ at 96x192 (LITE_F32_HW), full width and depth, seed 0, eval_lite's
+    forward on one uint8 frame: f32 on the card with TF32 off against the
+    CPU. The head conv's logits within 1e-3 * max|CPU| (phase 19's bar);
+    the output (bilinear upsampling does not grow the error) within the
+    same bar on its own range, or for a sigmoid head within a quarter of
+    the logits' bar (the sigmoid's largest slope)."""
+    from autoware_vision_pilot_tpu_torch.export.eval_lite import forward_fn
+
+    no_tf32()
+    for name in LITE_NETS:
+        hw = LITE_F32_HW.get(name, OUT_HW)
+        frame = frames(1, hw, SEED + 29)
+        logits, outs = [], []
+        for device, x in (("cpu", frame), ("cuda", frame.cuda())):
+            net = lite_net(name, device, torch.float32)
+            net.head.register_forward_hook(lambda m, a, y: logits.append(y))
+            outs.append(forward_fn(net, torch.float32)(x))
+        err, tol = held(f"{name} f32 logits", logits[1], logits[0])
+        sigmoid = lite_config(name)["network"].get("head", {}).get("head_activation")
+        rel = tol / 4 / outs[0].abs().max().item() if sigmoid == "sigmoid" else 1e-3
+        out_err, out_tol = held(f"{name} f32 output", outs[1], outs[0], rel)
+        print(f"f32 {name}, card vs CPU, {hw[0]}x{hw[1]} uint8 frame"
+              + (" (not 320x640: the CPU reference's cost)" if name in LITE_F32_HW else "")
+              + f": head logits {tuple(logits[0].shape)} max_abs_err {err!r} (tol {tol!r}, "
+              f"{err / tol!r} of it); output {tuple(outs[0].shape)} max_abs_err {out_err!r} "
+              f"(tol {out_tol!r}" + (", a quarter of the logits' bar: sigmoid" if sigmoid
+                                     == "sigmoid" else "") + ")")
+        torch.cuda.empty_cache()
+
+
+def phase_lite(card):
+    """Phase 27: each Lite net at 320x640, seed 0, eval_lite's forward on
+    WARM + TIMED distinct uint8 frames on the card: bf16 p50/p99, no kernel
+    of the port launched; then int8 at min_channels 128 (quantized from the
+    bf16 weights, calibrated on eval_lite's four noise batches): the int8
+    convs by route and each frame's launches, p50/p99, every int8 conv of
+    one frame bit-equal to its plain version; then UNet++'s 3x3 shapes with
+    C % 128 != 0 bit-equal to the plain versions on every variant of
+    phase 4, and every new int8 shape timed as phase 4 times its shapes.
+    -> (the int8 launches, worst error by kernel)."""
+    from autoware_vision_pilot_tpu_torch.export.eval_lite import (calibration_batches,
+                                                                  forward_fn)
+    from autoware_vision_pilot_tpu_torch.export.quantize import (
+        calibrate_int8_activation_scales, int8_conv_count, quantize_for_int8_conv)
+
+    n = WARM + TIMED
+    pool = frames(n, OUT_HW, SEED + 30).cuda()[:, None]  # (n, 1, 320, 640, 3)
+    keys = ("int8_quantize", "int8_conv_wgmma", "int8_conv_pointwise", "int8_conv_dot")
+    launches = dict.fromkeys(keys, 0)
+    for name in LITE_NETS:
+        net = lite_net(name, "cuda", torch.bfloat16)
+        fwd = forward_fn(net, torch.bfloat16)
+        *_, outs = time_calls(fwd, pool, {}, f"bf16 {name}, 320x640 uint8 frame -> "
+                              "normalize -> net (eval_lite's forward)", card)
+        check_finite(name, outs)
+        shape = tuple(outs[-1].shape)
+        t0 = time.perf_counter()
+        quantize_for_int8_conv(net, 128)
+        calibrate_int8_activation_scales(net, calibration_batches(OUT_HW, "cuda",
+                                                                  torch.bfloat16))
+        torch.cuda.synchronize()
+        routes = LITE_INT8[name]
+        convs = int8_conv_count(net)
+        print(f"int8 {name} build (quantize at min_channels 128, calibrate on 4 noise "
+              f"batches of 2): {time.perf_counter() - t0:.1f} s, {convs} int8 convs")
+        if convs != sum(routes.values()):
+            raise AssertionError(f"{name}: {convs} int8 convs, expected {routes}")
+        three = routes["wgmma"] + routes["splitk"]
+        expected = {"int8_conv": convs, "int8_quantize": three, "int8_conv_wgmma": three,
+                    "int8_conv_splitk": routes["splitk"],
+                    "int8_conv_pointwise": routes["pointwise"], "int8_conv_dot": routes["dot"],
+                    "int8_conv_mma": 0}
+        *_, counts, outs = time_calls(fwd, pool, expected, f"int8 {name} (min_channels 128; "
+                                      f"per frame {routes})", card)
+        check_finite(name, outs)
+        if tuple(outs[-1].shape) != shape:
+            raise AssertionError(f"{name}: int8 output {tuple(outs[-1].shape)}, bf16 {shape}")
+        for k in keys:
+            launches[k] += counts[k]
+        check_int8_convs(name, net, lambda: fwd(pool[0]), convs, LITE_INT8_SHAPES)
+        del net, outs
+        torch.cuda.empty_cache()
+    del pool
+    g = torch.Generator().manual_seed(SEED + 31)
+    worst = check_int8_kernels(g, LITE_SHAPES)
+    time_int8_shapes(g, card, LITE_INT8_SHAPES, "the Lite nets' new shapes (one frame of each "
+                                                "net)")
+    return launches, worst
+
+
+def phase_lite_cli(card):
+    """Phase 28: the CLI, export/eval_lite.py::main on SceneSegLite at
+    320x640, --synthetic 4 --bench, in bf16 and with --int8, the counts set
+    to 0 just before each and read just after: no kernel launch in bf16,
+    and in int8 each int8 conv once a frame (4 calibration batches, 4
+    samples, WARM + 120 timed frames). -> the int8 launches."""
+    from autoware_vision_pilot_tpu_torch.export import eval_lite
+
+    config = str(REPO / "configs" / "SceneSegLite.yaml")
+    routes = LITE_INT8["SceneSegLite"]
+    calls = 4 + 4 + eval_lite.WARM + 120
+    three = routes["wgmma"] + routes["splitk"]
+    expected = {"int8_conv": sum(routes.values()), "int8_quantize": three,
+                "int8_conv_wgmma": three, "int8_conv_splitk": routes["splitk"],
+                "int8_conv_pointwise": routes["pointwise"], "int8_conv_dot": routes["dot"],
+                "int8_conv_mma": 0}
+    for extra in ([], ["--int8"]):
+        torch.cuda.synchronize()
+        reset_counts()
+        summary = eval_lite.main(["--config", config, "--synthetic", "4", "--bench",
+                                  "--dtype", "bf16", *extra])
+        counts = read_counts()
+        expect_launches(counts, NO_KERNELS | ({k: v * calls for k, v in expected.items()}
+                                              if extra else {}))
+        if not (summary["samples"] == 4 and np.isfinite(summary["miou"])
+                and summary["device_ms_per_frame"] > 0 and summary["card"] == card):
+            raise AssertionError(f"eval_lite {' '.join(extra)}: summary {summary}")
+        print(f"eval_lite SceneSegLite bf16 {' '.join(extra)} --synthetic 4 --bench, {card}: "
+              f"p50 {summary['device_ms_per_frame']!r} ms, p99 {summary['device_ms_p99']!r} "
+              f"ms, {summary['device_fps']!r} frames/s; launches {counts}")
+    return {k: counts[k] for k in ("int8_quantize", "int8_conv_wgmma", "int8_conv_pointwise",
+                                   "int8_conv_dot")}
+
+
 def host_costs_of(root):
     """--host-costs ROOT: phase 7's host-cost measurement alone, over the
     port package found in ROOT (this repository, or an earlier commit of it
@@ -2774,6 +3025,14 @@ def main():
     paths["clip"] = {"fused_preprocess": timed(24, phase_clip, card)}
     timed(25, phase_steer2_drive, card)
     print(f"wall time of phases 19-25 (s): {walls}, {sum(walls.values()):.1f} s in all")
+    # the Lite family (models/lite, export/eval_lite.py)
+    walls.clear()
+    timed(26, phase_lite_f32)
+    paths["Lite nets"], worst = timed(27, phase_lite, card)
+    for name, err in worst.items():
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    paths["Lite CLI"] = timed(28, phase_lite_cli, card)
+    print(f"wall time of phases 26-28 (s): {walls}, {sum(walls.values()):.1f} s in all")
     for path, counts in paths.items():
         for name, n in counts.items():
             if n <= 0 and name != "int8_conv_mma":

@@ -18,7 +18,7 @@ from autoware_vision_pilot_tpu_torch.models.efficientnet import B0_DRYRUN_STAGES
 from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
 from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
     _launch, _mma_plan, int8_conv, int8_conv2d, int8_conv_plain, int8_conv_plan, int8_quantize,
-    int8_quantize_plain)
+    int8_quantize_plain, padded_channels)
 from autoware_vision_pilot_tpu_torch.ops.kernels import (lane_filter_kernel, nms_kernel,
                                                         preprocess_kernel)
 from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
@@ -980,6 +980,13 @@ def test_int8_min128_shapes_match_plain_version(cuda, k, cin, cout, h, w):
     route = int8_conv_plan(1, h, w, cin, cout, k, k, k // 2, sm_count()).route
     assert route == ("dot" if h * w == 1 else "pointwise" if k == 1
                      else "splitk" if h * w == 200 else "wgmma")
+    hold_int8_shape(cuda, k, cin, cout, h, w, route)
+
+
+def hold_int8_shape(cuda, k, cin, cout, h, w, route):
+    """int32 accumulators and bf16/f32 outputs of one int8 conv shape
+    bit-equal to the plain versions, through int8_conv and int8_conv2d,
+    scalar and per-input-channel scales, all on ``route``."""
     g = torch.Generator().manual_seed(cin * cout + k)
     x = torch.randn(1, cin, h, w, generator=g) * torch.linspace(0.5, 2.0, cin).reshape(1, -1, 1, 1)
     wq = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
@@ -1005,6 +1012,25 @@ def test_int8_min128_shapes_match_plain_version(cuda, k, cin, cout, h, w):
             assert y.is_contiguous(memory_format=CL) and tuple(y.shape) == (1, cout, h, w)
             assert torch.equal(y, want) and torch.equal(y2d, want)
     assert int8_conv.route_launches[route] == before + 12
+
+
+# (cin, cout) of UNet++'s 3x3 int8 convs whose C is not a multiple of 128
+# (chip_smoke.py::LITE_SHAPES): the last 128-channel K step is partial, and
+# 136, 152, 216 and 344 are padded to a multiple of 16 by int8_conv
+LITE_3X3 = ((136, 64), (152, 64), (216, 128), (344, 128), (416, 256), (432, 32),
+            (672, 256), (928, 256))
+LITE_CARD = [(cin, cout, 10, 20) for cin, cout in LITE_3X3] + [
+    (216, 128, 80, 160), (344, 128, 80, 160)]  # their own shape, on the wgmma route
+
+
+@pytest.mark.parametrize("cin,cout,h,w", LITE_CARD,
+                         ids=[f"3x3-{c}-{n}-{h}x{w}" for c, n, h, w in LITE_CARD])
+def test_int8_lite_3x3_shapes_match_plain_version(cuda, cin, cout, h, w):
+    """UNet++'s 3x3 convs with C % 128 != 0 at a small M (10x20: split-K)
+    and 216/344 -> 128 at 80x160 (wgmma)."""
+    route = int8_conv_plan(1, h, w, padded_channels(cin), cout, 3, 3, 1, sm_count()).route
+    assert route == ("splitk" if h * w == 200 else "wgmma")
+    hold_int8_shape(cuda, 3, cin, cout, h, w, route)
 
 
 SMALL = dict(input_hw=(64, 128))
