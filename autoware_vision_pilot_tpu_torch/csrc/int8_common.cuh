@@ -70,6 +70,36 @@ __device__ __forceinline__ uint32_t quantize4_rcp(const float* v, const double* 
   return word;
 }
 
+// quantize4_rcp's word again, through a path in f32 that gives the same
+// values wherever it clears `exact` for none of them (the caller then
+// takes quantize4_rcp for the word). With r32
+// = RN32(r): y = RN32(v * r32) lies within |y| * 2^-22.3 of RN32(v / s)
+// (two f32 roundings of the product, one of 1/s, one of r), so where y
+// lies farther than |y| * 2^-21 from every half-integer (a test that fails
+// from |y| >= 2^20), RN32(v / s) rounds to the same integer as y (half to
+// even decides no tie there), which y + 1.5 * 2^23 holds in the low bits
+// of its f32 pattern. NaN, infinities and the values near a half-integer (about
+// |y| * 2^-20 of every unit) clear `exact`. Every product and sum
+// is rounded alone (__fmul_rn, __fadd_rn: never an FMA).
+// tests/test_torch_int8_pointwise.py replays it on the CPU.
+__device__ __forceinline__ uint32_t quantize4_fast_path(const float* v, const float* r32,
+                                                        bool& exact) {
+  constexpr float MAGIC = 12582912.f;  // 1.5 * 2^23
+  uint32_t word = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float y = __fmul_rn(v[j], r32[j]);
+    const float m = __fadd_rn(y, MAGIC);
+    const float fr = __fsub_rn(y, __fsub_rn(m, MAGIC));
+    // |fr| below 0.5 - |y| * 2^-21 (the product exact, one rounding): also
+    // false from |y| >= 2^20, and for NaN and infinities
+    exact = exact & (fabsf(fr) < __fmaf_rn(fabsf(y), -0x1p-21f, 0.5f));
+    const int q = min(max(__float_as_int(m) - 0x4B400000, -127), 127);
+    word |= (uint32_t)(q & 0xff) << (8 * j);
+  }
+  return word;
+}
+
 // A 16-byte copy from global to shared memory that bypasses the registers
 // (cp.async.cg); with valid false it writes 16 zeros and reads nothing.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -191,52 +221,28 @@ __device__ __forceinline__ Column column(const Epilogue& e, int n) {
   return c;
 }
 
+// One output value of column c's factors, f32 (out_kind 0) or bf16 (1).
+__device__ __forceinline__ float f32_out(const Epilogue& e, const Column& c, int acc) {
+  const float y = __fmul_rn(__int2float_rn(acc), c.dq);
+  return e.bias ? __fadd_rn(y, c.b) : y;
+}
+
+__device__ __forceinline__ __nv_bfloat16 bf16_out(const Epilogue& e, const Column& c, int acc) {
+  __nv_bfloat16 yb = __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc), c.dq));
+  if (e.bias) yb = __float2bfloat16_rn(__fadd_rn(__bfloat162float(yb), c.b));
+  return yb;
+}
+
 __device__ __forceinline__ void store_out(const Epilogue& e, int m, int n, const Column& c,
                                           int acc) {
   const long long i = (long long)m * e.N + n;
-  const float y = __fmul_rn(__int2float_rn(acc), c.dq);
   if (e.out_kind == 2) {
     static_cast<int*>(e.out)[i] = acc;
   } else if (e.out_kind == 0) {
-    static_cast<float*>(e.out)[i] = e.bias ? __fadd_rn(y, c.b) : y;
+    static_cast<float*>(e.out)[i] = f32_out(e, c, acc);
   } else {
-    __nv_bfloat16 yb = __float2bfloat16_rn(y);
-    if (e.bias) yb = __float2bfloat16_rn(__fadd_rn(__bfloat162float(yb), c.b));
-    static_cast<__nv_bfloat16*>(e.out)[i] = yb;
+    static_cast<__nv_bfloat16*>(e.out)[i] = bf16_out(e, c, acc);
   }
-}
-
-// Two neighbouring outputs (n, n + 1) of row m with their columns' factors:
-// one vector store when both lie inside N and the pair is aligned (N
-// even), else one by one.
-__device__ __forceinline__ void store_pair(const Epilogue& e, int m, int n, const Column& c0,
-                                           const Column& c1, int a0, int a1) {
-  if (n + 1 < e.N && (e.N & 1) == 0 && e.out_kind != 2) {
-    const long long i = (long long)m * e.N + n;
-    const float y0 = __fmul_rn(__int2float_rn(a0), c0.dq);
-    const float y1 = __fmul_rn(__int2float_rn(a1), c1.dq);
-    if (e.out_kind == 0) {
-      *reinterpret_cast<float2*>(static_cast<float*>(e.out) + i) =
-          e.bias ? make_float2(__fadd_rn(y0, c0.b), __fadd_rn(y1, c1.b)) : make_float2(y0, y1);
-    } else {
-      __nv_bfloat162 v;
-      v.x = __float2bfloat16_rn(y0);
-      v.y = __float2bfloat16_rn(y1);
-      if (e.bias) {
-        v.x = __float2bfloat16_rn(__fadd_rn(__bfloat162float(v.x), c0.b));
-        v.y = __float2bfloat16_rn(__fadd_rn(__bfloat162float(v.y), c1.b));
-      }
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(e.out) + i) = v;
-    }
-    return;
-  }
-  if (n + 1 < e.N && (e.N & 1) == 0) {
-    *reinterpret_cast<int2*>(static_cast<int*>(e.out) + (long long)m * e.N + n) =
-        make_int2(a0, a1);
-    return;
-  }
-  if (n < e.N) store_out(e, m, n, c0, a0);
-  if (n + 1 < e.N) store_out(e, m, n + 1, c1, a1);
 }
 
 }  // namespace avp

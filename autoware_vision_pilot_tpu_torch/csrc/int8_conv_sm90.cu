@@ -59,17 +59,18 @@
 // Split-K with int32 atomic adds into one zeroed (M, N) sum that the last
 // split reads back was slower at the 20x40 shapes and no faster at 10x20.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 #include "int8_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using avp::MAX_DEVICES;
+using namespace avp::sm90;
 constexpr int BM = 128, BN = 128, BK = 128;
 constexpr int A_STAGE = BM * BK, B_STAGE = BN * BK;  // bytes
 constexpr int THREADS = 384;        // producer + 2 consumers
@@ -89,111 +90,6 @@ struct WgArgs {
   int M, OH, OW, pad, KW, nc, th, tw, tiles_h, tiles_w, iters, per_split, splits;
   int m_tiles, n_tiles, units;  // units = m_tiles * n_tiles * splits
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Waits for the phase; a wait of more than 10 s (a TMA copy that never
-// lands) traps, so a fault ends the launch with an error, not a hang.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(bar, parity)) {
-    if (global_ns() - t0 > 10000000000ull) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2,
-                                            int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor: K-major, 128-byte swizzle, rows of 128
-// bytes in groups of 8 (1024 bytes apart). The tile base is 1024-aligned;
-// a step of 32 bytes along K adds 2 to the address field.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
-  d |= (uint64_t)1 << 16;            // leading byte offset (unused: swizzled K-major)
-  d |= (uint64_t)(1024 >> 4) << 32;  // stride byte offset: 8 rows
-  d |= (uint64_t)1 << 62;            // 128-byte swizzle
-  return d;
-}
-
-__device__ __forceinline__ void fence_acc(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
-      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
-      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
-      "%61, %62, %63}, %64, %65, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
-        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
-        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
-        "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
-        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]),
-        "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),
-        "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
-        "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 // One unit of work: an output tile and a split of K. Units are numbered
 // with the N tile fastest, so blocks that run at once share the input tile.
@@ -290,18 +186,18 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(full(s), (i / STAGES) & 1);
         const uint64_t da = smem_desc(a_base + s * A_STAGE + ci * 64 * BK);
         const uint64_t db = smem_desc(b_base + s * B_STAGE);
-        fence_acc(acc);
-        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 32; ++kk) wgmma_m64n128k32(acc, da + 2 * kk, db + 2 * kk);
-        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-        fence_acc(acc);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(acc);
         if (prev >= 0) mbar_arrive(empty(prev));
         prev = s;
       }
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      fence_acc(acc);
+      wgmma_wait<0>();
+      fence_regs(acc);
       if (prev >= 0) mbar_arrive(empty(prev));
 
       // Accumulator layout of m64nNk32 (per warp w of the warpgroup, lane
@@ -388,66 +284,20 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// ------------------------------------------------------------------- host
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-constexpr int ENCODE_FAILED = 100000;  // + the CUresult
-
-// A 4-D map of int8 bytes, dims innermost first, dense strides, 128-byte
-// swizzle, zeros outside the tensor.
-int encode_4d(CUtensorMap* map, const void* ptr, const uint64_t (&dims)[4],
-              const uint32_t (&box)[4]) {
-  const EncodeTiled fn = encoder();
-  if (!fn) return ENCODE_FAILED + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t gdim[4] = {dims[0], dims[1], dims[2], dims[3]};
-  const cuuint64_t gstride[3] = {dims[0], dims[0] * dims[1],
-                                 dims[0] * dims[1] * dims[2]};
-  const cuuint32_t bdim[4] = {box[0], box[1], box[2], box[3]};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(ptr),
-                        gdim, gstride, bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
-}
-
-
 }  // namespace
 
 // The weights' tensor map, encoded once per weight by the wrapper, which
-// keeps the 128 bytes written to map_out beside the weight.
-// w: (N, KH, KW, C) int8, 16-byte aligned, C a multiple of 16. Returns 0,
-// or 100000 + the driver's CUresult.
+// keeps the 128 bytes written to map_out beside the weight: boxes of 128
+// channels x box_n output channels (128 on the wgmma routes, the plan's N
+// tile on the pointwise route). w: (N, KH, KW, C) int8, 16-byte aligned, C
+// a multiple of 16. Returns 0, or 100000 + the driver's CUresult.
 extern "C" int avp_int8_weight_map(const void* w, int N, int KH, int KW, int C,
-                                   void* map_out) {
-  if (N <= 0 || KH <= 0 || KW <= 0 || C <= 0 || C % 16)
+                                   int box_n, void* map_out) {
+  if (N <= 0 || KH <= 0 || KW <= 0 || C <= 0 || C % 16 || box_n <= 0 || box_n > 256)
     return (int)cudaErrorInvalidValue;
   if ((uintptr_t)w % 16) return (int)cudaErrorMisalignedAddress;
   alignas(64) CUtensorMap map;
-  const int err = encode_4d(&map, w, {(uint64_t)C, (uint64_t)KW, (uint64_t)KH, (uint64_t)N},
-                            {(uint32_t)BK, 1u, 1u, (uint32_t)BN});
+  const int err = encode_weights(&map, w, N, KH, KW, C, box_n);
   if (err == 0) memcpy(map_out, &map, sizeof(map));
   return err;
 }
@@ -508,8 +358,9 @@ extern "C" int avp_int8_conv_wgmma(const void* xq, const void* w_map,
   a.M = (int)M;
 
   alignas(64) CUtensorMap map_x, map_w;
-  const int err = encode_4d(&map_x, xq, {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)B},
-                            {(uint32_t)BK, (uint32_t)tw, (uint32_t)th, 1u});
+  const uint64_t dims[4] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+  const uint32_t box[4] = {(uint32_t)BK, (uint32_t)tw, (uint32_t)th, 1u};
+  const int err = encode(&map_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 4, xq, dims, box);
   if (err) return err;
   memcpy(&map_w, w_map, sizeof(map_w));
 

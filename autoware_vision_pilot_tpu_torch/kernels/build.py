@@ -37,18 +37,20 @@ SIGNATURES = {
     # xq, w, w_scale, x_scale, bias, out, B, H, W, C, N, KH, KW, pad,
     # out_kind, bm, grid_x, grid_y, stream
     "avp_int8_conv_mma": (_P,) * 6 + (_I,) * 12 + (_P,),
-    # w, N, KH, KW, C, map_out
-    "avp_int8_weight_map": (_P,) + (_I,) * 4 + (_P,),
+    # w, N, KH, KW, C, box_n, map_out
+    "avp_int8_weight_map": (_P,) + (_I,) * 5 + (_P,),
     # xq, w_map, w_scale, x_scale, bias, out, ws, B, H, W, C, N, KH, KW,
     # pad, out_kind, th, tw, m_tiles, n_tiles, splits, per_split, blocks,
     # stream
     "avp_int8_conv_wgmma": (_P,) * 7 + (_I,) * 16 + (_P,),
+    # x, in_kind, scale, rcp, per_channel, w_map, w_scale, bias, out, M, C,
+    # N, out_kind, bm, bn, m_tiles, n_tiles, cs, k_per_rank, stream
+    "avp_int8_conv_pointwise": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 10 + (_P,),
     # x, in_kind, scale, rcp, per_channel, w, w_scale, bias, out, M, C, N,
-    # out_kind, bm, m_tiles, n_tiles, cs, k_per_rank, stream
-    "avp_int8_conv_pointwise": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 9 + (_P,),
-    # x, in_kind, scale, rcp, per_channel, w, w_scale, bias, out, M, C, N,
-    # out_kind, stream
-    "avp_int8_conv_dot": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 4 + (_P,),
+    # out_kind, lanes, stream
+    "avp_int8_conv_dot": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 5 + (_P,),
+    # stamps (a build with -DAVP_PW_STAMPS; else cudaErrorNotSupported)
+    "avp_int8_pointwise_set_stamps": (_P,),
     # blocks, threads, cluster, stream
     "avp_launch_floor": (_I, _I, _I, _P),
     # masks, weights, starts, N, H, W, stamps, stream

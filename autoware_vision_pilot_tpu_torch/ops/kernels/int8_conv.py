@@ -15,9 +15,11 @@ launches:
   ``int8_conv_plan`` picks one of five routes: "wgmma" (TMA loads and
   wgmma on 128x128 tiles), "splitk" (the same kernel over slices of K; the
   split that finishes a tile last runs its epilogue), "pointwise" (1x1
-  convs: mma.sync, K split over the blocks of a cluster), "dot" (1x1 convs
-  of at most 8 pixels, the M = 1 SE convs: one warp per output channel)
-  and "mma" (mma.sync, for windows larger than 1x1 with C < 128).
+  convs: TMA loads, the quantize into wgmma's register A fragments, K
+  split over the blocks of a cluster), "dot" (1x1 convs of at most 8
+  pixels, the M = 1 SE convs: a lane per 16 channels of an output
+  channel) and "mma" (mma.sync, for windows larger than 1x1 with C <
+  128).
   ``int8_conv.launches`` counts every conv launch;
   ``int8_conv.route_launches`` counts them by route.
 
@@ -55,12 +57,23 @@ FUSED_ROUTES = ("pointwise", "dot")  # they take a float input and quantize it
 _IN_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 TILE = 128      # the wgmma route's BM = BN = BK (csrc/int8_conv_sm90.cu)
 MMA_BK = 64     # the mma.sync route's K step (csrc/int8_conv.cu)
-PW_BN = 64      # the pointwise route's output channels a tile (csrc/int8_pointwise.cu)
-PW_BK = 32      # its K ranges are multiples of 32 channels, one mma.sync k
+PW_WIDTHS = (64, 128, 192, 256)  # the pointwise route's N tiles (csrc/int8_pointwise.cu)
+PW_BK = 16      # its K ranges are multiples of 16 channels (a TMA box starts on 16 bytes)
+PW_STEP = 128   # its K step: 128 channels, one 128-byte row of an int8 TMA box
+PW_MIN_RANGE = 64  # the fewest channels of a cluster rank's K range
+# the pointwise plan's cost model, from the kernel's stage split on the H100
+# (chip_smoke.py --parent): ns a value each consumer thread quantizes, and
+# ns a byte of the int32 partial tile a cluster rank hands the others
+PW_QUANTIZE_NS = 25.0
+PW_REDUCE_NS_PER_BYTE = 0.06
 MAX_CLUSTER = 8  # the portable thread-block cluster size
+GPCS = 8        # an H100 SXM's GPCs; the blocks of a cluster run in one
 DOT_MAX_M = 8   # the dot route's most output pixels
-DOT_MAX_BYTES = 32 * 1024  # and most int8 activation bytes, held in shared memory
-DOT_WARPS = 8   # its output channels a block
+DOT_MAX_BYTES = 32 * 1024  # and most int8 activation bytes (M * C)
+DOT_THREADS = 128  # its threads a block with at most a warp's lanes a channel
+DOT_GROUPS = 4  # its channels a block with more
+DOT_MAX_WARPS = 4  # and most warps a channel
+DOT_CHUNK = 16  # its lanes take K in chunks of 16 channels, one 16-byte weight load
 MAX_K = 133_144  # 127^2 * K < 2^31: the int32 accumulators cannot overflow
 SMS = 132       # an H100 SXM's SM count; the wrapper passes the card's own
 
@@ -194,11 +207,14 @@ class Int8ConvPlan(NamedTuple):
     (M tile, N tile, split), and each of the ``blocks`` persistent blocks
     takes every blocks-th unit. The mma route tiles M as ``bm`` flat rows
     and K in steps of ``bk`` bytes, one block per tile. The pointwise route
-    tiles M as ``bm`` flat rows and N as ``bn`` channels; the K splits are
-    the blocks of one cluster, and split z takes the channels
-    [z * per_split * bk, (z + 1) * per_split * bk) of the ``iters * bk``;
-    one block per tile and split. The dot route runs ``bn`` output
-    channels a block, ``bm`` = M rows each."""
+    tiles M as ``bm`` flat rows (a consumer warpgroup per 64) and N as
+    ``bn`` channels (bn / 64 wgmmas); the K splits are the blocks of one
+    cluster, and split z takes the channels [z * per_split * bk, (z + 1) *
+    per_split * bk) of the ``iters * bk``, in K steps of PW_STEP; one block
+    per tile and split. The dot route runs ``bn`` output channels a block,
+    ``bm`` = M rows each, over ``iters`` chunks of ``bk`` channels; its K
+    splits are the ``grid[2]`` lanes of a channel, lane z taking chunks z,
+    z + lanes, ... (``per_split`` of them at most)."""
     route: str
     bm: int
     bn: int
@@ -240,12 +256,18 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
       half of the SMs (the thin 20x40 and 10x20 3x3 convs): K is cut into
       up to sms // tiles contiguous ranges of at least 4 steps;
     - "dot" for 1x1 convs without padding of at most DOT_MAX_M output
-      pixels whose int8 activation fits in DOT_MAX_BYTES (the M = 1 SE
-      convs);
-    - "pointwise" for the other 1x1 convs without padding: 64 x 64 or
-      32 x 64 tiles, whichever fills more SMs once each tile's K is split
-      over a cluster of up to 8 blocks, in ranges of at least 64 channels
-      (64 on a tie);
+      pixels whose int8 activation is at most DOT_MAX_BYTES (the M = 1 SE
+      convs): one 16-channel chunk a lane, a power of two of a warp's
+      lanes or up to four warps a channel (the warps add their sums in
+      shared memory behind a barrier of theirs alone);
+    - "pointwise" for the other 1x1 convs without padding: 128-row tiles
+      where 64-row ones would already fill the SMs, else 64-row ones; each
+      tile's K split over a cluster of as many blocks as the SMs hold, up
+      to 8, in ranges of multiples of 16 channels and at least
+      PW_MIN_RANGE, and no larger than lets every cluster run at once
+      (clusters_at_once); and the N tile of PW_WIDTHS whose plan costs least by
+      _pointwise_cost (the quantize a thread against the partial tile a
+      rank hands on, in waves of the SMs);
     - "mma" for the rest (windows larger than 1x1 with C < 128, and a 1x1
       window with padding).
 
@@ -301,26 +323,63 @@ def _mma_plan(M: int, N: int, K: int, sms: int) -> Int8ConvPlan:
 
 def _pointwise_plan(M: int, C: int, N: int, sms: int) -> Int8ConvPlan:
     """The "pointwise" or "dot" plan of a 1x1 conv of M pixels."""
-    units = math.ceil(C / PW_BK)
     if M <= DOT_MAX_M and M * C <= DOT_MAX_BYTES:
-        blocks = math.ceil(N / DOT_WARPS)
-        return Int8ConvPlan("dot", M, DOT_WARPS, PW_BK, (1, blocks, 1), 0, 0,
-                            units, units, blocks)
-    n_tiles = math.ceil(N / PW_BN)
-    if n_tiles > 65535:
+        return _dot_plan(M, C, N)
+    if math.ceil(N / PW_WIDTHS[-1]) > 65535:
         raise ValueError(f"N = {N}: more output channels than the grid holds")
-    best = None
-    for bm in (64, 32):
-        tiles = math.ceil(M / bm) * n_tiles
-        cs = max(1, min(MAX_CLUSTER, sms // tiles, units // 2))
-        per_split = math.ceil(units / cs)
-        cs = math.ceil(units / per_split)  # no rank left without channels
-        fill = min(tiles * cs, sms)
-        if best is None or fill > best[0]:
-            best = (fill, bm, tiles, cs, per_split)
-    _, bm, tiles, cs, per_split = best
-    return Int8ConvPlan("pointwise", bm, PW_BN, PW_BK, (math.ceil(M / bm), n_tiles, cs),
-                        0, 0, units, per_split, tiles * cs)
+    plans = [_pointwise_tiles(M, C, N, bn, sms) for bn in PW_WIDTHS]
+    return min(plans, key=lambda p: (_pointwise_cost(p, sms), p.bn))
+
+
+def _pointwise_tiles(M: int, C: int, N: int, bn: int, sms: int) -> Int8ConvPlan:
+    """The pointwise plan of a 1x1 conv with N tiles of ``bn`` columns."""
+    n_tiles = math.ceil(N / bn)
+    bm = 128 if math.ceil(M / 64) * math.ceil(N / PW_WIDTHS[-1]) >= sms else 64
+    m_tiles = math.ceil(M / bm)
+    tiles = m_tiles * n_tiles
+    units = math.ceil(C / PW_BK)
+    cs = max(1, min(MAX_CLUSTER, sms // tiles, units // (PW_MIN_RANGE // PW_BK)))
+    while cs > 1 and tiles > clusters_at_once(cs, sms):
+        cs -= 1  # every cluster on the card at once
+    per_split = math.ceil(units / cs)
+    cs = math.ceil(units / per_split)  # no rank left without channels
+    return Int8ConvPlan("pointwise", bm, bn, PW_BK, (m_tiles, n_tiles, cs), 0, 0, units,
+                        per_split, tiles * cs)
+
+
+def clusters_at_once(cs: int, sms: int) -> int:
+    """The clusters of ``cs`` blocks (one a SM) a card of ``sms`` SMs runs at
+    once: a cluster runs inside one GPC, and each of the GPCS holds
+    sms // GPCS SMs or more."""
+    return sms if cs == 1 else GPCS * (sms // GPCS // cs)
+
+
+def _pointwise_cost(plan: Int8ConvPlan, sms: int) -> float:
+    """The pointwise plan's time in ns by a model of its two costs that
+    depend on the tiles: each consumer thread quantizes bm * range / 256
+    values, and each rank of a cluster hands the others (cs - 1) / cs of
+    its int32 partial tile through distributed shared memory; blocks run
+    in waves of one per SM."""
+    cs = plan.splits
+    values = plan.bm * plan.per_split * plan.bk / 256
+    handed = (cs - 1) / cs * plan.bm * (plan.bn + 8) * 4
+    waves = math.ceil(plan.blocks / sms)
+    return waves * (values * PW_QUANTIZE_NS + handed * PW_REDUCE_NS_PER_BYTE)
+
+
+def _dot_plan(M: int, C: int, N: int) -> Int8ConvPlan:
+    """The "dot" plan of a 1x1 conv of M <= DOT_MAX_M pixels: one
+    16-channel chunk a lane, up to 128 lanes (four warps) a channel."""
+    chunks = math.ceil(C / DOT_CHUNK)
+    if chunks <= 32:
+        lanes = 1 << max(0, (chunks - 1).bit_length())  # a power of two up to a warp
+        per_block = DOT_THREADS // lanes
+    else:
+        lanes = 32 * min(DOT_MAX_WARPS, math.ceil(chunks / 32))
+        per_block = DOT_GROUPS
+    blocks = math.ceil(N / per_block)
+    return Int8ConvPlan("dot", M, per_block, DOT_CHUNK, (1, blocks, lanes), 0, 0, chunks,
+                        math.ceil(chunks / lanes), blocks)
 
 
 # ---------------------------------------------------------------------- conv
@@ -342,17 +401,19 @@ def int8_conv_plain(xq: torch.Tensor, weight: torch.Tensor,
     return y.contiguous(memory_format=CL)
 
 
-def _weight_map(lib, weight: torch.Tensor, N: int, KH: int, KW: int, C: int) -> bytes:
-    """The weights' 128-byte TMA map, encoded once and kept on the weight
-    tensor itself. The map holds the address and the shape alone, so it is
+def _weight_map(lib, weight: torch.Tensor, N: int, KH: int, KW: int, C: int,
+                box_n: int = TILE) -> bytes:
+    """The weights' 128-byte TMA map (boxes of 128 channels x ``box_n``
+    output channels), encoded once and kept on the weight tensor itself.
+    The map holds the address, the shape and the box alone, so it is
     encoded again only when they change."""
-    key = (weight.data_ptr(), N, KH, KW, C)
+    key = (weight.data_ptr(), N, KH, KW, C, box_n)
     kept = getattr(weight, "_tma_map", None)
     if kept is not None and kept[0] == key:
         return kept[1]
     buf = ctypes.create_string_buffer(128)
     _check_err("avp_int8_weight_map",
-               lib.avp_int8_weight_map(weight.data_ptr(), N, KH, KW, C,
+               lib.avp_int8_weight_map(weight.data_ptr(), N, KH, KW, C, box_n,
                                        ctypes.addressof(buf)))
     weight._tma_map = (key, buf.raw)
     return buf.raw
@@ -464,16 +525,17 @@ def _launch(plan: Int8ConvPlan, x: torch.Tensor, weight: torch.Tensor,
     stream = _raw_stream(x.get_device())
     if plan.route in FUSED_ROUTES:
         rcp = None if x.dtype == torch.int8 else _reciprocal(x_scale)
-        args = (x.data_ptr(), _IN_KIND[x.dtype], x_scale.data_ptr(),
-                None if rcp is None else rcp.data_ptr(), int(x_scale.dim() == 1),
-                weight.data_ptr(), weight_scale.data_ptr(), b_ptr, out.data_ptr(),
-                B * H * W, C, N, kind)
+        head = (x.data_ptr(), _IN_KIND[x.dtype], x_scale.data_ptr(),
+                None if rcp is None else rcp.data_ptr(), int(x_scale.dim() == 1))
+        tail = (weight_scale.data_ptr(), b_ptr, out.data_ptr(), B * H * W, C, N, kind)
+        m_tiles, n_tiles, splits = plan.grid
         if plan.route == "pointwise":
-            m_tiles, n_tiles, cs = plan.grid
-            err = lib.avp_int8_conv_pointwise(*args, plan.bm, m_tiles, n_tiles, cs,
+            w_map = _weight_map(lib, weight, N, 1, 1, C, plan.bn)
+            err = lib.avp_int8_conv_pointwise(*head, w_map, *tail, plan.bm, plan.bn,
+                                              m_tiles, n_tiles, splits,
                                               plan.per_split * plan.bk, stream)
         else:
-            err = lib.avp_int8_conv_dot(*args, stream)
+            err = lib.avp_int8_conv_dot(*head, weight.data_ptr(), *tail, splits, stream)
         _check_err(f"avp_int8_conv_{plan.route}", err)
     elif plan.route == "mma":
         err = lib.avp_int8_conv_mma(

@@ -2,12 +2,15 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent ROOT       # also time the lane-filter walk
-                                              # and NMS kernels of the port in
+    python3 chip_smoke.py --parent ROOT       # also time the lane-filter walk,
+                                              # NMS and int8 1x1 ("pointwise",
+                                              # "dot") kernels of the port in
                                               # ROOT (an earlier commit, from
                                               # git archive) against this
                                               # tree's: parent, this, this,
-                                              # parent
+                                              # parent; the 1x1 kernels' stage
+                                              # splits; phase 8's host costs
+                                              # of ROOT's package in turns
     python3 chip_smoke.py --host-costs ROOT   # phase 7's host costs alone, of
                                               # the package in ROOT
 
@@ -29,7 +32,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              1x1 conv of the main path, a ragged N, a batch of two), bf16
              and f32 outputs, scalar and per-channel scales, through
              int8_conv on the int8 input and int8_conv2d on the float one:
-             quantized values, int32 accumulators and outputs bit-equal.
+             quantized values, int32 accumulators and outputs bit-equal;
+             the pointwise route on plans forced at every N tile, both M
+             tiles and cluster sizes 1-8, and the dot route at M = 1-8, on
+             int8, bf16 and f32 inputs (check_pointwise_variants). With
+             --parent, the parent's 1x1 kernels against this tree's at
+             PARENT_1X1 in turns, and both stage splits at SPLIT_1X1.
              Then every one of the 24 distinct int8 conv shapes of the main
              path, bf16 with a scalar scale, timed over rotating inputs
              that together exceed the 50 MB L2: profiler device time of the
@@ -65,7 +73,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              kernel and route over 20 frames (torch.profiler), and the wgmma kernel's
              at each 3x3 int8 conv of the frame; host time per conv call
              at the 72 int8 layers, int8 against bf16, with both paths'
-             frame latency p50 from the same rounds; then a
+             frame latency p50 from the same rounds (with --parent, then
+             the parent's package, this tree's, this tree's and the
+             parent's, each the same measurement in a fresh process); then a
              few frames against the same modules routed through the plain
              versions (masks >= 99.9 % equal, logits within 1e-2 * max|ref|),
              and the int8-vs-bf16 mask agreement for information (random
@@ -226,7 +236,16 @@ INT8_SHAPES = (
     (1, 672, 100, 9, 13, 1, "pointwise"),  # ragged M and N
     (1, 480, 112, 20, 40, 2, "pointwise"),  # a batch of two
     (1, 1152, 48, 1, 1, 2, "dot"),         # a batch of two SE squeezes
+    (1, 304, 256, 80, 160, 1, "pointwise"),  # 128-row tiles, no split (a Lite 1x1)
+    (1, 144, 24, 80, 160, 1, "pointwise"),   # N = 24 on a 64-wide tile, C % 32 = 16
+    (1, 1280, 256, 20, 40, 1, "pointwise"),  # a 256-wide tile, a cluster of 8
+    (1, 480, 21, 1, 1, 5, "dot"),          # M = 5, a ragged N
+    (1, 1152, 48, 1, 1, 8, "dot"),         # M = 8
 )
+# (bm, bn, cluster size) forced on the pointwise route by check_pointwise_variants,
+# at M = 117, C = 1152, N = 100: every N tile, both M tiles, every cluster size
+PW_VARIANTS = tuple((bm, bn, cs) for bn in (64, 128, 192, 256) for bm in (64, 128)
+                    for cs in (1, 8)) + tuple((64, 128, cs) for cs in range(2, 8))
 CONV_KERNEL = {"wgmma": "int8_conv_wgmma", "splitk": "int8_conv_wgmma", "mma": "int8_conv_mma",
                "pointwise": "int8_conv_pointwise", "dot": "int8_conv_dot"}
 # (window, cin, cout, h, w, convs per frame): the 24 distinct int8 convs of
@@ -518,6 +537,61 @@ def check_int8_kernels(g, shapes=None):
     return worst
 
 
+def check_pointwise_variants(g):
+    """The pointwise route on every plan PW_VARIANTS forces through
+    _launch (a ragged 117 x 1152 -> 100 conv), and the dot route at M =
+    1-8 (1152 -> 21): int8, bf16 and f32 inputs, scalar and per-channel
+    scales; int32 accumulators and outputs in the input's type (bf16 for
+    int8) bit-equal to the plain versions. -> worst error by kernel."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
+        PW_BK, _launch, int8_conv_plain, int8_conv_plan, int8_quantize_plain)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = {"int8_conv_pointwise": 0.0, "int8_conv_dot": 0.0}
+    cases = []
+    base = int8_conv_plan(1, 9, 13, 1152, 100, 1, 1, 0, sms)
+    for bm, bn, cs in PW_VARIANTS:
+        per = math.ceil(1152 / PW_BK / cs)
+        grid = (math.ceil(117 / bm), math.ceil(100 / bn), math.ceil(1152 / PW_BK / per))
+        cases.append(((1, 1152, 100, 9, 13), base._replace(
+            bm=bm, bn=bn, grid=grid, per_split=per, blocks=math.prod(grid))))
+    for batch in range(1, 9):
+        cases.append(((batch, 1152, 21, 1, 1), int8_conv_plan(batch, 1, 1, 1152, 21, 1, 1, 0, sms)))
+    for (batch, cin, cout, h, w), plan in cases:
+        x = torch.randn(batch, cin, h, w, generator=g) * torch.linspace(0.5, 2.0, cin).reshape(1, -1, 1, 1)
+        wq = torch.randint(-127, 128, (cout, cin, 1, 1), generator=g,
+                           dtype=torch.int8).contiguous(memory_format=CL).cuda()
+        ws = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).cuda()
+        for scale in (torch.tensor(float(x.abs().max()) * 0.9 / 127.0),
+                      (x.double().abs().amax(dim=(0, 2, 3)) / 127.0).float()):
+            sx = scale.cuda()
+            for dtype in (torch.int8, torch.bfloat16, torch.float32):
+                xf = x.to(torch.float32 if dtype == torch.int8 else dtype).contiguous(
+                    memory_format=CL).cuda()
+                xq = int8_quantize_plain(xf, sx)
+                xin = xq if dtype == torch.int8 else xf
+                out = torch.bfloat16 if dtype == torch.int8 else dtype
+                bias = (torch.randn(cout, generator=g) * 0.1).to(out).cuda()
+                acc = _launch(plan, xin, wq, ws, sx, None, 0, torch.int32)
+                y = _launch(plan, xin, wq, ws, sx, bias, 0, out)
+                torch.cuda.synchronize()
+                want = int8_conv_plain(xq, wq, ws, sx, bias, 0, out)
+                acc_err = (acc.long() - int8_conv_plain(xq, wq, ws, sx, None, 0, torch.int32)
+                           .long()).abs().max().item()
+                err = (y.float() - want.float()).abs().max().item()
+                if acc_err or not torch.equal(y, want):
+                    raise AssertionError(f"{plan.route} bm {plan.bm} bn {plan.bn} grid {plan.grid}"
+                                         f" at M {batch * h * w}, {dtype} input: accumulators off by "
+                                         f"{acc_err}, output by {err}")
+                name = "int8_conv_" + plan.route
+                worst[name] = max(worst[name], err)
+    print(f"int8 1x1 plans forced: pointwise at {len(PW_VARIANTS)} (bm, bn, cluster) variants "
+          f"of 117 x 1152 -> 100 and the dot at M = 1-8 (1152 -> 21), int8, bf16 and f32 "
+          f"inputs, scalar and per-channel scales: int32 accumulators and outputs bit-equal "
+          f"(max_abs_err {worst}; tol 0)")
+    return worst
+
+
 def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
     """The int8 conv shapes of ``table`` (by default the 24 of the main
     path), bf16 with a scalar scale, each timed over rotating inputs (and
@@ -693,6 +767,8 @@ def phase_int8_kernels(card):
     times; -> the JSON records of the int8 kernels."""
     g = torch.Generator().manual_seed(SEED + 4)
     worst = check_int8_kernels(g)
+    for name, err in check_pointwise_variants(g).items():
+        worst[name] = max(worst[name], err)
     records = time_int8_shapes(g, card)
     return {name: dict(max_abs_err=worst[name], **rec) for name, rec in records.items()}
 
@@ -1001,7 +1077,7 @@ def host_costs(bf16_pipe, int8_pipe, pool, card):
           f"ratio {p50['int8'] / p50['bf16']!r} (CUDA events, the same rounds)")
 
 
-def phase_int8(card, bf16_pipe):
+def phase_int8(card, bf16_pipe, parent_root=None):
     from autoware_vision_pilot_tpu_torch.export.quantize import int8_conv_count
     from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused
 
@@ -1024,6 +1100,14 @@ def phase_int8(card, bf16_pipe):
     check_convs_on_path(pipe, pool[0])
     profile_frames(pipe, pool, card)
     host_costs(bf16_pipe, pipe, pool, card)
+    if parent_root is not None:
+        # the same measurement of each package in a fresh process (a long
+        # process's host times drift): parent, this, this, parent
+        for turn, root in (("parent", parent_root), ("this tree", str(REPO)),
+                           ("this tree", str(REPO)), ("parent", parent_root)):
+            print(f"host costs, turn of {turn}:", flush=True)
+            subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--host-costs", root],
+                           check=True)
 
     # the same modules with the int8 convs routed to the plain versions
     modules = int8_modules(pipe)
@@ -1146,34 +1230,68 @@ def walk_equal(masks, name):
     return err
 
 
-def parent_kernels(root):
-    """--parent ROOT: the lane-filter walk and NMS entry points of the port
-    in ROOT (an earlier commit unpacked with git archive), compiled from its
-    csrc/ with its own flags into ROOT/build/parent_kernels/ and bound with
-    its own C signatures. -> (walk(masks), nms(top, kw), each allocating
-    its outputs as this tree's wrappers do; and the stamped copies of
-    stamped_parent, where the parent's kernels have no stamps), or None
-    without ROOT."""
-    if root is None:
-        return None
-    import ctypes
+def tree_build(root):
+    """kernels/build.py of the port in ROOT, loaded as a module of its own."""
     import importlib.util
 
     pkg = pathlib.Path(root).resolve() / "autoware_vision_pilot_tpu_torch"
-    spec = importlib.util.spec_from_file_location("parent_build", pkg / "kernels" / "build.py")
+    spec = importlib.util.spec_from_file_location(f"build_of_{abs(hash(str(pkg)))}",
+                                                  pkg / "kernels" / "build.py")
     pb = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(pb)
-    out = pkg.parent / "build" / "parent_kernels"
-    out.mkdir(parents=True, exist_ok=True)
-    objs = [out / f"{n}.o" for n in ("lane_filter", "nms")]
-    pb._run_all([[pb._nvcc(), *pb.NVCC_FLAGS, "-I", str(pkg / "csrc"), "-c", "-o", str(o),
-                  str(pkg / "csrc" / f"{o.stem}.cu")] for o in objs])
-    lib_path = out / "libparent.so"
+    return pkg, pb
+
+
+def build_library(pb, csrc, sources, lib_path, defines=()):
+    """``sources`` compiled with the flags of ``pb`` (a tree's kernels/build.py),
+    one nvcc each, all at once, and linked into ``lib_path``. -> the CDLL,
+    its entry points declared with that tree's C signatures."""
+    import ctypes
+
+    objs = [lib_path.with_name(f"{lib_path.stem}_{src.stem}.o") for src in sources]
+    pb._run_all([[pb._nvcc(), *pb.NVCC_FLAGS, *defines, "-I", str(csrc), "-c", "-o", str(o),
+                  str(src)] for src, o in zip(sources, objs)])
     pb._run_all([[pb._nvcc(), *pb.NVCC_FLAGS, "-shared", "-o", str(lib_path), *map(str, objs)]])
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("avp_lane_filter_walk", "avp_nms_greedy"):
-        getattr(lib, name).argtypes = pb.SIGNATURES[name]
-        getattr(lib, name).restype = ctypes.c_int
+    for name, argtypes in pb.SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def int8_wrapper_of(pkg, lib):
+    """ops/kernels/int8_conv.py of the port in ``pkg`` as a module of its
+    own whose kernels come from ``lib`` (its launch counts apart from this
+    tree's): int8_conv2d through another tree's wrapper and plan."""
+    import types
+
+    path = pkg / "ops" / "kernels" / "int8_conv.py"
+    text = path.read_text().replace("from ...kernels import build\n", "")
+    mod = types.ModuleType(f"int8_conv_of_{abs(hash((str(pkg), id(lib))))}")
+    mod.build = types.SimpleNamespace(load=lambda: lib)
+    exec(compile(text, str(path), "exec"), mod.__dict__)
+    return mod
+
+
+def parent_kernels(root):
+    """--parent ROOT: the lane-filter walk, NMS and int8 1x1 conv entry
+    points of the port in ROOT (an earlier commit unpacked with git
+    archive), compiled from its csrc/ with its own flags into
+    ROOT/build/parent_kernels/ and bound with its own C signatures. ->
+    (walk(masks), nms(top, kw), each allocating its outputs as this tree's
+    wrappers do; the stamped copies of stamped_parent, where the parent's
+    kernels have no stamps; the parent's int8_conv module over its own
+    kernels; and its 1x1 kernels stamped as PARENT_PW_STAMPS says), or None
+    without ROOT."""
+    if root is None:
+        return None
+    pkg, pb = tree_build(root)
+    out = pkg.parent / "build" / "parent_kernels"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = build_library(pb, pkg / "csrc", [pkg / "csrc" / f"{n}.cu" for n in (
+        "lane_filter", "nms", "int8_pointwise")], out / "libparent.so")
     # the walk: 6 arguments (no stamps), 7 (stamps), 8 (a batch of N streams);
     # NMS: 13 (no cluster size, no stamps), 15, 16 (a batch of N streams)
     walk_args = len(pb.SIGNATURES["avp_lane_filter_walk"])
@@ -1210,7 +1328,8 @@ def parent_kernels(root):
         return outs
 
     print(f"parent kernels built from {pkg}")
-    return walk, nms, stamped_parent(pkg, pb, out) if walk_args == 6 else None
+    return (walk, nms, stamped_parent(pkg, pb, out) if walk_args == 6 else None,
+            int8_wrapper_of(pkg, lib), stamped_pointwise(pkg, pb, out, PARENT_PW_STAMPS))
 
 
 # Stage stamps for the parent's kernels when they have none of their own (the
@@ -1272,6 +1391,202 @@ def stamped_parent(pkg, pb, out):
             raise RuntimeError("could not set the stamped parent's stamp buffer")
         libs[src] = (lib, stamps)
     return libs
+
+
+# Stage stamps for the parent's 1x1 kernels when they have none of their own
+# (the mma.sync pointwise and shared-memory dot): [(anchor, text put
+# before it)], each anchor found once in its int8_pointwise.cu. Thread 0 of
+# each block adds up its SM clocks by stage and writes 8 words a block, as
+# this tree's kernels do when built with -DAVP_PW_STAMPS: the first and
+# last %globaltimer, the clocks in all, then the stages (pointwise: load
+# wait, quantize, MMA, staging and the cluster barrier, epilogue; dot: the
+# activation quantized into shared memory and the barrier, the weights and
+# sums, the shuffles and stores).
+PW_STAMP_STRUCT = """__device__ unsigned long long* g_stamps;
+struct PwStamps {
+  unsigned long long g0;
+  long long c0, t, c[5];
+  __device__ __forceinline__ void start() {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
+    c0 = t = clock64();
+    for (int i = 0; i < 5; ++i) c[i] = 0;
+  }
+  __device__ __forceinline__ void lap(int i) {
+    const long long now = clock64();
+    c[i] += now - t;
+    t = now;
+  }
+  __device__ __forceinline__ void write() {
+    if (!g_stamps || threadIdx.x != 0) return;
+    unsigned long long* o = g_stamps + 8 * (blockIdx.y * gridDim.x + blockIdx.x);
+    unsigned long long g1;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+    o[0] = g0;
+    o[1] = g1;
+    o[2] = (unsigned long long)(clock64() - c0);
+    for (int i = 0; i < 5; ++i) o[3 + i] = (unsigned long long)c[i];
+  }
+};
+
+"""
+PARENT_PW_STAMPS = [
+    ("// One block: a BM x BN output tile and the K range [k_begin, k_end) of its",
+     PW_STAMP_STRUCT),
+    ("\n  cg::cluster_group cluster = cg::this_cluster();\n  const int rank = (int)cluster.block_rank();\n"
+     "  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;",
+     "\n  PwStamps pw_st;\n  pw_st.start();"),
+    ("    if (kt + STAGES - 1 < steps) load_stage(", "    pw_st.lap(0);\n"),
+    ("    const unsigned char* bs = stage + A_STAGE;\n", "    pw_st.lap(1);\n"),
+    ("  }\n  cp_async_wait<0>();", "    pw_st.lap(2);\n"),
+    ("    return;\n  }\n  // Every rank leaves", "    pw_st.lap(4);\n    pw_st.write();\n"),
+    ("#pragma unroll\n  for (int i = 0; i < MI; ++i)\n#pragma unroll\n    for (int j = 0; j < NJ; ++j) {\n"
+     "      if ((i * NJ + j) % a.cs != rank) continue;", "  pw_st.lap(3);\n"),
+    ("}\n\n// The dynamic shared-memory limit is set once per kernel and device.",
+     "  pw_st.lap(4);\n  pw_st.write();\n"),
+    ("  const int tid = threadIdx.x, lane = tid % 32;\n  const int n = blockIdx.x * DOT_WARPS",
+     "  PwStamps pw_st;\n  pw_st.start();\n"),
+    ("  if (n >= a.N) return;\n", "  pw_st.lap(0);\n"),
+    ("#pragma unroll\n  for (int m = 0; m < DOT_MAX_M; ++m) {\n    if (m < a.M) {\n      int v = acc[m];",
+     "  pw_st.lap(1);\n"),
+    ("}\n\ntemplate <typename T>\ncudaError_t launch_dot", "  pw_st.lap(2);\n  pw_st.write();\n"),
+    ('extern "C" int avp_int8_conv_pointwise(', 'extern "C" int avp_set_stamps(void* p) {\n'
+     "  return (int)cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));\n}\n\n"),
+]
+STAMP_WORDS = 8
+
+
+def stamped_pointwise(pkg, pb, out, edits=None):
+    """The 1x1 kernels of the port in ``pkg`` with stage stamps, in a
+    library of their own under ``out``: with ``edits`` (anchor, text) put
+    into a copy of its int8_pointwise.cu, else built with -DAVP_PW_STAMPS
+    (this tree's own stamps) beside int8_conv_sm90.cu (the weights' map). ->
+    (its int8_conv module over that library, the stamps tensor), or None
+    if an anchor is missing."""
+    import ctypes
+
+    src = pkg / "csrc" / "int8_pointwise.cu"
+    if edits:
+        text = src.read_text()
+        for anchor, stamp in edits:
+            if text.count(anchor) != 1:
+                print(f"stage split of {src}: not measured (no single {anchor!r})")
+                return None
+            text = text.replace(anchor, stamp + anchor)
+        copy = out / "stamped_int8_pointwise.cu"
+        copy.write_text(text)
+        lib = build_library(pb, pkg / "csrc", [copy], out / "libstamped_pointwise.so")
+        setter = lib.avp_set_stamps
+    else:
+        lib = build_library(pb, pkg / "csrc", [src, pkg / "csrc" / "int8_conv_sm90.cu"],
+                            out / "libstamped_pointwise.so", ("-DAVP_PW_STAMPS",))
+        setter = lib.avp_int8_pointwise_set_stamps
+    stamps = torch.zeros(STAMP_WORDS * 4096, dtype=torch.int64, device="cuda")
+    if setter(ctypes.c_void_p(stamps.data_ptr())):
+        raise RuntimeError(f"could not set the stamp buffer of {src}")
+    return int8_wrapper_of(pkg, lib), stamps
+
+
+def stage_split(mod, stamps, plan, call, n_stages):
+    """Runs ``call(mod)`` (one launch of a stamped kernel) and reads its
+    blocks' stamps. -> (mean ns a block by stage, mean and max ns from a
+    block's first stamp to its last)."""
+    blocks = plan.blocks
+    stamps.zero_()
+    call(mod)
+    torch.cuda.synchronize()
+    t = stamps[:STAMP_WORDS * blocks].view(blocks, STAMP_WORDS).cpu().numpy().astype(np.float64)
+    span = t[:, 1] - t[:, 0]
+    ns_per_clock = span / np.maximum(t[:, 2], 1)
+    stages = t[:, 3:3 + n_stages] * ns_per_clock[:, None]
+    return stages.mean(axis=0), float(span.mean()), float(span.max())
+
+
+# (cin, cout, h, w) of --parent's 1x1 comparison: RECORD_SHAPES' two, the
+# main path's other 1x1 convs and SE squeezes, and three Lite 1x1 convs
+PARENT_1X1 = ((1152, 320, 10, 20), (1152, 48, 1, 1), (320, 1280, 10, 20), (672, 112, 20, 40),
+              (1152, 192, 10, 20), (480, 112, 20, 40), (480, 80, 20, 40), (672, 192, 10, 20),
+              (672, 28, 1, 1), (480, 20, 1, 1), (304, 256, 80, 160), (1280, 256, 20, 40),
+              (1152, 320, 20, 40))
+# the shapes of the stage splits: cluster split-K at 10x20, 800 tiles with no
+# split at 80x160, a long K at 20x40, and an SE squeeze
+SPLIT_1X1 = ((1152, 320, 10, 20), (304, 256, 80, 160), (1280, 256, 20, 40), (1152, 48, 1, 1))
+PW_STAGES = ("load wait", "quantize", "MMA", "staging and cluster barrier",
+             "epilogue (sums over the ranks, stores)")
+DOT_STAGES = {"parent": ("x quantized into shared memory and the barrier", "weights and sums",
+                         "shuffles and stores"),
+              "this tree": ("weight loads issued", "x loads, quantize and sums",
+                            "shuffles and stores")}
+
+
+def pointwise_sets(g, cin, cout, h, w):
+    """Rotating bf16 inputs of a 1x1 shape (scalar scale, its reciprocal
+    kept), together above the L2 where the shape allows, as phase 4's."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import _reciprocal
+
+    set_bytes = h * w * cin * 2 + cout * cin
+    n = max(2, min(64, math.ceil(1.2 * L2_BYTES / set_bytes)))
+    sets = [int8_inputs(g, (1, cin, cout, h, w), torch.bfloat16) for _ in range(n)]
+    for x, wt, ws, b, sx in sets:
+        _reciprocal(sx)
+    return sets, list(range(n)) * max(1, math.ceil(20 / n))
+
+
+def phase_pointwise_parent(card, parent):
+    """--parent: the parent's 1x1 kernels ("pointwise" and "dot", through
+    its own int8_conv2d and plan) against this tree's on the same bf16
+    inputs, outputs equal, profiler device time in turns (parent, this,
+    this, parent) at PARENT_1X1; then each one's stage split at SPLIT_1X1
+    from stamped copies (the parent's by PARENT_PW_STAMPS, this tree's
+    built with -DAVP_PW_STAMPS), mean ns a block over 8 launches."""
+    from autoware_vision_pilot_tpu_torch.kernels import build as this_build
+    from autoware_vision_pilot_tpu_torch.ops.kernels import int8_conv as ours
+
+    theirs = parent[3]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator().manual_seed(SEED + 12)
+    times = {}
+    for cin, cout, h, w in PARENT_1X1:
+        sets, idx = pointwise_sets(g, cin, cout, h, w)
+        fns = {name: (lambda i, m=mod: m.int8_conv2d(sets[i][0], sets[i][1], sets[i][2],
+                                                     sets[i][4], sets[i][3], 0))
+               for name, mod in (("parent", theirs), ("this tree", ours))}
+        if not torch.equal(fns["parent"](0), fns["this tree"](0)):
+            raise AssertionError(f"1x1 {cin}->{cout} at {h}x{w}: the parent's output differs")
+        plans = {name: mod.int8_conv_plan(1, h, w, cin, cout, 1, 1, 0, sms)
+                 for name, mod in (("parent", theirs), ("this tree", ours))}
+        label = (f"1x1 {cin}->{cout} at {h}x{w}, bf16 in (parent {plans['parent'].route} "
+                 f"grid {plans['parent'].grid}; this tree {plans['this tree'].route} "
+                 f"bm {plans['this tree'].bm} bn {plans['this tree'].bn} grid "
+                 f"{plans['this tree'].grid})")
+        t = alternate(label, fns, idx, card)
+        times[(cin, cout, h, w)] = {k: float(np.mean(v)) for k, v in t.items()}
+        print(f"{label}, {card}: parent {times[(cin, cout, h, w)]['parent']!r} us, this tree "
+              f"{times[(cin, cout, h, w)]['this tree']!r} us (mean of two turns each)")
+        del sets
+        torch.cuda.empty_cache()
+    stamped = {"parent": parent[4],
+               "this tree": stamped_pointwise(REPO / "autoware_vision_pilot_tpu_torch",
+                                              this_build, REPO / "build")}
+    for cin, cout, h, w in SPLIT_1X1:
+        sets, _ = pointwise_sets(g, cin, cout, h, w)
+        for name, st in stamped.items():
+            if st is None:
+                continue
+            mod, stamps = st
+            plan = mod.int8_conv_plan(1, h, w, cin, cout, 1, 1, 0, sms)
+            names = PW_STAGES if plan.route == "pointwise" else DOT_STAGES[name]
+            runs = [stage_split(mod, stamps, plan, lambda m, s=s: m.int8_conv2d(
+                s[0], s[1], s[2], s[4], s[3], 0), len(names)) for s in sets[:8]]
+            split = np.mean([r[0] for r in runs], axis=0)
+            print(f"{name}'s {plan.route} stage split, 1x1 {cin}->{cout} at {h}x{w} bf16, "
+                  f"{card} (ns a block, mean over {plan.blocks} blocks x {len(runs)} launches, "
+                  f"clock64 laps of thread 0 scaled by %globaltimer): "
+                  + ", ".join(f"{n} {v:.0f}" for n, v in zip(names, split))
+                  + f"; first stamp to last {np.mean([r[1] for r in runs]):.0f} (slowest block "
+                  f"{np.mean([r[2] for r in runs]):.0f})")
+        del sets
+        torch.cuda.empty_cache()
+    return times
 
 
 def launch_floor(card):
@@ -2982,11 +3297,13 @@ def main():
     parent = parent_kernels(parent_root)
     launch_floor(card)
     preprocess, crop = phase_kernel()
-    records = {"fused_preprocess": preprocess, **phase_int8_kernels(card),
-               "lane_filter_walk": phase_lane_filter(card, parent)}
+    records = {"fused_preprocess": preprocess, **phase_int8_kernels(card)}
+    if parent is not None:
+        phase_pointwise_parent(card, parent)
+    records["lane_filter_walk"] = phase_lane_filter(card, parent)
     phase_f32()
     bf16_pipe = phase_bf16(card)
-    launches = phase_int8(card, bf16_pipe)  # the selective-int8 main path
+    launches = phase_int8(card, bf16_pipe, parent_root)  # the selective-int8 main path
     del bf16_pipe
     torch.cuda.empty_cache()
     phase_lateral_f32()

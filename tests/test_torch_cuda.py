@@ -9,6 +9,7 @@ This file imports no JAX, so it also runs on a machine that has none:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 import copy
+import math
 
 import numpy as np
 import pytest
@@ -17,8 +18,8 @@ import torch
 from autoware_vision_pilot_tpu_torch.models.efficientnet import B0_DRYRUN_STAGES
 from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
 from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
-    _launch, _mma_plan, int8_conv, int8_conv2d, int8_conv_plain, int8_conv_plan, int8_quantize,
-    int8_quantize_plain, padded_channels)
+    PW_BK, PW_WIDTHS, _launch, _mma_plan, int8_conv, int8_conv2d, int8_conv_plain,
+    int8_conv_plan, int8_quantize, int8_quantize_plain, padded_channels)
 from autoware_vision_pilot_tpu_torch.ops.kernels import (lane_filter_kernel, nms_kernel,
                                                         preprocess_kernel)
 from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
@@ -255,6 +256,61 @@ def test_int8_1x1_routes_match_plain_versions(cuda, cin, cout, h, w, batch):
             assert torch.equal(y, want) and torch.equal(y_q, want)
     assert int8_quantize.launches == before[0]
     assert int8_conv.route_launches[route] == before[1] + 12
+
+
+# (bm, bn, cluster size) forced on the pointwise route: every N tile, both
+# M tiles and every cluster size (chip_smoke.py::PW_VARIANTS)
+PW_VARIANTS = [(bm, bn, cs) for bn in PW_WIDTHS for bm in (64, 128) for cs in (1, 8)] + [
+    (64, 128, cs) for cs in range(2, 8)]
+
+
+def hold_1x1_plan(cuda, plan, batch, cin, cout, h, w):
+    """``plan`` of a 1x1 conv through _launch on int8, bf16 and f32 inputs,
+    scalar and per-channel scales: int32 accumulators and the outputs (in
+    the input's type, bf16 for int8) bit-equal to the plain versions."""
+    g = torch.Generator().manual_seed(plan.bm + plan.bn + math.prod(plan.grid) + batch)
+    x = torch.randn(batch, cin, h, w, generator=g)
+    x = x * torch.linspace(0.5, 2.0, cin).reshape(1, -1, 1, 1)
+    wq = torch.randint(-127, 128, (cout, cin, 1, 1), generator=g,
+                       dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+    w_scale = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).to(cuda)
+    before = int8_conv.route_launches[plan.route]
+    for scale in (torch.tensor(float(x.abs().max()) * 0.9 / 127.0),
+                  (x.double().abs().amax(dim=(0, 2, 3)) / 127.0).float()):
+        sx = scale.to(cuda)
+        for dtype in (torch.int8, torch.bfloat16, torch.float32):
+            xf = x.to(torch.float32 if dtype == torch.int8 else dtype).contiguous(
+                memory_format=CL).to(cuda)
+            xq = int8_quantize_plain(xf, sx)
+            xin = xq if dtype == torch.int8 else xf
+            out = torch.bfloat16 if dtype == torch.int8 else dtype
+            bias = (torch.randn(cout, generator=g) * 0.1).to(out).to(cuda)
+            acc = _launch(plan, xin, wq, w_scale, sx, None, 0, torch.int32)
+            y = _launch(plan, xin, wq, w_scale, sx, bias, 0, out)
+            torch.cuda.synchronize()
+            assert torch.equal(acc, int8_conv_plain(xq, wq, w_scale, sx, None, 0, torch.int32))
+            assert torch.equal(y, int8_conv_plain(xq, wq, w_scale, sx, bias, 0, out))
+    assert int8_conv.route_launches[plan.route] == before + 12
+
+
+@pytest.mark.parametrize("bm,bn,cs", PW_VARIANTS,
+                         ids=[f"bm{bm}-bn{bn}-cs{cs}" for bm, bn, cs in PW_VARIANTS])
+def test_int8_pointwise_every_tile_and_cluster(cuda, bm, bn, cs):
+    """A ragged 117 x 1152 -> 100 conv (9x13 pixels) on each forced plan."""
+    per = math.ceil(1152 / PW_BK / cs)
+    grid = (math.ceil(117 / bm), math.ceil(100 / bn), math.ceil(1152 / PW_BK / per))
+    plan = int8_conv_plan(1, 9, 13, 1152, 100, 1, 1, 0, sm_count())._replace(
+        bm=bm, bn=bn, grid=grid, per_split=per, blocks=math.prod(grid))
+    hold_1x1_plan(cuda, plan, 1, 1152, 100, 9, 13)
+
+
+@pytest.mark.parametrize("batch", range(1, 9))
+def test_int8_dot_every_batch(cuda, batch):
+    """The dot route at M = 1-8 (1152 -> 21: a ragged N, three warps a
+    channel)."""
+    plan = int8_conv_plan(batch, 1, 1, 1152, 21, 1, 1, 0, sm_count())
+    assert plan.route == "dot" and plan.grid[2] == 96
+    hold_1x1_plan(cuda, plan, batch, 1152, 21, 1, 1)
 
 
 @pytest.mark.parametrize("route,blocks", [("wgmma", 5), ("splitk", 7)])

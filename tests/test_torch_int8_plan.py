@@ -21,8 +21,9 @@ import torch.nn.functional as F
 
 from autoware_vision_pilot_tpu_torch.ops.kernels import int8_conv as int8_mod
 from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
-    DOT_MAX_M, DOT_WARPS, MAX_CLUSTER, MAX_K, PW_BN, ROUTES, SMS, TILE, int8_conv_plain,
-    int8_conv_plan)
+    DOT_CHUNK, DOT_GROUPS, DOT_MAX_M, DOT_MAX_WARPS, DOT_THREADS, MAX_CLUSTER, MAX_K, PW_BK,
+    PW_MIN_RANGE, PW_QUANTIZE_NS, PW_REDUCE_NS_PER_BYTE, PW_WIDTHS, ROUTES, SMS, TILE,
+    _pointwise_cost, _pointwise_tiles, clusters_at_once, int8_conv_plain, int8_conv_plan)
 
 CL = torch.channels_last
 # (window, cin, cout, h, w, convs per frame): the 24 distinct int8 convs of
@@ -37,6 +38,57 @@ MAIN_INT8 = (
     (1, 480, 112, 20, 40, 2), (1, 480, 80, 20, 40, 4), (1, 672, 192, 10, 20, 2),
     (1, 1152, 48, 1, 1, 8), (1, 672, 28, 1, 1, 6), (1, 480, 20, 1, 1, 6),
 )
+
+
+def assert_dot_plan(plan, M, C, N):
+    """The dot route's plan: one 16-channel chunk a lane, ``splits`` lanes
+    a channel (a power of two of a warp's lanes, DOT_THREADS threads a
+    block; or up to DOT_MAX_WARPS warps, DOT_GROUPS channels a block),
+    blocks covering N once."""
+    m_tiles, n_tiles, lanes = plan.grid
+    chunks = math.ceil(C / DOT_CHUNK)
+    assert plan.bm == M <= DOT_MAX_M and m_tiles == 1 and plan.bk == DOT_CHUNK
+    assert plan.iters == chunks and plan.per_split == math.ceil(chunks / lanes)
+    if chunks <= 32:
+        assert lanes in (1, 2, 4, 8, 16, 32) and lanes >= chunks > lanes // 2
+        assert plan.bn == DOT_THREADS // lanes
+    else:
+        warps = lanes // 32
+        assert lanes % 32 == 0 and warps == min(DOT_MAX_WARPS, math.ceil(chunks / 32))
+        assert plan.bn == DOT_GROUPS
+    assert plan.per_split == 1 or lanes == 32 * DOT_MAX_WARPS  # a chunk a lane
+    assert n_tiles * plan.bn >= N > (n_tiles - 1) * plan.bn and plan.blocks == n_tiles
+
+
+def assert_pointwise_plan(plan, M, C, N):
+    """The pointwise route's plan: 64- or 128-row tiles and N tiles of
+    PW_WIDTHS that cover M and N once; K split over a cluster in ranges of
+    multiples of PW_BK that cover C, as short as the SMs, the cluster limit
+    and PW_MIN_RANGE allow; and of the N widths, the one the cost model
+    prices lowest."""
+    m_tiles, n_tiles, splits = plan.grid
+    assert plan.bm in (64, 128) and plan.bn in PW_WIDTHS and plan.bk == PW_BK
+    assert m_tiles * plan.bm >= M > (m_tiles - 1) * plan.bm
+    assert n_tiles * plan.bn >= N > (n_tiles - 1) * plan.bn
+    # 128-row tiles only where 64-row ones would already fill the SMs
+    assert (plan.bm == 128) == (math.ceil(M / 64) * math.ceil(N / PW_WIDTHS[-1]) >= SMS)
+    tiles = m_tiles * n_tiles
+    assert 1 <= splits <= MAX_CLUSTER and plan.iters == math.ceil(C / PW_BK)
+    assert splits * plan.per_split >= plan.iters > (splits - 1) * plan.per_split
+    widest = max(1, min(MAX_CLUSTER, SMS // tiles, plan.iters // (PW_MIN_RANGE // PW_BK)))
+    while widest > 1 and tiles > clusters_at_once(widest, SMS):
+        widest -= 1
+    assert plan.per_split == math.ceil(plan.iters / widest)
+    assert tiles <= clusters_at_once(splits, SMS)  # every cluster on the card at once
+    assert splits == 1 or plan.per_split * PW_BK >= PW_MIN_RANGE
+    assert plan.blocks == tiles * splits and (splits == 1 or plan.blocks <= SMS)
+    # the cost model: quantize a thread against the partial tile handed on
+    cost = _pointwise_cost(plan, SMS)
+    assert cost == math.ceil(plan.blocks / SMS) * (
+        plan.bm * plan.per_split * PW_BK / 256 * PW_QUANTIZE_NS
+        + (splits - 1) / splits * plan.bm * (plan.bn + 8) * 4 * PW_REDUCE_NS_PER_BYTE)
+    for bn in PW_WIDTHS:
+        assert cost <= _pointwise_cost(_pointwise_tiles(M, C, N, bn, SMS), SMS)
 
 
 def k_steps(KH, KW, C, bk=TILE):
@@ -63,19 +115,13 @@ def test_plan_covers_main_path_shape(k, cin, cout, h, w, per_frame):
                 else "wgmma" if h * w >= 40 * 80 else "splitk")
     assert plan.route == expected
     m_tiles, n_tiles, splits = plan.grid
-    if plan.route == "dot":  # one warp an output channel, each over all M rows
-        assert plan.bm == M == 1 and plan.bn == DOT_WARPS and m_tiles == splits == 1
-        assert n_tiles * DOT_WARPS >= cout > (n_tiles - 1) * DOT_WARPS
-        assert plan.blocks == n_tiles
+    if plan.route == "dot":  # `splits` lanes an output channel, each over all M rows
+        assert_dot_plan(plan, M, cin, cout)
         return
-    if plan.route == "pointwise":  # flat rows, 64 channels, K over a cluster
-        assert plan.bm in (64, 32) and plan.bn == PW_BN
-        assert m_tiles * plan.bm >= M > (m_tiles - 1) * plan.bm
-        assert n_tiles * plan.bn >= cout > (n_tiles - 1) * plan.bn
-        assert 1 <= splits <= MAX_CLUSTER and plan.iters * plan.bk >= K
-        assert splits * plan.per_split >= plan.iters > (splits - 1) * plan.per_split
-        # the clusters fill at least 90 % of the SMs, at most one wave over
-        assert 0.9 * SMS <= plan.blocks == m_tiles * n_tiles * splits <= SMS + 8
+    if plan.route == "pointwise":  # flat rows, N tiles of one or more wgmmas, K over a cluster
+        assert_pointwise_plan(plan, M, cin, cout)
+        # K splits over a cluster wherever the tiles leave half the SMs idle
+        assert (splits > 1) == (SMS // (m_tiles * n_tiles) >= 2)
         return
     # M: rectangles of th x tw output pixels that tile the h x w map
     assert plan.th * plan.tw <= plan.bm == TILE
@@ -171,7 +217,7 @@ def test_splitk_replay_matches_plain_accumulators(per_split):
     ((1, 8, 8, 64, 32, 3, 3, -1), "no int8 conv"),
     ((1, 8, 8, 128, 65536 * TILE, 3, 3, 1), "grid holds"),
     ((2 ** 16, 256, 256, 16, 32, 1, 1, 0), "int32 indexes"),
-    ((1, 10, 20, 64, 65536 * PW_BN, 1, 1, 0), "grid holds"),
+    ((1, 10, 20, 64, 65536 * PW_WIDTHS[-1], 1, 1, 0), "grid holds"),
 ])
 def test_plan_rejects_shapes_no_route_takes(shape, match):
     with pytest.raises(ValueError, match=match):
@@ -189,7 +235,8 @@ def test_plan_rejects_shapes_no_route_takes(shape, match):
 def test_every_route_is_taken_by_a_natural_shape(route, shape):
     plan = int8_conv_plan(*shape)
     assert plan.route == route
-    assert (plan.splits > 1) == (route in ("splitk", "pointwise"))
+    # the dot route splits each channel's K over the lanes of its group
+    assert (plan.splits > 1) == (route in ("splitk", "pointwise", "dot"))
 
 
 class FakeLib:
@@ -198,7 +245,7 @@ class FakeLib:
     def __init__(self):
         self.encoded = []
 
-    def avp_int8_weight_map(self, ptr, N, KH, KW, C, out):
+    def avp_int8_weight_map(self, ptr, N, KH, KW, C, box_n, out):
         self.encoded.append(ptr)
         ctypes.memmove(out, ptr.to_bytes(8, "little"), 8)
         return 0
@@ -218,6 +265,9 @@ def test_weight_map_is_kept_on_the_weight():
     assert lib.encoded == [w.data_ptr(), w2.data_ptr()]
     assert int8_mod._weight_map(lib, w, 24, 3, 3, 32) == first  # w's own map stayed
     assert len(lib.encoded) == 2
+    # another box (the pointwise route's N tile) is another map
+    int8_mod._weight_map(lib, w, 24, 3, 3, 32, 64)
+    assert lib.encoded == [w.data_ptr(), w2.data_ptr(), w.data_ptr()]
 
 
 # (window, cin, cout, h, w, convs): the int8 conv shapes that
@@ -254,11 +304,10 @@ def test_plan_covers_min128_shape(k, cin, cout, h, w, convs):
     assert plan.route == expected
     m_tiles, n_tiles, splits = plan.grid
     if plan.route == "dot":
-        assert plan.bm == M and n_tiles * DOT_WARPS >= cout > (n_tiles - 1) * DOT_WARPS
+        assert_dot_plan(plan, M, cin, cout)
         return
     if plan.route == "pointwise":
-        assert m_tiles * plan.bm >= M > (m_tiles - 1) * plan.bm
-        assert n_tiles * PW_BN >= cout > (n_tiles - 1) * PW_BN
+        assert_pointwise_plan(plan, M, cin, cout)
         seen = torch.zeros(cin, dtype=torch.int32)
         step = plan.per_split * plan.bk
         for z in range(splits):
