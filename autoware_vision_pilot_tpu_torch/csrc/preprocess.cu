@@ -36,15 +36,9 @@
 // card in float64 with bilinear_taps's operations, in place of the
 // tables, were no faster: 4.7 us with the row's alone, 5.2 us with all.
 //
-// Letterbox mode (the port of XLA's fusion of autoware_vision_pilot_tpu/
-// ops/preprocess.py::letterbox): the frame is resized to nh x nw, placed at
-// row pad_y, column pad_x of the h x w output, and every other pixel is the
-// pad value, which goes through the same affine step; the channel tables
-// are then mean 0 and 1 / std 1, an identity (v - 0 = v, RN32(RN64(v) * 1)
-// = v). The one launch writes every output pixel, pad rows included: a pad
-// row's block reads no source row. The ImageNet mode is the case nh = h,
-// nw = w, no pad: it runs an instantiation of the kernel compiled without
-// the pad path, and computes what it computed before.
+// The letterbox (XLA's fusion of autoware_vision_pilot_tpu/ops/
+// preprocess.py::letterbox) was a mode of this kernel; it is now a kernel
+// of its own, csrc/letterbox.cu.
 //
 // Every multiply and add is an explicit round-to-nearest intrinsic, which
 // the compiler never contracts into an FMA: the kernel then computes the
@@ -122,23 +116,12 @@ __device__ __forceinline__ void store_row(T* dst, const T* src, int n) {
   for (int i = tail + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
-// Where the resized image sits in the output, and the value around it.
-struct Placement {
-  int nh, nw, pad_y, pad_x;
-  float pad;
-};
-
-// PLACED: the letterbox mode; without it the image fills the output and
-// the kernel is compiled with no pad path at all.
-template <typename T, bool PLACED>
+template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS) fused_preprocess_kernel(
-    const uint8_t* __restrict__ frame, T* __restrict__ out, Tables t, Placement pl,
-    long long frame_stride, int H, int W, int h, int w) {
+    const uint8_t* __restrict__ frame, T* __restrict__ out, Tables t, long long frame_stride,
+    int H, int W, int h, int w) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int oy = blockIdx.x, b = blockIdx.y;
-  const int iy = PLACED ? oy - pl.pad_y : oy;  // the resized image's row, if in [0, nh)
-  const bool image_row = !PLACED || (iy >= 0 && iy < pl.nh);
-  const int nw = PLACED ? pl.nw : w;
   const int row = 3 * W;  // bytes of a source row
   // image b starts frame_stride bytes after image b - 1 (its rows are
   // contiguous, the images need not be: a crop of a batch); 16-byte reads
@@ -150,7 +133,7 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_preprocess_kernel(
   // The column taps of a group of PX image pixels: one 8-byte chunk of
   // each table (value by value for a short last group).
   auto taps = [&](int g, int (&x0)[PX], int (&x1)[PX], float (&fx)[PX]) {
-    const int ox0 = g * PX, n = min(PX, nw - ox0);
+    const int ox0 = g * PX, n = min(PX, w - ox0);
     if (n == PX) {
       const int2 a = __ldg(reinterpret_cast<const int2*>(t.x0 + ox0));
       const int2 c = __ldg(reinterpret_cast<const int2*>(t.x1 + ox0));
@@ -169,8 +152,7 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_preprocess_kernel(
     }
   };
   // the affine step: [0,1] scale, then the channel's mean and 1 / std
-  // (selected, not indexed: a pad value's channel is not known at compile
-  // time, and an indexed array would live in local memory)
+  // (selected, not indexed: an indexed array would live in local memory)
   const float m0 = t.mean[0], m1 = t.mean[1], m2 = t.mean[2];
   const double s0 = t.inv_std[0], s1 = t.inv_std[1], s2 = t.inv_std[2];
   auto affine = [&](float v, int c) {
@@ -180,29 +162,17 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_preprocess_kernel(
   };
   T* dst = out + ((size_t)b * h + oy) * w * 3;
   T* o = reinterpret_cast<T*>(smem + 2 * span(row) + (uintptr_t)dst % 16);
-  if (!image_row) {  // a pad row: no source row
-    for (int i = threadIdx.x; i < w * 3; i += blockDim.x) o[i] = affine(pl.pad, i % 3);
-    __syncthreads();
-    store_row(dst, o, w * 3);
-    return;
-  }
   // the first group's taps, read while the rows load
   int x0[PX], x1[PX];
   float fx[PX];
-  if ((int)threadIdx.x * PX < nw) taps(threadIdx.x, x0, x1, fx);
-  const uint8_t* r0 = copy_row(smem, img + (size_t)t.y0[iy] * row, row, lo, hi);
-  const uint8_t* r1 = copy_row(smem + span(row), img + (size_t)t.y1[iy] * row, row, lo, hi);
-  const float fy = t.fy[iy], gy = __fsub_rn(1.0f, fy);
-  if (PLACED) {  // the pad columns left and right of the image
-    const int right = (pl.pad_x + nw) * 3;
-    for (int i = threadIdx.x; i < pl.pad_x * 3; i += blockDim.x) o[i] = affine(pl.pad, i % 3);
-    for (int i = right + threadIdx.x; i < w * 3; i += blockDim.x) o[i] = affine(pl.pad, i % 3);
-  }
+  if ((int)threadIdx.x * PX < w) taps(threadIdx.x, x0, x1, fx);
+  const uint8_t* r0 = copy_row(smem, img + (size_t)t.y0[oy] * row, row, lo, hi);
+  const uint8_t* r1 = copy_row(smem + span(row), img + (size_t)t.y1[oy] * row, row, lo, hi);
+  const float fy = t.fy[oy], gy = __fsub_rn(1.0f, fy);
   __syncthreads();
 
-  T* oi = PLACED ? o + pl.pad_x * 3 : o;  // the image's first pixel
-  for (int g = threadIdx.x; g * PX < nw; g += blockDim.x) {
-    const int ox0 = g * PX, n = min(PX, nw - ox0);
+  for (int g = threadIdx.x; g * PX < w; g += blockDim.x) {
+    const int ox0 = g * PX, n = min(PX, w - ox0);
     if (g != (int)threadIdx.x) taps(g, x0, x1, fx);
 #pragma unroll
     for (int p = 0; p < PX; ++p) {
@@ -215,7 +185,7 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_preprocess_kernel(
                                      __fmul_rn((float)r1[x0[p] * 3 + ic], fy));
           const float t1 = __fadd_rn(__fmul_rn((float)r0[x1[p] * 3 + ic], gy),
                                      __fmul_rn((float)r1[x1[p] * 3 + ic], fy));
-          oi[(ox0 + p) * 3 + c] = affine(__fadd_rn(__fmul_rn(t0, gx), __fmul_rn(t1, fx[p])), c);
+          o[(ox0 + p) * 3 + c] = affine(__fadd_rn(__fmul_rn(t0, gx), __fmul_rn(t1, fx[p])), c);
         }
       }
     }
@@ -224,10 +194,10 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_preprocess_kernel(
   store_row(dst, o, w * 3);
 }
 
-template <typename T, bool PLACED>
-cudaError_t launch(const uint8_t* frame, T* out, const Tables& t, const Placement& pl,
-                   long long stride, int B, int H, int W, int h, int w, cudaStream_t s) {
-  const int groups = (pl.nw + PX - 1) / PX;
+template <typename T>
+cudaError_t launch(const uint8_t* frame, T* out, const Tables& t, long long stride, int B, int H,
+                   int W, int h, int w, cudaStream_t s) {
+  const int groups = (w + PX - 1) / PX;
   const int threads = min(MAX_THREADS, (groups + 31) / 32 * 32);
   const size_t smem = 2 * (size_t)span(3 * W) + span(3 * w * (int)sizeof(T));
   static bool ready[MAX_DEVICES] = {false};
@@ -236,13 +206,13 @@ cudaError_t launch(const uint8_t* frame, T* out, const Tables& t, const Placemen
   if (err != cudaSuccess) return err;
   if (smem > 48 * 1024 && (dev < 0 || dev >= MAX_DEVICES || !ready[dev])) {
     // the largest rows; the limit then holds for every smaller frame
-    err = cudaFuncSetAttribute(fused_preprocess_kernel<T, PLACED>,
+    err = cudaFuncSetAttribute(fused_preprocess_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
     if (err != cudaSuccess) return err;
     if (dev >= 0 && dev < MAX_DEVICES) ready[dev] = true;
   }
-  fused_preprocess_kernel<T, PLACED><<<dim3((unsigned)h, (unsigned)B), threads, smem, s>>>(
-      frame, out, t, pl, stride, H, W, h, w);
+  fused_preprocess_kernel<T><<<dim3((unsigned)h, (unsigned)B), threads, smem, s>>>(
+      frame, out, t, stride, H, W, h, w);
   return cudaGetLastError();
 }
 
@@ -252,10 +222,8 @@ cudaError_t launch(const uint8_t* frame, T* out, const Tables& t, const Placemen
 // frame: B images of (H, W, 3) uint8, each contiguous, frame_stride bytes
 // apart (any stride >= 0, such as a row crop of a batch: frames[:, y0:]);
 // out: (B, h, w, 3) bf16 if out_bf16 else f32,
-// 16-byte aligned. The frame is resized to nh x nw and placed at row pad_y,
-// column pad_x of out; every other pixel is pad (0..255), which takes the
-// same affine step (ImageNet mode: nh = h, nw = w, no pad). y0, y1, x0, x1:
-// int32 and fy, fx: f32, the taps of bilinear_taps(H, nh) and (W, nw);
+// 16-byte aligned. y0, y1, x0, x1: int32 and fy, fx: f32, the taps of
+// bilinear_taps(H, h) and (W, w);
 // mean[3]: f32; inv_std[3]: f64, 1 / std correctly rounded (see Tables);
 // each table 16-byte aligned. Two source rows and an output row must fit
 // in 227 KB of shared memory (W up to ~30,000).
@@ -263,11 +231,8 @@ extern "C" int avp_fused_preprocess(const void* frame, void* out, const void* y0
                                     const void* y1, const void* fy, const void* x0,
                                     const void* x1, const void* fx, const void* mean,
                                     const void* inv_std, long long frame_stride, int B,
-                                    int H, int W, int h,
-                                    int w, int nh, int nw, int pad_y, int pad_x, int pad,
-                                    int out_bf16, void* stream) {
-  if (B <= 0 || B > 65535 || frame_stride < 0 || H <= 0 || W <= 0 || h <= 0 || w <= 0 || nh <= 0 || nw <= 0 ||
-      pad_y < 0 || pad_x < 0 || pad_y + nh > h || pad_x + nw > w || pad < 0 || pad > 255 ||
+                                    int H, int W, int h, int w, int out_bf16, void* stream) {
+  if (B <= 0 || B > 65535 || frame_stride < 0 || H <= 0 || W <= 0 || h <= 0 || w <= 0 ||
       2LL * span(3 * W) + span(3 * w * (out_bf16 ? 2 : 4)) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   const void* aligned[] = {out, y0, y1, fy, x0, x1, fx, mean, inv_std};
@@ -278,14 +243,6 @@ extern "C" int avp_fused_preprocess(const void* frame, void* out, const void* y0
   const Tables t{(const int*)y0,   (const int*)y1,   (const int*)x0,
                  (const int*)x1,   (const float*)fy, (const float*)fx,
                  (const float*)mean, (const double*)inv_std};
-  const Placement pl{nh, nw, pad_y, pad_x, (float)pad};
-  const bool placed = nh != h || nw != w;
-  if (out_bf16) {
-    __nv_bfloat16* o = (__nv_bfloat16*)out;
-    return (int)(placed ? launch<__nv_bfloat16, true>(f, o, t, pl, frame_stride, B, H, W, h, w, s)
-                        : launch<__nv_bfloat16, false>(f, o, t, pl, frame_stride, B, H, W, h, w, s));
-  }
-  float* o = (float*)out;
-  return (int)(placed ? launch<float, true>(f, o, t, pl, frame_stride, B, H, W, h, w, s)
-                      : launch<float, false>(f, o, t, pl, frame_stride, B, H, W, h, w, s));
+  return (int)(out_bf16 ? launch(f, (__nv_bfloat16*)out, t, frame_stride, B, H, W, h, w, s)
+                        : launch(f, (float*)out, t, frame_stride, B, H, W, h, w, s));
 }

@@ -30,8 +30,13 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C entry point -> argtypes; every function returns a cudaError_t as int.
 SIGNATURES = {
     # frame, out, y0, y1, fy, x0, x1, fx, mean, inv_std, frame_stride,
-    # B, H, W, h, w, nh, nw, pad_y, pad_x, pad, out_bf16, stream
-    "avp_fused_preprocess": (_P,) * 10 + (_L,) + (_I,) * 11 + (_P,),
+    # B, H, W, h, w, out_bf16, stream
+    "avp_fused_preprocess": (_P,) * 10 + (_L,) + (_I,) * 6 + (_P,),
+    # frame, out, y0, y1, fy, x0, x1, fx, frame_stride, B, H, W, h, w, nh,
+    # nw, pad_y, pad_x, pad_bits, out_bf16, stream
+    "avp_letterbox": (_P,) * 8 + (_L,) + (_I,) * 11 + (_P,),
+    # stamps (a build with -DAVP_LB_STAMPS; else cudaErrorNotSupported)
+    "avp_letterbox_set_stamps": (_P,),
     # x, xq, scale, per_channel, pixels, C, in_bf16, stream
     "avp_int8_quantize": (_P, _P, _P, _I, _L, _I, _I, _P),
     # xq, w, w_scale, x_scale, bias, out, B, H, W, C, N, KH, KW, pad,

@@ -6,7 +6,7 @@ autoware_vision_pilot_tpu/runtime/pipeline.py:
                 LaneFilter (the walk kernel + a weighted fit) ->
                 LaneTracker (BEV) -> PathFinder (Bayes) -> steering
                 controller + moving-average filter
-  longitudinal: letterbox (the preprocess kernel's letterbox mode) ->
+  longitudinal: letterbox (the letterbox kernel) ->
                 AutoSpeed -> decode -> top-k -> greedy NMS (kernel) -> one
                 packed (max_det, 7) table
   host:         PipelineEngine: capture -> upload -> {lateral,

@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parent ROOT       # also time the lane-filter walk,
-                                              # NMS and int8 1x1 ("pointwise",
-                                              # "dot") kernels of the port in
-                                              # ROOT (an earlier commit, from
-                                              # git archive) against this
-                                              # tree's: parent, this, this,
-                                              # parent; the 1x1 kernels' stage
-                                              # splits; phase 8's host costs
-                                              # of ROOT's package in turns
+                                              # NMS, int8 1x1 ("pointwise",
+                                              # "dot") and letterbox kernels
+                                              # of the port in ROOT (an
+                                              # earlier commit, from git
+                                              # archive) against this tree's:
+                                              # parent, this, this, parent;
+                                              # the 1x1 kernels' and the
+                                              # letterbox's stage splits;
+                                              # phase 8's host costs of ROOT's
+                                              # package in turns
     python3 chip_smoke.py --host-costs ROOT   # phase 7's host costs alone, of
                                               # the package in ROOT
 
@@ -91,11 +93,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              one preprocess and one lane-filter launch a frame, finite
              outputs of the right shapes, and device time by kind of kernel
              over 20 frames (torch.profiler).
- 11. letterbox: the preprocess kernel's letterbox mode against its plain
+ 11. letterbox: the letterbox kernel (csrc/letterbox.cu) against its plain
              version (ops/preprocess.py::letterbox), bit-equal in f32 and
              bf16, at 720x1280 -> 640x640, 375x1242 -> 640x640 and 360x640
-             -> 181x333 (pad columns, a width that is not a multiple of 8);
-             its profiler time at 720p, bound, and the plain version's time.
+             -> 181x333 (pad columns, a width that is not a multiple of 8),
+             then on frames 1, 5 and 15 bytes past 16 at the first two sizes
+             (one frame, and three frame_stride = H W 3 + 7 bytes apart);
+             its time at each size (each time says whether the profiler or
+             queued CUDA events read it), bound at 720p, and the plain
+             version's time. With --parent, the parent's letterbox against
+             this tree's in turns at 720p N = 1 and 8 and at 375x1242, and
+             both stage splits (source rows, lerp, store, pad rows) from
+             stamped copies at 720p, N = 1 and 8.
  12. longitudinal f32: the longitudinal program (build_longitudinal_pipeline,
              AutoSpeed "n" at 640x640) in f32 on the card against the CPU,
              same seeded weights, 3 frames: pred within 1e-3 * max|CPU|;
@@ -118,7 +127,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              device time by kind of kernel over 20 frames (torch.profiler).
  15. batched kernels: the preprocess kernel on the lateral crop
              frames[:, 420:] of an (N, 720, 1280, 3) batch (read in place),
-             the letterbox mode, the walk and NMS at N = 1, 3 and 8, one
+             the letterbox kernel, the walk and NMS at N = 1, 3 and 8, one
              launch a batch: every stream bit-equal to the plain version
              and to a launch on that stream alone; the time at N = 8 beside
              8 x the time at N = 1.
@@ -306,6 +315,17 @@ def trace_counts(prof):
     return ops, launches
 
 
+class DeviceUs(float):
+    """Microseconds, and how device_us read them (``how``): "profiler" (a
+    torch.profiler trace's kernel times) or "q" (CUDA events around calls
+    queued back to back, the gaps between them included)."""
+
+    def __new__(cls, us, how):
+        value = super().__new__(cls, us)
+        value.how = how
+        return value
+
+
 def device_us(fn, inputs):
     """Mean device microseconds per call of fn(x) over ``inputs``: the sum
     of every kernel's own time in a torch.profiler trace of the run. The
@@ -315,7 +335,8 @@ def device_us(fn, inputs):
     (queued_us). A trace can drop device records: from phase 10 on, traces
     on the card lost one to four. GUARDS tiny kernels on each side
     of the calls are left out of the count and the time, so that a record
-    lost at either end of the trace is one of theirs."""
+    lost at either end of the trace is one of theirs. -> a DeviceUs, which
+    says which of the two read it."""
     from torch.profiler import ProfilerActivity, profile
 
     def guards():
@@ -338,8 +359,8 @@ def device_us(fn, inputs):
         total = sum(e.self_device_time_total for e in prof.key_averages()
                     if "spin_kernel" not in e.key)
         if total > 0 and launches >= len(inputs) and ops >= launches:
-            return total / len(inputs)
-    us = queued_us(fn, inputs)
+            return DeviceUs(total / len(inputs), "profiler")
+    us = DeviceUs(queued_us(fn, inputs), "q")
     print(f"device_us: the profiler's traces of {getattr(fn, '__name__', fn)} dropped records "
           f"five times (last: {ops} device records for {launches} launches); {us!r} us a call "
           f"from CUDA events around the calls queued behind a sleep (back to back on the card, "
@@ -442,7 +463,7 @@ def phase_kernel():
             print(f"kernel fused_preprocess {name}->{out_hw[0]}x"
                   f"{out_hw[1]} {str(dtype)[6:]}: max_abs_err {err!r} (tol 0: "
                   f"bit-equal), kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA events); "
-                  f"kernel {us!r} us, plain {plain_us!r} us (profiler device time)")
+                  f"kernel {us!r} us ({us.how}), plain {plain_us!r} us ({plain_us.how})")
             if not torch.equal(out, ref):
                 raise AssertionError("fused_preprocess disagrees with its plain version")
             if dtype == torch.bfloat16 and (hw, y0) in ((FRAME_HW, 0), (FRAME_HW, LATERAL_CROP)):
@@ -1275,23 +1296,39 @@ def int8_wrapper_of(pkg, lib):
     return mod
 
 
+def preprocess_wrapper_of(pkg, lib):
+    """ops/kernels/preprocess_kernel.py of the port in ``pkg`` as a module of
+    its own whose kernels come from ``lib`` (its launch counts apart from
+    this tree's), its plain versions and tables this tree's ops/preprocess.py
+    (unchanged since the letterbox's first port)."""
+    import types
+
+    path = pkg / "ops" / "kernels" / "preprocess_kernel.py"
+    text = path.read_text().replace("from ...kernels import build\n", "")
+    mod = types.ModuleType(f"preprocess_of_{abs(hash((str(pkg), id(lib))))}")
+    mod.__package__ = "autoware_vision_pilot_tpu_torch.ops.kernels"
+    mod.build = types.SimpleNamespace(load=lambda: lib)
+    exec(compile(text, str(path), "exec"), mod.__dict__)
+    return mod
+
+
 def parent_kernels(root):
-    """--parent ROOT: the lane-filter walk, NMS and int8 1x1 conv entry
-    points of the port in ROOT (an earlier commit unpacked with git
-    archive), compiled from its csrc/ with its own flags into
+    """--parent ROOT: the lane-filter walk, NMS, int8 1x1 conv and preprocess
+    entry points of the port in ROOT (an earlier commit unpacked with git
+    archive), its whole csrc/ compiled with its own flags into
     ROOT/build/parent_kernels/ and bound with its own C signatures. ->
     (walk(masks), nms(top, kw), each allocating its outputs as this tree's
     wrappers do; the stamped copies of stamped_parent, where the parent's
     kernels have no stamps; the parent's int8_conv module over its own
-    kernels; and its 1x1 kernels stamped as PARENT_PW_STAMPS says), or None
-    without ROOT."""
+    kernels; its 1x1 kernels stamped as PARENT_PW_STAMPS says; its
+    preprocess_kernel module over its own kernels; and its letterbox stamped
+    as stamped_letterbox says), or None without ROOT."""
     if root is None:
         return None
     pkg, pb = tree_build(root)
     out = pkg.parent / "build" / "parent_kernels"
     out.mkdir(parents=True, exist_ok=True)
-    lib = build_library(pb, pkg / "csrc", [pkg / "csrc" / f"{n}.cu" for n in (
-        "lane_filter", "nms", "int8_pointwise")], out / "libparent.so")
+    lib = build_library(pb, pkg / "csrc", pb.sources(pkg / "csrc"), out / "libparent.so")
     # the walk: 6 arguments (no stamps), 7 (stamps), 8 (a batch of N streams);
     # NMS: 13 (no cluster size, no stamps), 15, 16 (a batch of N streams)
     walk_args = len(pb.SIGNATURES["avp_lane_filter_walk"])
@@ -1329,7 +1366,8 @@ def parent_kernels(root):
 
     print(f"parent kernels built from {pkg}")
     return (walk, nms, stamped_parent(pkg, pb, out) if walk_args == 6 else None,
-            int8_wrapper_of(pkg, lib), stamped_pointwise(pkg, pb, out, PARENT_PW_STAMPS))
+            int8_wrapper_of(pkg, lib), stamped_pointwise(pkg, pb, out, PARENT_PW_STAMPS),
+            preprocess_wrapper_of(pkg, lib), stamped_letterbox(pkg, pb, out))
 
 
 # Stage stamps for the parent's kernels when they have none of their own (the
@@ -1486,6 +1524,69 @@ def stamped_pointwise(pkg, pb, out, edits=None):
     return int8_wrapper_of(pkg, lib), stamps
 
 
+# Stage stamps for a parent's letterbox when it has no csrc/letterbox.cu (PR
+# 12's, the letterbox mode of the preprocess kernel's template, one block an
+# output row): [(anchor, text put before it)] in its preprocess.cu. Thread 0 of each
+# block laps its SM clocks as PwStamps does: 0 the two source rows copied
+# and the barrier, 1 the lerp and its barrier, 2 the row's store, 3 a pad
+# row's block (fill, barrier, store).
+PARENT_LB_STAMPS = [
+    ("// PLACED: the letterbox mode; without it the image fills the output and",
+     PW_STAMP_STRUCT),
+    ("  const int oy = blockIdx.x, b = blockIdx.y;\n", "  PwStamps pw_st;\n  pw_st.start();\n"),
+    ("    return;\n  }\n  // the first group's taps", "    pw_st.lap(3);\n    pw_st.write();\n"),
+    ("\n  T* oi = PLACED ? o + pl.pad_x * 3 : o;", "\n  pw_st.lap(0);"),
+    ("  store_row(dst, o, w * 3);\n}\n", "  pw_st.lap(1);\n"),
+    ("}\n\ntemplate <typename T, bool PLACED>\ncudaError_t launch(",
+     "  pw_st.lap(2);\n  pw_st.write();\n"),
+    ('extern "C" int avp_fused_preprocess(', 'extern "C" int avp_set_stamps(void* p) {\n'
+     "  return (int)cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));\n}\n\n"),
+]
+# stage names: csrc/letterbox.cu's own stamps (AVP_LB_STAMPS), PARENT_LB_STAMPS' edits
+LB_STAGES = {"own": ("unit decoded, its copies' taps landed", "source bytes copied and landed",
+                     "lerp and stores", "a piece of the pad (pad blocks)"),
+             "edited": ("source rows copied, and the barrier", "lerp and the barrier", "store",
+                        "pad row (a block of its own)")}
+
+
+def stamped_letterbox(pkg, pb, out):
+    """The letterbox of the port in ``pkg`` with stage stamps, in a library of
+    its own under ``out``: its csrc/letterbox.cu built with -DAVP_LB_STAMPS
+    (its own stamps, from PR 13 on), else PARENT_LB_STAMPS put into a copy of
+    its preprocess.cu. -> (its preprocess_kernel module over that library,
+    the stamps tensor, blocks(n): the grid at 720p -> LON_HW for n frames,
+    the stage names), or None if an anchor is missing."""
+    import ctypes
+
+    if (pkg / "csrc" / "letterbox.cu").exists():
+        lib = build_library(pb, pkg / "csrc", [pkg / "csrc" / "letterbox.cu"],
+                            out / "libstamped_letterbox.so", ("-DAVP_LB_STAMPS",))
+        mod, setter, stages = preprocess_wrapper_of(pkg, lib), lib.avp_letterbox_set_stamps, "own"
+
+        def blocks(n):
+            return mod.letterbox_plan(n, *FRAME_HW, LON_HW).blocks
+    else:
+        src = pkg / "csrc" / "preprocess.cu"
+        text = src.read_text()
+        for anchor, stamp in PARENT_LB_STAMPS:
+            if text.count(anchor) != 1:
+                print(f"stage split of {src}'s letterbox: not measured (no single {anchor!r})")
+                return None
+            text = text.replace(anchor, stamp + anchor)
+        copy = out / "stamped_preprocess.cu"
+        copy.write_text(text)
+        lib = build_library(pb, pkg / "csrc", [copy], out / "libstamped_letterbox.so")
+        mod, setter, stages = preprocess_wrapper_of(pkg, lib), lib.avp_set_stamps, "edited"
+
+        def blocks(n):
+            return n * LON_HW[0]
+    stamps = torch.zeros(STAMP_WORDS * max(blocks(n) for n in (1, 8)), dtype=torch.int64,
+                         device="cuda")
+    if setter(ctypes.c_void_p(stamps.data_ptr())):
+        raise RuntimeError(f"could not set the letterbox stamp buffer of {pkg}")
+    return mod, stamps, blocks, LB_STAGES[stages]
+
+
 def stage_split(mod, stamps, plan, call, n_stages):
     """Runs ``call(mod)`` (one launch of a stamped kernel) and reads its
     blocks' stamps. -> (mean ns a block by stage, mean and max ns from a
@@ -1609,12 +1710,22 @@ def launch_floor(card):
 
 
 def alternate(label, fns, inputs, card):
-    """Profiler device time of parent, new, new, parent in turns (``fns``:
-    name -> fn); prints each. -> {name: [us, us]}."""
-    times = {name: [] for name in fns}
-    for name in (*fns, *reversed(list(fns))):
-        times[name].append(device_us(fns[name], inputs))
-        print(f"{label} {name}, {card}: {times[name][-1]!r} us (profiler device time)")
+    """Device time of parent, new, new, parent in turns (``fns``: name ->
+    fn); prints each. The turns are read by the profiler (device_us); where
+    it fell back to queued events on some turns and not others, every turn
+    is taken again from queued events, so that the means compare like with
+    like. -> {name: [us, us]}, each a DeviceUs."""
+    def turns(timer):
+        times = {name: [] for name in fns}
+        for name in (*fns, *reversed(list(fns))):
+            times[name].append(timer(fns[name], inputs))
+            print(f"{label} {name}, {card}: {times[name][-1]!r} us ({times[name][-1].how})")
+        return times
+
+    times = turns(device_us)
+    if len({u.how for v in times.values() for u in v}) > 1:
+        print(f"{label}: the turns were read two ways; every turn again from queued events")
+        times = turns(lambda fn, xs: DeviceUs(queued_us(fn, xs), "q"))
     return times
 
 
@@ -1661,7 +1772,7 @@ def phase_lane_filter(card, parent=None):
     h, w = LANE_HW
     nbytes = h * w * 3 * 4 + 2 * h * w * 4 + 2 * 3 * 4
     bound_ms, bound_by = bound(0, nbytes)
-    print(f"kernel lane_filter_walk {h}x{w}, {card}: {us!r} us (profiler device time; "
+    print(f"kernel lane_filter_walk {h}x{w}, {card}: {us!r} us ({us.how}; "
           f"CUDA events {ms * 1e3!r} us a call, {queued_us(lane_filter_walk, pool)!r} us queued "
           f"back to back), bound {bound_ms * 1e3!r} us by {bound_by} "
           f"({nbytes} bytes), share {bound_ms * 1e3 / us!r}; plain version {plain_us!r} us "
@@ -1910,9 +2021,27 @@ def letterbox_bytes(hw, out_hw):
     return rows * cols * 3 + out_hw[0] * out_hw[1] * 3 * 2
 
 
+def offset_frames(n, hw, offset, seed, gap=0):
+    """n seeded (H, W, 3) frames on the card, each starting ``offset``
+    bytes past a 16-byte boundary, ``gap`` bytes apart (a view of one
+    buffer: frame_stride = H W 3 + gap)."""
+    H, W = hw
+    stride = H * W * 3 + gap
+    rng = np.random.default_rng(seed)
+    buf = torch.from_numpy(rng.integers(0, 256, n * stride + 32, dtype=np.uint8)).cuda()
+    base = (16 - buf.data_ptr() % 16) % 16 + offset
+    return torch.as_strided(buf, (n, H, W, 3), (stride, 3 * W, 3, 1), base)
+
+
+LETTERBOX_OFFSETS = (1, 5, 15)  # bytes past 16 of phase 11's offset frames
+
+
 def phase_letterbox(card):
-    """The letterbox mode bit-equal to its plain version; its time at 720p.
-    -> the JSON record."""
+    """The letterbox kernel bit-equal to its plain version at
+    LETTERBOX_SIZES, then on frames 1, 5 and 15 bytes past 16 (one, and a
+    batch of three frame_stride bytes apart) at 720p and the KITTI size, in
+    f32 and bf16; its time at each size, bound at 720p, and the plain
+    version's time. -> the JSON record."""
     from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (fused_letterbox,
                                                                                fused_preprocess)
     from autoware_vision_pilot_tpu_torch.ops.preprocess import letterbox
@@ -1936,9 +2065,10 @@ def phase_letterbox(card):
             plain = lambda x: letterbox(x[None], out_hw, hw, dtype=dtype)  # noqa: E731
             us, plain_us = device_us(kernel, pool), device_us(plain, pool)
             print(f"kernel fused_letterbox {hw[0]}x{hw[1]}->{out_hw[0]}x{out_hw[1]} "
-                  f"{str(dtype)[6:]} (scale {scale!r}, pad {pad}): max_abs_err {err!r} (tol 0: "
-                  f"bit-equal); kernel {us!r} us, plain {plain_us!r} us (profiler device time)")
-            if not torch.equal(out, ref):
+                  f"{str(dtype)[6:]} (scale {scale!r}, pad {pad}), {card}: max_abs_err {err!r} "
+                  f"(tol 0: bit-equal); kernel {us!r} us ({us.how}), plain {plain_us!r} us "
+                  f"({plain_us.how})")
+            if not bits_equal(out, ref):
                 raise AssertionError("fused_letterbox disagrees with its plain version")
             if dtype == torch.bfloat16 and hw == FRAME_HW:
                 nbytes = letterbox_bytes(hw, out_hw)
@@ -1949,7 +2079,94 @@ def phase_letterbox(card):
                 record = dict(max_abs_err=err, ms=us / 1e3, plain_ms=plain_us / 1e3,
                               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         del pool
+    checked = 0
+    for hw, out_hw in LETTERBOX_SIZES[:2]:
+        for offset in LETTERBOX_OFFSETS:
+            for n, gap in ((1, 0), (3, 7)):
+                batch = offset_frames(n, hw, offset, SEED + offset + n, gap)
+                for dtype in (torch.float32, torch.bfloat16):
+                    out = fused_letterbox(batch, out_hw, dtype)[0]
+                    ref = letterbox(batch, out_hw, hw, dtype=dtype)[0].permute(0, 3, 1, 2)
+                    if not bits_equal(out, ref):
+                        raise AssertionError(f"fused_letterbox on {n} {hw} frame(s) {offset} "
+                                             f"bytes past 16 ({dtype}) disagrees")
+                    checked += 1
+    print(f"kernel fused_letterbox on frames {LETTERBOX_OFFSETS} bytes past 16 bytes, one and "
+          f"three {LETTERBOX_SIZES[0][0]} and {LETTERBOX_SIZES[1][0]} frames (the three "
+          f"frame_stride = H W 3 + 7 apart), f32 and bf16: {checked} launches bit-equal to the "
+          "plain version")
     return record
+
+
+# (source, streams, frames in the pool) of --parent's letterbox turns:
+# 720p at N = 1 and the fleet's N = 8, and the KITTI size; each pool past
+# the L2
+LETTERBOX_TURNS = ((FRAME_HW, 1, 32), (FRAME_HW, 8, 4), (ODD_HW, 1, 48))
+
+
+def letterbox_split(mod, stamps, batch, blocks):
+    """One launch of a stamped letterbox (``mod``'s fused_letterbox) on
+    ``batch``: -> (mean ns by LB_STAGES over the blocks that ran each stage
+    (image blocks, pad blocks), mean ns from a block's first stamp to its
+    last, ns from the launch's first stamp to its last)."""
+    stamps.zero_()
+    mod.fused_letterbox(batch, LON_HW)
+    torch.cuda.synchronize()
+    t = stamps[:STAMP_WORDS * blocks].view(blocks, STAMP_WORDS).cpu().numpy().astype(np.float64)
+    t = t[t[:, 0] > 0]  # blocks whose stamping warp ran
+    span = t[:, 1] - t[:, 0]
+    stages = t[:, 3:7] * (span / np.maximum(t[:, 2], 1))[:, None]
+    ran = np.maximum((stages > 0).sum(axis=0), 1)
+    return stages.sum(axis=0) / ran, float(span.mean()), float(t[:, 1].max() - t[:, 0].min())
+
+
+def phase_letterbox_parent(card, parent):
+    """--parent: the parent's letterbox (its own wrapper and kernel) against
+    this tree's on the same bf16 720p and KITTI inputs, outputs equal, device
+    time in turns (parent, this, this, parent) at LETTERBOX_TURNS; then each
+    one's stage split from stamped copies (stamped_letterbox), over 8
+    launches at 720p, N = 1 and 8. -> {(source, N): {name: mean us}}."""
+    from autoware_vision_pilot_tpu_torch.kernels import build as this_build
+    from autoware_vision_pilot_tpu_torch.ops.kernels import preprocess_kernel as ours
+
+    theirs = parent[5]
+    times = {}
+    for hw, n, count in LETTERBOX_TURNS:
+        pool = [frames(n, hw, SEED + 40 + i).cuda() for i in range(count)]
+        if n == 1:
+            pool = [x[0] for x in pool]
+        fns = {name: (lambda x, m=mod: m.fused_letterbox(x, LON_HW)[0])
+               for name, mod in (("parent", theirs), ("this tree", ours))}
+        if not bits_equal(fns["parent"](pool[0]), fns["this tree"](pool[0])):
+            raise AssertionError(f"letterbox {hw} N = {n}: the parent's output differs")
+        label = f"letterbox {hw[0]}x{hw[1]} -> {LON_HW[0]}x{LON_HW[1]} bf16, N = {n}"
+        t = alternate(label, fns, pool, card)
+        times[(hw, n)] = {k: float(np.mean(v)) for k, v in t.items()}
+        hows = sorted({u.how for v in t.values() for u in v})
+        print(f"{label}, {card}: parent {times[(hw, n)]['parent']!r} us, this tree "
+              f"{times[(hw, n)]['this tree']!r} us (mean of two turns each; read by {hows})")
+        del pool
+    stamped = {"parent": parent[6],
+               "this tree": stamped_letterbox(REPO / "autoware_vision_pilot_tpu_torch",
+                                              this_build, REPO / "build")}
+    for n in (1, 8):
+        batches = [frames(n, FRAME_HW, SEED + 60 + i).cuda() for i in range(8)]
+        for name, st in stamped.items():
+            if st is None:
+                continue
+            mod, stamps, grid, stages = st
+            blocks = grid(n)
+            runs = [letterbox_split(mod, stamps, x, blocks) for x in batches]
+            split = np.mean([r[0] for r in runs], axis=0)
+            print(f"{name}'s letterbox stage split, 720p -> 640x640 bf16, N = {n}, {card} (ns a "
+                  f"block, mean over the blocks of {blocks} that ran each stage x {len(runs)} "
+                  "launches, clock64 laps of thread 0 scaled by %globaltimer): "
+                  + ", ".join(f"{stage} {v:.0f}" for stage, v in zip(stages, split))
+                  + f"; a block's first stamp to its last {np.mean([r[1] for r in runs]):.0f}; "
+                  f"the launch's first stamp to its last {np.mean([r[2] for r in runs]):.0f}")
+        del batches
+    torch.cuda.empty_cache()
+    return times
 
 
 def phase_longitudinal_f32():
@@ -2200,7 +2417,7 @@ def phase_nms(card, heads, parent=None):
 
 
 LON_KINDS = (("NMS (the kernel)", ("nms_greedy_kernel",)),
-             ("letterbox (the preprocess kernel)", ("fused_preprocess_kernel",)),
+             ("letterbox (the letterbox kernel)", ("letterbox_kernel",)),
              ("convolutions", ("conv", "xmma", "cudnn", "fprop", "implicit")),
              ("matrix products", ("gemm", "gemv", "cutlass", "dot_kernel")),
              ("top-k and sorts", ("topk", "sort", "Sort", "radix")),
@@ -2286,8 +2503,8 @@ def batched_times(label, fn, pools, card):
     its time on one: ``pools`` {1: [x], 8: [x]}. -> (us at N = 8, us at
     N = 1)."""
     us8, us1 = device_us(fn, pools[8]), device_us(fn, pools[1])
-    print(f"{label}, {card}: N = 8 {us8!r} us a launch against 8 x N = 1 {8 * us1!r} us "
-          f"(N = 1: {us1!r} us; profiler device time)")
+    print(f"{label}, {card}: N = 8 {us8!r} us a launch ({us8.how}) against 8 x N = 1 "
+          f"{8 * us1!r} us (N = 1: {us1!r} us, {us1.how})")
     return us8, us1
 
 
@@ -3310,6 +3527,8 @@ def main():
     lateral = phase_lateral(card)  # the lateral program
     launches["lane_filter_walk"] = lateral["lane_filter_walk"]
     records["fused_letterbox"] = phase_letterbox(card)
+    if parent is not None:
+        phase_letterbox_parent(card, parent)
     heads = phase_longitudinal_f32()
     records["nms_greedy"] = phase_nms(card, heads, parent)
     longitudinal = phase_longitudinal(card)  # the longitudinal program
@@ -3373,7 +3592,7 @@ def main():
         "int8_conv_dot": (pkg + "int8_pointwise.cu", "autoware_vision_pilot_tpu/nn/layers.py:81"),
         "lane_filter_walk": (pkg + "lane_filter.cu",
                              "autoware_vision_pilot_tpu/perception/lane_filter.py:113"),
-        "fused_letterbox": (pkg + "preprocess.cu",
+        "fused_letterbox": (pkg + "letterbox.cu",
                             "autoware_vision_pilot_tpu/ops/preprocess.py:86"),
         "nms_greedy": (pkg + "nms.cu", "autoware_vision_pilot_tpu/ops/postprocess.py:88"),
     }

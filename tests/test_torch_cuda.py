@@ -27,7 +27,8 @@ from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import nms_greedy
 from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (fused_letterbox,
                                                                            fused_preprocess)
 from autoware_vision_pilot_tpu_torch.ops.postprocess import nms_greedy_plain, nms_topk
-from autoware_vision_pilot_tpu_torch.ops.preprocess import letterbox, preprocess_imagenet
+from autoware_vision_pilot_tpu_torch.ops.preprocess import (letterbox, letterbox_geometry,
+                                                            preprocess_imagenet)
 from autoware_vision_pilot_tpu_torch.perception.lane_filter import lane_filter_walk_plain
 from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused
 from autoware_vision_pilot_tpu_torch.runtime.pipeline import (SCALAR_FIELDS,
@@ -906,6 +907,85 @@ def test_letterbox_kernel_on_a_batch(cuda, n):
     assert torch.equal(out, ref.permute(0, 3, 1, 2))
     for i in range(n):
         assert torch.equal(fused_letterbox(batch[i], (640, 640))[0][0], out[i])
+
+
+def offset_frames(hw, n, offset, gap, seed, device):
+    """n (H, W, 3) frames that start ``offset`` bytes past a 16-byte
+    boundary, ``gap`` bytes of other data between them (frame_stride = H W
+    3 + gap), the batch a view of one buffer."""
+    H, W = hw
+    stride = H * W * 3 + gap
+    rng = np.random.default_rng(seed)
+    buf = torch.from_numpy(rng.integers(0, 256, n * stride + offset + 16, np.uint8)).to(device)
+    base = (16 - buf.data_ptr() % 16) % 16 + offset
+    view = torch.as_strided(buf, (n, H, W, 3), (stride, 3 * W, 3, 1), base)
+    assert view.data_ptr() % 16 == offset
+    return view
+
+
+@pytest.mark.parametrize("offset", [1, 5, 15])
+@pytest.mark.parametrize("src,out_hw", [((720, 1280), (640, 640)), ((375, 1242), (640, 640)),
+                                        ((360, 640), (181, 333))])
+def test_letterbox_kernel_on_frames_off_16_bytes(cuda, src, out_hw, offset):
+    """Frames that start 1, 5 or 15 bytes past 16 (row words and the
+    image's first and last bytes read apart), one and a batch of three
+    frame_stride bytes apart, f32 and bf16: bit-equal to the plain version
+    and, per frame, to a launch on that frame alone. At 181x333 the output
+    rows are 1,998 (bf16) and 3,996 (f32) bytes: ragged ends."""
+    for n, gap in ((1, 0), (3, 7)):
+        f = offset_frames(src, n, offset, gap, seed=offset + n, device=cuda)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            out, _, _ = fused_letterbox(f, out_hw, out_dtype)
+            ref, _, _ = letterbox(f, out_hw, src, dtype=out_dtype)
+            assert bits_equal(out.permute(0, 2, 3, 1), ref)
+            for i in range(n):
+                assert bits_equal(fused_letterbox(f[i], out_hw, out_dtype)[0][0], out[i])
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("src", [(720, 1280), (375, 1242)])
+def test_letterbox_kernel_on_a_strided_batch(cuda, n, src):
+    """N = 1, 3 and 8 frames frame_stride bytes apart (H W 3 + 37: every
+    frame at another offset from 16), one launch: bit-equal per stream."""
+    f = offset_frames(src, n, 0, 37, seed=30 + n, device=cuda)
+    before = fused_letterbox.launches
+    out, _, _ = fused_letterbox(f, (640, 640))
+    assert fused_letterbox.launches == before + 1
+    ref, _, _ = letterbox(f, (640, 640), src, dtype=torch.bfloat16)
+    assert torch.equal(out.permute(0, 2, 3, 1), ref)
+
+
+@pytest.mark.parametrize("src,out_hw", [((2, 1000), (640, 640)), ((1, 7), (24, 7)),
+                                        ((333, 517), (601, 700))])
+def test_letterbox_kernel_edge_sizes(cuda, src, out_hw):
+    """nh = 1 (a 2 x 1000 frame, and a 1 x 7 one whose rows are 21 bytes:
+    no whole 16-byte word inside the image), and 601 x 700 output rows: a
+    short last chunk of columns (700 = 10 x 64 + 60), a last block that
+    the units do not fill, and pad runs that the warps do not divide
+    evenly; f32 and bf16, batches of 1 and 5."""
+    _, (nh, nw), _ = letterbox_geometry(out_hw, src)
+    if src[0] <= 2:
+        assert nh == 1
+    for n in (1, 5):
+        f = offset_frames(src, n, 3, 1, seed=n, device=cuda)
+        plan = preprocess_kernel.letterbox_plan(n, *src, out_hw)
+        if src == (333, 517):
+            assert nw % preprocess_kernel.LB_CHUNK and plan.units % preprocess_kernel.LB_WARPS
+        for out_dtype in (torch.float32, torch.bfloat16):
+            out, _, _ = fused_letterbox(f, out_hw, out_dtype)
+            ref, _, _ = letterbox(f, out_hw, src, dtype=out_dtype)
+            assert bits_equal(out.permute(0, 2, 3, 1), ref)
+
+
+def test_letterbox_kernel_refuses_rows_past_shared_memory(cuda):
+    """A 200 x 6400 frame into 64 x 64: a warp's copy of a source row (100
+    source pixels an output column) would take 307 KB of shared memory a
+    block; the launch is refused, and the wrapper raises."""
+    f = frames((200, 6400), 1, seed=4).to(cuda)
+    with pytest.raises(ValueError):
+        preprocess_kernel.letterbox_plan(1, 200, 6400, (64, 64))
+    with pytest.raises(RuntimeError):
+        fused_letterbox(f, (64, 64))
 
 
 @pytest.mark.parametrize("n", [1, 3, 8])

@@ -192,7 +192,8 @@ def test_kernel_binding_matches_c_signature():
     library itself is built only on a GPU machine."""
     assert [p.name for p in build.sources()] == ["int8_conv.cu", "int8_conv_sm90.cu",
                                                  "int8_pointwise.cu", "lane_filter.cu",
-                                                 "launch_floor.cu", "nms.cu", "preprocess.cu"]
+                                                 "launch_floor.cu", "letterbox.cu", "nms.cu",
+                                                 "preprocess.cu"]
     decls = {}
     for src in build.sources():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
