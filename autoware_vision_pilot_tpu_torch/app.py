@@ -65,12 +65,11 @@ def _on(model: torch.nn.Module, device, dtype) -> torch.nn.Module:
 
 def load_homography(cfg: Config) -> np.ndarray:
     """The image -> world homography of ``cfg.homography_yaml`` (its "H"
-    node, a list or a {data: [...]} map), or the identity."""
+    node, a list or a {data: [...]} map, through
+    calibration/homography.py::load_homography_yaml), or the identity."""
     if cfg.homography_yaml and Path(cfg.homography_yaml).exists():
-        import yaml
-        node = yaml.safe_load(Path(cfg.homography_yaml).read_text())["H"]
-        data = node if isinstance(node, list) else node["data"]
-        return np.asarray(data, np.float64).reshape(3, 3)
+        from .calibration import load_homography_yaml
+        return load_homography_yaml(cfg.homography_yaml)
     return np.eye(3)
 
 

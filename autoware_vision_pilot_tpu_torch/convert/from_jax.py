@@ -9,11 +9,15 @@ Leaf transforms, by flax leaf name:
   ``b``, ``bias``                    -> ``bias``
   ``scale``                          -> ``weight``   (BatchNorm)
   ``mean``, ``var`` (batch_stats)    -> ``running_mean``, ``running_var``
-  ``w_scale``, ``x_scale`` (int8)    -> ``weight_scale``, ``input_scale``
+  ``w_scale``, ``wt_scale``, ``x_scale`` (int8)
+                                     -> ``weight_scale``, ``weight_scale``,
+                                        ``input_scale``
 
-An int8 ``w`` (export/quantize.py::quantize_variables_for_int8_conv) keeps
-its dtype and loads into an ``Int8Conv2d`` of the port's own quantized
-module (export/quantize.py); every other leaf becomes f32. An int8 leaf for
+An int8 ``w`` or ``wt`` (export/quantize.py::quantize_variables_for_int8_conv)
+keeps its dtype and loads into an ``Int8Conv2d`` or ``Int8ConvTranspose2d``
+of the port's own quantized module (export/quantize.py), the latter in its
+(kh, kw, O, I) memory layout (``load_state_dict`` copies into it); every
+other leaf becomes f32. An int8 leaf for
 a float key, or the other way round, raises like a shape mismatch.
 
 Flax paths merge a torch index into its parent (``encoder_1_0``); whether a
@@ -39,7 +43,7 @@ _TRANSPOSE = {"w": (3, 2, 0, 1), "wt": (3, 2, 0, 1), "wl": (1, 0), "w1": (2, 1, 
 _TORCH_LEAF = {"w": "weight", "wt": "weight", "wl": "weight", "w1": "weight", "b": "bias",
                "scale": "weight", "bias": "bias", "mean": "running_mean",
                "var": "running_var", "w_scale": "weight_scale",
-               "x_scale": "input_scale"}
+               "wt_scale": "weight_scale", "x_scale": "input_scale"}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:

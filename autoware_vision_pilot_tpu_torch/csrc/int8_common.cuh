@@ -233,9 +233,9 @@ __device__ __forceinline__ __nv_bfloat16 bf16_out(const Epilogue& e, const Colum
   return yb;
 }
 
-__device__ __forceinline__ void store_out(const Epilogue& e, int m, int n, const Column& c,
-                                          int acc) {
-  const long long i = (long long)m * e.N + n;
+// One output value at element offset i of the output.
+__device__ __forceinline__ void store_at(const Epilogue& e, long long i, const Column& c,
+                                         int acc) {
   if (e.out_kind == 2) {
     static_cast<int*>(e.out)[i] = acc;
   } else if (e.out_kind == 0) {
@@ -243,6 +243,11 @@ __device__ __forceinline__ void store_out(const Epilogue& e, int m, int n, const
   } else {
     static_cast<__nv_bfloat16*>(e.out)[i] = bf16_out(e, c, acc);
   }
+}
+
+__device__ __forceinline__ void store_out(const Epilogue& e, int m, int n, const Column& c,
+                                          int acc) {
+  store_at(e, (long long)m * e.N + n, c, acc);
 }
 
 }  // namespace avp

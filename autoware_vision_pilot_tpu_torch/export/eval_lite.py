@@ -5,7 +5,8 @@ Models/exports/lite_models/eval_{sceneseglite,scene3dlite,egolaneslite}.py).
 One CLI covers the three Lite tasks; the config's loss.type selects it
 (cross_entropy -> mIoU, lanes_bce -> per-channel lane IoU, depth_ssi ->
 AbsRel / delta1 / MAE). It runs on the card unless ``--device cpu`` is
-given. Weights load from a flax msgpack file that the JAX package wrote
+given. Weights load from a .onnx artifact (``--onnx``, through
+convert/onnx_import.py), or a flax msgpack file that the JAX package wrote
 (``--msgpack``, through export/checkpoints.py::load_msgpack and
 convert/from_jax.py), else come from seed 0 (smoke mode). ``--int8`` runs
 the selected convs on the int8 kernels (export/quantize.py), calibrated on
@@ -38,9 +39,11 @@ import sys
 import numpy as np
 import torch
 
+from ..convert.onnx_import import import_onnx
 from ..export.quantize import calibrate_int8_activation_scales, quantize_for_int8_conv
 from ..inference.infer import load_weights as load_into
 from ..models.lite import build_lite_model
+from ..nn.layers import init_seeded
 from ..ops.preprocess import device_mean_std
 from ..train.lite_trainer import load_experiment_config
 from ..train.metrics import confusion_matrix, miou_from_confusion
@@ -51,10 +54,16 @@ WARM = 10  # --bench: untimed frames before the timed ones
 
 def load_weights(model, args, device, dtype):
     """``model`` (built on the CPU in f32) with the weights ``args`` name,
-    on ``device`` in ``dtype``, channels_last, in eval mode. Raises
-    NotImplementedError for ``--onnx`` and ``--checkpoint``."""
+    on ``device`` in ``dtype``, channels_last, in eval mode: ``--onnx``
+    through convert/onnx_import.py::import_onnx over the seed-0 weights (a
+    BatchNorm folded away in the file becomes the identity), as the JAX
+    CLI imports it over its init. Raises NotImplementedError for
+    ``--checkpoint``."""
     if args.onnx:
-        raise NotImplementedError(f"--onnx: {UNPORTED.format('4, convert/onnx_import.py')}")
+        init_seeded(model, torch.Generator().manual_seed(0))
+        model.load_state_dict(import_onnx(model, args.onnx), strict=True)
+        model.to(device=device, dtype=dtype, memory_format=torch.channels_last)
+        return model.eval()
     if not args.msgpack and args.checkpoint:
         raise NotImplementedError(
             f"--checkpoint: {UNPORTED.format('6, the orbax checkpoints of export/checkpoints.py')}")
@@ -202,7 +211,7 @@ def main(argv=None):
     ap.add_argument("--config", required=True)
     ap.add_argument("--checkpoint", help="orbax checkpoint dir (not ported yet)")
     ap.add_argument("--msgpack", help="flax msgpack weights file")
-    ap.add_argument("--onnx", help=".onnx weights artifact (not ported yet)")
+    ap.add_argument("--onnx", help=".onnx weights artifact")
     ap.add_argument("--data", help="dir of .npz samples (image,label)")
     ap.add_argument("--synthetic", type=int, default=0,
                     help="evaluate N synthetic samples (smoke mode)")

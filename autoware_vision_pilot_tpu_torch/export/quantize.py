@@ -1,26 +1,129 @@
-"""Selective int8 post-training quantization, the port of
-autoware_vision_pilot_tpu/export/quantize.py::quantize_variables_for_int8_conv
-(:95-162) and ::calibrate_int8_activation_scales (:165-214).
+"""Int8 post-training quantization, the port of
+autoware_vision_pilot_tpu/export/quantize.py: the weight-only PTQ
+(``quantize_weights_int8``, ``dequantize_weights``, ``weight_quant_error``,
+``QuantizedInference``, :23-92) and the selective int8 conv path
+(``quantize_variables_for_int8_conv``, :95-162, and
+``calibrate_int8_activation_scales``, :165-214).
 
-The JAX functions rewrite a variables tree; these act on the port's modules
-in place, in the PyTorch idiom: every selected ``Conv2d`` is swapped for an
-``Int8Conv2d`` holding the same numbers the JAX tree would hold, and
+The JAX functions rewrite a variables tree; these act on the port's modules,
+in the PyTorch idiom. The weight-only PTQ reads a module's parameters (the
+JAX ``params``; its ``batch_stats`` are the port's buffers and stay float).
+The selective path swaps every selected ``Conv2d`` for an ``Int8Conv2d``
+and, with ``quantize_transpose``, every selected ``ConvTranspose2d`` for an
+``Int8ConvTranspose2d``, holding the numbers the JAX tree would hold, and
 calibration writes each ``input_scale``. Selection, scales and rounding are
-the JAX package's, bit for bit (tests/test_torch_quantize.py).
-
-Not ported yet: ``quantize_transpose`` (the int8 ConvTranspose2d branch),
-``quantize_weights_int8``/``QuantizedInference``.
+the JAX package's, bit for bit (tests/test_torch_quantize.py,
+tests/test_torch_int8_transpose.py, tests/test_torch_weight_ptq.py).
 """
 from __future__ import annotations
 
-from typing import Iterable, Mapping, Optional
+from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
-from ..nn.layers import Conv2d, Int8Conv2d
+from ..nn.layers import Conv2d, ConvTranspose2d, Int8Conv2d, Int8ConvTranspose2d
 from ..ops.kernels.int8_conv import f32_div
 
+
+# ------------------------------------------------------------ weight-only PTQ
+
+@torch.no_grad()
+def quantize_weights_int8(model: nn.Module
+                          ) -> Tuple[Dict[str, torch.Tensor], Dict[str, object]]:
+    """Every float parameter of ``model`` -> (int8 values, scale),
+    symmetric, in the parameter's own dtype: scale = max(amax, 1e-8) / 127
+    and q = clip(round(p / scale), +-127). A rank-4 tensor takes one scale
+    a slice of dim 0 (amax over the other dims): per output channel for a
+    conv's OIHW, per input channel for a transposed conv's IOHW, as the JAX
+    function's axes (0, 1, 2) of HWIO and (kh, kw, O, I) give them; any
+    other tensor one scale. Other parameters pass through with a scale of
+    0.0. -> ({name: q}, {name: scale})."""
+    qs, scales = {}, {}
+    for name, p in model.named_parameters():
+        if not p.is_floating_point():
+            qs[name], scales[name] = p, 0.0
+            continue
+        if p.dim() == 4:
+            amax = p.abs().amax(dim=tuple(range(1, p.dim())), keepdim=True)
+        else:
+            amax = p.abs().amax()
+        scale = f32_div(amax.clamp_min(1e-8), 127.0)
+        # with the parameter's own strides, so that the module runs the
+        # dequantized weights with the kernels it runs its own with
+        qs[name] = torch.empty_like(p, dtype=torch.int8).copy_(
+            torch.clamp(torch.round(p / scale), -127, 127))
+        scales[name] = scale
+    return qs, scales
+
+
+def dequantize_weights(q_params: Mapping[str, torch.Tensor],
+                       scales: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """int8 values back to f32, ``f32(q) * scale``; the rest as they are."""
+    return {k: (q.float() * scales[k]).float() if q.dtype == torch.int8 else q
+            for k, q in q_params.items()}
+
+
+@torch.no_grad()
+def weight_quant_error(model: nn.Module) -> float:
+    """The largest relative error of the int8 round trip over the float
+    parameters: max|p - dq| / max(max|p|, 1e-8), each in f32."""
+    dq = dequantize_weights(*quantize_weights_int8(model))
+    errs = [0.0]
+    for k, a in model.named_parameters():
+        if a.is_floating_point():
+            err = (a - dq[k]).abs().amax()
+            errs.append(float(err / torch.clamp_min(a.abs().amax().float(), 1e-8)))
+    return max(errs)
+
+
+class QuantizedInference:
+    """Weight-only PTQ around a model: its parameters are kept as int8 and
+    scales (quantize_weights_int8) on the model's device, and every call
+    dequantizes them in ``compute_dtype`` (``q.to(cd) * scale.to(cd)``, one
+    rounding) and runs the model with them in place of its own, cast to
+    the input's dtype: the JAX layers compute in their input's dtype, so
+    bf16-rounded weights run in f32 for an f32 input. Buffers (BatchNorm
+    statistics) stay the model's. Raises on a model whose parameters lie on
+    more than one device."""
+
+    def __init__(self, model: nn.Module, compute_dtype: torch.dtype = torch.bfloat16):
+        devices = {p.device for p in model.parameters()}
+        if len(devices) > 1:
+            raise ValueError(f"the model's parameters lie on {sorted(map(str, devices))}: "
+                             "QuantizedInference keeps them on one device")
+        self.model = model
+        self.q_params, self.scales = quantize_weights_int8(model)
+        self.compute_dtype = compute_dtype
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the stored weights: the int8 values and the scales."""
+        return sum(q.numel() * q.element_size() for q in self.q_params.values()) + sum(
+            s.numel() * s.element_size() for s in self.scales.values()
+            if isinstance(s, torch.Tensor))
+
+    def weights(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+        """The dequantized parameters, rounded to ``compute_dtype``, in
+        ``dtype``, with the parameters' strides."""
+        cd, out = self.compute_dtype, {}
+        for k, q in self.q_params.items():
+            if q.dtype != torch.int8:
+                out[k] = q
+                continue
+            w = torch.empty_like(q, dtype=cd)
+            torch.mul(q.to(cd), self.scales[k].to(cd), out=w)
+            out[k] = w.to(dtype)
+        return out
+
+    @torch.no_grad()
+    def __call__(self, x: torch.Tensor):
+        tensors = {**self.weights(x.dtype), **dict(self.model.named_buffers())}
+        return functional_call(self.model, tensors, (x,), strict=True)
+
+
+# ------------------------------------------------------- the selective int8 path
 
 def _int8_from(conv: Conv2d, sx: Optional[torch.Tensor]) -> Int8Conv2d:
     if conv.groups != 1 or conv.stride != (1, 1) or conv.dilation != (1, 1):
@@ -47,10 +150,26 @@ def _int8_from(conv: Conv2d, sx: Optional[torch.Tensor]) -> Int8Conv2d:
     return q
 
 
+def _int8_transpose_from(ct: ConvTranspose2d) -> Int8ConvTranspose2d:
+    """export/quantize.py:145-156: per-output-channel scales, max over (I,
+    kh, kw) of |w| in f32; no activation scale folded in."""
+    w = ct.weight.float()  # (I, O, kh, kw)
+    scale = f32_div(w.abs().amax(dim=(0, 2, 3)).clamp_min(1e-8), 127.0)
+    wq = torch.clamp(torch.round(w / scale.reshape(1, -1, 1, 1)), -127, 127)
+    in_ch, out_ch, kh, kw = ct.weight.shape
+    q = Int8ConvTranspose2d(in_ch, out_ch, (kh, kw), ct.bias is not None,
+                            device=w.device, dtype=ct.weight.dtype)
+    q.weight.copy_(wq.to(torch.int8))
+    q.weight_scale.copy_(scale)
+    if ct.bias is not None:
+        q.bias.copy_(ct.bias)
+    return q
+
+
 @torch.no_grad()
 def quantize_for_int8_conv(model: nn.Module, min_channels: int = 32,
-                           act_scales: Optional[Mapping[str, object]] = None
-                           ) -> nn.Module:
+                           act_scales: Optional[Mapping[str, object]] = None,
+                           quantize_transpose: bool = False) -> nn.Module:
     """Swap every ``Conv2d`` of ``model`` whose kernel takes at least
     ``min_channels`` input channels per group (the JAX rule: HWIO
     ``shape[2] >= min_channels``) for an ``Int8Conv2d``: per-output-channel
@@ -61,8 +180,13 @@ def quantize_for_int8_conv(model: nn.Module, min_channels: int = 32,
     calibrated activation scales. A vector (per-input-channel) scale is
     folded into the weights before they are quantized and dequantizes with
     w_scale alone; a scalar is stored as is. Convs without one quantize
-    their input dynamically until calibrated. Returns ``model``.
-    """
+    their input dynamically until calibrated.
+
+    ``quantize_transpose`` also swaps every ``ConvTranspose2d`` with at
+    least ``min_channels`` input channels (the JAX rule: (kh, kw, O, I)
+    ``shape[3] >= min_channels``) for an ``Int8ConvTranspose2d`` with
+    per-output-channel scales; ``act_scales`` never apply to them (they
+    quantize dynamically until calibrated), as in JAX. Returns ``model``."""
     scales = dict(act_scales or {})
 
     def scale_of(name, like):
@@ -70,15 +194,18 @@ def quantize_for_int8_conv(model: nn.Module, min_channels: int = 32,
         return None if sx is None else torch.as_tensor(
             sx, dtype=torch.float32, device=like.device)
 
-    def selected(m):
-        return isinstance(m, Conv2d) and m.weight.is_floating_point() \
-            and m.weight.shape[1] >= min_channels
-
     for name, m in list(model.named_modules()):
-        if selected(m):
-            parent, _, leaf = name.rpartition(".")
-            setattr(model.get_submodule(parent), leaf,
-                    _int8_from(m, scale_of(name, m.weight)))
+        if not (isinstance(m, (Conv2d, ConvTranspose2d)) and m.weight.is_floating_point()):
+            continue
+        if isinstance(m, Conv2d) and m.weight.shape[1] >= min_channels:
+            q = _int8_from(m, scale_of(name, m.weight))
+        elif isinstance(m, ConvTranspose2d) and quantize_transpose \
+                and m.weight.shape[0] >= min_channels:
+            q = _int8_transpose_from(m)
+        else:
+            continue
+        parent, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(parent), leaf, q)
     return model
 
 
@@ -87,16 +214,16 @@ def calibrate_int8_activation_scales(model: nn.Module,
                                      sample_batches: Iterable[torch.Tensor],
                                      percentile_headroom: float = 1.0
                                      ) -> nn.Module:
-    """Static activation scales for every ``Int8Conv2d`` of ``model`` that
-    still has none: run ``model`` on each batch with those convs in dynamic
-    mode, take each conv's running max of max(max|x|, 1e-6) over the
-    batches, and set ``input_scale = amax * headroom / 127``, computed in
-    Python float64 and only then rounded to f32, as the JAX function does
-    (an f32 division can land one ulp away and flip quantized values).
-    Runs on the model's device; the amax stays there until the end.
-    Returns ``model``."""
+    """Static activation scales for every ``Int8Conv2d`` and
+    ``Int8ConvTranspose2d`` of ``model`` that still has none: run ``model``
+    on each batch with those modules in dynamic mode, take each one's
+    running max of max(max|x|, 1e-6) over the batches, and set
+    ``input_scale = amax * headroom / 127``, computed in Python float64 and
+    only then rounded to f32, as the JAX function does (an f32 division
+    can land one ulp away and flip quantized values). Runs on the model's
+    device; the amax stays there until the end. Returns ``model``."""
     convs = [m for m in model.modules()
-             if isinstance(m, Int8Conv2d) and m.input_scale is None]
+             if isinstance(m, (Int8Conv2d, Int8ConvTranspose2d)) and m.input_scale is None]
     for m in convs:
         m.observed_amax = None
     for x in sample_batches:
@@ -113,3 +240,7 @@ def calibrate_int8_activation_scales(model: nn.Module,
 
 def int8_conv_count(model: nn.Module) -> int:
     return sum(isinstance(m, Int8Conv2d) for m in model.modules())
+
+
+def int8_transpose_count(model: nn.Module) -> int:
+    return sum(isinstance(m, Int8ConvTranspose2d) for m in model.modules())

@@ -51,6 +51,9 @@ SIGNATURES = {
     # x, in_kind, scale, rcp, per_channel, w_map, w_scale, bias, out, M, C,
     # N, out_kind, bm, bn, m_tiles, n_tiles, cs, k_per_rank, stream
     "avp_int8_conv_pointwise": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 10 + (_P,),
+    # x, in_kind, scale, rcp, w_map, w_scale, bias, out, M, C, O, kh, kw, w,
+    # out_kind, bm, bn, m_tiles, n_tiles, cs, k_per_rank, stream
+    "avp_int8_conv_transpose": (_P, _I, _P, _P) + (_P,) * 4 + (_I,) * 13 + (_P,),
     # x, in_kind, scale, rcp, per_channel, w, w_scale, bias, out, M, C, N,
     # out_kind, lanes, stream
     "avp_int8_conv_dot": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 5 + (_P,),

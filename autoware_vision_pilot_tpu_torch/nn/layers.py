@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels.int8_conv import dynamic_input_scale, int8_conv2d
+from ..ops.kernels.int8_conv import dynamic_input_scale, int8_conv2d, int8_conv_transpose
 
 BN_EPS = 1e-5
 
@@ -120,6 +120,53 @@ class ConvTranspose2d(nn.Module):
 
     def forward(self, x):
         return F.conv_transpose2d(x, self.weight, self.bias, self.stride)
+
+
+class Int8ConvTranspose2d(nn.Module):
+    """The int8 branch of the JAX package's ConvTranspose2d (nn/layers.py:
+    187-208) for kernel == stride and padding 0: xq = quantize(x, sx), one
+    int8 product over the input channels with depth to space
+    (ops/kernels/int8_conv.py::int8_conv_transpose), then ``cast(f32(acc) *
+    (sx * w_scale)) + bias`` in the model dtype.
+
+    A class of its own beside ConvTranspose2d, as Int8Conv2d is beside
+    Conv2d. ``weight`` is int8 of torch's (in, out, kh, kw) shape, the one
+    ``state_dict`` and convert/from_jax.py use, over a (kh, kw, out, in)
+    buffer (a permuted view): the kernel's (kh kw out, in) weights with
+    the input channels contiguous. ``load_state_dict`` and ``Module.to``
+    without a memory format keep that layout; ``Module.to(memory_format=
+    torch.channels_last)`` re-lays it, and the kernel's wrapper then
+    raises. ``weight_scale`` is f32 per output channel (the JAX
+    ``wt_scale``), ``input_scale`` the static scalar (the JAX ``x_scale``)
+    that calibration sets; until then the scale is dynamic, max(max|x|,
+    1e-6) / 127, kept on the device, and each call records the running
+    ``observed_amax`` that calibration reads. ``plain = True`` routes a
+    module through the kernel's plain version.
+    """
+
+    def __init__(self, in_ch, out_ch, kernel_size=2, bias=True, *, device=None, dtype=None):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride = (kh, kw)
+        buf = torch.empty((kh, kw, out_ch, in_ch), device=device, dtype=torch.int8)
+        self.weight = nn.Parameter(buf.permute(3, 2, 0, 1), requires_grad=False)
+        self.register_buffer(
+            "weight_scale", torch.empty(out_ch, device=device, dtype=torch.float32))
+        self.register_buffer("input_scale", None)
+        self.register_parameter(
+            "bias", _param((out_ch,), device, dtype) if bias else None)
+        self.observed_amax = None
+        self.plain = False
+
+    def forward(self, x):
+        x = x.contiguous(memory_format=torch.channels_last)
+        sx = self.input_scale
+        if sx is None:
+            sx, amax = dynamic_input_scale(x)
+            self.observed_amax = (amax if self.observed_amax is None
+                                  else torch.maximum(self.observed_amax, amax))
+        return int8_conv_transpose(x, self.weight, self.weight_scale, sx, self.bias,
+                                   plain=self.plain)
 
 
 class Linear(nn.Module):

@@ -23,6 +23,13 @@ launches:
   ``int8_conv.launches`` counts every conv launch;
   ``int8_conv.route_launches`` counts them by route.
 
+- ``int8_conv_transpose``: the int8 branch of ConvTranspose2d
+  (nn/layers.py:187-208) for kernel == stride, padding 0: one product of
+  the (M = B h w, K = C) activation and the (kh kw O, C) weights on the
+  "pointwise" route's kernel, whose epilogue writes each result (m, (i, j,
+  o)) to out[b, h kh + i, w kw + j, o] (depth to space), with w_scale[o]
+  and bias[o]; ``int8_conv_transpose.launches`` counts its launches.
+
 ``int8_conv2d`` is the whole conv on a float input: on the "pointwise"
 and "dot" routes one launch that quantizes as it loads (bit-equal to the
 quantize kernel: it multiplies by 1 / sx in float64, which ``_reciprocal``
@@ -327,6 +334,11 @@ def _pointwise_plan(M: int, C: int, N: int, sms: int) -> Int8ConvPlan:
         return _dot_plan(M, C, N)
     if math.ceil(N / PW_WIDTHS[-1]) > 65535:
         raise ValueError(f"N = {N}: more output channels than the grid holds")
+    return _pointwise_cheapest(M, C, N, sms)
+
+
+def _pointwise_cheapest(M: int, C: int, N: int, sms: int) -> Int8ConvPlan:
+    """The pointwise plan whose N tile costs least by _pointwise_cost."""
     plans = [_pointwise_tiles(M, C, N, bn, sms) for bn in PW_WIDTHS]
     return min(plans, key=lambda p: (_pointwise_cost(p, sms), p.bn))
 
@@ -582,3 +594,127 @@ def int8_conv2d(x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tenso
     if x.dtype not in IN_DTYPES:
         raise TypeError(f"x must be one of {IN_DTYPES}, got {x.dtype}")
     return _conv(x, weight, weight_scale, x_scale, bias, padding, x.dtype)
+
+
+# ------------------------------------------------------------ conv transpose
+
+def _check_transpose_weight(weight: torch.Tensor) -> None:
+    """(I, O, kh, kw) int8 over a (kh, kw, O, I) buffer, the layout of
+    nn/layers.py::Int8ConvTranspose2d: each (i, j, o) row of I channels
+    contiguous, the GEMM's (kh kw O, I) weights."""
+    if weight.dtype != torch.int8 or weight.dim() != 4:
+        raise TypeError(f"weight must be 4-D int8, got {weight.dtype} {tuple(weight.shape)}")
+    if not weight.permute(2, 3, 1, 0).is_contiguous():
+        raise ValueError(
+            "the int8 conv-transpose weight must lie as (kh, kw, O, I) in memory (I "
+            f"innermost); got strides {weight.stride()} for shape {tuple(weight.shape)}: "
+            "was the module moved with memory_format=torch.channels_last?")
+
+
+def int8_conv_transpose_plain(xq: torch.Tensor, weight: torch.Tensor,
+                              weight_scale: torch.Tensor, x_scale: torch.Tensor,
+                              bias: Optional[torch.Tensor],
+                              out_dtype: torch.dtype) -> torch.Tensor:
+    """The plain version: the accumulators in float64 on the int8 values
+    (exact: |acc| <= 127^2 * C < 2^53), depth to space, then nn/layers.py:
+    206-208 in torch ops: cast(f32(acc) * (sx * w_scale)) + bias."""
+    B, C, h, w = xq.shape
+    _, O, kh, kw = weight.shape
+    acc = torch.einsum("bchw,coij->bhiwjo", xq.double(), weight.double())
+    acc = acc.round().to(torch.int32).reshape(B, h * kh, w * kw, O)
+    if out_dtype == torch.int32:
+        return acc.permute(0, 3, 1, 2)
+    y = (acc.float() * (x_scale * weight_scale)).to(out_dtype)
+    if bias is not None:
+        y = y + bias
+    return y.permute(0, 3, 1, 2)
+
+
+@functools.lru_cache(maxsize=1024)
+def int8_conv_transpose_plan(M: int, C: int, N: int, sms: int = SMS) -> Int8ConvPlan:
+    """The plan of an int8 transposed conv with kernel == stride as the
+    product of M = B h w pixels, K = C channels (a multiple of 16) and N =
+    kh kw O columns: the "pointwise" plan of that product at any M (the
+    dot route has no depth-to-space epilogue)."""
+    if min(M, C, N) <= 0 or padded_channels(C) != C:
+        raise ValueError(f"no int8 conv-transpose of M={M} C={C} N={N}")
+    if C > MAX_K:
+        raise ValueError(f"K = {C} > {MAX_K}: int32 accumulators could overflow")
+    if M >= 2 ** 31 or math.ceil(N / PW_WIDTHS[-1]) > 65535:
+        raise ValueError(f"M = {M}, N = {N}: more than the grid holds")
+    return _pointwise_cheapest(M, C, N, sms)
+
+
+def int8_conv_transpose(x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor,
+                        x_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                        out_dtype: Optional[torch.dtype] = None, *,
+                        plain: bool = False) -> torch.Tensor:
+    """The int8 transposed conv of nn/layers.py:187-208 with kernel ==
+    stride and padding 0. ``x`` (B, C, h, w) channels_last, f32 or bf16,
+    quantized with the scalar ``x_scale`` as it loads; ``weight`` int8 (C,
+    O, kh, kw) over a (kh, kw, O, C)
+    buffer; ``weight_scale`` f32 (O,); ``bias`` (O,) in ``out_dtype``
+    (the input's dtype by default; int32 gives the accumulators) -> (B, O,
+    h kh, w kw) channels_last. On a CUDA tensor one launch of the
+    "pointwise" kernel with its depth-to-space epilogue, or an error; on a
+    CPU tensor, or with ``plain=True``, the plain version. Counts its
+    launches in ``int8_conv_transpose.launches``."""
+    if out_dtype is None:
+        out_dtype = x.dtype
+    if x.dtype not in IN_DTYPES:
+        raise TypeError(f"x must be one of {IN_DTYPES}, got {x.dtype}")
+    if out_dtype not in _OUT_KIND:
+        raise TypeError(f"out_dtype must be one of {tuple(_OUT_KIND)}, got {out_dtype}")
+    _check_nhwc(x, "x")
+    _check_transpose_weight(weight)
+    B, C, h, w = x.shape
+    I, O, kh, kw = weight.shape
+    if I != C:
+        raise ValueError(f"weight {tuple(weight.shape)} does not take {C} channels")
+    if weight_scale.dtype != torch.float32 or weight_scale.shape != (O,):
+        raise TypeError(f"weight_scale must be f32 ({O},), got "
+                        f"{weight_scale.dtype} {tuple(weight_scale.shape)}")
+    if x_scale.dim() != 0:
+        raise ValueError("the int8 conv-transpose takes one scalar input scale "
+                         f"(nn/layers.py:197-200), got {tuple(x_scale.shape)}")
+    _check_scale(x_scale, C, x.device)
+    if bias is not None and out_dtype != torch.int32 and (
+            bias.dtype != out_dtype or bias.shape != (O,)):
+        raise TypeError(f"bias must be {out_dtype} ({O},), got {bias.dtype} "
+                        f"{tuple(bias.shape)}")
+    if any(t.device != x.device for t in (weight, weight_scale)):
+        raise ValueError("x, weight and scales must be on one device")
+    if plain or x.device.type == "cpu":
+        return int8_conv_transpose_plain(int8_quantize_plain(x, x_scale), weight,
+                                         weight_scale, x_scale,
+                                         bias if out_dtype != torch.int32 else None, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"no int8 conv-transpose for device {x.device}")
+    index = x.get_device()
+    if index != torch.cuda.current_device():  # the kernels launch on the current device
+        with torch.cuda.device(index):
+            return int8_conv_transpose(x, weight, weight_scale, x_scale, bias, out_dtype)
+    Cp = padded_channels(C)
+    if Cp != C:  # the kernel copies 16 channels at a time; zeros add nothing
+        x = pad_channels(x, Cp)
+        weight = F.pad(weight.permute(2, 3, 1, 0), (0, Cp - C)).permute(3, 2, 0, 1)
+    N = kh * kw * O
+    plan = int8_conv_transpose_plan(B * h * w, Cp, N, _sm_count(index))
+    _check_aligned(x, weight)
+    lib = build.load()
+    out = torch.empty((B, h * kh, w * kw, O), dtype=out_dtype, device=x.device)
+    rcp = _reciprocal(x_scale)
+    b_ptr = bias.data_ptr() if bias is not None and out_dtype != torch.int32 else None
+    m_tiles, n_tiles, splits = plan.grid
+    err = lib.avp_int8_conv_transpose(
+        x.data_ptr(), _IN_KIND[x.dtype], x_scale.data_ptr(),
+        rcp.data_ptr(), _weight_map(lib, weight, N, 1, 1, Cp, plan.bn),
+        weight_scale.data_ptr(), b_ptr, out.data_ptr(), B * h * w, Cp, O, kh, kw, w,
+        _OUT_KIND[out_dtype], plan.bm, plan.bn, m_tiles, n_tiles, splits,
+        plan.per_split * plan.bk, _raw_stream(index))
+    _check_err("avp_int8_conv_transpose", err)
+    int8_conv_transpose.launches += 1
+    return out.permute(0, 3, 1, 2)
+
+
+int8_conv_transpose.launches = 0

@@ -191,7 +191,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              variant of phase 4; the 21 new int8 shapes timed as in phase 4.
  28. Lite CLI: export/eval_lite.py::main on SceneSegLite, --synthetic 4
              --bench, bf16 and --int8: its summary line and launches.
-The run prints its wall time, and that of phases 19-25 and 26-28.
+ 29. int8 transpose kernel: the int8 transposed conv (k == s; the pointwise
+             route with a depth-to-space epilogue, csrc/int8_pointwise.cu)
+             against its plain version at the main path's five shapes, O =
+             3, 12, 20, C = 200 and a batch of two: f32 and bf16 in, f32,
+             bf16 and int32 out, static and dynamic scales, bit for bit;
+             the five shapes timed over rotating inputs past the L2 with
+             the bound, its share, the plain version, cuDNN's bf16
+             conv_transpose2d and torch._int_mm (yardsticks only).
+ 30. int8 + transposes: the main path with quantize_for_int8_conv(...,
+             256, quantize_transpose=True) on each network: 72 int8 convs
+             and 11 transposed convs a frame, one frame under sync-debug
+             "error", launches by route over WARM + TIMED frames, every int8
+             module of one frame bit-equal to its plain version, p50/p99
+             beside phase 8's.
+ 31. QuantizedInference (weight-only PTQ) of SceneSeg at 320x640 on the
+             card: equal to the module holding the same dequantized
+             weights, within 1e-3 * max|CPU| of the CPU run; bytes stored.
+ 32. importers: EgoLanes' seeded weights written as ONNX, named and with
+             its ConvBN BatchNorms folded, imported into a fresh network on
+             the card (equal; within 1e-3 * max); eval_lite --onnx on a
+             written SceneSegLite file gives the seeded run's summary.
+The run prints its wall time, and that of phases 19-25, 26-28 and 29-32.
 """
 from __future__ import annotations
 
@@ -826,13 +847,13 @@ def phase_f32():
 
 def reset_counts():
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
-        ROUTES, int8_conv, int8_quantize)
+        ROUTES, int8_conv, int8_conv_transpose, int8_quantize)
     from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
     from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import nms_greedy
     from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (fused_letterbox,
                                                                                fused_preprocess)
     for fn in (fused_preprocess, int8_quantize, int8_conv, lane_filter_walk, fused_letterbox,
-               nms_greedy):
+               nms_greedy, int8_conv_transpose):
         fn.launches = 0
     int8_conv.route_launches = dict.fromkeys(ROUTES, 0)
 
@@ -840,7 +861,8 @@ def reset_counts():
 def read_counts():
     """Launches by kernel since reset_counts(); int8_conv counts its two
     conv kernels together, by route."""
-    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv, int8_quantize
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv, int8_conv_transpose, int8_quantize)
     from autoware_vision_pilot_tpu_torch.ops.kernels.lane_filter_kernel import lane_filter_walk
     from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import nms_greedy
     from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (fused_letterbox,
@@ -852,7 +874,7 @@ def read_counts():
             "int8_quantize": int8_quantize.launches, "int8_conv": int8_conv.launches,
             "int8_conv_wgmma": r["wgmma"] + r["splitk"], "int8_conv_splitk": r["splitk"],
             "int8_conv_mma": r["mma"], "int8_conv_pointwise": r["pointwise"],
-            "int8_conv_dot": r["dot"]}
+            "int8_conv_dot": r["dot"], "int8_conv_transpose": int8_conv_transpose.launches}
 
 
 def drive(pipe, pool, name, card):
@@ -893,7 +915,11 @@ def drive(pipe, pool, name, card):
           f"{OUT_HW[0]}x{OUT_HW[1]}, {card}: p50 {p50!r} ms, p99 {p99!r} ms, "
           f"mean {float(timed.mean())!r} ms over {len(timed)} frames after "
           f"{WARM} warm-up (CUDA events per frame); launches {launches}")
+    LATENCY[name] = (p50, p99)
     return launches
+
+
+LATENCY = {}  # drive's (p50, p99) ms by path name, for later phases to print beside theirs
 
 
 def expect_launches(launches, expected):
@@ -916,16 +942,20 @@ def mask_agreement(a, b):
     return (a == b).float().mean().item()
 
 
-def int8_modules(pipe):
-    from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
+def int8_modules(pipe, transposes=False):
+    from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d, Int8ConvTranspose2d
+    kinds = (Int8Conv2d, Int8ConvTranspose2d) if transposes else Int8Conv2d
     return [m for net in (pipe.stack, pipe.lanes) for m in net.modules()
-            if isinstance(m, Int8Conv2d)]
+            if isinstance(m, kinds)]
 
 
-def check_convs_on_path(pipe, frame):
-    """One int8 frame; a hook on each Int8Conv2d holds the kernels' output
+def check_convs_on_path(pipe, frame, transposes=0):
+    """One int8 frame; a hook on each Int8Conv2d (and with ``transposes``,
+    each Int8ConvTranspose2d, that many expected) holds the kernels' output
     against the plain versions on the same input, with torch.equal."""
-    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv2d
+    from autoware_vision_pilot_tpu_torch.nn.layers import Int8ConvTranspose2d
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (int8_conv2d,
+                                                                       int8_conv_transpose)
 
     checked, bad = [], []
 
@@ -933,23 +963,28 @@ def check_convs_on_path(pipe, frame):
         if m.input_scale is None:
             raise AssertionError("an int8 conv of the main path has no static scale")
         x = args[0].contiguous(memory_format=CL)
-        ref = int8_conv2d(x, m.weight, m.weight_scale, m.input_scale, m.bias,
-                          m.padding, plain=True)
+        if isinstance(m, Int8ConvTranspose2d):
+            ref = int8_conv_transpose(x, m.weight, m.weight_scale, m.input_scale, m.bias,
+                                      plain=True)
+        else:
+            ref = int8_conv2d(x, m.weight, m.weight_scale, m.input_scale, m.bias,
+                              m.padding, plain=True)
         checked.append(m)
         if not torch.equal(y, ref):
             bad.append((len(checked) - 1, (y.float() - ref.float()).abs().max().item()))
 
-    handles = [m.register_forward_hook(hook) for m in int8_modules(pipe)]
+    handles = [m.register_forward_hook(hook) for m in int8_modules(pipe, transposes > 0)]
     try:
         pipe(frame)
         torch.cuda.synchronize()
     finally:
         for h in handles:
             h.remove()
-    print(f"int8 frame, conv by conv: {len(checked)} int8 convs held against their "
-          f"plain versions on the same input, {len(checked) - len(bad)} bit-equal "
-          "(torch.equal)" + (f"; differ: {bad[:8]}" if bad else ""))
-    if len(checked) != 72 or bad:
+    print(f"int8 frame, conv by conv: {len(checked)} int8 modules ({transposes} of them "
+          f"transposed convs) held against their plain versions on the same input, "
+          f"{len(checked) - len(bad)} bit-equal (torch.equal)"
+          + (f"; differ: {bad[:8]}" if bad else ""))
+    if len(checked) != 72 + transposes or bad:
         raise AssertionError("int8 convs on the main path disagree with their plain versions")
 
 
@@ -1524,67 +1559,35 @@ def stamped_pointwise(pkg, pb, out, edits=None):
     return int8_wrapper_of(pkg, lib), stamps
 
 
-# Stage stamps for a parent's letterbox when it has no csrc/letterbox.cu (PR
-# 12's, the letterbox mode of the preprocess kernel's template, one block an
-# output row): [(anchor, text put before it)] in its preprocess.cu. Thread 0 of each
-# block laps its SM clocks as PwStamps does: 0 the two source rows copied
-# and the barrier, 1 the lerp and its barrier, 2 the row's store, 3 a pad
-# row's block (fill, barrier, store).
-PARENT_LB_STAMPS = [
-    ("// PLACED: the letterbox mode; without it the image fills the output and",
-     PW_STAMP_STRUCT),
-    ("  const int oy = blockIdx.x, b = blockIdx.y;\n", "  PwStamps pw_st;\n  pw_st.start();\n"),
-    ("    return;\n  }\n  // the first group's taps", "    pw_st.lap(3);\n    pw_st.write();\n"),
-    ("\n  T* oi = PLACED ? o + pl.pad_x * 3 : o;", "\n  pw_st.lap(0);"),
-    ("  store_row(dst, o, w * 3);\n}\n", "  pw_st.lap(1);\n"),
-    ("}\n\ntemplate <typename T, bool PLACED>\ncudaError_t launch(",
-     "  pw_st.lap(2);\n  pw_st.write();\n"),
-    ('extern "C" int avp_fused_preprocess(', 'extern "C" int avp_set_stamps(void* p) {\n'
-     "  return (int)cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));\n}\n\n"),
-]
-# stage names: csrc/letterbox.cu's own stamps (AVP_LB_STAMPS), PARENT_LB_STAMPS' edits
-LB_STAGES = {"own": ("unit decoded, its copies' taps landed", "source bytes copied and landed",
-                     "lerp and stores", "a piece of the pad (pad blocks)"),
-             "edited": ("source rows copied, and the barrier", "lerp and the barrier", "store",
-                        "pad row (a block of its own)")}
+# the stage names of csrc/letterbox.cu's own stamps (AVP_LB_STAMPS)
+LB_STAGES = ("unit decoded, its copies' taps landed", "source bytes copied and landed",
+             "lerp and stores", "a piece of the pad (pad blocks)")
 
 
 def stamped_letterbox(pkg, pb, out):
-    """The letterbox of the port in ``pkg`` with stage stamps, in a library of
-    its own under ``out``: its csrc/letterbox.cu built with -DAVP_LB_STAMPS
-    (its own stamps, from PR 13 on), else PARENT_LB_STAMPS put into a copy of
-    its preprocess.cu. -> (its preprocess_kernel module over that library,
+    """The letterbox of the port in ``pkg`` with its own stage stamps, in a
+    library of its own under ``out``: its csrc/letterbox.cu built with
+    -DAVP_LB_STAMPS. -> (its preprocess_kernel module over that library,
     the stamps tensor, blocks(n): the grid at 720p -> LON_HW for n frames,
-    the stage names), or None if an anchor is missing."""
+    the stage names), or None for an earlier tree without
+    csrc/letterbox.cu, whose split is then not measured."""
     import ctypes
 
-    if (pkg / "csrc" / "letterbox.cu").exists():
-        lib = build_library(pb, pkg / "csrc", [pkg / "csrc" / "letterbox.cu"],
-                            out / "libstamped_letterbox.so", ("-DAVP_LB_STAMPS",))
-        mod, setter, stages = preprocess_wrapper_of(pkg, lib), lib.avp_letterbox_set_stamps, "own"
+    if not (pkg / "csrc" / "letterbox.cu").exists():
+        print(f"stage split of {pkg}'s letterbox: not measured (no csrc/letterbox.cu)")
+        return None
+    lib = build_library(pb, pkg / "csrc", [pkg / "csrc" / "letterbox.cu"],
+                        out / "libstamped_letterbox.so", ("-DAVP_LB_STAMPS",))
+    mod = preprocess_wrapper_of(pkg, lib)
 
-        def blocks(n):
-            return mod.letterbox_plan(n, *FRAME_HW, LON_HW).blocks
-    else:
-        src = pkg / "csrc" / "preprocess.cu"
-        text = src.read_text()
-        for anchor, stamp in PARENT_LB_STAMPS:
-            if text.count(anchor) != 1:
-                print(f"stage split of {src}'s letterbox: not measured (no single {anchor!r})")
-                return None
-            text = text.replace(anchor, stamp + anchor)
-        copy = out / "stamped_preprocess.cu"
-        copy.write_text(text)
-        lib = build_library(pb, pkg / "csrc", [copy], out / "libstamped_letterbox.so")
-        mod, setter, stages = preprocess_wrapper_of(pkg, lib), lib.avp_set_stamps, "edited"
+    def blocks(n):
+        return mod.letterbox_plan(n, *FRAME_HW, LON_HW).blocks
 
-        def blocks(n):
-            return n * LON_HW[0]
     stamps = torch.zeros(STAMP_WORDS * max(blocks(n) for n in (1, 8)), dtype=torch.int64,
                          device="cuda")
-    if setter(ctypes.c_void_p(stamps.data_ptr())):
+    if lib.avp_letterbox_set_stamps(ctypes.c_void_p(stamps.data_ptr())):
         raise RuntimeError(f"could not set the letterbox stamp buffer of {pkg}")
-    return mod, stamps, blocks, LB_STAGES[stages]
+    return mod, stamps, blocks, LB_STAGES
 
 
 def stage_split(mod, stamps, plan, call, n_stages):
@@ -3484,6 +3487,330 @@ def phase_lite_cli(card):
                                    "int8_conv_dot")}
 
 
+# ---------- the int8 remainder and the importers ----------
+
+# (cin, cout, h, w, per frame): the main path's int8 transposed convs (k = s
+# = 2) at 320x640 with quantize_transpose=True, 11 a frame: SceneNeck and
+# DepthNeck 1280, 768, 512; EgopathNeck 1456, 768, 512; both heads' 256
+MAIN_TRANSPOSES = ((1280, 1280, 10, 20, 2), (1456, 1456, 10, 20, 1), (768, 768, 20, 40, 3),
+                   (512, 512, 40, 80, 3), (256, 256, 80, 160, 2))
+# (cin, cout, k, h, w, batch) checked bit for bit in every variant: the five
+# above, then O = 3, O = 12 and 20 (bf16 chunks value by value), C = 200 (K
+# not a multiple of 128 or 16: padded), K = 1456 at a batch of two
+TRANSPOSE_SHAPES = tuple((c, o, 2, h, w, 1) for c, o, h, w, _ in MAIN_TRANSPOSES) + (
+    (64, 3, 2, 5, 7, 1), (48, 12, 3, 6, 9, 2), (200, 20, 2, 13, 7, 1), (1456, 1456, 2, 10, 20, 2))
+TRANSPOSE_RECORD = (256, 256, 80, 160)  # the shape the JSON line reports
+INT8_TRANSPOSES = 11
+
+
+def transpose_inputs(g, shape, dtype):
+    """Seeded inputs of a transposed conv: x (B, C, h, w) channels_last in
+    ``dtype``, int8 (C, O, k, k) weights over a (k, k, O, C) buffer, f32
+    per-O scales, a bias in ``dtype``, all on the card."""
+    c, o, k, h, w, b = shape
+    x = (torch.randn(b, c, h, w, generator=g) * 2).to(dtype)
+    weight = torch.randint(-127, 128, (k, k, o, c), generator=g, dtype=torch.int8)
+    return (x.cuda().contiguous(memory_format=CL), weight.cuda().permute(3, 2, 0, 1),
+            (torch.rand(o, generator=g) * 0.02 + 1e-3).cuda(),
+            (torch.randn(o, generator=g) * 0.1).to(dtype).cuda())
+
+
+def phase_transpose_kernel(card):
+    """Phase 29: the int8 transposed conv (the pointwise route with its
+    depth-to-space epilogue) against its plain version at TRANSPOSE_SHAPES,
+    f32 and bf16 inputs, f32, bf16 and int32 outputs, static and dynamic
+    scales, bit for bit; then the five main-path shapes, bf16 with a static
+    scale, over rotating inputs past the L2: profiler device time, the
+    bound and its share, the plain version's time, and two yardsticks the
+    port never calls: cuDNN's bf16 F.conv_transpose2d and torch._int_mm on
+    the (M, K) x (K, N) product (accumulators only). -> the JSON record."""
+    import torch.nn.functional as F
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
+        _reciprocal, _sm_count, dynamic_input_scale, int8_conv_transpose, int8_conv_transpose_plan,
+        int8_quantize, padded_channels)
+
+    g = torch.Generator().manual_seed(SEED + 50)
+    worst, checked = 0.0, 0
+    for shape in TRANSPOSE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, weight, ws, bias = transpose_inputs(g, shape, dtype)
+            for static in (True, False):
+                sx = torch.tensor(0.0213, device="cuda") if static else dynamic_input_scale(x)[0]
+                for out in (torch.float32, torch.bfloat16, torch.int32):
+                    b = bias.to(out) if out != torch.int32 else None
+                    got = int8_conv_transpose(x, weight, ws, sx, b, out)
+                    want = int8_conv_transpose(x, weight, ws, sx, b, out, plain=True)
+                    if not torch.equal(got, want):
+                        err = (got.double() - want.double()).abs().max().item()
+                        raise AssertionError(f"int8 transpose {shape} {dtype} -> {out} "
+                                             f"static={static}: differs by {err}")
+                    checked += 1
+    print(f"kernel int8_conv_transpose at {len(TRANSPOSE_SHAPES)} shapes (C, O, k, h, w, B) "
+          f"{TRANSPOSE_SHAPES}: {checked} launches (f32 and bf16 in; f32, bf16 and int32 out; "
+          "static and dynamic scales) bit-equal to the plain version")
+
+    sms = _sm_count(0)
+    record = None
+    frame_us = {"kernel": 0.0, "cuDNN bf16": 0.0}
+    for cin, cout, h, w, per_frame in MAIN_TRANSPOSES:
+        M, K, N = h * w, cin, 4 * cout
+        plan = int8_conv_transpose_plan(M, padded_channels(cin), N, sms)
+        set_bytes = M * K * 2 + N * K * 3 + M * N * 2  # x bf16, w int8 + bf16, out bf16
+        n = max(2, min(64, math.ceil(1.2 * L2_BYTES / set_bytes)))
+        sets = [transpose_inputs(g, (cin, cout, 2, h, w, 1), torch.bfloat16) for _ in range(n)]
+        sx = torch.tensor(0.0213, device="cuda")
+        _reciprocal(sx)  # kept on the scale, as a static scale's is on the main path
+        idx = list(range(n)) * max(1, math.ceil(20 / n))
+        w16 = [(wt.float() * ws.reshape(1, -1, 1, 1)).to(torch.bfloat16) for _, wt, ws, _ in sets]
+
+        def kernel(i):
+            x, wt, ws, b = sets[i]
+            return int8_conv_transpose(x, wt, ws, sx, b)
+
+        def plain(i):
+            x, wt, ws, b = sets[i]
+            return int8_conv_transpose(x, wt, ws, sx, b, plain=True)
+
+        def cudnn(i):
+            return F.conv_transpose2d(sets[i][0], w16[i], sets[i][3], 2)
+
+        mats = []
+        for x, wt, _, _ in sets[:max(1, math.ceil(1.2 * L2_BYTES / (M * K + N * K)))]:
+            a = int8_quantize(x, sx).permute(0, 2, 3, 1).reshape(M, K)
+            mats.append((a, wt.permute(2, 3, 1, 0).reshape(N, K).t()))  # (K, N) column-major
+
+        t = {"kernel": device_us(kernel, idx), "plain": device_us(plain, [0, 1]),
+             "cudnn": device_us(cudnn, idx),
+             "int_mm": device_us(lambda i: torch._int_mm(*mats[i % len(mats)]),
+                                 list(range(len(mats))) * max(1, math.ceil(20 / len(mats))))}
+        ops = 2.0 * M * K * N
+        nbytes = M * K * 2 + N * K + M * N * 2 + cout * 6
+        bms, by = bound(ops, nbytes)
+        share = bms * 1e3 / t["kernel"] if t["kernel"] > 0 else float("nan")
+        frame_us["kernel"] += per_frame * t["kernel"]
+        frame_us["cuDNN bf16"] += per_frame * t["cudnn"]
+        print(f"int8 transpose {cin}->{cout} 2x2 at {h}x{w} -> {2 * h}x{2 * w} (M {M}, K {K}, "
+              f"N {N}), {per_frame} per frame, plan bm {plan.bm} bn {plan.bn} grid {plan.grid}, "
+              f"{card}: kernel {t['kernel']!r} us ({t['kernel'].how}), bound {bms * 1e3!r} us "
+              f"by {by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GOP), share {share!r}; plain "
+              f"{t['plain']!r} us; cuDNN bf16 conv_transpose2d {t['cudnn']!r} us; "
+              f"torch._int_mm (M, K) x (K, N) {t['int_mm']!r} us (accumulators only, no "
+              f"quantize, no depth to space); rotation {n} input sets, "
+              f"{n * set_bytes / 1e6:.1f} MB")
+        if (cin, cout, h, w) == TRANSPOSE_RECORD:
+            record = dict(max_abs_err=worst, ms=t["kernel"] / 1e3, plain_ms=t["plain"] / 1e3,
+                          bound_ms=bms, bound_by=by, library_ms=t["int_mm"] / 1e3)
+        del sets, w16, mats
+        torch.cuda.empty_cache()
+    print(f"int8 transposes per frame from the five shapes x their counts, {card}: "
+          + ", ".join(f"{k} {v!r} us" for k, v in frame_us.items()) + " (profiler device time)")
+    return record
+
+
+def phase_int8_transpose(card):
+    """Phase 30: the main path in int8 with the transposed convs in int8 too:
+    the bf16 FusedPipeline, then quantize_for_int8_conv(net, 256,
+    quantize_transpose=True) and calibration on each network (bench.py has
+    no option for it: the same two calls bench's int8 path makes, with the
+    transposes selected). 72 convs and 11 transposed convs; one frame under
+    sync-debug "error"; WARM + TIMED frames with launches by kernel and
+    route; each int8 module of one frame against its plain version; p50/p99
+    beside phase 8's. -> the launches."""
+    from autoware_vision_pilot_tpu_torch.export.quantize import (
+        calibrate_int8_activation_scales, int8_conv_count, int8_transpose_count,
+        quantize_for_int8_conv)
+    from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused, calibration_batches
+
+    t0 = time.perf_counter()
+    pipe = build_pipeline_fused("cuda", torch.bfloat16, SEED, CTX_HW, OUT_HW)
+    for net in (pipe.stack, pipe.lanes):
+        quantize_for_int8_conv(net, 256, quantize_transpose=True)
+        calibrate_int8_activation_scales(net, calibration_batches(OUT_HW, torch.bfloat16, "cuda"))
+    torch.cuda.synchronize()
+    convs = sum(int8_conv_count(n) for n in (pipe.stack, pipe.lanes))
+    transposes = sum(int8_transpose_count(n) for n in (pipe.stack, pipe.lanes))
+    print(f"int8 + transposes build: {time.perf_counter() - t0:.1f} s, {convs} int8 convs, "
+          f"{transposes} int8 transposed convs")
+    if (convs, transposes) != (72, INT8_TRANSPOSES):
+        raise AssertionError(f"{convs} int8 convs and {transposes} transposes, expected 72 "
+                             f"and {INT8_TRANSPOSES}")
+    n = WARM + TIMED
+    pool = frames(n, FRAME_HW, SEED + 5).cuda()  # phase 8's frames
+    pipe(pool[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any host sync in the frame raises
+    try:
+        pipe(pool[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = drive(pipe, pool, "int8 + transposes", card)
+    expect_launches(launches, {"fused_preprocess": n, "int8_quantize": 30 * n,
+                               "int8_conv": 72 * n, "int8_conv_wgmma": 30 * n,
+                               "int8_conv_splitk": 12 * n, "int8_conv_pointwise": 22 * n,
+                               "int8_conv_dot": 20 * n, "int8_conv_mma": 0,
+                               "int8_conv_transpose": INT8_TRANSPOSES * n})
+    check_convs_on_path(pipe, pool[2], INT8_TRANSPOSES)
+    p50, p99 = LATENCY["int8 + transposes"]
+    p50_8, p99_8 = LATENCY["int8"]
+    print(f"int8 main path with the transposes in int8 against phase 8's (same call, same "
+          f"frames, {card}): p50 {p50!r} ms vs {p50_8!r} ms, p99 {p99!r} ms vs {p99_8!r} ms; "
+          "one frame under sync-debug \"error\": no host synchronisation")
+    # the two paths in turns (phase 8's rebuilt: int8=True leaves the transposes in bf16)
+    paths = {"int8": build_pipeline_fused("cuda", torch.bfloat16, SEED, CTX_HW, OUT_HW,
+                                          int8=True, min_ch=256),
+             "int8 + transposes": pipe}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spans = {k: [] for k in paths}
+    for name in ("int8", "int8 + transposes", "int8 + transposes", "int8"):
+        paths[name](pool[0])
+        for i in range(HOST_FRAMES):
+            start.record()
+            paths[name](pool[WARM + i])
+            end.record()
+            end.synchronize()
+            spans[name].append(start.elapsed_time(end))
+    print(f"int8 against int8 + transposes in turns (int8, +T, +T, int8; {HOST_FRAMES} frames "
+          f"a turn, CUDA events per frame, {card}): "
+          + "; ".join(f"{k} p50 {float(np.median(v))!r} ms, p99 "
+                      f"{float(np.percentile(v, 99))!r} ms" for k, v in spans.items()))
+    return launches
+
+
+def phase_quantized_inference(card):
+    """Phase 31: export/quantize.py::QuantizedInference of SceneSeg at
+    320x640 (seed 0) on the card, f32 input, bf16 dequantize, TF32 off:
+    equal to the plain module holding the same dequantized weights, and
+    within 1e-3 * max|CPU| of the same wrapper on the CPU; the bytes of
+    weights it stores against the f32 parameters'."""
+    import copy
+    from autoware_vision_pilot_tpu_torch.export.quantize import QuantizedInference
+    from autoware_vision_pilot_tpu_torch.inference.infer import load_weights
+    from autoware_vision_pilot_tpu_torch.models.scene_seg import SceneSegNetwork
+    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
+
+    no_tf32()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = load_weights(SceneSegNetwork(), device="cuda", dtype=torch.float32)
+        qi = QuantizedInference(model, compute_dtype=torch.bfloat16)
+        if any(q.device.type != "cuda" for q in qi.q_params.values()):
+            raise AssertionError("QuantizedInference keeps its weights off the model's device")
+        x = fused_preprocess(frames(1, FRAME_HW, SEED + 51)[0].cuda(), OUT_HW, torch.float32)
+        got = qi(x)
+        plain = copy.deepcopy(model)
+        with torch.no_grad():
+            for name, p in plain.named_parameters():
+                p.copy_(qi.weights(torch.float32)[name])
+            again = plain(x)
+        if not torch.equal(got, again):
+            raise AssertionError("QuantizedInference differs from the module with its weights")
+        cpu = QuantizedInference(load_weights(SceneSegNetwork(), device="cpu",
+                                              dtype=torch.float32))
+        err, tol = held("QuantizedInference SceneSeg f32 (bf16 weights)", got, cpu(x.cpu()))
+        stored = qi.nbytes
+        floats = sum(p.numel() * 4 for p in model.parameters())
+        print(f"QuantizedInference SceneSeg 320x640 on the card, {card}: equal to the plain "
+              f"module with the same dequantized weights; card vs CPU max_abs_err {err!r} (tol "
+              f"{tol!r}); weights stored {stored} bytes (int8 values and scales) against "
+              f"{floats} bytes of f32 parameters ({stored / floats!r} of them)")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def fold_conv_bn(sd, module):
+    """The state_dict ``sd`` of ``module`` with each BatchNorm that follows a
+    bias-free conv as index + 1 of a Sequential (ConvBN) folded into it, as
+    torch.onnx.export(do_constant_folding=True) fuses them: weight w * g and
+    a new conv bias beta - mean * g, g = gamma / sqrt(var + eps); the
+    BatchNorm's keys dropped. -> (that state_dict, BatchNorms folded)."""
+    from autoware_vision_pilot_tpu_torch.nn.layers import BatchNorm2d, Conv2d
+    mods = dict(module.named_modules())
+    out = dict(sd)
+    folded = 0
+    for name, m in mods.items():
+        parent, _, idx = name.rpartition(".")
+        if not (isinstance(m, BatchNorm2d) and idx.isdigit() and int(idx) > 0):
+            continue
+        conv = f"{parent}.{int(idx) - 1}"
+        if not isinstance(mods.get(conv), Conv2d) or f"{conv}.bias" in sd:
+            continue
+        g = sd[f"{name}.weight"] / torch.sqrt(sd[f"{name}.running_var"] + m.eps)
+        out[f"{conv}.weight"] = sd[f"{conv}.weight"] * g.reshape(-1, 1, 1, 1)
+        out[f"{conv}.bias"] = sd[f"{name}.bias"] - sd[f"{name}.running_mean"] * g
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            del out[f"{name}.{leaf}"]
+        folded += 1
+    return out, folded
+
+
+def phase_importers(card):
+    """Phase 32: the importers on the card. EgoLanes' seed-0 weights written
+    as ONNX by save_state_dict_as_onnx, once under their names and once with
+    the ConvBN BatchNorms folded into their convs; each imported by
+    import_onnx into a fresh network (seed 1) moved to the card: the named
+    one's outputs equal the seeded network's, the folded one's within
+    1e-3 * max|seeded| (f32, TF32 off). Then eval_lite --onnx on a written
+    SceneSegLite file at 320x640 gives the seeded run's summary."""
+    from autoware_vision_pilot_tpu_torch.convert import import_onnx, save_state_dict_as_onnx
+    from autoware_vision_pilot_tpu_torch.export import eval_lite
+    from autoware_vision_pilot_tpu_torch.inference.infer import load_weights
+    from autoware_vision_pilot_tpu_torch.models.ego_lanes import EgoLanesNetwork
+    from autoware_vision_pilot_tpu_torch.models.lite import build_lite_model
+    from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded
+    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
+
+    out_dir = REPO / "build" / "importers"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    no_tf32()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        seeded = load_weights(EgoLanesNetwork(), device="cpu", dtype=torch.float32)
+        sd = seeded.state_dict()
+        seeded.to("cuda")
+        x = fused_preprocess(frames(1, FRAME_HW, SEED + 52)[0].cuda(), OUT_HW, torch.float32)
+        with torch.no_grad():
+            ref = seeded(x)
+        folded_sd, folded = fold_conv_bn(sd, EgoLanesNetwork())
+        for kind, weights in (("named", sd), ("folded", folded_sd)):
+            path = out_dir / f"EgoLanes_{kind}.onnx"
+            save_state_dict_as_onnx(weights, path, "EgoLanes")
+            fresh = init_seeded(EgoLanesNetwork(), torch.Generator().manual_seed(1))
+            fresh.load_state_dict(import_onnx(fresh, path), strict=True)
+            fresh.to("cuda", memory_format=CL).eval()
+            with torch.no_grad():
+                got = fresh(x)
+            if kind == "named":
+                if not torch.equal(got, ref):
+                    raise AssertionError("the named ONNX import differs from the seeded network")
+                print(f"importers, {card}: EgoLanes written as ONNX ({len(sd)} initializers, "
+                      f"{path.stat().st_size} bytes) and imported into a fresh network on the "
+                      "card: outputs equal the seeded network's")
+            else:
+                err, tol = held("EgoLanes from a BN-folded ONNX", got, ref)
+                print(f"importers, {card}: EgoLanes with {folded} ConvBN BatchNorms folded into "
+                      f"their convs ({len(weights)} initializers), imported with identity "
+                      f"BatchNorm: max_abs_err {err!r} against the seeded network (tol {tol!r})")
+            path.unlink()
+        name = "SceneSegLite"
+        lite = init_seeded(build_lite_model(lite_config(name)), torch.Generator().manual_seed(0))
+        path = out_dir / f"{name}.onnx"
+        save_state_dict_as_onnx(lite.state_dict(), path, name)
+        argv = ["--config", str(REPO / "configs" / f"{name}.yaml"), "--synthetic", "4",
+                "--dtype", "bf16"]
+        seeded_run = eval_lite.main(argv)
+        onnx_run = eval_lite.main(argv + ["--onnx", str(path)])
+        path.unlink()
+        if onnx_run != seeded_run:
+            raise AssertionError(f"eval_lite --onnx {onnx_run} != the seeded run {seeded_run}")
+        print(f"eval_lite {name} --onnx (seed-0 weights written as ONNX) at 320x640 bf16 on the "
+              f"card, {card}: the seeded run's summary")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
 def host_costs_of(root):
     """--host-costs ROOT: phase 7's host-cost measurement alone, over the
     port package found in ROOT (this repository, or an earlier commit of it
@@ -3569,6 +3896,16 @@ def main():
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     paths["Lite CLI"] = timed(28, phase_lite_cli, card)
     print(f"wall time of phases 26-28 (s): {walls}, {sum(walls.values()):.1f} s in all")
+    # the int8 remainder (the transposed conv, weight-only PTQ) and the importers
+    walls.clear()
+    records["int8_conv_transpose"] = timed(29, phase_transpose_kernel, card)
+    transposed = timed(30, phase_int8_transpose, card)
+    paths["int8 + transposes"] = {k: transposed[k] for k in (
+        "int8_quantize", "int8_conv_wgmma", "int8_conv_pointwise", "int8_conv_dot",
+        "int8_conv_transpose")}
+    timed(31, phase_quantized_inference, card)
+    timed(32, phase_importers, card)
+    print(f"wall time of phases 29-32 (s): {walls}, {sum(walls.values()):.1f} s in all")
     for path, counts in paths.items():
         for name, n in counts.items():
             if n <= 0 and name != "int8_conv_mma":
@@ -3590,6 +3927,8 @@ def main():
         "int8_conv_pointwise": (pkg + "int8_pointwise.cu",
                                 "autoware_vision_pilot_tpu/nn/layers.py:81"),
         "int8_conv_dot": (pkg + "int8_pointwise.cu", "autoware_vision_pilot_tpu/nn/layers.py:81"),
+        "int8_conv_transpose": (pkg + "int8_pointwise.cu",
+                                "autoware_vision_pilot_tpu/nn/layers.py:187"),
         "lane_filter_walk": (pkg + "lane_filter.cu",
                              "autoware_vision_pilot_tpu/perception/lane_filter.py:113"),
         "fused_letterbox": (pkg + "letterbox.cu",

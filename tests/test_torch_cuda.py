@@ -1256,3 +1256,112 @@ def test_backend_on_card_matches_wrapper(cuda):
     got = b.do_inference(frame.numpy())
     want = EgoLanesInfer(dtype=torch.bfloat16).logits(frame.to(cuda))[0].float().cpu().numpy()
     assert got.shape == (80, 160, 3) and np.array_equal(got, want)
+
+
+# (C, O, k, h, w, batch): the int8 transposed conv (k == s) on the card: the
+# main path's widths at small maps, a K not a multiple of 128 (1456, with
+# the 1456-wide O no N tile divides), O = 3 and O = 12 (chunks value by
+# value in bf16), C = 40 (padded to 48), a batch of two
+TRANSPOSE_CARD = [(256, 256, 2, 20, 40, 1), (1456, 1456, 2, 10, 20, 1), (512, 512, 2, 8, 10, 2),
+                  (64, 3, 2, 5, 7, 1), (48, 12, 3, 6, 9, 2), (40, 64, 2, 3, 5, 1)]
+
+
+def transpose_inputs(C, O, k, h, w, batch, dtype, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(batch, C, h, w, generator=g) * 2).to(device=device, dtype=dtype)
+    weight = torch.randint(-127, 128, (k, k, O, C), generator=g, dtype=torch.int8)
+    return (x.contiguous(memory_format=CL), weight.to(device).permute(3, 2, 0, 1),
+            (torch.rand(O, generator=g) * 0.02 + 1e-3).to(device),
+            (torch.randn(O, generator=g) * 0.1).to(device=device, dtype=dtype))
+
+
+@pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C,O,k,h,w,batch", TRANSPOSE_CARD)
+def test_int8_conv_transpose_matches_plain_version(cuda, C, O, k, h, w, batch, dtype, static):
+    """The kernel (pointwise route, depth-to-space epilogue) against its
+    plain version on the same card inputs, bit for bit: the output and the
+    int32 accumulators."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
+        dynamic_input_scale, int8_conv_transpose)
+    x, weight, ws, bias = transpose_inputs(C, O, k, h, w, batch, dtype, C + O + k, cuda)
+    sx = torch.tensor(0.0213, device=cuda) if static else dynamic_input_scale(x)[0]
+    before = int8_conv_transpose.launches
+    got = int8_conv_transpose(x, weight, ws, sx, bias)
+    acc = int8_conv_transpose(x, weight, ws, sx, None, torch.int32)
+    assert int8_conv_transpose.launches == before + 2
+    want = int8_conv_transpose(x, weight, ws, sx, bias, plain=True)
+    assert got.shape == (batch, O, h * k, w * k) and got.dtype == dtype
+    assert got.is_contiguous(memory_format=CL)
+    assert torch.equal(got, want)
+    assert torch.equal(acc, int8_conv_transpose(x, weight, ws, sx, None, torch.int32,
+                                                plain=True))
+
+
+def test_int8_conv_transpose_refuses_and_never_falls_back(cuda, monkeypatch):
+    from autoware_vision_pilot_tpu_torch.ops.kernels import int8_conv as k
+    x, weight, ws, bias = transpose_inputs(64, 16, 2, 4, 6, 1, torch.bfloat16, 3, cuda)
+    sx = torch.tensor(0.03, device=cuda)
+    with pytest.raises(ValueError, match="channels_last"):
+        k.int8_conv_transpose(x, weight.contiguous(memory_format=CL), ws, sx, bias)
+    with pytest.raises(ValueError, match="scalar"):
+        k.int8_conv_transpose(x, weight, ws, torch.full((64,), 0.03, device=cuda), bias)
+
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(k, "int8_conv_transpose_plain", boom)
+    monkeypatch.setattr(k, "int8_quantize_plain", boom)
+    k.int8_conv_transpose(x, weight, ws, sx, bias)
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        k.int8_conv_transpose(x.cpu(), weight.cpu(), ws.cpu(), sx.cpu(), bias.cpu())
+
+
+def test_int8_transpose_main_path_on_card_matches_cpu(cuda):
+    """The small int8 main path with quantize_transpose=True, quantized and
+    calibrated on the CPU, copied to the card: each of the 83 int8 modules
+    (72 convs, 11 transposed convs) gets the CPU module's input and gives
+    its output bit for bit."""
+    from autoware_vision_pilot_tpu_torch.export.quantize import (
+        calibrate_int8_activation_scales, quantize_for_int8_conv)
+    from autoware_vision_pilot_tpu_torch.nn.layers import Int8ConvTranspose2d
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv_transpose
+    from autoware_vision_pilot_tpu_torch.pipeline import calibration_batches
+    frame = frames((144, 256), 1, seed=4)[0]
+    cpu = build_pipeline_fused("cpu", torch.float32, seed=0, ctx_hw=(2, 4), out_hw=(64, 128))
+    for net in (cpu.stack, cpu.lanes):
+        quantize_for_int8_conv(net, 256, quantize_transpose=True)
+        calibrate_int8_activation_scales(net, calibration_batches((64, 128), torch.float32,
+                                                                  "cpu"))
+    card = copy.deepcopy(cpu)
+    for net in (card.stack, card.lanes):
+        net.to(cuda)
+    kinds = (Int8Conv2d, Int8ConvTranspose2d)
+
+    def hooks(pipe, forced=None):
+        calls = []
+
+        def pre(m, args):
+            if forced is not None:
+                return (forced[len(calls)].to(args[0].device),)
+
+        def post(m, args, y):
+            calls.append((args[0], y))
+
+        handles = [h for net in (pipe.stack, pipe.lanes) for m in net.modules()
+                   if isinstance(m, kinds)
+                   for h in (m.register_forward_pre_hook(pre), m.register_forward_hook(post))]
+        return calls, lambda: [h.remove() for h in handles]
+
+    calls, remove = hooks(cpu)
+    cpu.logits(frame)
+    remove()
+    before = int8_conv_transpose.launches
+    card_calls, remove = hooks(card, [x for x, _ in calls])
+    card.logits(frame.to(cuda))
+    remove()
+    assert len(calls) == len(card_calls) == 83
+    assert int8_conv_transpose.launches == before + 11
+    for i, ((_, want), (_, got)) in enumerate(zip(calls, card_calls)):
+        assert torch.equal(got.cpu(), want), i

@@ -16,9 +16,9 @@ target tree: the file's values replace every leaf. The test hands it
 ``jax.eval_shape``'s tree in place of the op-by-op init (~40 s a net on
 an 8-core CPU); nothing else of JAX's CLI is changed.
 
-The CLI's refusals (``--onnx``, ``--checkpoint``, ``--bench`` on the CPU)
-and its smoke mode are here too; its ``--int8`` is in
-tests/test_torch_lite_int8.py.
+The CLI's refusals (``--checkpoint``, ``--bench`` on the CPU) and its
+smoke mode are here too; its ``--int8`` is in tests/test_torch_lite_int8.py
+and its ``--onnx`` in tests/test_torch_convert_import.py.
 """
 import json
 import pathlib
@@ -128,8 +128,8 @@ def test_eval_lite_matches_jax(name, weight_files, monkeypatch, tmp_path):
 def test_eval_lite_refuses_what_is_not_ported():
     base = ["--config", str(CONFIGS / "SceneSegLite.yaml"), "--synthetic", "1",
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        teval.main(base + ["--onnx", "w.onnx"])
+    with pytest.raises(FileNotFoundError):  # --onnx is ported: a missing file, not a refusal
+        teval.main(base + ["--onnx", "missing.onnx"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         teval.main(base + ["--checkpoint", "ckpt/"])
     with pytest.raises(ValueError, match="--bench times the card"):

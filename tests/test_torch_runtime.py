@@ -240,7 +240,9 @@ def guarded(name, *a, **k):
 builtins.__import__ = guarded
 for m in ("app", "runtime", "runtime.fleet", "runtime.pipeline", "perception.tracking",
           "export.checkpoints", "control.speed_planner", "control.pi_controller",
-          "utils.csv_logger", "drivers.can_interface", "drivers.camera"):
+          "utils.csv_logger", "drivers.can_interface", "drivers.camera", "calibration",
+          "convert", "convert.torch_import", "convert.onnx_import", "export.quantize",
+          "export.eval_lite"):
     importlib.import_module("autoware_vision_pilot_tpu_torch." + m)
 from autoware_vision_pilot_tpu_torch.export.checkpoints import load_msgpack
 tree = load_msgpack(sys.argv[1])
@@ -253,7 +255,8 @@ print("ok")
 
 def test_port_imports_no_jax(tmp_path):
     """In a subprocess where importing jax, flax, msgpack or the JAX package
-    raises, the serving modules of the port import and read a weight file."""
+    raises, the serving modules of the port, its calibration, importers and
+    quantization import and read a weight file."""
     from autoware_vision_pilot_tpu.export.checkpoints import save_msgpack
     path = tmp_path / "w.msgpack"
     save_msgpack(path, {"params": {"w": np.ones((2, 3), np.float32)}})
