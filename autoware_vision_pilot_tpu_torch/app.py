@@ -3,14 +3,15 @@ autoware_vision_pilot_tpu/app.py.
 
 The main.cpp analog: loads the .conf, opens the frame source (video or
 camera), builds the lateral and longitudinal device programs on the card,
-and runs the loop with CSV flight recording and CAN polling. Missing CAN
-never kills the pipeline (main.cpp:1832-1933 contract).
+and runs the loop with CSV flight recording, SHM seqlock publishing
+(host/shm.py), Rerun telemetry, the display/video composite and CAN
+polling. Graceful degradation everywhere (missing CAN / SHM / viz never
+kill the pipeline — main.cpp:1832-1933 contract).
 
-Not in the port yet (ROADMAP Queue 1 item 5): the SHM publisher
-(host/shm.py, a native library), the Rerun logger and the display/video
-composite (utils/visualization.py). A config that asks for video output,
-the display or Rerun is refused with an error that says so; SHM prints the
-JAX package's own "[app] SHM publish disabled: ..." line.
+``AppOutputs`` is the loop's sink: a caller may run it on ``build_engine``
+with a frame source of its own. The composite and Rerun read the lane masks
+on the host; an engine with a sink copies them with the frame's other
+results at dispatch, so the sink waits on no device work.
 
 Run:  python -m autoware_vision_pilot_tpu_torch.app --config visionpilot.conf \\
           [--max-frames N] [--no-shm] [--device cuda|cpu]
@@ -22,6 +23,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from collections import deque
 from pathlib import Path
 
 import numpy as np
@@ -36,10 +38,9 @@ from .models.ego_lanes import EgoLanesNetwork
 from .nn.layers import init_seeded
 from .perception.tracking import ObjectFinder
 from .runtime.config import Config, load_config
-from .runtime.pipeline import LateralPipeline, LongitudinalPipeline, PipelineEngine
+from .runtime.pipeline import SCALAR_FIELDS, LateralPipeline, LongitudinalPipeline, PipelineEngine
+from .utils import visualization as viz
 from .utils.csv_logger import CsvFlightRecorder
-
-UNPORTED = "not ported yet (ROADMAP Queue 1 item 5: {})"
 
 
 def _load_model_vars(cfg: Config, name: str, model: torch.nn.Module,
@@ -79,7 +80,8 @@ def build_engine(cfg: Config, frame_source, sink=None, frame_hw=(720, 1280),
     "n" with 4 classes at 640x640 (weights from ``cfg.models``, else drawn
     from seed 0: the weights of build_lateral_pipeline and
     build_longitudinal_pipeline), the homography of ``cfg.homography_yaml``
-    and an ObjectFinder, on ``device`` in ``dtype``."""
+    and an ObjectFinder, on ``device`` in ``dtype``; ``sink`` goes to the
+    PipelineEngine."""
     cpu = dict(device="cpu", dtype=torch.float32)
     lateral_gen = torch.Generator().manual_seed(0)
     lanes = _load_model_vars(cfg, "egolanes", EgoLanesNetwork((10, 20), **cpu), lateral_gen)
@@ -95,17 +97,180 @@ def build_engine(cfg: Config, frame_source, sink=None, frame_hw=(720, 1280),
     return PipelineEngine(cfg, lateral, longitudinal, finder, frame_source, sink=sink)
 
 
-def refuse_unported(cfg: Config):
-    """Raises NotImplementedError if ``cfg`` asks for an output the port
-    does not have yet."""
-    asks = [(cfg.output.save_video, "output.save_video", "the video writer of "
-             "utils/visualization.py"),
-            (cfg.output.enable_viz, "output.enable_viz", "utils/visualization.py with "
-             "compose_display_frame"),
-            (cfg.rerun.enabled, "rerun.enabled", "utils/rerun_logger.py")]
-    for on, key, what in asks:
-        if on:
-            raise NotImplementedError(f"{key}: {UNPORTED.format(what)}")
+def compose_display_frame(res, lat_out, tracking, frame, wheel,
+                          fps: float = 0.0, crop_y: int = 420,
+                          ego=None, wheel_gt=None):
+    """Unified display composite in the reference's exact overlay order
+    (unifiedDisplayThread, main.cpp:881-974): tracked boxes -> lane masks
+    through the cropped-ROI work-res pipeline -> display resize +
+    steering wheels (pred + CAN ground truth) -> LDW -> AEB/FCW -> CIPO
+    HUD -> frame/sync labels. `frame` is the raw BGR capture; returns
+    the annotated copy. The fps overlay is an addition over the
+    reference (it prints FPS to stdout instead). ``lat_out["lane_masks"]``
+    is on the host (numpy, or a CPU tensor)."""
+    tracked, cipo_id = (), -1
+    if tracking is not None:
+        tracked = tracking.tracked_objects
+        cipo_id = tracking.cipo.track_id if tracking.cipo.exists else -1
+    gt_deg = None
+    if ego is not None and getattr(ego, "valid", False) and \
+            not np.isnan(getattr(ego, "steering_angle_deg", np.nan)):
+        gt_deg = ego.steering_angle_deg
+    out = viz.unified_display_frame(
+        frame, np.asarray(lat_out["lane_masks"], np.float32),
+        tracked_objects=tracked, cipo_track_id=cipo_id,
+        steering_deg=res.steering_deg, gt_steering_deg=gt_deg,
+        wheel_pred=wheel, wheel_gt=wheel_gt if wheel_gt is not None
+        else wheel,
+        lane_departure=res.lane_departure, fcw=res.fcw, aeb=res.aeb,
+        cipo_exists=res.cipo_distance >= 0,
+        ideal_speed_ms=res.set_speed, safe_distance_m=res.safe_distance,
+        control_effort_ms2=res.accel_effort, frame_num=res.frame_num,
+        crop_y=crop_y)
+    if fps > 0:
+        import cv2
+        cv2.putText(out, f"{fps:.1f} FPS", (10, 110),
+                    cv2.FONT_HERSHEY_SIMPLEX, 0.7, (255, 255, 255), 2)
+    return out
+
+
+class AppOutputs:
+    """The app loop's outputs for each FrameResult, as the JAX app's sink
+    writes them: the CSV flight record, the SHM state (``shm``, a
+    host/shm.py SharedStatePublisher, or None), Rerun telemetry
+    (``rerun.enabled``; a no-op without the SDK), and the display composite
+    for the MJPG video (``output.save_video``) and the window
+    (``output.enable_viz``). ``can`` is a CanInterface or None.
+
+    Pass ``sink`` to build_engine; ``close`` releases
+    the CSV file, the video writer and the SHM segment."""
+
+    def __init__(self, cfg: Config, shm=None, can=None):
+        self.cfg = cfg
+        self.shm = shm
+        self.can = can
+        self.csv_log = CsvFlightRecorder(cfg.output.csv_log_path) \
+            if cfg.output.csv_log_path else None
+        # Rerun telemetry (graceful: no SDK -> no-op), main.cpp:46-48 +
+        # rerun.* config keys
+        self.rerun_log = None
+        if cfg.rerun.enabled:
+            from .utils.rerun_logger import RerunLogger
+            self.rerun_log = RerunLogger(spawn_viewer=cfg.rerun.spawn_viewer,
+                                         save_path=cfg.rerun.save_path or None)
+        self.writer = None
+        if cfg.output.save_video:
+            import cv2
+            self.writer = cv2.VideoWriter(
+                cfg.output.output_video_path,
+                cv2.VideoWriter_fourcc(*"MJPG"),
+                cfg.target_fps or 10.0, (1280, 720))
+        self.rerun_on = self.rerun_log is not None and self.rerun_log.enabled
+        self.composing = self.writer is not None or cfg.output.enable_viz or self.rerun_on
+        self.wheel = viz.make_steering_wheel_image() if self.composing else None
+        # instantaneous HUD FPS over a 30-frame window (a cumulative average
+        # would be dominated by the first-frame warm-up for the whole run)
+        self.frame_times = deque(maxlen=30)
+
+    def compose(self, res, lat_out, tracking, frame, ego=None):
+        now = time.perf_counter()
+        self.frame_times.append(now)
+        span = self.frame_times[-1] - self.frame_times[0]
+        fps = (len(self.frame_times) - 1) / span if span > 0 else 0.0
+        return compose_display_frame(res, lat_out, tracking, frame,
+                                     self.wheel, fps=fps, ego=ego)
+
+    def publish_state(self, res, ego=None):
+        """The FrameResult (and the CAN state) into the SHM segment."""
+        from .host.shm import VisionPilotStateStruct
+        s = VisionPilotStateStruct()
+        s.frame_number = res.frame_num
+        s.steering_pid_deg = res.steering_deg
+        s.cte_m = res.cte
+        s.yaw_error_rad = res.yaw_error
+        s.lane_departure_warning = res.lane_departure
+        s.cipo_exists = res.cipo_distance >= 0
+        s.cipo_distance_m = max(res.cipo_distance, 0.0)
+        s.cipo_velocity_ms = res.cipo_velocity
+        s.cut_in_detected = res.cut_in
+        s.kalman_reset = res.kalman_reset
+        s.ideal_speed_ms = res.set_speed
+        s.fcw_active = res.fcw
+        s.aeb_active = res.aeb
+        s.control_effort_ms2 = res.accel_effort
+        if ego is not None:
+            s.ego_speed_ms = ego.speed_ms
+            s.ego_steering_angle_deg = ego.steering_angle_deg
+            s.can_valid = ego.valid
+        else:
+            s.ego_speed_ms = float("nan")
+            s.can_valid = False
+        self.shm.publish(s)
+
+    def sink(self, res, lat_out, tracking, frame=None):
+        cfg = self.cfg
+        if self.can is not None:
+            self.can.update()
+            ego = self.can.get_state()
+        else:
+            ego = None
+        if self.csv_log:
+            self.csv_log.log(
+                frame=res.frame_num,
+                steering_deg=res.steering_deg,
+                cte_m=res.cte, yaw_error_rad=res.yaw_error,
+                set_speed_ms=res.set_speed,
+                accel_effort_ms2=res.accel_effort,
+                cipo_exists=res.cipo_distance >= 0,
+                cipo_distance_m=res.cipo_distance,
+                cipo_velocity_ms=res.cipo_velocity,
+                fcw=res.fcw, aeb=res.aeb, cut_in=res.cut_in,
+                kalman_reset=res.kalman_reset,
+                ego_speed_ms=(ego.speed_ms if ego else float("nan")),
+                can_valid=(ego.valid if ego else False),
+            )
+        if self.shm is not None:
+            self.publish_state(res, ego)
+        composite = None
+        if frame is not None and self.composing:
+            composite = self.compose(res, lat_out, tracking, frame, ego)
+        if self.rerun_on:
+            masks = np.asarray(lat_out["lane_masks"], np.float32)
+            sc = dict(zip(SCALAR_FIELDS, np.asarray(lat_out["scalars"])))
+            self.rerun_log.log_data(
+                res.frame_num, frame_bgr=frame,
+                ego_left=masks[..., 0], ego_right=masks[..., 1],
+                other_lanes=masks[..., 2],
+                stacked_view_bgr=composite,
+                can_steering_deg=(ego.steering_angle_deg if ego else 0.0),
+                can_speed_kmph=(ego.speed_ms * 3.6 if ego else 0.0),
+                can_valid=(ego.valid if ego else False),
+                pid_steering_raw_deg=float(sc["steering_raw"]),
+                pid_steering_filtered_deg=res.steering_deg,
+                autosteer_deg=float(sc["autosteer_deg"]),
+                cte=res.cte, yaw_error=res.yaw_error,
+                # AutoSteer angle substitutes curvature feed-forward
+                # (path_finder.cpp:95-97): log the same fused signal
+                curvature=float(sc["autosteer_deg"]) * np.pi / 180.0,
+                fused_valid=bool(sc["fused_valid"] > 0.5))
+        if composite is not None:
+            if self.writer is not None:
+                self.writer.write(composite)
+            if cfg.output.enable_viz:
+                try:
+                    import cv2
+                    cv2.imshow("VisionPilot-TPU", composite)
+                    cv2.waitKey(1)
+                except Exception:
+                    pass
+
+    def close(self):
+        if self.csv_log:
+            self.csv_log.close()
+        if self.writer:
+            self.writer.release()
+        if self.shm:
+            self.shm.close()
 
 
 def main(argv=None):
@@ -117,7 +282,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = load_config(args.config)
-    refuse_unported(cfg)
 
     # frame source
     from .drivers import camera
@@ -136,44 +300,25 @@ def main(argv=None):
     # CAN (graceful)
     can = CanInterface(cfg.can.interface_name) if cfg.can.enabled else None
 
+    # SHM publisher (graceful)
+    shm = None
     if not args.no_shm:
-        print(f"[app] SHM publish disabled: host/shm.py is {UNPORTED.format('host/shm.py')}")
+        try:
+            from .host.shm import SharedStatePublisher
+            shm = SharedStatePublisher()
+        except Exception as e:
+            print(f"[app] SHM publish disabled: {e}")
 
-    csv_log = CsvFlightRecorder(cfg.output.csv_log_path) \
-        if cfg.output.csv_log_path else None
-
+    outputs = AppOutputs(cfg, shm=shm, can=can)
     t_start = time.perf_counter()
-
-    def sink(res, lat_out, tracking, frame=None):
-        if can is not None:
-            can.update()
-            ego = can.get_state()
-        else:
-            ego = None
-        if csv_log:
-            csv_log.log(
-                frame=res.frame_num,
-                steering_deg=res.steering_deg,
-                cte_m=res.cte, yaw_error_rad=res.yaw_error,
-                set_speed_ms=res.set_speed,
-                accel_effort_ms2=res.accel_effort,
-                cipo_exists=res.cipo_distance >= 0,
-                cipo_distance_m=res.cipo_distance,
-                cipo_velocity_ms=res.cipo_velocity,
-                fcw=res.fcw, aeb=res.aeb, cut_in=res.cut_in,
-                kalman_reset=res.kalman_reset,
-                ego_speed_ms=(ego.speed_ms if ego else float("nan")),
-                can_valid=(ego.valid if ego else False),
-            )
-
     dtype = torch.bfloat16 if torch.device(args.device).type == "cuda" else torch.float32
-    engine = build_engine(cfg, frame_source, sink=sink, dtype=dtype, device=args.device)
     try:
+        engine = build_engine(cfg, frame_source, sink=outputs.sink, dtype=dtype,
+                              device=args.device)
         results = engine.run(max_frames=args.max_frames)
     finally:
         cap.release()
-        if csv_log:
-            csv_log.close()
+        outputs.close()
     dt = time.perf_counter() - t_start
     n = len(results)
     print(f"[app] processed {n} frames in {dt:.1f}s "

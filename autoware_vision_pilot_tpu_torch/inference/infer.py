@@ -166,20 +166,24 @@ class EgoLanesInfer(_Base):
 
 
 class AutoSpeedInfer:
-    """Letterbox (the preprocess kernel) -> AutoSpeed "n" -> decode ->
-    fixed-shape NMS (the NMS kernel) at the reference's thresholds."""
+    """Letterbox (the letterbox kernel) -> AutoSpeed -> decode ->
+    fixed-shape NMS (the NMS kernel) at the reference's thresholds.
+    ``model``: the AutoSpeedNetwork for ``input_hw``, built on the CPU in
+    f32 (default: "n" with 4 classes), its weights loaded as load_weights
+    says."""
 
     def __init__(self, variables=None, checkpoint: str = "", frame_hw=(720, 1280),
                  input_hw=(640, 640), conf_thresh: float = 0.25, iou_thresh: float = 0.45,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 model: Optional[nn.Module] = None):
         from ..models.auto_speed import AutoSpeedNetwork
         self.frame_hw, self.input_hw = tuple(frame_hw), tuple(input_hw)
         self.conf_thresh, self.iou_thresh = conf_thresh, iou_thresh
         self.dtype = dtype
         self.device = torch.device(device)
-        self.model = load_weights(
-            AutoSpeedNetwork("n", 4, *input_hw, device="cpu", dtype=torch.float32),
-            variables, checkpoint, device, dtype)
+        if model is None:
+            model = AutoSpeedNetwork("n", 4, *input_hw, device="cpu", dtype=torch.float32)
+        self.model = load_weights(model, variables, checkpoint, device, dtype)
 
     @torch.inference_mode()
     def _fwd(self, frame):

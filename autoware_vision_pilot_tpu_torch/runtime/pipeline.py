@@ -517,15 +517,21 @@ class PipelineEngine:
     frame_source: callable returning a uint8 BGR frame (H, W, 3) numpy
     array, a (host_frame, device_frame) pair, or None to end the run.
     sink: callable(FrameResult, lateral_outputs, tracking_result), or with a
-    4th positional argument the host frame.
+    4th positional argument the host frame. With a sink, "scalars" and
+    "lane_masks" (for a display composite) in its lateral outputs are host
+    tensors, copied with the frame's other results at dispatch; the rest
+    stay on the device. The host copies live in staging slots that frame +
+    pipeline_depth + 1 reuses: a sink that keeps one past its call copies
+    it.
 
     The frame goes up through a ring of pinned staging buffers, one per
     frame in flight, with ``non_blocking=True``; at dispatch the two
     per-frame results (the (8,) scalars and the (64, 7) table) start
     ``non_blocking`` copies into pinned host slots, and a CUDA event is
-    recorded; ``_harvest`` waits on that frame's event only. The dispatch
-    side makes no host synchronisation (``run(sync_check=True)`` runs it
-    under ``torch.cuda.set_sync_debug_mode("error")``). ``device_ms`` holds,
+    recorded (with a sink, the lane masks' copy too); ``_harvest`` waits on
+    that frame's event only. The dispatch side makes no host
+    synchronisation (``run(sync_check=True)`` runs it under
+    ``torch.cuda.set_sync_debug_mode("error")``). ``device_ms`` holds,
     per harvested frame, the device time from its upload to its results on
     the host (CUDA events; empty on the CPU).
     """
@@ -661,15 +667,18 @@ class PipelineEngine:
                 else:
                     dev_frame = staging.upload(frame, frame_num)
                 lat_out, lat_state = self.lateral(dev_frame, lat_state)
-                outs = [lat_out["scalars"]]
+                names = ("scalars", "lane_masks") if self.sink else ("scalars",)
+                outs = [lat_out[k] for k in names]
                 if self.longitudinal is not None:
                     outs.append(self.longitudinal(dev_frame))
                 host, done = staging.download(frame_num, *outs)
             t_inf = time.perf_counter()
 
             # harvest frame N-depth while N..N-depth+1 execute
-            pending.append((frame_num, frame, lat_out, *host[:1],
-                            host[1] if len(host) > 1 else None, done, started))
+            lat_out = {**lat_out, **dict(zip(names, host))}
+            pending.append((frame_num, frame, lat_out, host[0],
+                            host[len(names)] if len(host) > len(names) else None, done,
+                            started))
             if len(pending) > depth:
                 results.append(self._harvest(*pending.popleft()))
             frame_num += 1

@@ -15,6 +15,7 @@
                                               # package in turns
     python3 chip_smoke.py --host-costs ROOT   # phase 7's host costs alone, of
                                               # the package in ROOT
+    python3 chip_smoke.py --echo KIND A B N   # phase 33's second process
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. device: CUDA must be available; prints the card's name and power limit.
@@ -212,12 +213,41 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              its ConvBN BatchNorms folded, imported into a fresh network on
              the card (equal; within 1e-3 * max); eval_lite --onnx on a
              written SceneSegLite file gives the seeded run's summary.
-The run prints its wall time, and that of phases 19-25, 26-28 and 29-32.
+ 33. host IPC: host/shm.py builds libavp_host.so with g++ from host/src (a
+             failed build fails the run); the C++ state size equals the
+             ctypes struct's; the SHM state (60 seeded updates), 60 seeded
+             720p frames through the frame ring and 60 through an
+             Iox2Service each make a round trip through a second process
+             (``--echo``), byte for byte, p50/p99 in us; 60 CIPO messages
+             through Iox2Transport on a pid-named CIPO service, every field
+             equal.
+ 34. node graph: middleware launch_pipeline on an InProcTransport, four
+             nodes on one image topic (SceneSeg, Scene3D depth, EgoLanes,
+             AutoSpeed "n" at 0.5/0.5; bf16, seed 0), fed by a
+             VideoPublisherNode over 60 distinct seeded 720p frames in
+             memory: every message equal to the wrapper's result on the
+             same frame, 3 preprocess, 1 letterbox and 1 NMS launch a
+             frame, each node's p50/p99 from publish to message; then
+             PathFinderNode, the steering and longitudinal controller nodes
+             on seeded lane points (means equal to path_finder_update with
+             a generator of the same seed).
+ 35. app outputs: app.py::AppOutputs on build_engine(Config()) in bf16 over
+             60 distinct 720p frames, every dispatch and sink call under
+             sync-debug "error": the SHM state read back after each frame
+             equal to its FrameResult, the CSV, Rerun (a no-op without the
+             SDK), and where cv2 imports the composite and the MJPG video
+             (60 frames of 1280x720 read back); the host-loop p50 with the
+             outputs against phase 17's sink-less engine, in eight turns of 20
+             frames, and the sink's parts.
+The run prints its wall time, and that of phases 19-25, 26-28, 29-32 and
+33-35.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -3811,6 +3841,478 @@ def phase_importers(card):
         torch.backends.cudnn.deterministic = deterministic
 
 
+# ---------- phases 33-35: the host IPC, the node graph and the app's outputs ----------
+
+IPC_FRAMES = 60
+
+
+def echo(kind, a, b, n):
+    """``chip_smoke.py --echo KIND A B N``, the second process of phase 33:
+    opens A as a reader and creates B, says "ready", then writes each of the
+    N items it reads from A back into B, unchanged; exits after the N-th."""
+    sys.path.insert(0, str(REPO))
+    from autoware_vision_pilot_tpu_torch.host import frame_ring, iox2, shm
+
+    n = int(n)
+    if kind == "state":
+        with shm.SharedStateReader(a) as rd, shm.SharedStatePublisher(b) as pub:
+            print("ready", flush=True)
+            last = 0
+            while last < n:
+                s = rd.read()
+                if s.frame_number != last:
+                    pub.publish(s)
+                    last = s.frame_number
+                os.sched_yield()
+    elif kind == "ring":
+        with frame_ring.FrameRing(a) as rd, \
+                frame_ring.FrameRing(b, owner=True, slot_bytes=FRAME_HW[0] * FRAME_HW[1] * 3) \
+                as ring:
+            print("ready", flush=True)
+            last = 0
+            while last < n:
+                got = rd.read_latest(last)
+                if got is not None:
+                    ring.publish(got[0], got[1].frame_number, got[1].timestamp_ns)
+                    last = got[1].frame_number
+                os.sched_yield()
+    else:
+        with iox2.Iox2Service(a, iox2.RawFrameStruct, timeout_ms=10000) as sub, \
+                iox2.Iox2Service(b, iox2.RawFrameStruct, create=True) as pub:
+            print("ready", flush=True)
+            for _ in range(n):
+                got = None
+                while got is None:
+                    os.sched_yield()
+                    got = iox2.receive_frame(sub)
+                iox2.publish_frame(pub, got[0], got[1].frame_id)
+
+
+@contextlib.contextmanager
+def echo_process(kind, a, b, n):
+    """The ``--echo`` process for KIND, once it has opened A and created B;
+    waits for it to exit 0 after its N items, and kills it on an error."""
+    proc = subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--echo", kind, a, b,
+                             str(n)], stdout=subprocess.PIPE, text=True)
+    try:
+        if proc.stdout.readline().strip() != "ready":
+            raise AssertionError(f"the {kind} echo process did not start")
+        yield proc
+        if proc.wait(timeout=30) != 0:
+            raise AssertionError(f"the {kind} echo process exited with {proc.returncode}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+
+
+def wait_for(fn, what, timeout=10.0):
+    """Calls fn() until it returns something other than None."""
+    deadline = time.perf_counter() + timeout
+    while (got := fn()) is None:
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        os.sched_yield()
+    return got
+
+
+def phase_host_ipc(card):
+    """Phase 33: host/shm.py builds libavp_host.so with g++ from host/src (a
+    failed build raises); the C++ state size equals the ctypes struct's; the
+    SHM state, IPC_FRAMES distinct seeded 720p frames through the frame ring
+    and through an Iox2Service each make a round trip through a second
+    process (``--echo``), byte for byte, with p50/p99 of the round trip;
+    IPC_FRAMES CIPO messages through Iox2Transport, its topic -> service map
+    pointed at pid-named services. Every name holds the pid, so that runs
+    side by side on one host, or a run killed midway, leave each other's
+    segments alone."""
+    import ctypes
+    from autoware_vision_pilot_tpu_torch.host import frame_ring, iox2, shm
+    from autoware_vision_pilot_tpu_torch.middleware.transport import Iox2Transport, make_transport
+
+    t0 = time.perf_counter()
+    lib = shm.build()
+    print(f"libavp_host.so built with g++ from host/src in {time.perf_counter() - t0:.1f} s: "
+          f"{lib.relative_to(REPO)}")
+    native = int(shm._load_lib().avp_shm_state_size())
+    if native != ctypes.sizeof(shm.VisionPilotStateStruct):
+        raise AssertionError(f"VisionPilotState is {native} bytes in C++, "
+                             f"{ctypes.sizeof(shm.VisionPilotStateStruct)} in ctypes")
+    rng = np.random.default_rng(SEED + 60)
+    pool = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(IPC_FRAMES)]
+    trips = {}
+    # the state: frame numbers 1..N, every other field seeded
+    pid = os.getpid()
+    a, b = f"/avp_smoke_state_a_{pid}", f"/avp_smoke_state_b_{pid}"
+    us = trips["SHM state (seqlock)"] = []
+    with shm.SharedStatePublisher(a) as pub, echo_process("state", a, b, IPC_FRAMES), \
+            shm.SharedStateReader(b) as rd:
+        for i in range(1, IPC_FRAMES + 1):
+            s = shm.VisionPilotStateStruct()
+            for field, ctype in s._fields_[2:]:
+                setattr(s, field, bool(rng.integers(0, 2)) if ctype is ctypes.c_bool else
+                        int(rng.integers(-5, 1000)) if ctype is ctypes.c_int else
+                        float(rng.normal(0, 30)))
+            s.frame_number = i
+            t = time.perf_counter()
+            pub.publish(s)
+            out = wait_for(lambda: (o if (o := rd.read()).frame_number == i else None),
+                           f"state {i}")
+            us.append((time.perf_counter() - t) * 1e6)
+            if bytes(out)[8:] != bytes(s)[8:]:
+                raise AssertionError(f"state {i} came back changed")
+    # the frame ring: frame numbers 1..N (a reader never sees 0)
+    a, b = f"/avp_smoke_ring_a_{pid}", f"/avp_smoke_ring_b_{pid}"
+    slot = FRAME_HW[0] * FRAME_HW[1] * 3
+    us = trips["frame ring, 720p"] = []
+    with frame_ring.FrameRing(a, owner=True, slot_bytes=slot) as ring, \
+            echo_process("ring", a, b, IPC_FRAMES), frame_ring.FrameRing(b) as rd:
+        for i, f in enumerate(pool, start=1):
+            t = time.perf_counter()
+            ring.publish(f, i)
+            got, hdr = wait_for(lambda: rd.read_latest(i - 1), f"ring frame {i}")
+            us.append((time.perf_counter() - t) * 1e6)
+            if hdr.frame_number != i or not np.array_equal(got, f):
+                raise AssertionError(f"ring frame {i} came back changed")
+    # an Iox2Service carrying RawFrame
+    a, b = f"AVPSmoke{pid}/FramesA", f"AVPSmoke{pid}/FramesB"
+    us = trips["Iox2Service RawFrame, 720p"] = []
+    with iox2.Iox2Service(a, iox2.RawFrameStruct, create=True) as pub, \
+            echo_process("iox2", a, b, IPC_FRAMES), \
+            iox2.Iox2Service(b, iox2.RawFrameStruct, timeout_ms=10000) as sub:
+        for i, f in enumerate(pool):
+            t = time.perf_counter()
+            iox2.publish_frame(pub, f, i)
+            got, hdr = wait_for(lambda: iox2.receive_frame(sub), f"iox2 frame {i}")
+            us.append((time.perf_counter() - t) * 1e6)
+            if hdr.frame_id != i or not np.array_equal(got, f):
+                raise AssertionError(f"iox2 frame {i} came back changed")
+    # CIPO messages through the transport, on services of this run's own
+    recipe = Iox2Transport._TOPICS
+    Iox2Transport._TOPICS = {k: f"AVPSmoke{pid}/{v.split('/')[-1]}" for k, v in recipe.items()}
+    tx = rx = None
+    try:
+        tx = make_transport("iox2", publish_topics=["/cipo"])
+        rx = make_transport("iox2")
+        got = []
+        rx.subscribe("/cipo", got.append)
+        for i in range(IPC_FRAMES):
+            msg = {"frame_id": i, "exists": bool(i % 3), "track_id": i % 7, "class_id": 1 + i % 3,
+                   "distance_m": float(np.float32(rng.uniform(2, 80))),
+                   "velocity_ms": float(np.float32(rng.normal(0, 3))),
+                   "num_tracked_objects": i % 5}
+            tx.publish("/cipo", msg)
+            rx.spin_once(timeout=1.0)
+            if len(got) != i + 1 or any(got[-1][k] != v for k, v in msg.items()):
+                raise AssertionError(f"CIPO message {i} came back as {got[-1:]}")
+    finally:
+        service = Iox2Transport._TOPICS["cipo"]
+        Iox2Transport._TOPICS = recipe
+        for t in (tx, rx):
+            if t is not None:
+                t.close()
+    for what, us in trips.items():
+        p50, p99 = percentiles(us)
+        print(f"{what}: {IPC_FRAMES} round trips through a second process, byte for byte, "
+              f"{card}: p50 {p50!r} us, p99 {p99!r} us (host clock, publish to echo read)")
+    print(f"Iox2Transport: {IPC_FRAMES} CIPO messages on {service}, every field equal")
+
+
+class MemoryCapture:
+    """cv2.VideoCapture's read() over frames in memory; records when each
+    frame was handed out."""
+
+    def __init__(self, frames):
+        self.frames = list(frames)
+        self.read_at = []
+
+    def read(self):
+        if not self.frames:
+            return False, None
+        self.read_at.append(time.perf_counter())
+        return True, self.frames.pop(0)
+
+
+NODE_PARAMS = {
+    "scene_seg": {"ros__parameters": {"model_type": "segmentation", "input_topic": "/image_raw",
+                                      "output_topic": "/scene_seg/mask"}},
+    "scene_3d": {"ros__parameters": {"model_type": "depth", "input_topic": "/image_raw",
+                                     "output_topic": "/scene_3d/depth"}},
+    "ego_lanes": {"ros__parameters": {"model_type": "egolanes", "input_topic": "/image_raw",
+                                      "output_topic": "/ego_lanes/mask"}},
+    "auto_speed": {"ros__parameters": {"model_type": "detection", "input_topic": "/image_raw",
+                                       "output_topic": "/auto_speed/detections"}},
+}
+
+
+def phase_node_graph(card):
+    """Phase 34: middleware launch_pipeline on an InProcTransport with four
+    nodes on one image topic (SceneSeg, Scene3D depth, EgoLanes: bf16
+    backends from seed 0; AutoSpeed "n" 640x640 at 0.5/0.5), fed by a
+    VideoPublisherNode over IPC_FRAMES distinct seeded 720p frames in
+    memory: each message equal to the matching wrapper's result on the same
+    frame; each node's p50/p99 from publish to its message. Then
+    PathFinderNode -> SteeringControllerNode and LongitudinalControllerNode
+    on seeded lane points: the means equal to path_finder_update with a
+    generator of the same seed, the commands to the controllers' own.
+    -> the graph's launches of the preprocess, letterbox and NMS kernels."""
+    from autoware_vision_pilot_tpu_torch.control.steering import SteeringController
+    from autoware_vision_pilot_tpu_torch.inference import (AutoSpeedInfer, EgoLanesInfer,
+                                                           Scene3DInfer, SceneSegInfer)
+    from autoware_vision_pilot_tpu_torch.middleware import (
+        InProcTransport, LongitudinalControllerNode, PathFinderNode, SteeringControllerNode,
+        VideoPublisherNode, launch_pipeline)
+    from autoware_vision_pilot_tpu_torch.perception.path_finder import (BayesState,
+                                                                        path_finder_update)
+
+    t = InProcTransport()
+    nodes = launch_pipeline(t, NODE_PARAMS)
+    topics = {name: p["ros__parameters"]["output_topic"] for name, p in NODE_PARAMS.items()}
+    got = {name: [] for name in topics}
+    for name, topic in topics.items():
+        t.subscribe(topic, lambda m, name=name: got[name].append((time.perf_counter(), m)))
+    rng = np.random.default_rng(SEED + 61)
+    pool = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(IPC_FRAMES)]
+    VideoPublisherNode(t, MemoryCapture(pool[:2])).spin()  # builds and warm-up
+    for v in got.values():
+        v.clear()
+    capture = MemoryCapture(pool)
+    torch.cuda.synchronize()
+    reset_counts()
+    n = VideoPublisherNode(t, capture).spin()
+    counts = read_counts()
+    expect_launches(counts, {"fused_preprocess": 3 * n, "fused_letterbox": n, "nms_greedy": n,
+                             "int8_quantize": 0, "int8_conv": 0})
+    if n != IPC_FRAMES or any(len(v) != n for v in got.values()):
+        raise AssertionError(f"{n} frames published, messages {[len(v) for v in got.values()]}")
+    wrappers = {"scene_seg": SceneSegInfer(dtype=torch.bfloat16),
+                "scene_3d": Scene3DInfer(dtype=torch.bfloat16),
+                "ego_lanes": EgoLanesInfer(dtype=torch.bfloat16),
+                "auto_speed": AutoSpeedInfer(dtype=torch.bfloat16, conf_thresh=0.5,
+                                             iou_thresh=0.5)}
+    want = {"scene_seg": lambda f: wrappers["scene_seg"].inference(f).astype(np.uint8),
+            "scene_3d": lambda f: wrappers["scene_3d"].logits(
+                torch.from_numpy(f).cuda())[0, ..., 0].float().cpu().numpy(),
+            "ego_lanes": lambda f: wrappers["ego_lanes"].inference(f).astype(np.uint8),
+            "auto_speed": wrappers["auto_speed"].inference}
+    for name, msgs in got.items():
+        for i, (f, (_, msg)) in enumerate(zip(pool, msgs)):
+            ref = want[name](f)
+            if msg.dtype != ref.dtype or not np.array_equal(msg, ref):
+                raise AssertionError(f"{name} node, frame {i}: its message differs from the "
+                                     f"wrapper's result")
+        lat = [(at - start) * 1e3 for start, (at, _) in zip(capture.read_at, msgs)]
+        p50, p99 = percentiles(lat)
+        print(f"node graph {name} ({type(nodes[name]).__name__}, subscriber "
+              f"{list(topics).index(name) + 1} of 4 on /image_raw), {n} distinct 720p frames, "
+              f"{card}: publish to message p50 {p50!r} ms, p99 {p99!r} ms (host clock); every "
+              f"message equal to the wrapper's on the same frame")
+    print(f"node graph launches: {counts}")
+    # PathFinder and the two controllers on seeded lane points
+    t = InProcTransport()
+    pf = PathFinderNode(t, seed=SEED + 62)
+    steer, lon = SteeringControllerNode(t), LongitudinalControllerNode(t)
+    states, cmds = [], {"steer": [], "throttle": [], "brake": []}
+    t.subscribe("/pathfinder/tracked_states", states.append)
+    for topic, key in (("/vehicle/steering_cmd", "steer"), ("/vehicle/throttle_cmd", "throttle"),
+                       ("/vehicle/brake_cmd", "brake")):
+        t.subscribe(topic, cmds[key].append)
+    state, generator = BayesState.init(device="cuda"), torch.Generator("cuda").manual_seed(
+        SEED + 62)
+    ref_sc = SteeringController(0.33, 0.11, -0.40, 1.0)
+    lanes = []
+    for i in range(IPC_FRAMES):
+        ys = np.sort(rng.uniform(0, 25, 16))
+        left = [(1.8 + 0.01 * i + rng.normal(0, 0.05), y) for y in ys]
+        right = [(-1.7 + rng.normal(0, 0.05), y) for y in ys]
+        lanes.append((left, right))
+        t.publish("/egoLaneL", left)
+        t.publish("/egoLaneR", right)
+        t.publish("/carla/hero/imu", {"linear_acceleration": {"x": float(rng.normal(0, 1))}})
+        t.publish("/egoPath", [(0.0, 1.0)])
+        t.publish("/hero/odom", {"twist": {"linear": {"x": float(rng.uniform(0, 15))}}})
+        lp, lm = pf._pack(left)
+        rp, rm = pf._pack(right)
+        _, state = path_finder_update(state, lp, lm, rp, rm, torch.zeros((), device="cuda"),
+                                      generator=generator)
+        if not np.array_equal(states[-1], state.mean.cpu().numpy()):
+            raise AssertionError(f"PathFinderNode tick {i}: means differ from "
+                                 f"path_finder_update with the same generator")
+        angle = ref_sc.compute_steering(float(states[-1][3]), float(states[-1][7]),
+                                        float(states[-1][11]))
+        if cmds["steer"][-1] != angle:
+            raise AssertionError(f"steering node tick {i}: {cmds['steer'][-1]} != {angle}")
+    if not (len(cmds["throttle"]) == len(cmds["brake"]) == IPC_FRAMES and
+            np.isfinite(cmds["throttle"] + cmds["brake"] + cmds["steer"]).all()):
+        raise AssertionError(f"controller commands {cmds}")
+    print(f"PathFinderNode on the card ({IPC_FRAMES} ticks of seeded lane points): means equal "
+          f"to path_finder_update with the same generator; lane width "
+          f"{float(states[-1][12])!r} m, cte {float(states[-1][3])!r} m; steering and "
+          f"longitudinal nodes: {IPC_FRAMES} commands each, steering equal to "
+          f"SteeringController's")
+    del nodes, wrappers
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in ("fused_preprocess", "fused_letterbox", "nms_greedy")}
+
+
+def timed_call(fn, times):
+    """fn, with each call's host time in ms appended to ``times``."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
+class TimedWriter:
+    """A cv2.VideoWriter whose write() times are appended to ``times``."""
+
+    def __init__(self, writer, times):
+        self.writer = writer
+        self.write = timed_call(writer.write, times)
+
+    def release(self):
+        self.writer.release()
+
+
+def phase_app_outputs(card):
+    """Phase 35: app.py::AppOutputs (the app's sink) on build_engine(Config())
+    in bf16 over ENGINE_FRAMES distinct 720p host frames at pipeline depth
+    2, every dispatch and every sink call under sync-debug "error": the SHM
+    state published to a pid-named segment and read back after each frame
+    equal to its FrameResult's fields, the CSV, Rerun (a no-op without the
+    SDK), and where cv2 imports the composite and the MJPG video (read back:
+    ENGINE_FRAMES frames of 1280x720). Then the host-loop p50 with these
+    outputs and with no sink, in eight turns (none, outputs, outputs, none,
+    twice), 20 frames each, and the p50 of the
+    sink's parts (composite, video write, SHM publish, CSV row). -> the
+    launches."""
+    import csv
+    import tempfile
+    from autoware_vision_pilot_tpu_torch.app import AppOutputs, build_engine
+    from autoware_vision_pilot_tpu_torch.host.shm import SharedStatePublisher, SharedStateReader
+    from autoware_vision_pilot_tpu_torch.runtime.config import Config
+    from autoware_vision_pilot_tpu_torch.runtime.pipeline import PipelineEngine, _sync_debug
+    from autoware_vision_pilot_tpu_torch.utils import visualization
+
+    has_cv2 = visualization.cv2 is not None
+    rng = np.random.default_rng(SEED + 63)
+    host = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(ENGINE_FRAMES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        def config(tag):
+            cfg = Config()
+            cfg.target_fps = 0.0
+            cfg.output.csv_log_path = f"{tmp}/{tag}.csv"
+            cfg.rerun.enabled, cfg.rerun.spawn_viewer = True, False
+            cfg.rerun.save_path = f"{tmp}/{tag}.rrd"
+            cfg.output.save_video = has_cv2
+            cfg.output.output_video_path = f"{tmp}/{tag}.avi"
+            return cfg
+
+        cfg = config("run")
+        state = f"/avp_smoke_app_state_{os.getpid()}"
+        outputs = AppOutputs(cfg, shm=SharedStatePublisher(state))
+        print(f"app outputs: cv2 {'imported' if has_cv2 else 'missing'}, Rerun "
+              f"{'logging' if outputs.rerun_on else 'a no-op'}; outputs on: SHM, CSV"
+              + (", composite, MJPG video" if has_cv2 else "")
+              + (", Rerun" if outputs.rerun_on else ""))
+        reader = SharedStateReader(state)
+        mismatches = []
+
+        def sink(res, lat_out, tracking, frame):
+            with _sync_debug(True):
+                outputs.sink(res, lat_out, tracking, frame)
+            s = reader.read()
+            want = (res.frame_num, res.steering_deg, res.cte, res.yaw_error, res.lane_departure,
+                    res.cipo_distance >= 0, max(res.cipo_distance, 0.0), res.cipo_velocity,
+                    res.cut_in, res.kalman_reset, res.set_speed, res.fcw, res.aeb,
+                    res.accel_effort, False)
+            have = (s.frame_number, s.steering_pid_deg, s.cte_m, s.yaw_error_rad,
+                    s.lane_departure_warning, s.cipo_exists, s.cipo_distance_m,
+                    s.cipo_velocity_ms, s.cut_in_detected, s.kalman_reset, s.ideal_speed_ms,
+                    s.fcw_active, s.aeb_active, s.control_effort_ms2, s.can_valid)
+            if have != want or not np.isnan(s.ego_speed_ms):
+                mismatches.append((res.frame_num, have, want))
+
+        it = iter(host)
+        engine = build_engine(cfg, lambda: next(it, None), sink=sink, dtype=torch.bfloat16)
+        engine.warmup()
+        torch.cuda.synchronize()
+        reset_counts()
+        try:
+            results = engine.run(pipeline_depth=2, sync_check=True)
+        finally:
+            reader.close()
+            outputs.close()
+        counts = read_counts()
+        expect_launches(counts, {k: ENGINE_FRAMES for k in ("fused_preprocess",
+                                                             "lane_filter_walk",
+                                                             "fused_letterbox", "nms_greedy")})
+        if [r.frame_num for r in results] != list(range(ENGINE_FRAMES)) or mismatches:
+            raise AssertionError(f"SHM reads differ from the FrameResults: {mismatches[:3]}")
+        rows = list(csv.DictReader(open(cfg.output.csv_log_path)))
+        if [int(r["frame"]) for r in rows] != list(range(ENGINE_FRAMES)):
+            raise AssertionError(f"the CSV has frames {[r['frame'] for r in rows]}")
+        if has_cv2:
+            cap = visualization.cv2.VideoCapture(cfg.output.output_video_path)
+            shapes = []
+            while (f := cap.read())[0]:
+                shapes.append(f[1].shape)
+            cap.release()
+            if shapes != [(720, 1280, 3)] * ENGINE_FRAMES:
+                raise AssertionError(f"the video reads back as {len(shapes)} frames "
+                                     f"{set(shapes)}")
+        print(f"app outputs over {ENGINE_FRAMES} frames, {card}: {ENGINE_FRAMES} SHM reads "
+              f"equal to their FrameResults, {len(rows)} CSV rows"
+              + (f", the video {ENGINE_FRAMES} frames of 1280x720" if has_cv2 else "")
+              + f"; no host sync in any dispatch or sink call (sync-debug \"error\"); "
+              f"launches {counts}")
+        # the outputs' host cost: the host loop with and without them, in turns,
+        # and the sink's parts timed on the host clock
+        loops = {"no sink": [], "app outputs": []}
+        parts = {"composite": [], "video write": [], "SHM publish": [], "CSV row": []}
+        turns = ("no sink", "app outputs", "app outputs", "no sink") * 2
+        for turn, kind in enumerate(turns):
+            it = iter(host[:20])
+            turn_outputs = AppOutputs(config(f"turn{turn}"), shm=SharedStatePublisher(state)) \
+                if kind == "app outputs" else None
+            if turn_outputs:
+                turn_outputs.compose = timed_call(turn_outputs.compose, parts["composite"])
+                turn_outputs.publish_state = timed_call(turn_outputs.publish_state,
+                                                        parts["SHM publish"])
+                turn_outputs.csv_log.log = timed_call(turn_outputs.csv_log.log,
+                                                      parts["CSV row"])
+                if turn_outputs.writer is not None:
+                    turn_outputs.writer = TimedWriter(turn_outputs.writer,
+                                                      parts["video write"])
+            eng = PipelineEngine(cfg, engine.lateral, engine.longitudinal, engine.object_finder,
+                                 lambda: next(it, None),
+                                 sink=turn_outputs.sink if turn_outputs else None)
+            eng.metrics = type(eng.metrics)(report_every=10 ** 9)
+            try:
+                eng.run(pipeline_depth=2)
+            finally:
+                if turn_outputs:
+                    turn_outputs.close()
+            loops[kind] += eng.metrics.e2e_samples[2:]
+        p = {k: percentiles(np.asarray(v) * 1e3) for k, v in loops.items()}
+        print(f"host loop with the app outputs against without a sink (phase 17's engine), "
+              f"depth 2, 20 frames a turn, turns none/outputs/outputs/none twice, "
+              f"{len(loops['no sink'])} and {len(loops['app outputs'])} samples, {card}: p50 "
+              f"{p['app outputs'][0]!r} ms against {p['no sink'][0]!r} ms, the outputs' host "
+              f"cost {p['app outputs'][0] - p['no sink'][0]!r} ms a frame; p99 "
+              f"{p['app outputs'][1]!r} against {p['no sink'][1]!r} ms")
+        print(f"the app sink's parts over those {20 * turns.count('app outputs')} frames "
+              f"(host clock), {card}: " + "; ".join(
+            f"{k} p50 {percentiles(v)[0]!r} ms" for k, v in parts.items() if v))
+    del engine
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in ("fused_preprocess", "lane_filter_walk", "fused_letterbox",
+                                   "nms_greedy")}
+
+
 def host_costs_of(root):
     """--host-costs ROOT: phase 7's host-cost measurement alone, over the
     port package found in ROOT (this repository, or an earlier commit of it
@@ -3834,6 +4336,8 @@ T0 = time.perf_counter()
 def main():
     if sys.argv[1:2] == ["--host-costs"]:
         return host_costs_of(sys.argv[2])
+    if sys.argv[1:2] == ["--echo"]:
+        return echo(*sys.argv[2:6])
     parent_root = sys.argv[2] if sys.argv[1:2] == ["--parent"] else None
     card = phase_device()
     sys.path.insert(0, str(REPO))
@@ -3906,6 +4410,12 @@ def main():
     timed(31, phase_quantized_inference, card)
     timed(32, phase_importers, card)
     print(f"wall time of phases 29-32 (s): {walls}, {sum(walls.values()):.1f} s in all")
+    # the serving remainder: the host IPC, the node graph, the app's outputs
+    walls.clear()
+    timed(33, phase_host_ipc, card)
+    paths["node graph"] = timed(34, phase_node_graph, card)
+    paths["app outputs"] = timed(35, phase_app_outputs, card)
+    print(f"wall time of phases 33-35 (s): {walls}, {sum(walls.values()):.1f} s in all")
     for path, counts in paths.items():
         for name, n in counts.items():
             if n <= 0 and name != "int8_conv_mma":

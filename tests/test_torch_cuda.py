@@ -1365,3 +1365,74 @@ def test_int8_transpose_main_path_on_card_matches_cpu(cuda):
     assert int8_conv_transpose.launches == before + 11
     for i, ((_, want), (_, got)) in enumerate(zip(calls, card_calls)):
         assert torch.equal(got.cpu(), want), i
+
+
+def plain_kernels(monkeypatch, modules=()):
+    """Routes inference/infer.py's preprocess and letterbox kernels, the NMS
+    kernel and the int8 convs of ``modules`` through their plain versions,
+    on CUDA tensors, for a reference run."""
+    from autoware_vision_pilot_tpu_torch.inference import infer
+
+    def preprocess(frame, out_hw, out_dtype):
+        f = frame if frame.dim() == 4 else frame[None]
+        return preprocess_imagenet(f, out_hw, out_dtype).permute(0, 3, 1, 2)
+
+    def letterbox_plain(frame, out_hw, out_dtype):
+        f = frame if frame.dim() == 4 else frame[None]
+        x, scale, pad = letterbox(f, out_hw, tuple(f.shape[1:3]), dtype=out_dtype)
+        return x.permute(0, 3, 1, 2), scale, pad
+
+    monkeypatch.setattr(infer, "fused_preprocess", preprocess)
+    monkeypatch.setattr(infer, "fused_letterbox", letterbox_plain)
+    monkeypatch.setattr(nms_kernel, "nms_greedy", nms_greedy_plain)
+    for model in modules:
+        for m in model.modules():
+            if isinstance(m, Int8Conv2d):
+                m.plain = True
+
+
+def test_nodes_on_card_match_plain_kernels(cuda, monkeypatch):
+    """RunModelNode over SceneSeg (bf16, backend_from_params) and over
+    EgoLanes with its int8 convs (precision="int8", min_channels 128), and
+    RunAutoSpeedNode (AutoSpeed "n" 640x640, bf16, 0.5/0.5), on one image
+    topic, two 720p frames on the card: one preprocess launch a frame for
+    each model node, the int8 node's int8 convs, one letterbox and one NMS
+    launch a frame; then the same nodes through the plain versions (no
+    launch): equal masks and equal detection tables."""
+    from autoware_vision_pilot_tpu_torch.inference import EgoLanesInfer
+    from autoware_vision_pilot_tpu_torch.middleware import (
+        InProcTransport, RunAutoSpeedNode, RunModelNode, TorchInferenceBackend,
+        backend_from_params)
+
+    t = InProcTransport()
+    lanes = EgoLanesInfer(dtype=torch.bfloat16, precision="int8")
+    RunModelNode(t, backend_from_params({"model_type": "segmentation"}), output_topic="/seg")
+    RunModelNode(t, TorchInferenceBackend(lanes.model, model_type="egolanes"),
+                 output_topic="/lanes", model_type="egolanes")
+    RunAutoSpeedNode(t)
+    msgs = {k: [] for k in ("/seg", "/lanes", "/autospeed/detections")}
+    for k, v in msgs.items():
+        t.subscribe(k, v.append)
+    pair = frames((720, 1280), 2, seed=31)
+    counters = (fused_preprocess, fused_letterbox, nms_greedy, int8_conv)
+
+    def launches():
+        return [c.launches for c in counters]
+
+    before = launches()
+    for f in pair:
+        t.publish("/image_raw", f.numpy())
+    torch.cuda.synchronize()
+    made = [a - b for a, b in zip(launches(), before)]
+    assert made[:3] == [4, 2, 2] and made[3] > 0, made
+    plain_kernels(monkeypatch, [lanes.model])
+    before = launches()
+    for f in pair:
+        t.publish("/image_raw", f.numpy())
+    assert launches() == before
+    assert msgs["/seg"][0].shape == (320, 640) and msgs["/lanes"][0].shape == (80, 160, 3)
+    for k, got in msgs.items():
+        assert len(got) == 4
+        for i in range(2):
+            assert got[i].dtype == got[i + 2].dtype and np.array_equal(got[i], got[i + 2]), k
+    assert 0 < len(msgs["/autospeed/detections"][0]) <= 64

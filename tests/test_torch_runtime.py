@@ -15,11 +15,13 @@ tracking, planning, _harvest) is held by the other tests/test_torch_*.py.
 import csv
 import dataclasses
 import itertools
+import os
 import subprocess
 import sys
 import textwrap
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -119,6 +121,24 @@ def test_engine_sinks(programs):
     assert trk is not None and res.n_tracks == len(trk.tracked_objects)
 
 
+def test_engine_hands_host_outputs_to_the_sink(programs):
+    """A sink's lateral outputs hold the frame's lane masks and scalars as
+    the staged host copies, equal to the lateral step's outputs run by hand
+    with the state carried."""
+    _, lat, _ = programs
+    frames = distinct_frames(3, seed=15)
+    seen = []
+    engine(programs, frames, sink=lambda res, lat_out, trk: seen.append(
+        {k: lat_out[k].clone() for k in ("scalars", "lane_masks", "coeffs")})) \
+        .run(pipeline_depth=2)
+    state = lat.init_state()
+    assert len(seen) == 3
+    for f, got in zip(frames, seen):
+        out, state = lat(torch.from_numpy(f), state)
+        for k in got:
+            torch.testing.assert_close(got[k], out[k], rtol=0, atol=0, equal_nan=True, msg=k)
+
+
 def test_sink_wants_frame_matches_jax():
     sinks = [None, lambda r, lo, trk: None, lambda r, lo, trk, frame: None,
              lambda r, lo, trk, frame=None: None, lambda r, lo, trk, **kw: None,
@@ -172,25 +192,50 @@ def write_video(path, n, seed):
     w.release()
 
 
-def test_app_main_on_cpu(tmp_path, capsys):
+def recording_publisher(read):
+    """host/shm.py's SharedStatePublisher class made to open a segment of
+    this test's own (the pid in its name) and, at close, to read the state
+    it holds back through a SharedStateReader into ``read`` before the
+    owner unlinks it."""
+    from autoware_vision_pilot_tpu_torch.host import shm
+    name = f"/avp_torch_app_{os.getpid()}"
+
+    class Publisher(shm.SharedStatePublisher):
+        def __init__(self, _name=None):
+            super().__init__(name)
+
+        def close(self):
+            if getattr(self, "_h", None):
+                with shm.SharedStateReader(name) as rd:
+                    read.append(rd.read())
+            super().close()
+
+    return Publisher
+
+
+def write_conf(tmp_path, video, *lines):
+    conf = tmp_path / "vp.conf"
+    conf.write_text("\n".join(["mode=video", f"source.video.path={video}",
+                               "pipeline.target_fps=0", *lines]) + "\n")
+    return conf
+
+
+def test_app_main_on_cpu(tmp_path, capsys, monkeypatch):
     """app.py's main over 2 frames of a 720p video written with cv2: the
     full-width networks from seeds (build_engine, f32 on the CPU), a CSV
-    row a frame with
-    the engine's fields, and the SHM line of the JAX package."""
+    row a frame with the engine's fields, and the SHM state of the last
+    frame read back with those fields, as the JAX app publishes them."""
     pytest.importorskip("cv2")
+    from autoware_vision_pilot_tpu_torch.host import shm
     video, csv_path = tmp_path / "clip.avi", tmp_path / "out" / "log.csv"
     write_video(video, 3, seed=13)
-    conf = tmp_path / "vp.conf"
-    conf.write_text(textwrap.dedent(f"""\
-        mode=video
-        source.video.path={video}
-        pipeline.target_fps=0
-        output.csv_log_path={csv_path}
-        """))
+    conf = write_conf(tmp_path, video, f"output.csv_log_path={csv_path}")
+    read = []
+    monkeypatch.setattr(shm, "SharedStatePublisher", recording_publisher(read))
     from autoware_vision_pilot_tpu_torch.app import main
     assert main(["--config", str(conf), "--max-frames", "2", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "[app] SHM publish disabled: host/shm.py is not ported yet" in out
+    assert "SHM publish disabled" not in out and "not ported" not in out
     assert "[app] processed 2 frames" in out
     rows = list(csv.DictReader(csv_path.open()))
     assert [r["frame"] for r in rows] == ["0", "1"]
@@ -198,15 +243,106 @@ def test_app_main_on_cpu(tmp_path, capsys):
         assert np.isfinite(float(r["steering_deg"])) and np.isfinite(float(r["set_speed_ms"]))
         assert r["cipo_exists"] in ("True", "False") and r["can_valid"] == "False"
         assert r["ego_speed_ms"] == "nan"
+    (state,) = read
+    last = rows[-1]
+    assert state.seq == 4 and state.frame_number == 1
+    assert (state.steering_pid_deg, state.cte_m, state.yaw_error_rad, state.ideal_speed_ms,
+            state.control_effort_ms2, state.cipo_velocity_ms) == tuple(
+        float(last[k]) for k in ("steering_deg", "cte_m", "yaw_error_rad", "set_speed_ms",
+                                 "accel_effort_ms2", "cipo_velocity_ms"))
+    assert state.cipo_distance_m == max(float(last["cipo_distance_m"]), 0.0)
+    assert [state.cipo_exists, state.fcw_active, state.aeb_active, state.cut_in_detected,
+            state.kalman_reset] == [last[k] == "True" for k in ("cipo_exists", "fcw", "aeb",
+                                                                "cut_in", "kalman_reset")]
+    assert np.isnan(state.ego_speed_ms) and not state.can_valid
+    # --no-shm: no publisher at all
+    assert main(["--config", str(conf), "--max-frames", "1", "--device", "cpu",
+                 "--no-shm"]) == 0
+    assert len(read) == 1
+
+
+def read_clip(path):
+    import cv2
+    cap = cv2.VideoCapture(str(path))
+    frames = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            cap.release()
+            return frames
+        frames.append(f)
 
 
 @pytest.mark.parametrize("key", ["output.save_video", "output.enable_viz", "rerun.enabled"])
-def test_app_refuses_unported_outputs(tmp_path, key):
-    conf = tmp_path / "vp.conf"
-    conf.write_text(f"mode=video\n{key}=true\n")
-    from autoware_vision_pilot_tpu_torch.app import main
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        main(["--config", str(conf), "--device", "cpu"])
+def test_app_outputs(tmp_path, monkeypatch, key):
+    """Each output the JAX app has, through app.py's main over 2 frames
+    (f32 on the CPU, --no-shm): the video's frames are the composite's
+    (both written through the same MJPG writer and read back); the
+    display shows each composite, its headless cv2 failure swallowed as
+    the JAX app swallows it; Rerun (a fake SDK) gets each frame with the
+    lane masks the engine copied to the host and the composite."""
+    cv2 = pytest.importorskip("cv2")
+    from autoware_vision_pilot_tpu_torch import app
+    from autoware_vision_pilot_tpu_torch.utils import rerun_logger
+    video, out_video = tmp_path / "clip.avi", tmp_path / "out.avi"
+    write_video(video, 3, seed=14)
+    lines = {"output.save_video": ["output.save_video=true",
+                                   f"output.output_video_path={out_video}"],
+             "output.enable_viz": ["output.enable_viz=true"],
+             "rerun.enabled": ["rerun.enabled=true", "rerun.spawn_viewer=false",
+                               f"rerun.save_path={tmp_path / 'run.rrd'}"]}[key]
+    conf = write_conf(tmp_path, video, f"output.csv_log_path={tmp_path / 'log.csv'}", *lines)
+    composites, shown, calls, masks = [], [], [], []
+    compose = app.compose_display_frame
+
+    def recording_compose(res, lat_out, *a, **k):
+        masks.append(lat_out["lane_masks"])
+        composites.append(compose(res, lat_out, *a, **k))
+        return composites[-1]
+
+    def headless_imshow(name, img):
+        shown.append(img)
+        raise cv2.error("The function is not implemented (headless)")
+
+    monkeypatch.setattr(app, "compose_display_frame", recording_compose)
+    monkeypatch.setattr(cv2, "imshow", headless_imshow)
+    monkeypatch.setattr(rerun_logger, "rr", types.SimpleNamespace(
+        init=lambda app_id: calls.append(("init", app_id)),
+        save=lambda p: calls.append(("save", p)),
+        spawn=lambda: calls.append(("spawn",)),
+        set_time_sequence=lambda n, v: calls.append(("seq", n, v)),
+        log=lambda path, obj: calls.append(("log", path, obj)),
+        Image=lambda a: np.array(a), Scalar=float))
+    monkeypatch.setattr(rerun_logger, "_HAS_RERUN", True)
+    assert app.main(["--config", str(conf), "--max-frames", "2", "--device", "cpu",
+                     "--no-shm"]) == 0
+    assert len(composites) == 2
+    for c, m in zip(composites, masks):
+        assert c.shape == (720, 1280, 3) and c.dtype == np.uint8
+        assert isinstance(m, torch.Tensor) and m.device.type == "cpu" and m.shape == (80, 160, 3)
+    if key == "output.save_video":
+        ref = tmp_path / "ref.avi"
+        w = cv2.VideoWriter(str(ref), cv2.VideoWriter_fourcc(*"MJPG"), 10.0, (1280, 720))
+        for c in composites:
+            w.write(c)
+        w.release()
+        got, want = read_clip(out_video), read_clip(ref)
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            assert a.shape == (720, 1280, 3) and np.array_equal(a, b)
+    elif key == "output.enable_viz":
+        assert len(shown) == 2 and all(a is b for a, b in zip(shown, composites))
+    else:
+        assert calls[:2] == [("init", "visionpilot_tpu"), ("save", str(tmp_path / "run.rrd"))]
+        assert [c[2] for c in calls if c[0] == "seq"] == [0, 1]
+        logged = [c for c in calls if c[0] == "log"]
+        lanes = {c[1]: c[2] for c in logged if c[1].startswith("lanes/")}
+        assert set(lanes) == {"lanes/ego_left", "lanes/ego_right", "lanes/other"}
+        np.testing.assert_array_equal(lanes["lanes/ego_left"],
+                                      (masks[-1][..., 0].numpy() * 255).astype(np.uint8))
+        views = [c[2] for c in logged if c[1] == "visualization/stacked_view"]
+        assert len(views) == 2 and np.array_equal(views[-1], composites[-1][..., ::-1])
+        assert sum(c[1] == "control/autosteer_angle_deg" for c in logged) == 2
 
 
 def test_build_engine_on_cpu():
@@ -242,7 +378,10 @@ for m in ("app", "runtime", "runtime.fleet", "runtime.pipeline", "perception.tra
           "export.checkpoints", "control.speed_planner", "control.pi_controller",
           "utils.csv_logger", "drivers.can_interface", "drivers.camera", "calibration",
           "convert", "convert.torch_import", "convert.onnx_import", "export.quantize",
-          "export.eval_lite"):
+          "export.eval_lite", "host", "host.shm", "host.frame_ring", "host.iox2",
+          "middleware", "middleware.transport", "middleware.ros2_codec", "middleware.nodes",
+          "utils", "utils.visualization", "utils.video_viz", "utils.rerun_logger",
+          "drivers.gstreamer"):
     importlib.import_module("autoware_vision_pilot_tpu_torch." + m)
 from autoware_vision_pilot_tpu_torch.export.checkpoints import load_msgpack
 tree = load_msgpack(sys.argv[1])
@@ -255,8 +394,10 @@ print("ok")
 
 def test_port_imports_no_jax(tmp_path):
     """In a subprocess where importing jax, flax, msgpack or the JAX package
-    raises, the serving modules of the port, its calibration, importers and
-    quantization import and read a weight file."""
+    raises, the serving modules of the port (the host IPC bindings, the
+    middleware and its nodes, the visualization and telemetry too), its
+    calibration, importers and quantization import and read a weight
+    file."""
     from autoware_vision_pilot_tpu.export.checkpoints import save_msgpack
     path = tmp_path / "w.msgpack"
     save_msgpack(path, {"params": {"w": np.ones((2, 3), np.float32)}})
