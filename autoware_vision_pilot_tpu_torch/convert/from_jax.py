@@ -1,5 +1,7 @@
-"""Weight bridge from the JAX package: flax variables -> the port's
-state_dict. The inverse of autoware_vision_pilot_tpu/convert/torch_import.py.
+"""Weight bridge between the JAX package and the port: flax variables ->
+the port's state_dict (``variables_to_state_dict``, the inverse of
+autoware_vision_pilot_tpu/convert/torch_import.py), and back
+(``state_dict_to_variables``, for the flax msgpack files the port writes).
 
 Leaf transforms, by flax leaf name:
   ``w``  conv kernel HWIO            -> ``weight`` OIHW  (3, 2, 0, 1)
@@ -38,6 +40,8 @@ from typing import Dict
 import numpy as np
 import torch
 from torch import nn
+
+from ..nn import layers
 
 _TRANSPOSE = {"w": (3, 2, 0, 1), "wt": (3, 2, 0, 1), "wl": (1, 0), "w1": (2, 1, 0)}
 _TORCH_LEAF = {"w": "weight", "wt": "weight", "wl": "weight", "w1": "weight", "b": "bias",
@@ -111,3 +115,51 @@ def variables_to_state_dict(flax_vars: Mapping, module: nn.Module
         raise KeyError(f"no flax leaf for {missing[:10]}"
                        f"{' ...' if len(missing) > 10 else ''}")
     return out
+
+
+# the flax (collection, leaf) of each parameter and buffer, by port module type
+_FLAX_LEAF = {
+    layers.Conv2d: {"weight": ("params", "w"), "bias": ("params", "b")},
+    layers.Int8Conv2d: {"weight": ("params", "w"), "weight_scale": ("params", "w_scale"),
+                        "input_scale": ("params", "x_scale"), "bias": ("params", "b")},
+    layers.ConvTranspose2d: {"weight": ("params", "wt"), "bias": ("params", "b")},
+    layers.Int8ConvTranspose2d: {"weight": ("params", "wt"),
+                                 "weight_scale": ("params", "wt_scale"),
+                                 "input_scale": ("params", "x_scale"), "bias": ("params", "b")},
+    layers.Linear: {"weight": ("params", "wl"), "bias": ("params", "b")},
+    layers.Conv1dCenter: {"weight": ("params", "w1"), "bias": ("params", "b")},
+    layers.BatchNorm2d: {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                         "running_mean": ("batch_stats", "mean"),
+                         "running_var": ("batch_stats", "var")},
+}
+
+
+def state_dict_to_variables(module: nn.Module) -> Dict[str, dict]:
+    """The inverse of ``variables_to_state_dict``: ``module``'s parameters
+    and buffers -> {'params', 'batch_stats'} trees in the JAX package's
+    layout (flax paths, HWIO kernels), as numpy arrays on the host: int8
+    leaves stay int8, every other leaf becomes f32. A collection with no
+    leaf is left out, as flax's init leaves it out. Raises KeyError for a
+    parameter or buffer of a module type the table does not know."""
+    out = {"params": {}, "batch_stats": {}}
+    for name, m in module.named_modules():
+        leaves = {**dict(m.named_parameters(recurse=False)),
+                  **dict(m.named_buffers(recurse=False))}
+        table = _FLAX_LEAF.get(type(m), {})
+        unknown = sorted(k for k, t in leaves.items() if t is not None and k not in table)
+        if unknown:
+            raise KeyError(f"no flax leaf for {type(m).__name__} {name!r}: {unknown}")
+        path = _merge_digits(name).split(".") if name else []
+        for key, t in leaves.items():
+            if t is None:
+                continue
+            collection, leaf = table[key]
+            a = t.detach().cpu()
+            a = a.numpy() if a.dtype == torch.int8 else a.float().numpy()
+            if leaf in _TRANSPOSE:
+                a = a.transpose(np.argsort(_TRANSPOSE[leaf]))
+            node = out[collection]
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = np.array(a, order="C")
+    return {k: v for k, v in out.items() if v}

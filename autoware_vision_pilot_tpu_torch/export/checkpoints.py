@@ -1,7 +1,8 @@
-"""Portable weight files without JAX: a reader of the flax msgpack files
-that the JAX package's ``export/checkpoints.py::save_msgpack`` writes
-(``flax.serialization.to_bytes``), for a machine that has no JAX, no flax
-and no ``msgpack`` package.
+"""Checkpoints without JAX: the flax msgpack weight files of the JAX
+package's ``export/checkpoints.py`` (``save_msgpack``/``load_msgpack``,
+``flax.serialization.to_bytes``), read and written for a machine that has
+no JAX, no flax and no ``msgpack`` package, and the training checkpoints
+(``save_checkpoint``/``load_checkpoint``).
 
 The decoder takes the subset of msgpack that ``to_bytes`` writes: maps,
 arrays, str, bin, ints, floats, nil and bool, and two ext types of flax
@@ -10,15 +11,26 @@ scalar, each a packed ``(shape, dtype name, C-order bytes)``. A leaf above
 2^30 bytes, which flax splits into a ``__msgpack_chunked_array__`` map of
 flat chunks, is joined again. bfloat16, which numpy lacks, comes back as a
 ``torch.bfloat16`` tensor (the bytes viewed as uint16, then as bfloat16);
-every other leaf as a numpy array or scalar. The orbax training
-checkpoints (``save_checkpoint``/``load_checkpoint``) belong to training
-and are not ported.
+every other leaf as a numpy array or scalar.
+
+``save_msgpack`` writes the same subset with the bytes ``to_bytes`` gives
+for a tree of numpy arrays (str keys in the tree's order, the shortest
+msgpack form of each value, leaves above MAX_CHUNK_SIZE chunked), so that
+the JAX package's ``load_msgpack`` reads a file the port wrote;
+convert/from_jax.py::state_dict_to_variables gives the tree of a module.
+
+The JAX package keeps its training state with orbax, which the card's
+machine lacks. The port keeps a ``TrainState`` (train/train_step.py: the
+module, the optimizer, the step and the EMA) with ``torch.save`` in its own
+``path/step_N`` layout, the newest ``keep`` steps kept; ``load_checkpoint``
+restores it bit for bit.
 """
 from __future__ import annotations
 
 import pathlib
+import shutil
 import struct
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -26,6 +38,8 @@ import torch
 EXT_NDARRAY = 1
 EXT_NPSCALAR = 3
 CHUNKED = "__msgpack_chunked_array__"
+MAX_CHUNK_SIZE = 2 ** 30  # flax.serialization's: the most bytes of one leaf or chunk
+CKPT_FILE = "state.pt"
 
 
 class _Reader:
@@ -137,3 +151,177 @@ def load_msgpack(path: str | pathlib.Path) -> dict:
     ({'params': ..., 'batch_stats': ...} for the JAX package's networks),
     which convert/from_jax.py::variables_to_state_dict takes."""
     return _unchunk(unpackb(pathlib.Path(path).read_bytes()))
+
+
+# ------------------------------------------------------------------ writing
+
+def _sized(out: bytearray, n: int, small: Optional[int], tags) -> None:
+    """The header of a str, bin, array or map of ``n`` items: the fix form
+    below ``small`` (None: there is none), else the 8-, 16- or 32-bit one."""
+    if small is not None and n < small[0]:
+        out.append(small[1] | n)
+        return
+    for tag, fmt, top in zip(tags, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if tag is not None and n <= top:
+            out.append(tag)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"{n} items: more than msgpack holds")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+        return
+    forms = ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF), (0xCE, ">I", 0, 0xFFFFFFFF),
+             (0xCF, ">Q", 0, 2 ** 64 - 1)) if v >= 0 else (
+        (0xD0, ">b", -2 ** 7, 0), (0xD1, ">h", -2 ** 15, 0), (0xD2, ">i", -2 ** 31, 0),
+        (0xD3, ">q", -2 ** 63, 0))
+    for tag, fmt, lo, hi in forms:
+        if lo <= v <= hi:
+            out.append(tag)
+            out += struct.pack(fmt, v)
+            return
+    raise ValueError(f"{v} is outside msgpack's integers")
+
+
+def _array_bytes(a) -> bytes:
+    """flax's _ndarray_to_bytes: packb((shape, dtype name, C-order bytes))."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            return packb((tuple(a.shape), "bfloat16", a.contiguous().view(torch.int16)
+                          .numpy().tobytes()))
+        a = a.numpy()
+    if a.dtype.hasobject or a.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes have no flax msgpack form")
+    return packb((tuple(a.shape), a.dtype.name, a.tobytes("C")))
+
+
+def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixext:
+        out.append(fixext[len(data)])
+    else:
+        _sized(out, len(data), None, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code)
+    out += data
+
+
+def _pack(out: bytearray, v: Any) -> None:
+    if v is None or isinstance(v, bool):
+        out.append({None: 0xC0, False: 0xC2, True: 0xC3}[v])
+    elif isinstance(v, int):
+        _pack_int(out, v)
+    elif isinstance(v, float):
+        out.append(0xCB)
+        out += struct.pack(">d", v)
+    elif isinstance(v, str):
+        raw = v.encode()
+        _sized(out, len(raw), (32, 0xA0), (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(v, (bytes, bytearray)):
+        _sized(out, len(v), None, (0xC4, 0xC5, 0xC6))
+        out += v
+    elif isinstance(v, (list, tuple)):
+        _sized(out, len(v), (16, 0x90), (None, 0xDC, 0xDD))
+        for x in v:
+            _pack(out, x)
+    elif isinstance(v, dict):
+        _sized(out, len(v), (16, 0x80), (None, 0xDE, 0xDF))
+        for k, x in v.items():
+            _pack(out, str(k))
+            _pack(out, x)
+    elif isinstance(v, (np.ndarray, torch.Tensor)):
+        _pack_ext(out, EXT_NDARRAY, _array_bytes(v))
+    elif isinstance(v, np.generic):
+        _pack_ext(out, EXT_NPSCALAR, _array_bytes(np.asarray(v)))
+    else:
+        raise TypeError(f"{type(v).__name__} has no flax msgpack form")
+
+
+def packb(value: Any) -> bytes:
+    """``value`` (dicts, lists and tuples of numpy arrays and scalars, CPU
+    tensors, str, bytes, int, float, bool, None) as msgpack."""
+    out = bytearray()
+    _pack(out, value)
+    return bytes(out)
+
+
+def _itemsize(a) -> int:
+    return a.element_size() if isinstance(a, torch.Tensor) else a.dtype.itemsize
+
+
+def _chunked(tree):
+    """flax's _chunk_array_leaves_in_place on a copy: a leaf above
+    MAX_CHUNK_SIZE bytes becomes {CHUNKED: True, 'shape': {'0': ...},
+    'chunks': {'0': flat chunk, ...}}."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, (np.ndarray, torch.Tensor)) and \
+                v.reshape(-1).shape[0] * _itemsize(v) > MAX_CHUNK_SIZE:
+            flat = v.reshape(-1)
+            size = max(1, int(MAX_CHUNK_SIZE / _itemsize(v)))
+            chunks = [flat[i:i + size] for i in range(0, flat.shape[0], size)]
+            v = {CHUNKED: True, "shape": {str(i): n for i, n in enumerate(v.shape)},
+                 "chunks": {str(i): c for i, c in enumerate(chunks)}}
+        out[k] = _chunked(v)
+    return out
+
+
+def save_msgpack(path: str | pathlib.Path, variables: Any) -> None:
+    """Portable single-file weights in flax's msgpack: what the JAX
+    package's ``save_msgpack`` writes for the same tree of arrays."""
+    pathlib.Path(path).write_bytes(packb(_chunked(variables)))
+
+
+# ---------------------------------------------------------- training state
+
+def _steps(path: pathlib.Path):
+    found = []
+    for d in path.glob("step_*"):
+        if d.is_dir() and d.name[5:].isdigit() and (d / CKPT_FILE).exists():
+            found.append(int(d.name[5:]))
+    return sorted(found)
+
+
+def save_checkpoint(path: str | pathlib.Path, state: Any, step: Optional[int] = None,
+                    keep: int = 3) -> pathlib.Path:
+    """Save a TrainState (module, optimizer, step, EMA) under path/step_N
+    (N = ``step``, else ``state.step``), written to a temporary directory
+    and renamed into place; then only the newest ``keep`` steps stay."""
+    path = pathlib.Path(path).resolve()
+    path.mkdir(parents=True, exist_ok=True)
+    s = int(step if step is not None else state.step)
+    tmp = path / f".step_{s}.tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir()
+    torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+                "step": int(state.step), "ema": state.ema}, tmp / CKPT_FILE)
+    final = path / f"step_{s}"
+    shutil.rmtree(final, ignore_errors=True)
+    tmp.rename(final)
+    for old in _steps(path)[:-keep]:
+        shutil.rmtree(path / f"step_{old}")
+    return path
+
+
+def load_checkpoint(path: str | pathlib.Path, target: Any, step: Optional[int] = None) -> Any:
+    """Restore the latest (or given) step into ``target``, a TrainState of
+    the same module and optimizer: its module's parameters and buffers and
+    its optimizer's state are loaded in place, its step and EMA replaced.
+    Returns ``target``."""
+    path = pathlib.Path(path).resolve()
+    steps = _steps(path)
+    s = step if step is not None else (steps[-1] if steps else None)
+    if s is None or s not in steps:
+        raise FileNotFoundError(f"no checkpoint {'' if s is None else f'step {s} '}under {path}")
+    device = next(target.model.parameters()).device
+    blob = torch.load(path / f"step_{s}" / CKPT_FILE, map_location=device, weights_only=True)
+    target.model.load_state_dict(blob["model"], strict=True)
+    target.optimizer.load_state_dict(blob["optimizer"])
+    target.step = blob["step"]
+    target.ema = blob["ema"]
+    return target

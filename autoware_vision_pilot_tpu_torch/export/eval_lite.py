@@ -66,7 +66,7 @@ def load_weights(model, args, device, dtype):
         return model.eval()
     if not args.msgpack and args.checkpoint:
         raise NotImplementedError(
-            f"--checkpoint: {UNPORTED.format('6, the orbax checkpoints of export/checkpoints.py')}")
+            f"--checkpoint: {UNPORTED.format('6.5, the Lite trainer and its checkpoints')}")
     if not args.msgpack:
         print("eval_lite: no weights given — evaluating the random init (smoke mode)",
               file=sys.stderr)

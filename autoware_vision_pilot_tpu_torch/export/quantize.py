@@ -186,7 +186,8 @@ def quantize_for_int8_conv(model: nn.Module, min_channels: int = 32,
     least ``min_channels`` input channels (the JAX rule: (kh, kw, O, I)
     ``shape[3] >= min_channels``) for an ``Int8ConvTranspose2d`` with
     per-output-channel scales; ``act_scales`` never apply to them (they
-    quantize dynamically until calibrated), as in JAX. Returns ``model``."""
+    quantize dynamically until calibrated), as in JAX. Each new module takes
+    the mode (``training``) of the one it replaces. Returns ``model``."""
     scales = dict(act_scales or {})
 
     def scale_of(name, like):
@@ -204,6 +205,7 @@ def quantize_for_int8_conv(model: nn.Module, min_channels: int = 32,
             q = _int8_transpose_from(m)
         else:
             continue
+        q.train(m.training)  # a new module starts in training mode
         parent, _, leaf = name.rpartition(".")
         setattr(model.get_submodule(parent), leaf, q)
     return model

@@ -8,13 +8,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..nn.layers import Conv2d, ConvTranspose2d, Linear, gelu, max_pool2d
+from ..nn.layers import Conv2d, ConvTranspose2d, Dropout, Linear, gelu, max_pool2d
 
 
 class ContextBlock(nn.Module):
     """Global context attention: mean-pool -> MLP (in_ch->800->800->
     ctx_h*ctx_w, GELU, sigmoid) -> a (ctx_h, ctx_w) map -> conv stack back
-    to in_ch -> ``context * x + x``. Dropout is the identity at eval."""
+    to in_ch -> ``context * x + x``. In train mode a dropout of 0.25 follows
+    each Linear, before its activation; it is the identity at eval."""
 
     def __init__(self, in_ch=1280, ctx_h=10, ctx_w=20, *, device=None,
                  dtype=None):
@@ -28,11 +29,12 @@ class ContextBlock(nn.Module):
         self.context_layer_4 = Conv2d(128, 256, 3, 1, 1, **kw)
         self.context_layer_5 = Conv2d(256, 512, 3, 1, 1, **kw)
         self.context_layer_6 = Conv2d(512, in_ch, 3, 1, 1, **kw)
+        self.drop = Dropout(0.25)
 
     def forward(self, x):
-        c = gelu(self.context_layer_0(x.mean((2, 3))))
-        c = gelu(self.context_layer_1(c))
-        c = self.context_layer_2(c).sigmoid()
+        c = gelu(self.drop(self.context_layer_0(x.mean((2, 3)))))
+        c = gelu(self.drop(self.context_layer_1(c)))
+        c = self.drop(self.context_layer_2(c)).sigmoid()
         c = c.reshape(-1, 1, *self.ctx_hw)
         c = gelu(self.context_layer_3(c))
         c = gelu(self.context_layer_4(c))

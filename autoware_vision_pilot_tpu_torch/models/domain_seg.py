@@ -1,7 +1,8 @@
 """DomainSeg, the port of autoware_vision_pilot_tpu/models/domain_seg.py:
 binary roadwork-zone segmentation, the SceneSeg backbone, context and neck
 (the frozen upstream) -> a 1-class seg head. Submodule names are the JAX
-package's.
+package's. In train mode the upstream stays in eval mode and its outputs
+are detached, as in the JAX package; only the head trains.
 """
 from __future__ import annotations
 
@@ -33,7 +34,14 @@ class DomainSegNetwork(nn.Module):
         self.DomainSegUpstream = _DomainSegUpstream(ctx_hw, **kw)
         self.DomainSegHead = SegHead(1, **kw)
 
+    def train(self, mode=True):
+        super().train(mode)
+        self.DomainSegUpstream.eval()
+        return self
+
     def forward(self, image):
         """image: (B, 3, H, W) -> roadwork logits (B, 1, H, W)."""
         neck, features = self.DomainSegUpstream(image)
+        if self.training:
+            neck, features = neck.detach(), [f.detach() for f in features]
         return self.DomainSegHead(neck, features)

@@ -11,13 +11,16 @@ stages.
 an output stride of 8, 16 or 32 (the stride-2 stages past it become
 dilations). Keys ``stem.{0,1}`` and ``s{stage}.{block}.block.{k}.{l}``.
 
-Stochastic depth is the identity at eval and is left out.
+Stochastic depth (row mode, nn/layers.py::drop_rows) drops a residual
+MBConv's branch in train mode with probability ``STOCHASTIC_DEPTH *
+block_id / total_blocks``, the block's index in the whole trunk, as the
+JAX package's; at eval it is the identity.
 """
 from __future__ import annotations
 
 from torch import nn
 
-from ..nn.layers import BatchNorm2d, Conv2d, silu
+from ..nn.layers import BatchNorm2d, Conv2d, drop_rows, silu
 
 # (expand_ratio, out_channels, num_blocks, first_stride, kernel)
 B0_STAGES = (
@@ -39,6 +42,7 @@ B1_STAGES = (
     (6, 192, 5, 2, 5),
     (6, 320, 2, 1, 3),
 )
+STOCHASTIC_DEPTH = 0.2  # the JAX package's rate at the trunk's last block
 # Minimal pyramid with the same taps and strides, for fast tests.
 B0_DRYRUN_STAGES = (
     (1, 16, 1, 1, 3),
@@ -77,10 +81,11 @@ class SqueezeExcitation(nn.Module):
 
 class MBConv(nn.Module):
     """``dilation`` > 1 dilates the depthwise conv (the Lite encoder's
-    stages past its output stride)."""
+    stages past its output stride); ``sd_prob`` is the stochastic-depth
+    rate of a residual block in train mode."""
 
-    def __init__(self, in_ch, out_ch, expand_ratio, kernel, stride, dilation=1, *,
-                 device=None, dtype=None):
+    def __init__(self, in_ch, out_ch, expand_ratio, kernel, stride, dilation=1,
+                 sd_prob=0.0, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         ce = in_ch * expand_ratio
@@ -93,10 +98,11 @@ class MBConv(nn.Module):
         layers.append(ConvBN(ce, out_ch, 1, act=False, **kw))
         self.block = nn.Sequential(*layers)
         self.residual = stride == 1 and in_ch == out_ch
+        self.sd_prob = sd_prob
 
     def forward(self, x):
         h = self.block(x)
-        return h + x if self.residual else h
+        return drop_rows(h, self.sd_prob, self.training) + x if self.residual else h
 
 
 class EfficientNetB0Features(nn.Module):
@@ -104,12 +110,13 @@ class EfficientNetB0Features(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         encoder = {"0": ConvBN(3, 32, 3, 2, **kw)}
-        cin = 32
+        cin, block_id, total_blocks = 32, 0, sum(st[2] for st in stages)
         for i, (t, c, n, s, k) in enumerate(stages, start=1):
             blocks = []
             for j in range(n):
-                blocks.append(MBConv(cin, c, t, k, s if j == 0 else 1, **kw))
-                cin = c
+                sd = STOCHASTIC_DEPTH * block_id / total_blocks
+                blocks.append(MBConv(cin, c, t, k, s if j == 0 else 1, sd_prob=sd, **kw))
+                cin, block_id = c, block_id + 1
             encoder[str(i)] = nn.Sequential(*blocks)
         encoder["8"] = ConvBN(cin, 1280, 1, **kw)
         self.encoder = nn.ModuleDict(encoder)
@@ -137,6 +144,7 @@ class EfficientNetEncoder(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.stem = ConvBN(3, 32, 3, 2, **kw)
         cin, cur_stride, dilation = 32, 2, 1
+        block_id, total_blocks = 0, sum(st[2] for st in stages)
         for i, (t, c, n, s, k) in enumerate(stages, start=1):
             blocks = []
             for j in range(n):
@@ -145,8 +153,9 @@ class EfficientNetEncoder(nn.Module):
                     stride, dilation = 1, dilation * 2  # keep the receptive field
                 elif stride == 2:
                     cur_stride *= 2
-                blocks.append(MBConv(cin, c, t, k, stride, dilation, **kw))
-                cin = c
+                sd = STOCHASTIC_DEPTH * block_id / total_blocks
+                blocks.append(MBConv(cin, c, t, k, stride, dilation, sd_prob=sd, **kw))
+                cin, block_id = c, block_id + 1
             self.add_module(f"s{i}", nn.Sequential(*blocks))
         self.num_stages = len(stages)
 

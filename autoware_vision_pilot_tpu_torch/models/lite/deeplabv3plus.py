@@ -48,7 +48,7 @@ class ConvBNReLU(nn.Module):
         else:
             self.conv = Conv2d(in_ch, features, kernel, 1, pad, bias=False,
                                dilation=dilation, **kw)
-        self.bn = BatchNorm2d(features, **kw)
+        self.bn = BatchNorm2d(features, momentum=0.01, **kw)  # flax's default 0.99
 
     def forward(self, x):
         x = self.pw(self.dw(x)) if self.separable else self.conv(x)

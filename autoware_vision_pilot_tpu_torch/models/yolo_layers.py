@@ -18,6 +18,7 @@ from ..nn.layers import BatchNorm2d, Conv1dCenter, Conv2d, max_pool2d, silu
 from ..ops.device import constant_on
 
 BN_EPS = 0.001
+BN_MOMENTUM = 0.03  # the JAX package's flax momentum 0.97
 
 
 class YoloConv(nn.Module):
@@ -28,7 +29,7 @@ class YoloConv(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.conv = Conv2d(in_ch, out_ch, k, s, p, groups=g, bias=False, **kw)
-        self.norm = BatchNorm2d(out_ch, eps=BN_EPS, **kw)
+        self.norm = BatchNorm2d(out_ch, eps=BN_EPS, momentum=BN_MOMENTUM, **kw)
         self.act = act
 
     def forward(self, x):

@@ -1,5 +1,6 @@
-"""Layer library of the PyTorch port, eval-mode, with the numerics of
-autoware_vision_pilot_tpu/nn/layers.py.
+"""Layer library of the PyTorch port, with the numerics of
+autoware_vision_pilot_tpu/nn/layers.py and of the flax BatchNorm and
+Dropout that the JAX networks use.
 
 Modules take and return NCHW tensors; the pipeline keeps them in
 ``torch.channels_last``, so each is the same NHWC buffer as in the JAX
@@ -9,8 +10,18 @@ reference's torch key layout, the one convert/torch_import.py reads.
 
 Parameters are allocated uninitialised; ``init_seeded`` fills a module tree
 from an explicit ``torch.Generator``.
+
+Train mode follows ``Module.training``, as in torch: BatchNorm2d normalizes
+with the batch statistics and updates its running ones, Dropout and
+stochastic depth (``drop_rows``) draw masks. A module starts in training
+mode, so every serving entry point calls ``.eval()``. A train-mode forward
+draws its masks inside ``dropout_generator(generator)``, the counterpart of
+flax's ``rngs={"dropout": key}``, and raises outside it.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +30,32 @@ from torch import nn
 from ..ops.kernels.int8_conv import dynamic_input_scale, int8_conv2d, int8_conv_transpose
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # torch's convention, running = (1 - m) running + m batch: flax's 0.9
+
+_MASK_GENERATOR = contextvars.ContextVar("mask_generator", default=None)
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: torch.Generator):
+    """The generator that train-mode Dropout and stochastic depth draw their
+    masks from inside this block."""
+    token = _MASK_GENERATOR.set(generator)
+    try:
+        yield generator
+    finally:
+        _MASK_GENERATOR.reset(token)
+
+
+def keep_mask(shape, keep_prob: float, device) -> torch.Tensor:
+    """A bool mask of ``shape`` on ``device``, each value True with
+    probability ``keep_prob`` (uniform < p, as ``jax.random.bernoulli``),
+    drawn on the device of the enclosing ``dropout_generator``'s generator."""
+    generator = _MASK_GENERATOR.get()
+    if generator is None:
+        raise RuntimeError("a train-mode forward draws its dropout masks inside "
+                           "nn.layers.dropout_generator(generator)")
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (u < keep_prob).to(device)
 
 
 def gelu(x):
@@ -180,13 +217,24 @@ class Linear(nn.Module):
 
 
 class BatchNorm2d(nn.Module):
-    """Eval-mode BatchNorm over channels (dim 1) with running statistics.
-    ``eps`` is torch's default; the YOLO family uses 1e-3
-    (models/yolo_layers.py)."""
+    """BatchNorm over channels (dim 1). ``eps`` is torch's default; the YOLO
+    family uses 1e-3 (models/yolo_layers.py).
 
-    def __init__(self, num_features, *, eps=BN_EPS, device=None, dtype=None):
+    At eval it normalizes with the running statistics. In train mode, as
+    flax's BatchNorm: with the batch mean and biased variance over (N, H,
+    W), and the running statistics become ``(1 - momentum) running +
+    momentum batch``, the variance the biased one too (torch's own
+    ``F.batch_norm`` would fold in the unbiased one). ``momentum`` is 1 -
+    flax's: 0.1 for the B0 trunks, 0.03 for the YOLO family, 0.01 for the
+    Lite ConvBNReLU (flax's default). The batch statistics
+    come from the fused kernel's saved mean and 1/sqrt(var + eps), in f32
+    for a bf16 input."""
+
+    def __init__(self, num_features, *, eps=BN_EPS, momentum=BN_MOMENTUM, device=None,
+                 dtype=None):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = _param((num_features,), device, dtype)
         self.bias = _param((num_features,), device, dtype)
         self.register_buffer(
@@ -195,8 +243,43 @@ class BatchNorm2d(nn.Module):
             "running_var", torch.empty(num_features, device=device, dtype=dtype))
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                                  True, 0.0, self.eps)
+        with torch.no_grad():
+            var = invstd.double().pow(-2).sub_(self.eps)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+        return y
+
+
+class Dropout(nn.Module):
+    """flax's Dropout: in train mode each value is kept with probability
+    1 - rate and scaled by 1 / (1 - rate), the rest set to 0; the
+    identity at eval."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        return torch.where(keep_mask(x.shape, keep, x.device), x / keep, 0.0)
+
+
+def drop_rows(h, rate: float, training: bool):
+    """Stochastic depth in row mode (the JAX package's MBConv): in train
+    mode each sample's residual branch is kept with probability 1 - rate,
+    ``h * keep / (1 - rate)``; the identity otherwise."""
+    if not training or rate <= 0.0:
+        return h
+    keep = keep_mask((h.shape[0],) + (1,) * (h.dim() - 1), 1.0 - rate, h.device)
+    return h * keep / (1.0 - rate)
 
 
 class Conv1dCenter(nn.Module):

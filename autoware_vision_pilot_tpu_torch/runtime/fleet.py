@@ -15,7 +15,7 @@ PathFinder generator), so a stream's results do not depend on the others.
 
 Several GPUs (the JAX package's ``mesh``, streams sharded over chips) are
 not ported yet: ``mesh`` raises NotImplementedError (ROADMAP Queue 1
-item 5).
+item 6.6, with data parallelism).
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from .pipeline import (SCALAR_FIELDS, DeviceStaging, FrameResult, LateralState, 
 __all__ = ["FleetLateralPipeline", "FleetLongitudinalPipeline",
            "FleetEngine", "unpack_fleet_scalars", "SCALAR_FIELDS"]
 
-MESH_TODO = ("a fleet over several GPUs (mesh) is not ported yet: ROADMAP Queue 1 item 5; "
+MESH_TODO = ("a fleet over several GPUs (mesh) is not ported yet: ROADMAP Queue 1 item 6.6; "
              "run one FleetEngine a card")
 
 

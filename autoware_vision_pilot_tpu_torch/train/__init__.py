@@ -1,2 +1,28 @@
-"""Training helpers of the port. Only what export/eval_lite.py needs is
-here yet; training itself is ROADMAP Queue 1 item 6."""
+"""Training of the port: the losses, the metrics, the datasets, the train
+step on one card, the legacy trainers, QAT (train/qat.py) and the Lite
+experiment configs. The Lite trainer is ROADMAP Queue 1 item 6.5."""
+from .losses import (
+    segmentation_ce_loss,
+    binary_seg_loss,
+    ssi_mae_depth_loss,
+    edge_loss,
+    lanes_bce_edge_loss,
+)
+from .train_step import (
+    TrainState,
+    make_seg_train_step,
+    create_seg_train_state,
+)
+from .metrics import (
+    confusion_matrix,
+    miou_from_confusion,
+    detection_map,
+)
+from .datasets import (
+    SceneSegDataset,
+    SyntheticSegDataset,
+    decode_scene_seg_mask,
+    round_robin_interleave,
+)
+from .legacy_trainer import LegacySegTrainer, LegacyTrainerConfig
+from .lite_trainer import load_experiment_config

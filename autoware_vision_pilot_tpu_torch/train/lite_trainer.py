@@ -2,8 +2,8 @@
 autoware_vision_pilot_tpu/train/lite_trainer.py::load_experiment_config.
 
 Only the config reader that export/eval_lite.py needs is ported. The
-trainer itself (optimizers, schedules, the train loop, resume and
-checkpoints) waits for ROADMAP Queue 1 item 6.
+Lite trainer itself (its optimizers, schedules, train loop and resume)
+waits for ROADMAP Queue 1 item 6.5.
 """
 from __future__ import annotations
 

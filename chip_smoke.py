@@ -239,8 +239,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              (60 frames of 1280x720 read back); the host-loop p50 with the
              outputs against phase 17's sink-less engine, in eight turns of 20
              frames, and the sink's parts.
-The run prints its wall time, and that of phases 19-25, 26-28, 29-32 and
-33-35.
+36. training: (a) one make_seg_train_step step of SceneSeg (full width and
+             depth at 128x256, batch 2, AdamW 1e-4) in f32 with TF32 off on
+             the card against the CPU, the same weights and dropout masks:
+             the loss, the gradients (one bar, 1e-3 * the largest CPU
+             gradient) and the BatchNorm statistics after the step within
+             1e-3 * max|CPU|; (b) tools/bench_train.py's configuration,
+             SceneSeg at 320x640, batch 16, bf16 autocast over f32 weights:
+             step p50/p99 (CUDA events), samples/s, host enqueue, peak
+             memory, a finite loss, then with EMA, microbatches 2, both,
+             and at batch 8; (c) LegacySegTrainer with
+             qat=True, qat_min_channels 32 at 320x640 for two steps, the
+             observers' scales, int8_variables_from_qat, the int8 net on the
+             card: launches by route (mma.sync among them), every int8 conv
+             bit-equal to its plain version, the float and int8 nets through
+             save_msgpack / load_msgpack bit-equal.
+The run prints its wall time, and that of phases 19-25, 26-28, 29-32,
+33-35 and 36.
 """
 from __future__ import annotations
 
@@ -272,6 +287,7 @@ CL = torch.channels_last
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 INT8_OPS_PER_S = 1979e12    # H100 SXM int8 tensor cores, dense, published
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores, published
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense, published
 L2_BYTES = 50e6
 # (window, cin, cout, h, w, batch, route) checked bit for bit in every
 # variant: main-path shapes (every 1x1 one), then more shapes for each route
@@ -4313,6 +4329,268 @@ def phase_app_outputs(card):
                                    "nms_greedy")}
 
 
+# ---------- phase 36: training on the card ----------
+
+TRAIN_F32_HW = (128, 256)  # phase 36a: full depth, a smaller input for the CPU's side
+TRAIN_HW, TRAIN_BATCH, TRAIN_WARM, TRAIN_TIMED = (320, 640), 16, 3, 20
+QAT_MIN_CHANNELS = 32
+
+
+def train_step_once(net, images, ids, seed, **kw):
+    """One make_seg_train_step step of ``net`` (AdamW 1e-4, the weighted
+    CE) with masks from a CPU generator seeded ``seed`` -> (loss, the
+    gradients by name, the module's state after the step)."""
+    from autoware_vision_pilot_tpu_torch.train import (create_seg_train_state,
+                                                       make_seg_train_step,
+                                                       segmentation_ce_loss)
+    from autoware_vision_pilot_tpu_torch.train.train_step import adamw
+
+    state = create_seg_train_state(net, adamw(1e-4))
+    step = make_seg_train_step(segmentation_ce_loss, **kw)
+    state, loss = step(state, images, ids, torch.Generator().manual_seed(seed))
+    grads = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+    return loss.detach(), grads, {k: t.clone() for k, t in net.state_dict().items()}
+
+
+def train_batches(n, batch, hw, seed, device):
+    """``n`` distinct batches as tools/bench_train.py draws them: images
+    N(0.45, 0.22) (normalized floats), class ids 0-2."""
+    g = torch.Generator().manual_seed(seed)
+    return [((torch.randn(batch, 3, *hw, generator=g) * 0.22 + 0.45).to(device)
+             .contiguous(memory_format=CL),
+             torch.randint(0, 3, (batch, *hw), generator=g).to(device))
+            for _ in range(n)]
+
+
+def phase_train_f32():
+    """Phase 36a: one train step of SceneSeg (full width and depth, at
+    TRAIN_F32_HW, batch 2, train mode: batch statistics, the context
+    dropout) in f32 on the card with TF32 off against the same step on the
+    CPU, the same weights and the same masks (a CPU generator on both
+    sides): the loss within 1e-3 * |CPU|, the gradients within 1e-3 * the
+    largest CPU gradient, and each parameter and BatchNorm statistic after
+    the step within 1e-3 * its max|CPU|."""
+    import copy
+    from autoware_vision_pilot_tpu_torch.models import SceneSegNetwork
+    from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded
+
+    no_tf32()
+    ctx = (TRAIN_F32_HW[0] // 32, TRAIN_F32_HW[1] // 32)
+    cpu_net = init_seeded(SceneSegNetwork(ctx), torch.Generator().manual_seed(SEED))
+    card_net = copy.deepcopy(cpu_net).to("cuda", memory_format=CL)
+    (x, ids), = train_batches(1, 2, TRAIN_F32_HW, SEED + 60, "cpu")
+    ref = train_step_once(cpu_net, x, ids, SEED + 61)
+    got = train_step_once(card_net, x.cuda(), ids.cuda(), SEED + 61)
+    err, tol = held("train loss", got[0], ref[0])
+    # one bar for all gradients: some are 0 but for rounding (a per-channel
+    # shift ahead of a conv and a train-mode BatchNorm), and two runs of the
+    # same CPU step already differ there by ~1e-7
+    gmax = max(g.abs().max().item() for g in ref[1].values())
+    gerr = max((got[1][k].cpu() - g).abs().max().item() for k, g in ref[1].items())
+    if not gerr <= 1e-3 * gmax:
+        raise AssertionError(f"train step gradients: card and CPU disagree, {gerr} > "
+                             f"{1e-3 * gmax}")
+    # the BatchNorm statistics the step moved (AdamW moves each weight by
+    # about lr in the direction of its gradient's sign, which rounding
+    # flips where a gradient is 0 but for rounding: the weights are not held)
+    stats = {k: t for k, t in ref[2].items() if k.endswith(("running_mean", "running_var"))}
+    worst = 0.0
+    for k, t in stats.items():
+        e, b = held(f"state {k}", got[2][k], t)
+        worst = max(worst, e / b if b else 0.0)
+    print(f"train step f32 card vs CPU, SceneSeg full depth {TRAIN_F32_HW[0]}x"
+          f"{TRAIN_F32_HW[1]} batch 2, TF32 off, the same masks: loss {float(got[0])!r} vs "
+          f"{float(ref[0])!r} (err {err!r}, tol {tol!r}); {len(ref[1])} gradients within "
+          f"1e-3 * max|CPU gradient| (max_abs_err {gerr!r}, tol {1e-3 * gmax!r}); "
+          f"{len(stats)} BatchNorm statistics after the step within 1e-3 * max|CPU| each "
+          f"(worst err / tol {worst:.3f})")
+
+
+def forward_gflop(net, x):
+    """GFLOP of ``net(x)`` counted from the shapes its convs, transposed
+    convs and Linears see (2 x multiply-adds; forward hooks), one forward
+    without gradients."""
+    from autoware_vision_pilot_tpu_torch.nn.layers import Conv2d, ConvTranspose2d, Linear
+    flops = []
+
+    def hook(m, args, y):  # weight[0]: the inputs of an output (of an input, transposed)
+        n = args[0].numel() if isinstance(m, ConvTranspose2d) else y.numel()
+        flops.append(2 * n * m.weight[0].numel())
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, (Conv2d, ConvTranspose2d, Linear))]
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(flops) / 1e9
+
+
+def phase_train_bench(card):
+    """Phase 36b: tools/bench_train.py's configuration on the card:
+    SceneSegNetwork at full width and depth, 320x640, batch 16, AdamW(1e-4),
+    segmentation_ce_loss, bf16 autocast over f32 weights, channels_last;
+    4 distinct seeded batches, TRAIN_WARM + TRAIN_TIMED steps back to back,
+    a CUDA event after each: step p50/p99 from the events, samples/s over
+    the timed steps, the host's enqueue time a step, the peak of
+    max_memory_allocated, a finite final loss; beside them the step's work
+    (3 x the forward's FLOPs, forward_gflop) at the bf16 peak. Then, TRAIN_WARM + 10 steps
+    each, with EMA 0.999, with microbatches=2, with both (finite, the EMA
+    too), and at batch 8, to split a microbatched step's cost. -> the
+    p50 ms."""
+    import copy
+    from autoware_vision_pilot_tpu_torch.models import SceneSegNetwork
+    from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded
+    from autoware_vision_pilot_tpu_torch.train import (create_seg_train_state,
+                                                       make_seg_train_step,
+                                                       segmentation_ce_loss)
+    from autoware_vision_pilot_tpu_torch.train.train_step import adamw
+
+    batches = train_batches(4, TRAIN_BATCH, TRAIN_HW, SEED + 62, "cuda")
+    seeded = init_seeded(SceneSegNetwork(), torch.Generator().manual_seed(SEED))
+    gflop = forward_gflop(copy.deepcopy(seeded).to("cuda", memory_format=CL).eval(),
+                          batches[0][0][:1])
+    params = sum(p.numel() for p in seeded.parameters())
+    step_tflop = 3 * gflop * TRAIN_BATCH / 1e3  # forward, and backward twice its work
+    print(f"train work: SceneSeg's forward {gflop!r} GFLOP a {TRAIN_HW[0]}x{TRAIN_HW[1]} "
+          f"sample (convs, transposed convs, Linears), {params} parameters; a step of batch "
+          f"{TRAIN_BATCH} ~{step_tflop!r} TFLOP, {step_tflop / BF16_OPS_PER_S * 1e15!r} ms at "
+          f"the bf16 peak")
+    results = {}
+    variants = (("", TRAIN_BATCH, TRAIN_TIMED, {}),
+                (", EMA 0.999", TRAIN_BATCH, 10, {"ema_decay": 0.999}),
+                (", microbatches 2", TRAIN_BATCH, 10, {"microbatches": 2}),
+                (", microbatches 2, EMA 0.999", TRAIN_BATCH, 10,
+                 {"microbatches": 2, "ema_decay": 0.999}),
+                (", half the batch", TRAIN_BATCH // 2, 10, {}))
+    for label, batch, timed, kw in variants:
+        net = copy.deepcopy(seeded).to("cuda", memory_format=CL)
+        state = create_seg_train_state(net, adamw(1e-4), ema="ema_decay" in kw)
+        step = make_seg_train_step(segmentation_ce_loss, compute_dtype=torch.bfloat16, **kw)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 63)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_WARM + timed + 1)]
+        enqueue = []
+        events[0].record()
+        for i in range(TRAIN_WARM + timed):
+            x, ids = batches[i % len(batches)]
+            t0 = time.perf_counter()
+            state, loss = step(state, x[:batch], ids[:batch], gen)
+            enqueue.append(time.perf_counter() - t0)
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        steps = [events[i].elapsed_time(events[i + 1])
+                 for i in range(TRAIN_WARM, TRAIN_WARM + timed)]
+        total = events[TRAIN_WARM].elapsed_time(events[-1])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        final = float(loss)
+        if not math.isfinite(final):
+            raise AssertionError(f"train step{label}: non-finite loss {final}")
+        if state.ema is not None and not all(torch.isfinite(e).all() for e in state.ema.values()):
+            raise AssertionError(f"train step{label}: non-finite EMA")
+        p50, p99 = percentiles(steps)
+        results[label] = p50
+        print(f"train step bf16{label}, SceneSeg full width and depth {TRAIN_HW[0]}x"
+              f"{TRAIN_HW[1]} batch {batch}, AdamW 1e-4, {card}: p50 {p50!r} ms, p99 "
+              f"{p99!r} ms over {timed} steps after {TRAIN_WARM} warm-up (CUDA events between "
+              f"steps run back to back), {timed * batch / total * 1e3!r} samples/s, host "
+              f"enqueue p50 {1e3 * float(np.median(enqueue[TRAIN_WARM:]))!r} ms a step, peak "
+              f"max_memory_allocated {peak!r} GiB, final loss {final!r}")
+        del state, step, net
+        torch.cuda.empty_cache()
+    return results[""]
+
+
+def phase_qat_export(card):
+    """Phase 36c: LegacySegTrainer with qat=True, qat_min_channels
+    QAT_MIN_CHANNELS on SceneSeg at 320x640 (two SyntheticSegDatasets, two
+    steps of batch 2, f32), then the observers of one QAT forward in eval
+    mode (collect_act_scales) and int8_variables_from_qat: the int8 net's
+    forward on the card, the launch counts set to 0 just before and read
+    just after; every int8 conv of that frame bit-equal to its plain
+    version on its own input; the float and the int8 nets through
+    save_msgpack / load_msgpack into fresh nets on the card, bit-equal.
+    -> the launches."""
+    import tempfile
+    from autoware_vision_pilot_tpu_torch.convert.from_jax import (state_dict_to_variables,
+                                                                   variables_to_state_dict)
+    from autoware_vision_pilot_tpu_torch.export.checkpoints import load_msgpack, save_msgpack
+    from autoware_vision_pilot_tpu_torch.export.quantize import int8_conv_count
+    from autoware_vision_pilot_tpu_torch.models import SceneSegNetwork
+    from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv_plan
+    from autoware_vision_pilot_tpu_torch.train import LegacySegTrainer, LegacyTrainerConfig
+    from autoware_vision_pilot_tpu_torch.train.datasets import SyntheticSegDataset
+    from autoware_vision_pilot_tpu_torch.train.qat import (collect_act_scales,
+                                                           int8_variables_from_qat, qat_apply)
+
+    t0 = time.perf_counter()
+    cfg = LegacyTrainerConfig(num_epochs=1, hw=TRAIN_HW, batch_schedule=(2,), val_every=0,
+                              log_every=1, qat=True, qat_min_channels=QAT_MIN_CHANNELS)
+    data = [SyntheticSegDataset(2, 0, TRAIN_HW, seed=SEED + s) for s in (64, 65)]
+    trainer = LegacySegTrainer(SceneSegNetwork(), data, cfg, seed=SEED, device="cuda")
+    history = trainer.train()
+    if len(history) != 2 or not all(math.isfinite(l) for _, l in history):
+        raise AssertionError(f"QAT trainer: loss history {history}")
+    net = trainer.model.eval()
+    frame = frames(1, TRAIN_HW, SEED + 66)[0].numpy()
+    x = trainer.normalized(frame[None])
+    observers = {}
+    with torch.no_grad():
+        qat_apply(net, x, min_channels=QAT_MIN_CHANNELS, observers=observers)
+    int8 = int8_variables_from_qat(net, collect_act_scales(observers), QAT_MIN_CHANNELS)
+    torch.cuda.synchronize()
+    reset_counts()  # count only this path's launches
+    with torch.no_grad():
+        out = int8(x)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_finite("QAT int8 SceneSeg", [out])
+    convs = int8_conv_count(int8)
+    expected = {r: 0 for r in ("wgmma", "splitk", "mma", "pointwise", "dot")}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    with torch.no_grad():
+        checked = check_int8_convs("QAT export SceneSeg", int8, lambda: int8(x), convs, ())
+    for k, c, n, h, w in checked:
+        expected[int8_conv_plan(1, h, w, c + -c % 16, n, k, k, (k - 1) // 2, sms).route] += 1
+    want = {"int8_conv": convs, "int8_conv_wgmma": expected["wgmma"] + expected["splitk"],
+            "int8_conv_splitk": expected["splitk"], "int8_conv_mma": expected["mma"],
+            "int8_conv_pointwise": expected["pointwise"], "int8_conv_dot": expected["dot"],
+            "int8_quantize": expected["wgmma"] + expected["splitk"] + expected["mma"]}
+    expect_launches(launches, want)
+    if expected["mma"] <= 0:
+        raise AssertionError("the QAT export sent no conv down the mma.sync route")
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        other = init_seeded(SceneSegNetwork(), torch.Generator().manual_seed(SEED + 1)).eval()
+        for name, model, fresh in (
+                ("float", net, SceneSegNetwork()),
+                ("int8", int8, int8_variables_from_qat(other, collect_act_scales(observers),
+                                                       QAT_MIN_CHANNELS))):
+            path = pathlib.Path(tmp) / f"{name}.msgpack"
+            save_msgpack(path, state_dict_to_variables(model))
+            fresh.load_state_dict(variables_to_state_dict(load_msgpack(path), fresh))
+            fresh.to("cuda").eval()
+            same = all(torch.equal(t, fresh.state_dict()[k]) for k, t in model.state_dict().items())
+            with torch.no_grad():
+                same = same and torch.equal(fresh(x), model(x))
+            if not same:
+                raise AssertionError(f"the {name} net changed through save_msgpack/load_msgpack")
+            print(f"QAT {name} SceneSeg through save_msgpack / load_msgpack on the card: "
+                  f"{path.stat().st_size} bytes, every tensor and the forward bit-equal")
+    print(f"QAT export, {card}: LegacySegTrainer(qat=True, qat_min_channels "
+          f"{QAT_MIN_CHANNELS}) 2 steps of batch 2 at {TRAIN_HW[0]}x{TRAIN_HW[1]} (losses "
+          f"{[round(l, 4) for _, l in history]}), then int8_variables_from_qat: {convs} int8 "
+          f"convs by route {expected}, one frame's launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del trainer, net, int8
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in ("int8_quantize", "int8_conv_wgmma", "int8_conv_pointwise",
+                                     "int8_conv_dot", "int8_conv_mma")}
+
+
 def host_costs_of(root):
     """--host-costs ROOT: phase 7's host-cost measurement alone, over the
     port package found in ROOT (this repository, or an earlier commit of it
@@ -4416,9 +4694,18 @@ def main():
     paths["node graph"] = timed(34, phase_node_graph, card)
     paths["app outputs"] = timed(35, phase_app_outputs, card)
     print(f"wall time of phases 33-35 (s): {walls}, {sum(walls.values()):.1f} s in all")
+    # training: the step on the card against the CPU, the full-width bf16
+    # step, and QAT exported onto the int8 kernels
+    walls.clear()
+    timed("36a", phase_train_f32)
+    timed("36b", phase_train_bench, card)
+    paths["QAT export"] = timed("36c", phase_qat_export, card)
+    print(f"wall time of phase 36 (s): {walls}, {sum(walls.values()):.1f} s in all")
     for path, counts in paths.items():
         for name, n in counts.items():
-            if n <= 0 and name != "int8_conv_mma":
+            # the paths at min_channels 128 and above tally the mma.sync
+            # route too, and have no conv for it (a window > 1 with C < 128)
+            if n <= 0 and not (name == "int8_conv_mma" and path != "QAT export"):
                 raise AssertionError(f"the {path} never launched {name}")
             launches[name] += n
     print("batched kernel times at N = 8 against 8 x N = 1, " + card + ": " + "; ".join(
@@ -4445,12 +4732,11 @@ def main():
                             "autoware_vision_pilot_tpu/ops/preprocess.py:86"),
         "nms_greedy": (pkg + "nms.cu", "autoware_vision_pilot_tpu/ops/postprocess.py:88"),
     }
-    # PR 2's mma.sync kernel keeps the windows > 1 with C < 128, which the
-    # main path has none of: it is checked and timed above, and launched 0
-    # times there. Each path's own kernels: the int8 path's counts above,
-    # the lateral and longitudinal programs' here.
+    # The mma.sync kernel keeps the windows > 1 with C < 128: the QAT
+    # export's path (phase 36c) launches it. Each path's own kernels: the
+    # int8 path's counts above, the lateral and longitudinal programs' here.
     for name in sources:
-        if launches[name] <= 0 and name != "int8_conv_mma":
+        if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
     if lateral["fused_preprocess"] <= 0:
         raise AssertionError("the lateral program never launched fused_preprocess")

@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: the fused-preprocess (both
 modes), int8, lane-filter and NMS CUDA kernels against their plain PyTorch
 versions, one stream and a batch of them, the main path, bf16 and int8, the
-lateral and longitudinal steps on the card against the CPU, and the fleet
-and the engines on the card. They skip where there is no CUDA device.
+lateral and longitudinal steps on the card against the CPU, the fleet and
+the engines on the card, and the train step on the card against the CPU
+and the QAT export's int8 calls. They skip where there is no CUDA device.
 
 This file imports no JAX, so it also runs on a machine that has none:
 
@@ -1436,3 +1437,88 @@ def test_nodes_on_card_match_plain_kernels(cuda, monkeypatch):
         for i in range(2):
             assert got[i].dtype == got[i + 2].dtype and np.array_equal(got[i], got[i + 2]), k
     assert 0 < len(msgs["/autospeed/detections"][0]) <= 64
+
+
+def train_once(net, x, ids, **kw):
+    from autoware_vision_pilot_tpu_torch.train import (create_seg_train_state,
+                                                       make_seg_train_step,
+                                                       segmentation_ce_loss)
+    from autoware_vision_pilot_tpu_torch.train.train_step import adamw
+    state = create_seg_train_state(net, adamw(1e-4), ema="ema_decay" in kw)
+    step = make_seg_train_step(segmentation_ce_loss, **kw)
+    state, loss = step(state, x, ids, torch.Generator().manual_seed(3))
+    return state, loss, {n: p.grad.detach().cpu() for n, p in net.named_parameters()}
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One f32 train step of SceneSeg at dryrun depth (64x128, batch 2) on
+    the card with TF32 off against the CPU, the same weights and the same
+    masks (a CPU generator on both sides): the loss, the gradients (one
+    bar, 1e-3 x the largest CPU gradient: some are 0 but for rounding) and
+    the BatchNorm statistics within 1e-3 x max|CPU|. Then bf16 autocast,
+    microbatches 2 and EMA on the card: finite, and the weights moved."""
+    from autoware_vision_pilot_tpu_torch.models import SceneSegNetwork
+    from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = init_seeded(SceneSegNetwork((2, 4), B0_DRYRUN_STAGES), torch.Generator())
+        card = copy.deepcopy(cpu).to(cuda, memory_format=CL)
+        g = torch.Generator().manual_seed(4)
+        x = torch.randn(2, 3, 64, 128, generator=g)
+        ids = torch.randint(0, 3, (2, 64, 128), generator=g)
+        _, lc, gc = train_once(cpu, x, ids)
+        _, lg, gg = train_once(card, x.to(cuda), ids.to(cuda))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(lg.item() - lc.item()) <= 1e-3 * abs(lc.item())
+    gmax = max(t.abs().max().item() for t in gc.values())
+    assert max((gg[k] - t).abs().max().item() for k, t in gc.items()) <= 1e-3 * gmax
+    for k, t in cpu.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            got = card.state_dict()[k].cpu()
+            assert (got - t).abs().max().item() <= 1e-3 * t.abs().max().item(), k
+    before = {k: t.clone() for k, t in card.state_dict().items()}
+    state, loss, _ = train_once(card, torch.cat([x, x]).to(cuda).contiguous(memory_format=CL),
+                                torch.cat([ids, ids]).to(cuda), microbatches=2,
+                                ema_decay=0.99, compute_dtype=torch.bfloat16)
+    assert math.isfinite(loss.item()) and state.step == 1
+    assert all(torch.isfinite(e).all() for e in state.ema.values())
+    assert any(not torch.equal(before[k], t) for k, t in card.state_dict().items())
+
+
+def test_qat_export_int8_calls_match_plain(cuda):
+    """QAT on the card (one observer forward of SceneSeg at dryrun depth,
+    64x128, f32), int8_variables_from_qat at min_channels 32: every int8
+    conv of a frame equal to its plain version on its own input, and the
+    mma.sync route among the launches (the head's 64 -> 3 3x3 conv)."""
+    from autoware_vision_pilot_tpu_torch.models import SceneSegNetwork
+    from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded
+    from autoware_vision_pilot_tpu_torch.train.qat import (collect_act_scales,
+                                                           int8_variables_from_qat, qat_apply)
+    net = init_seeded(SceneSegNetwork((2, 4), B0_DRYRUN_STAGES), torch.Generator())
+    net.to(cuda, memory_format=CL).eval()
+    x = torch.randn(1, 3, 64, 128, generator=torch.Generator().manual_seed(5)).to(cuda)
+    x = x.contiguous(memory_format=CL)
+    observers = {}
+    with torch.no_grad():
+        qat_apply(net, x, observers=observers)
+    int8 = int8_variables_from_qat(net, collect_act_scales(observers), 32)
+    calls = []
+
+    def check(m, args, y):
+        ref = int8_conv2d(args[0].contiguous(memory_format=CL), m.weight, m.weight_scale,
+                          m.input_scale, m.bias, m.padding, plain=True)
+        calls.append(torch.equal(y, ref))
+
+    handles = [m.register_forward_hook(check) for m in int8.modules()
+               if isinstance(m, Int8Conv2d)]
+    before = dict(int8_conv.route_launches)
+    with torch.no_grad():
+        int8(x)
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    made = {k: int8_conv.route_launches[k] - before[k] for k in before}
+    assert len(calls) == 30 and all(calls)
+    assert sum(made.values()) == 30 and made["mma"] >= 1, made

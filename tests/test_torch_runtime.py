@@ -381,7 +381,8 @@ for m in ("app", "runtime", "runtime.fleet", "runtime.pipeline", "perception.tra
           "export.eval_lite", "host", "host.shm", "host.frame_ring", "host.iox2",
           "middleware", "middleware.transport", "middleware.ros2_codec", "middleware.nodes",
           "utils", "utils.visualization", "utils.video_viz", "utils.rerun_logger",
-          "drivers.gstreamer"):
+          "drivers.gstreamer", "train", "train.losses", "train.metrics", "train.datasets",
+          "train.train_step", "train.legacy_trainer", "train.qat"):
     importlib.import_module("autoware_vision_pilot_tpu_torch." + m)
 from autoware_vision_pilot_tpu_torch.export.checkpoints import load_msgpack
 tree = load_msgpack(sys.argv[1])
@@ -396,8 +397,8 @@ def test_port_imports_no_jax(tmp_path):
     """In a subprocess where importing jax, flax, msgpack or the JAX package
     raises, the serving modules of the port (the host IPC bindings, the
     middleware and its nodes, the visualization and telemetry too), its
-    calibration, importers and quantization import and read a weight
-    file."""
+    calibration, importers, quantization and training import and read a
+    weight file."""
     from autoware_vision_pilot_tpu.export.checkpoints import save_msgpack
     path = tmp_path / "w.msgpack"
     save_msgpack(path, {"params": {"w": np.ones((2, 3), np.float32)}})
