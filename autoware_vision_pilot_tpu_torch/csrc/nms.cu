@@ -40,9 +40,11 @@
 //      up its mbarrier; no block reads another's shared memory, so the
 //      other blocks leave when their stores are out.
 //   2. One warp of block 0 makes the greedy pass with the alive bitmask in
-//      registers (lane l holds word l). For each word it first loads the
-//      word's 32 diagonal words into registers (they do not depend on the
-//      pass), so its 32 steps are dependent ALU operations; lane l also
+//      registers (lane l holds word l, and above 1,024 candidates, in the
+//      kernel's TWO instance, word l + 32 too, whose kill masks it folds in
+//      a second round of loads from the same rows). For each word it first
+//      loads the word's 32 diagonal words into registers (they do not
+//      depend on the pass), so its 32 steps are dependent ALU operations; lane l also
 //      loads word l of the same 32 rows, and then drops from its word the
 //      bits of every kept row with one OR tree: the later words' kill
 //      masks do not depend on one another. A popc prefix sum over the lanes
@@ -70,6 +72,10 @@
 // and a division screened by `__fdividef` with the exact one only near the
 // threshold.
 
+// Widened from 1,024 to MAX_K = 1,248 candidates, for the detection
+// trainer's validation (max_det 300: k = min(4 * 300, A) = 1,200 at
+// 512x1024); up to 1,024 the pass does what it did.
+
 // Bit-equality with the plain version (ops/postprocess.py::
 // nms_greedy_plain): the IoU is computed with __fsub_rn, __fmul_rn,
 // __fadd_rn and __fdiv_rn in the plain version's order, which nvcc never
@@ -88,7 +94,11 @@ using namespace avp;
 
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_K = 1024;  // 32 words: one per lane of the greedy warp
+// 39 words of 32 rows: the candidates and the upper triangle's words in one
+// block's shared memory (smem_bytes(1248) = 225,264 bytes, with the static
+// arrays under the H100's 232,448 a block; 1,280 would need 236,160); the
+// greedy warp's lanes hold two words each
+constexpr int MAX_K = 1248;
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 constexpr int MAX_DEVICES = 64;
 constexpr unsigned FULL = 0xffffffffu;
@@ -105,10 +115,27 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return r;
 }
 
+// The bits of the later words that the kept rows of a word suppress: the OR
+// of row[b] over the set bits b of cur, as a tree (the rows do not depend on
+// one another)
+__device__ __forceinline__ unsigned kill_mask(const unsigned (&row)[32], unsigned cur) {
+  unsigned part[8];
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    part[g] = 0u;
+#pragma unroll
+    for (int b = 4 * g; b < 4 * g + 4; ++b) part[g] |= row[b] & (0u - ((cur >> b) & 1u));
+  }
+  return ((part[0] | part[1]) | (part[2] | part[3])) | ((part[4] | part[5]) | (part[6] | part[7]));
+}
+
 // Shared memory: the candidates (box, area, class), then the suppression
 // bits by word: words[w * tstride + i] is word w of row i (tstride =
 // k rounded up to 32, plus 4: lanes reading their own word of one row fall
 // in distinct banks, 16 bytes a lane).
+// TWO: above 1,024 candidates (more than 32 words), the greedy warp's lanes
+// hold two words; the instance for k <= 1,024 keeps the one-word pass.
+template <bool TWO>
 __global__ void __launch_bounds__(THREADS) nms_greedy_kernel(
     const float4* __restrict__ boxes, const float* __restrict__ scores,
     const int* __restrict__ classes, float4* __restrict__ out_boxes,
@@ -116,9 +143,9 @@ __global__ void __launch_bounds__(THREADS) nms_greedy_kernel(
     uint8_t* __restrict__ out_valid, int k, int max_det, float iou_t, float conf_t,
     int class_aware, uint64_t* __restrict__ stamps) {
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ unsigned live[32];  // the rows above the threshold
-  __shared__ unsigned kept[32];
-  __shared__ int first[32];  // output row of each word's first kept box
+  __shared__ unsigned live[64];  // the rows above the threshold
+  __shared__ unsigned kept[64];
+  __shared__ int first[64];  // output row of each word's first kept box
   __shared__ int n_kept;
   __shared__ __align__(8) uint64_t built;  // block 0: the matrix has landed
   const int rank = (int)cluster_rank(), cs = (int)cluster_blocks();
@@ -162,7 +189,8 @@ __global__ void __launch_bounds__(THREADS) nms_greedy_kernel(
   if (rank == 0 && warp == 0) {
     // the bytes block 0 waits for: a word for each word at or after a live
     // row's own
-    const int n = lane < nw ? __popc(live[lane]) * (nw - lane) : 0;
+    const int n = (lane < nw ? __popc(live[lane]) * (nw - lane) : 0) +
+                  (lane + 32 < nw ? __popc(live[lane + 32]) * (nw - lane - 32) : 0);
     const uint32_t bytes = 4u * (uint32_t)__reduce_add_sync(FULL, n);
     if (lane == 0)
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
@@ -204,8 +232,12 @@ __global__ void __launch_bounds__(THREADS) nms_greedy_kernel(
   if (warp == 0) {
     mbar_wait(smem_addr(&built));
     if (timed) stamps[2] = global_ns();
-    unsigned alive = lane < nw ? live[lane] : 0u;  // lane l: candidates 32l .. 32l + 31
+    // lane l: words l and (with TWO) l + 32, candidates 32l .. 32l + 31 and
+    // 32(l + 32) .. 32(l + 32) + 31
+    unsigned alive = lane < nw ? live[lane] : 0u;
+    unsigned alive2 = TWO && lane + 32 < nw ? live[lane + 32] : 0u;
     const unsigned* mine = words + min(lane, nw - 1) * tstride;
+    const unsigned* mine2 = words + min(lane + 32, nw - 1) * tstride;
     for (int w = 0; w < nw; ++w) {
       // rows 32w .. 32w + 31: their diagonal words (word w), and this lane's
       // word of each, 16 bytes a load; unbuilt words hold garbage, read only
@@ -220,24 +252,32 @@ __global__ void __launch_bounds__(THREADS) nms_greedy_kernel(
         row[4 * b] = r.x, row[4 * b + 1] = r.y, row[4 * b + 2] = r.z, row[4 * b + 3] = r.w;
       }
       // the word's own steps, in order: a kept row kills later rows of the word
-      unsigned cur = __shfl_sync(FULL, alive, w);
+      unsigned cur = __shfl_sync(FULL, TWO && w >= 32 ? alive2 : alive, w & 31);
 #pragma unroll
       for (int b = 0; b < 32; ++b)
         if ((cur >> b) & 1u) cur &= ~diag[b];
       // the later words: drop whatever a kept row of this word suppresses
       // (an OR tree over the kept rows, not a chain)
-      unsigned part[8];
-#pragma unroll
-      for (int g = 0; g < 8; ++g) {
-        part[g] = 0u;
-#pragma unroll
-        for (int b = 4 * g; b < 4 * g + 4; ++b) part[g] |= row[b] & (0u - ((cur >> b) & 1u));
+      const unsigned kill = kill_mask(row, cur);
+      if (!TWO || w < 32) {
+        if (lane == w) alive = cur;
+        else if (lane > w) alive &= ~kill;
       }
-      const unsigned kill = ((part[0] | part[1]) | (part[2] | part[3])) |
-                            ((part[4] | part[5]) | (part[6] | part[7]));
-      if (lane == w) alive = cur;
-      else if (lane > w) alive &= ~kill;
+      if constexpr (TWO) {
+        // word lane + 32 of the same rows: always after word w < 32
+        const uint4* s4 = reinterpret_cast<const uint4*>(mine2 + 32 * w);
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          const uint4 r = s4[b];
+          row[4 * b] = r.x, row[4 * b + 1] = r.y, row[4 * b + 2] = r.z, row[4 * b + 3] = r.w;
+        }
+        const unsigned kill2 = kill_mask(row, cur);
+        if (lane + 32 == w) alive2 = cur;
+        else if (lane + 32 > w) alive2 &= ~kill2;
+      }
     }
+    // each word's first output row: a popc prefix sum over the lanes, the
+    // words l + 32 after all of the words l
     const int count = __popc(alive);
     int incl = count;
 #pragma unroll
@@ -247,7 +287,20 @@ __global__ void __launch_bounds__(THREADS) nms_greedy_kernel(
     }
     kept[lane] = alive;
     first[lane] = incl - count;
-    if (lane == 31) n_kept = incl;
+    int total = __shfl_sync(FULL, incl, 31);
+    if constexpr (TWO) {
+      const int count2 = __popc(alive2);
+      int incl2 = count2;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v2 = __shfl_up_sync(FULL, incl2, d);
+        if (lane >= d) incl2 += v2;
+      }
+      kept[lane + 32] = alive2;
+      first[lane + 32] = total + incl2 - count2;
+      total += __shfl_sync(FULL, incl2, 31);
+    }
+    if (lane == 31) n_kept = total;
   }
   __syncthreads();
   if (timed) stamps[3] = global_ns();
@@ -286,7 +339,7 @@ size_t smem_bytes(int k) {
 // f32, each stream's sorted descending, those below conf_thresh already
 // -1; classes: (N, k) int32. out_boxes (N, max_det, 4) f32, 16-byte
 // aligned; out_scores (N, max_det) f32; out_classes (N, max_det) int32;
-// out_valid (N, max_det) bytes 0/1. 1 <= N <= 65535, 1 <= k <= 1024,
+// out_valid (N, max_det) bytes 0/1. 1 <= N <= 65535, 1 <= k <= MAX_K (1248),
 // max_det >= 1, 1 <= cs <= 8. stamps: null, or 5 uint64 that receive
 // %globaltimer (ns) in stream 0's block 0: start, staged, matrix built,
 // greedy pass done, written out (chip_smoke.py reads them; the path
@@ -307,8 +360,12 @@ extern "C" int avp_nms_greedy(const void* boxes, const void* scores, const void*
   if (err != cudaSuccess) return (int)err;
   if (smem > 48 * 1024 && (dev < 0 || dev >= MAX_DEVICES || !ready[dev])) {
     // the largest k; the limit then holds for every smaller one
-    err = cudaFuncSetAttribute(nms_greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bytes(MAX_K));
+    err = cudaFuncSetAttribute(nms_greedy_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(MAX_K));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(nms_greedy_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem_bytes(MAX_K));
     if (err != cudaSuccess) return (int)err;
     if (dev >= 0 && dev < MAX_DEVICES) ready[dev] = true;
   }
@@ -324,7 +381,8 @@ extern "C" int avp_nms_greedy(const void* boxes, const void* scores, const void*
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, nms_greedy_kernel, (const float4*)boxes, (const float*)scores,
+  err = cudaLaunchKernelEx(&cfg, k > 1024 ? nms_greedy_kernel<true> : nms_greedy_kernel<false>,
+                           (const float4*)boxes, (const float*)scores,
                            (const int*)classes, (float4*)out_boxes, (float*)out_scores,
                            (int*)out_classes, (uint8_t*)out_valid, k, max_det, iou_thresh,
                            conf_thresh, class_aware, (uint64_t*)stamps);

@@ -287,6 +287,17 @@ def _steps(path: pathlib.Path):
     return sorted(found)
 
 
+def _step_file(path, step: Optional[int]) -> pathlib.Path:
+    """The file of the latest (or given) step under ``path``; raises
+    FileNotFoundError when there is none."""
+    path = pathlib.Path(path).resolve()
+    steps = _steps(path)
+    s = step if step is not None else (steps[-1] if steps else None)
+    if s is None or s not in steps:
+        raise FileNotFoundError(f"no checkpoint {'' if s is None else f'step {s} '}under {path}")
+    return path / f"step_{s}" / CKPT_FILE
+
+
 def save_checkpoint(path: str | pathlib.Path, state: Any, step: Optional[int] = None,
                     keep: int = 3) -> pathlib.Path:
     """Save a TrainState (module, optimizer, step, EMA) under path/step_N
@@ -313,15 +324,17 @@ def load_checkpoint(path: str | pathlib.Path, target: Any, step: Optional[int] =
     the same module and optimizer: its module's parameters and buffers and
     its optimizer's state are loaded in place, its step and EMA replaced.
     Returns ``target``."""
-    path = pathlib.Path(path).resolve()
-    steps = _steps(path)
-    s = step if step is not None else (steps[-1] if steps else None)
-    if s is None or s not in steps:
-        raise FileNotFoundError(f"no checkpoint {'' if s is None else f'step {s} '}under {path}")
     device = next(target.model.parameters()).device
-    blob = torch.load(path / f"step_{s}" / CKPT_FILE, map_location=device, weights_only=True)
+    blob = torch.load(_step_file(path, step), map_location=device, weights_only=True)
     target.model.load_state_dict(blob["model"], strict=True)
     target.optimizer.load_state_dict(blob["optimizer"])
     target.step = blob["step"]
     target.ema = blob["ema"]
     return target
+
+
+def load_checkpoint_weights(path: str | pathlib.Path, step: Optional[int] = None) -> dict:
+    """The module's state_dict of the latest (or given) ``path/step_N``
+    checkpoint, on the CPU, for a reader that has no TrainState (the
+    eval CLI)."""
+    return torch.load(_step_file(path, step), map_location="cpu", weights_only=True)["model"]

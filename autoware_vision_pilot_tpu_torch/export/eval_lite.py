@@ -8,7 +8,8 @@ AbsRel / delta1 / MAE). It runs on the card unless ``--device cpu`` is
 given. Weights load from a .onnx artifact (``--onnx``, through
 convert/onnx_import.py), or a flax msgpack file that the JAX package wrote
 (``--msgpack``, through export/checkpoints.py::load_msgpack and
-convert/from_jax.py), else come from seed 0 (smoke mode). ``--int8`` runs
+convert/from_jax.py), or a checkpoint directory of the port's Lite trainer
+(``--checkpoint``), else come from seed 0 (smoke mode). ``--int8`` runs
 the selected convs on the int8 kernels (export/quantize.py), calibrated on
 noise as the JAX CLI does. ``--bench`` also times the forward on the card
 with CUDA events over distinct frames already there. Its
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from ..convert.onnx_import import import_onnx
+from ..export.checkpoints import load_checkpoint_weights
 from ..export.quantize import calibrate_int8_activation_scales, quantize_for_int8_conv
 from ..inference.infer import load_weights as load_into
 from ..models.lite import build_lite_model
@@ -48,7 +50,6 @@ from ..ops.preprocess import device_mean_std
 from ..train.lite_trainer import load_experiment_config
 from ..train.metrics import confusion_matrix, miou_from_confusion
 
-UNPORTED = "not ported yet (ROADMAP Queue 1 item {})"
 WARM = 10  # --bench: untimed frames before the timed ones
 
 
@@ -57,16 +58,19 @@ def load_weights(model, args, device, dtype):
     on ``device`` in ``dtype``, channels_last, in eval mode: ``--onnx``
     through convert/onnx_import.py::import_onnx over the seed-0 weights (a
     BatchNorm folded away in the file becomes the identity), as the JAX
-    CLI imports it over its init. Raises NotImplementedError for
-    ``--checkpoint``."""
+    CLI imports it over its init; ``--checkpoint``, the weights of the
+    latest ``path/step_N`` that train/lite_trainer.py saved (the JAX CLI
+    reads its own trainer's orbax checkpoint there)."""
     if args.onnx:
         init_seeded(model, torch.Generator().manual_seed(0))
         model.load_state_dict(import_onnx(model, args.onnx), strict=True)
         model.to(device=device, dtype=dtype, memory_format=torch.channels_last)
         return model.eval()
     if not args.msgpack and args.checkpoint:
-        raise NotImplementedError(
-            f"--checkpoint: {UNPORTED.format('6.5, the Lite trainer and its checkpoints')}")
+        init_seeded(model, torch.Generator().manual_seed(0))
+        model.load_state_dict(load_checkpoint_weights(args.checkpoint), strict=True)
+        model.to(device=device, dtype=dtype, memory_format=torch.channels_last)
+        return model.eval()
     if not args.msgpack:
         print("eval_lite: no weights given — evaluating the random init (smoke mode)",
               file=sys.stderr)
@@ -209,7 +213,7 @@ def bench(forward, input_hw, device, iters: int) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser("Lite model evaluation (PyTorch)")
     ap.add_argument("--config", required=True)
-    ap.add_argument("--checkpoint", help="orbax checkpoint dir (not ported yet)")
+    ap.add_argument("--checkpoint", help="the Lite trainer's checkpoint dir (path/step_N)")
     ap.add_argument("--msgpack", help="flax msgpack weights file")
     ap.add_argument("--onnx", help=".onnx weights artifact")
     ap.add_argument("--data", help="dir of .npz samples (image,label)")

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..nn.layers import Conv2d, Linear, silu
+from ..nn.layers import Conv2d, Dropout, Linear, silu
 from .auto_speed import DEFAULT_H, DEFAULT_W, VARIANTS, AutoSpeedBackbone
 
 
@@ -22,7 +22,9 @@ class AutoDriveBackbone(AutoSpeedBackbone):
 
 
 class AutoDriveHead(nn.Module):
-    """Dropout (0.1) is the identity in eval mode, the only mode here."""
+    """In train mode a dropout of 0.1 follows each of the two hidden layers
+    (one flax Dropout called twice, two masks); in eval mode it is the
+    identity."""
 
     def __init__(self, in_channels=256, p5_h=DEFAULT_H // 32, p5_w=DEFAULT_W // 32, *,
                  device=None, dtype=None):
@@ -36,6 +38,7 @@ class AutoDriveHead(nn.Module):
         self.distance_head_0 = Linear(512, 1, **kw)
         self.curvature_head_0 = Linear(512, 1, **kw)
         self.flag_head = Linear(512, 1, **kw)
+        self.drop = Dropout(0.1)
 
     def forward(self, feat_prev, feat_curr):
         """-> (d_norm, curvature, flag_logit), each (B, 1)."""
@@ -44,8 +47,8 @@ class AutoDriveHead(nn.Module):
         x = silu(self.conv_2(x))
         x = silu(self.conv_3(x))
         x = x.reshape(x.shape[0], -1)  # channel-major, as the reference's torch.flatten
-        x = silu(self.fc1_0(x))
-        x = silu(self.fc2_0(x))
+        x = self.drop(silu(self.fc1_0(x)))
+        x = self.drop(silu(self.fc2_0(x)))
         d_norm = torch.relu(self.distance_head_0(x))
         curvature = torch.tanh(self.curvature_head_0(x))
         return d_norm, curvature, self.flag_head(x)

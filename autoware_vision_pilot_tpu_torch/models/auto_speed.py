@@ -2,7 +2,8 @@
 the port of autoware_vision_pilot_tpu/models/auto_speed.py: a CTX backbone,
 a PAN-FPN neck, and a decoupled DFL box + depthwise class head whose
 inference decode gives (B, A, 4 + nc): xywh in input pixels and sigmoid
-class scores.
+class scores; in train mode the head returns its raw per-level maps, the
+detection loss's input (train/detection_loss.py).
 
 Modules take NCHW (channels_last in the pipeline); the decode flattens each
 level in the JAX package's NHWC (h, w) order, so anchors line up.
@@ -125,18 +126,26 @@ class AutoSpeedHead(nn.Module):
             setattr(self, f"cls_{i}_4", Conv2d(cls_ch, nc, 1, 1, 0, **kw))
 
     def forward(self, feats):
-        """-> (B, A, 4 + nc): xywh * stride and sigmoid class scores."""
-        boxes, scores, shapes = [], [], []
+        """-> (B, A, 4 + nc): xywh * stride and sigmoid class scores; in train
+        mode the per-level raw maps instead, NHWC (B, H, W, 4 * ch + nc), the
+        box logits before the class logits, as the JAX head's
+        ``concatenate([b, c], -1)`` (the detection loss's input)."""
+        boxes, scores, shapes, maps = [], [], [], []
         for i, x in enumerate(feats):
             b, c = x, x
             for j in range(3):
                 b = getattr(self, f"box_{i}_{j}")(b)
             for j in range(5):
                 c = getattr(self, f"cls_{i}_{j}")(c)
+            if self.training:
+                maps.append(torch.cat([b, c], 1).permute(0, 2, 3, 1))
+                continue
             # NHWC flatten, the JAX package's (B, H*W, C) order
             boxes.append(b.permute(0, 2, 3, 1).flatten(1, 2))
             scores.append(c.permute(0, 2, 3, 1).flatten(1, 2))
             shapes.append(tuple(x.shape[2:]))
+        if self.training:
+            return maps
         box_logits, cls_logits = torch.cat(boxes, 1), torch.cat(scores, 1)
         anchors, strides = device_anchors(tuple(shapes), self.strides, box_logits.dtype,
                                           box_logits.device)

@@ -7,7 +7,9 @@ sigmoid or tanh.
 
 Modules take and return NCHW (channels_last on the card). Attribute names
 are the flax module names, so the JAX package's variables load through
-convert/from_jax.py. Eval mode only: the ASPP's dropout is the identity.
+convert/from_jax.py. In train mode the BatchNorms use the batch's
+statistics and the ASPP's output goes through its dropout (0.5, as JAX's
+``aspp_dropout``); in eval mode the dropout is the identity.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...nn.layers import BatchNorm2d, Conv2d
+from ...nn.layers import BatchNorm2d, Conv2d, Dropout
 from ..efficientnet import B0_STAGES, B1_STAGES, EfficientNetEncoder
 
 ENCODERS = {
@@ -60,8 +62,8 @@ class ASPP(nn.Module):
     pooling (mean, 1x1, broadcast), concatenated and projected by a 1x1
     conv."""
 
-    def __init__(self, in_ch, out_ch=256, rates: Sequence[int] = (12, 24, 36), *,
-                 device=None, dtype=None):
+    def __init__(self, in_ch, out_ch=256, rates: Sequence[int] = (12, 24, 36),
+                 dropout: float = 0.5, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.b0 = ConvBNReLU(in_ch, out_ch, 1, **kw)
@@ -69,13 +71,14 @@ class ASPP(nn.Module):
             self.add_module(f"b{i + 1}", ConvBNReLU(in_ch, out_ch, 3, r, separable=True, **kw))
         self.pool = ConvBNReLU(in_ch, out_ch, 1, **kw)
         self.proj = ConvBNReLU((len(rates) + 2) * out_ch, out_ch, 1, **kw)
+        self.drop = Dropout(dropout)
         self.num_rates = len(rates)
 
     def forward(self, x):
         branches = [getattr(self, f"b{i}")(x) for i in range(self.num_rates + 1)]
         g = self.pool(x.mean((2, 3), keepdim=True))
         branches.append(g.expand(-1, -1, *x.shape[2:]))
-        return self.proj(torch.cat(branches, 1))
+        return self.drop(self.proj(torch.cat(branches, 1)))
 
 
 def _resize_to(x, ref):
@@ -101,13 +104,14 @@ class DeepLabV3Plus(nn.Module):
     def __init__(self, encoder_name="efficientnet_b0", output_stride=16,
                  decoder_channels=256, atrous_rates: Sequence[int] = (12, 24, 36),
                  output_channels=3, head_upsampling=4,
-                 head_activation: Optional[str] = None, *, device=None, dtype=None):
+                 head_activation: Optional[str] = None, aspp_dropout: float = 0.5, *,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         stages = ENCODERS[encoder_name]
         ch = encoder_channels(stages)
         self.encoder = EfficientNetEncoder(stages, output_stride, **kw)
-        self.aspp = ASPP(ch[-1], decoder_channels, atrous_rates, **kw)
+        self.aspp = ASPP(ch[-1], decoder_channels, atrous_rates, aspp_dropout, **kw)
         self.low_proj = ConvBNReLU(ch[1], 48, 1, **kw)
         self.fuse = ConvBNReLU(decoder_channels + 48, decoder_channels, 3, separable=True,
                                **kw)

@@ -259,7 +259,8 @@ class BatchNorm2d(nn.Module):
 class Dropout(nn.Module):
     """flax's Dropout: in train mode each value is kept with probability
     1 - rate and scaled by 1 / (1 - rate), the rest set to 0; the
-    identity at eval."""
+    identity at eval. The mask of an NCHW map is drawn in the JAX
+    package's NHWC order, (B, H, W, C), and permuted."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -269,7 +270,12 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        return torch.where(keep_mask(x.shape, keep, x.device), x / keep, 0.0)
+        if x.dim() == 4:
+            b, c, h, w = x.shape
+            mask = keep_mask((b, h, w, c), keep, x.device).permute(0, 3, 1, 2)
+        else:
+            mask = keep_mask(x.shape, keep, x.device)
+        return torch.where(mask, x / keep, 0.0)
 
 
 def drop_rows(h, rate: float, training: bool):

@@ -16,7 +16,7 @@ import torch
 from ...kernels import build
 from ..postprocess import nms_greedy_plain, nms_topk
 
-MAX_K = 1024  # the kernel's greedy warp holds the alive bitmask, a word a lane
+MAX_K = 1248  # 39 words of 32 rows: what one block's shared memory holds (csrc/nms.cu)
 MAX_CLUSTER = 8  # the portable thread-block cluster size
 
 

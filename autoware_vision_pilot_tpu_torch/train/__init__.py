@@ -1,6 +1,8 @@
 """Training of the port: the losses, the metrics, the datasets, the train
-step on one card, the legacy trainers, QAT (train/qat.py) and the Lite
-experiment configs. The Lite trainer is ROADMAP Queue 1 item 6.5."""
+step on one card and the optax pieces (train/optim.py), the legacy,
+detection, AutoSteer, AutoSteer-temporal, AutoDrive and Lite trainers, the
+YOLO data, the augmentations, the depth teacher and QAT (train/qat.py).
+Training over several cards is ROADMAP Queue 1 item 6.6."""
 from .losses import (
     segmentation_ce_loss,
     binary_seg_loss,
@@ -25,4 +27,4 @@ from .datasets import (
     round_robin_interleave,
 )
 from .legacy_trainer import LegacySegTrainer, LegacyTrainerConfig
-from .lite_trainer import load_experiment_config
+from .lite_trainer import LiteTrainer, load_experiment_config

@@ -20,13 +20,21 @@ item 6.6.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..nn.layers import dropout_generator
+from ..convert.from_jax import variables_to_state_dict
+from ..nn.layers import dropout_generator, init_seeded
+from . import optim
+
+
+MESH = ("training over a mesh of several cards is ROADMAP Queue 1 item 6.6; "
+        "this runs on one device")
 
 
 @dataclasses.dataclass
@@ -37,29 +45,26 @@ class TrainState:
     ema: Optional[Dict[str, torch.Tensor]] = None
 
 
-def adamw(lr: float):
-    """``optax.adamw(lr)``: a factory of ``torch.optim.AdamW`` over the
-    parameters it is given, with optax's defaults, betas (0.9, 0.999), eps
-    1e-8 outside the square root and weight decay 1e-4 (torch's own
-    default is 1e-2). Every parameter is decayed, BatchNorm scales and
-    biases included, as optax decays every leaf."""
-    def make(params) -> torch.optim.Optimizer:
-        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=1e-4)
-    return make
+def adamw(lr, weight_decay: float = 1e-4, **kw):
+    """``optax.adamw(lr)``: a factory of an AdamW over the parameters it is
+    given, with optax's defaults, betas (0.9, 0.999), eps 1e-8 outside the
+    square root and weight decay 1e-4 (torch's own default is 1e-2). Every
+    parameter is decayed, BatchNorm scales and biases included, as optax
+    decays every leaf. ``lr`` may be a schedule of the update count
+    (train/optim.py, which also has the other optax pieces)."""
+    return optim.adamw(lr, weight_decay=weight_decay, **kw)
 
 
 def create_seg_train_state(model: nn.Module, tx: Callable, ema: bool = False) -> TrainState:
     """A TrainState over ``model`` as it is (its weights set by init_seeded
     or loaded): its float parameters are set to require gradients (the
     port's layers create theirs without), ``tx`` (e.g. ``adamw(1e-4)``)
-    builds the optimizer over them; with ``ema`` the EMA starts as a copy
-    of them."""
-    params = [p for p in model.parameters() if p.is_floating_point()]
-    for p in params:
+    builds the optimizer over them, given as ``(name, parameter)`` pairs;
+    with ``ema`` the EMA starts as a copy of them."""
+    params = [(n, p) for n, p in model.named_parameters() if p.is_floating_point()]
+    for _, p in params:
         p.requires_grad_(True)
-    copies = ({n: p.detach().clone() for n, p in model.named_parameters()
-               if p.is_floating_point()} if ema else None)
+    copies = {n: p.detach().clone() for n, p in params} if ema else None
     return TrainState(model, tx(params), 0, copies)
 
 
@@ -89,8 +94,7 @@ def make_seg_train_step(loss_fn: Callable, mesh=None, microbatches: int = 1,
     The update is in place: the module, the optimizer and the EMA of
     ``state`` change, and its step counts one more."""
     if mesh is not None:
-        raise NotImplementedError("the train step over a mesh of several cards is ROADMAP "
-                                  "Queue 1 item 6.6; this step runs on one device")
+        raise NotImplementedError(MESH)
 
     def step(state: TrainState, images: torch.Tensor, targets: torch.Tensor,
              generator: torch.Generator):
@@ -117,12 +121,57 @@ def make_seg_train_step(loss_fn: Callable, mesh=None, microbatches: int = 1,
                         p.grad.div_(microbatches)
         optimizer_step(opt)
         if ema_decay is not None and state.ema is not None:
-            with torch.no_grad():
-                for name, p in model.named_parameters():
-                    if name in state.ema:
-                        e = state.ema[name]
-                        e.copy_(e * ema_decay + p * (1 - ema_decay))
+            ema_update(state, model, ema_decay)
         state.step += 1
         return state, torch.stack(losses).mean()
 
     return step
+
+
+@contextlib.contextmanager
+def weights_swapped_in(model: nn.Module, weights: Optional[Dict[str, torch.Tensor]]):
+    """Inside the block ``model``'s parameters named in ``weights`` (an EMA)
+    hold those values; after it their own again. None changes nothing."""
+    if not weights:
+        yield model
+        return
+    params = dict(model.named_parameters())
+    saved = {n: params[n].detach().clone() for n in weights}
+    with torch.no_grad():
+        for n, w in weights.items():
+            params[n].copy_(w)
+    try:
+        yield model
+    finally:
+        with torch.no_grad():
+            for n, w in saved.items():
+                params[n].copy_(w)
+
+
+def ema_update(state: TrainState, model: nn.Module, decay) -> None:
+    """``ema = ema * d + p * (1 - d)`` for each parameter of ``state.ema``,
+    in place; ``decay`` a float, or a float32 numpy scalar whose 1 - d is
+    then taken in float32, as JAX's traced EMA does."""
+    one_minus = float(np.float32(1) - decay) if isinstance(decay, np.floating) else 1 - decay
+    d = float(decay)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name in state.ema:
+                e = state.ema[name]
+                e.copy_(e * d + p * one_minus)
+
+
+def to_device_images(images_u8: np.ndarray, device: torch.device) -> torch.Tensor:
+    """(B, H, W, 3) uint8 on the host -> (B, 3, H, W) f32 ``/ 255`` on
+    ``device``, channels_last (the YOLO convention: no mean and std)."""
+    x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
+    return x.permute(0, 3, 1, 2).float() / 255.0
+
+
+def load_variables(model: torch.nn.Module, variables: Optional[dict], seed: int):
+    """``model`` with the JAX ``variables`` (strict, convert/from_jax.py), or
+    seeded by ``init_seeded`` from ``seed`` when there are none."""
+    if variables is None:
+        return init_seeded(model, torch.Generator().manual_seed(seed))
+    model.load_state_dict(variables_to_state_dict(variables, model), strict=True)
+    return model

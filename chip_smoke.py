@@ -114,8 +114,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              output) on 35 candidate sets: the CPU's head outputs of phase
              12, and random, dense same-class, all-below-threshold, grid
              (more than 64 survivors), tied-score and small (A < 256) scenes,
-             class-aware and not; then at k = 1, 31, 32, 33, 255, 256, 257
-             and 1024, live, all-dead, degenerate (clamped, tied) and NaN
+             class-aware and not; then at k = 1, 31, 32, 33, 255, 256, 257,
+             1024, 1025, 1200 and 1248 (the kernel's most), live, all-dead,
+             degenerate (clamped, tied) and NaN
              candidates, at clusters of 1, 2, 4 and 8 blocks and the
              wrapper's choice, bit for bit; its profiler time on the head
              outputs, its stage split from its stamps, its bound, and the
@@ -254,8 +255,25 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              card: launches by route (mma.sync among them), every int8 conv
              bit-equal to its plain version, the float and int8 nets through
              save_msgpack / load_msgpack bit-equal.
+37. trainers: (a) one DetectionTrainer step of AutoSpeed "n" at 128x256,
+             batch 2 (YoloBatcher batches of seeded synthetic samples), f32
+             with TF32 off, on the card against the CPU: the loss, the
+             gradients under one bar and the BatchNorm statistics; (b) the
+             detection trainer as configs/auto_speed.yaml sets it (AutoSpeed
+             "n", 512x1024, batch 16, max_boxes 64, mosaic 1.0, mixup 0.15,
+             lr 1e-3, warm-up 500, EMA 0.9999, clip 10), f32: step p50/p99
+             over 10 steps (CUDA events), samples/s, host enqueue, peak
+             memory, the batcher's host time a batch; then validate over 2
+             batches at max_det 300, conf 0.001, iou 0.65: one NMS launch a
+             batch (counted), each bit-equal to the plain version on the
+             same candidates (k = 1,200 a stream), and the NMS time at
+             k = 1,200; (c) a few steps of the AutoSteer 2.0 and AutoDrive
+             trainers at 512x1024, the AutoSteer-temporal trainer at its
+             80x160 masks, and the Lite trainer on configs/SceneSegLite.yaml
+             as written (DeepLabV3+, its 512x1024 crop, batch 8; the head
+             built with the loss's 19 classes): finite losses and step p50.
 The run prints its wall time, and that of phases 19-25, 26-28, 29-32,
-33-35 and 36.
+33-35, 36 and 37.
 """
 from __future__ import annotations
 
@@ -2308,12 +2326,12 @@ NMS_SETS = (("random", 8400, True), ("random", 2000, False), ("dense", 2000, Tru
             ("dense", 8400, True))
 
 
-def nms_ops(top, class_aware):
+def nms_ops(top, class_aware, conf=CONF):
     """The f32 operations the NMS kernel must do on these candidates: the
-    IoU tests of every pair i < j whose row i is above the threshold (and
-    of one class, class-aware), and the areas."""
+    IoU tests of every pair i < j whose row i is above the threshold
+    ``conf`` (and of one class, class-aware), and the areas."""
     boxes, scores, cls = top
-    live = scores >= CONF
+    live = scores >= conf
     pairs = live[:, None] & torch.ones(len(scores), len(scores), dtype=torch.bool,
                                        device=scores.device).triu(1)
     if class_aware:
@@ -2322,11 +2340,12 @@ def nms_ops(top, class_aware):
 
 
 # (k, kind) of phase 13's edge sets: every cluster size 1, 2, 4 and 8 and
-# the one the wrapper picks at k = 1, 31, 32, 33, 255, 256, 257 and 1024, on
+# the one the wrapper picks at k = 1, 31, 32, 33, 255, 256, 257, 1024, 1025,
+# 1200 (the detection validation's k) and the kernel's MAX_K, 1248, on
 # random live boxes, all candidates below the threshold, all live on
 # degenerate clamped boxes with tied scores (as seeded AutoSpeed gives),
 # and NaN coordinates
-NMS_EDGE_K = (1, 31, 32, 33, 255, 256, 257, 1024)
+NMS_EDGE_K = (1, 31, 32, 33, 255, 256, 257, 1024, 1025, 1200, 1248)
 NMS_EDGE_KINDS = ("live", "dead", "degenerate", "nan")
 NMS_STAGES = ("staging", "matrix built and landed", "greedy pass", "output")
 
@@ -4591,6 +4610,286 @@ def phase_qat_export(card):
                                      "int8_conv_dot", "int8_conv_mma")}
 
 
+# ---------- phase 37: the remaining trainers on the card ----------
+
+DET_F32_HW = (128, 256)  # phase 37a: a smaller input for the CPU's side
+DET_WARM, DET_TIMED, DET_VAL = 3, 10, 2
+OTHER_WARM, OTHER_TIMED = 2, 5
+
+
+def det_samples(n, seed, hw=(360, 640)):
+    """``n`` seeded synthetic detection samples: noise images with 2-8
+    boxes of the 4 classes (no dataset is in reach on the card)."""
+    from autoware_vision_pilot_tpu_torch.train.yolo_data import DetSample
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(2, 9))
+        wh = rng.uniform(20, 200, (k, 2))
+        xy = rng.uniform(0, 1, (k, 2)) * (np.array(hw[::-1]) - wh)
+        out.append(DetSample(rng.integers(0, 256, (*hw, 3), dtype=np.uint8),
+                             np.concatenate([xy, xy + wh], 1), rng.integers(0, 4, k)))
+    return out
+
+
+def det_batches(n, hw, batch, max_boxes, seed, **kw):
+    """``n`` YoloBatcher batches over det_samples -> (the batches, the
+    host's seconds a batch)."""
+    from autoware_vision_pilot_tpu_torch.train.yolo_data import YoloBatcher
+    it = iter(YoloBatcher(det_samples(64, seed), input_hw=hw, batch_size=batch,
+                          max_boxes=max_boxes, seed=seed, **kw))
+    t0 = time.perf_counter()
+    out = [next(it) for _ in range(n)]
+    return out, (time.perf_counter() - t0) / n
+
+
+def det_step_once(device, batch, seed):
+    """One DetectionTrainer step of AutoSpeed "n" at DET_F32_HW from seed
+    ``seed`` on ``device`` -> (loss, the gradients by name, the module's
+    state after the step)."""
+    from autoware_vision_pilot_tpu_torch.models.auto_speed import AutoSpeedNetwork
+    from autoware_vision_pilot_tpu_torch.train.detection_trainer import (DetectionTrainer,
+                                                                         DetectionTrainerConfig)
+    tr = DetectionTrainer(AutoSpeedNetwork("n", 4, *DET_F32_HW),
+                          DetectionTrainerConfig(input_hw=DET_F32_HW, max_boxes=16),
+                          seed=seed, device=device)
+    loss = tr.fit_step(*batch)
+    grads = {n: p.grad.detach().cpu().clone() for n, p in tr.model.named_parameters()}
+    return loss.cpu(), grads, {k: t.cpu().clone() for k, t in tr.model.state_dict().items()}
+
+
+def phase_det_f32():
+    """Phase 37a: one detection step (loss, clipping, AdamW at the warm-up's
+    lr 0, EMA) in f32 on the card with TF32 off against the same step on
+    the CPU, the same seeded weights and batch: the loss within 1e-3 *
+    |CPU|, the gradients (clipped) within 1e-3 * the largest CPU gradient,
+    and each BatchNorm statistic within 1e-3 * its max|CPU|."""
+    no_tf32()
+    (batch,), _ = det_batches(1, DET_F32_HW, 2, 16, SEED + 70)
+    ref = det_step_once("cpu", batch, SEED + 71)
+    got = det_step_once("cuda", batch, SEED + 71)
+    err, tol = held("detection loss", got[0], ref[0])
+    gmax = max(g.abs().max().item() for g in ref[1].values())
+    gerr = max((got[1][k] - g).abs().max().item() for k, g in ref[1].items())
+    if not gerr <= 1e-3 * gmax:
+        raise AssertionError(f"detection step gradients: card and CPU disagree, {gerr} > "
+                             f"{1e-3 * gmax}")
+    stats = {k: t for k, t in ref[2].items() if k.endswith(("running_mean", "running_var"))}
+    worst = 0.0
+    for k, t in stats.items():
+        e, b = held(f"state {k}", got[2][k], t)
+        worst = max(worst, e / b if b else 0.0)
+    print(f"detection step f32 card vs CPU, AutoSpeed n {DET_F32_HW[0]}x{DET_F32_HW[1]} batch "
+          f"2, TF32 off: loss {float(got[0])!r} vs {float(ref[0])!r} (err {err!r}, tol "
+          f"{tol!r}); {len(ref[1])} gradients within 1e-3 * max|CPU gradient| (max_abs_err "
+          f"{gerr!r}, tol {1e-3 * gmax!r}); {len(stats)} BatchNorm statistics within 1e-3 * "
+          f"max|CPU| each (worst err / tol {worst:.3f})")
+
+
+def timed_steps(step, inputs, warm, timed):
+    """``step(*inputs[i % len])`` warm + timed times back to back, a CUDA
+    event after each -> (p50, p99 ms over the timed ones, their total ms,
+    the host's enqueue p50 ms, the last step's output)."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(warm + timed + 1)]
+    enqueue = []
+    events[0].record()
+    for i in range(warm + timed):
+        t0 = time.perf_counter()
+        out = step(*inputs[i % len(inputs)])
+        enqueue.append(time.perf_counter() - t0)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    steps = [events[i].elapsed_time(events[i + 1]) for i in range(warm, warm + timed)]
+    p50, p99 = percentiles(steps)
+    return (p50, p99, events[warm].elapsed_time(events[-1]),
+            1e3 * float(np.median(enqueue[warm:])), out)
+
+
+def val_batches(batches, hw):
+    """YoloBatcher batches as validate takes them: the images, and each
+    image's valid boxes in xyxy pixels and their classes."""
+    h, w = hw
+    out = []
+    for images, boxes, labels, mask in batches:
+        gts, gcs = [], []
+        for b in range(len(images)):
+            cx, cy, bw, bh = (boxes[b][mask[b]] * [w, h, w, h]).T
+            gts.append(np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], -1))
+            gcs.append(labels[b][mask[b]])
+        out.append((images, gts, gcs))
+    return out
+
+
+def phase_det_bench(card):
+    """Phase 37b: the detection trainer as configs/auto_speed.yaml sets it,
+    f32 (the JAX trainer's type) with TF32 off, on seeded synthetic
+    YoloBatcher batches; then validate through the NMS kernel. -> the
+    validation's launches."""
+    from autoware_vision_pilot_tpu_torch.models.auto_speed import AutoSpeedNetwork
+    from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import nms_greedy
+    from autoware_vision_pilot_tpu_torch.ops.postprocess import nms_greedy_plain
+    from autoware_vision_pilot_tpu_torch.train.detection_trainer import (DetectionTrainer,
+                                                                         DetectionTrainerConfig)
+    from autoware_vision_pilot_tpu_torch.train.lite_trainer import load_experiment_config
+    from autoware_vision_pilot_tpu_torch.train.train_step import weights_swapped_in
+
+    no_tf32()
+    y = load_experiment_config(REPO / "configs" / "auto_speed.yaml")
+    d, t, o = y["dataset"], y["training"], y["optimizer"]
+    hw, batch = (d["input_height"], d["input_width"]), t["batch_size"]
+    cfg = DetectionTrainerConfig(
+        num_classes=y["loss"]["num_classes"], input_hw=hw, max_boxes=d["max_boxes"],
+        lr=o["lr"], min_lr_ratio=o["min_lr_ratio"], warmup_steps=t["warmup_steps"],
+        max_steps=t["max_steps"], weight_decay=o["weight_decay"], ema_decay=t["ema_decay"],
+        grad_clip_norm=t["grad_clip_norm"], gains=y["loss"]["gains"],
+        ckpt_dir=str(REPO / "build" / "smoke_autospeed"))
+    batches, host_s = det_batches(4, hw, batch, cfg.max_boxes, SEED + 72,
+                                  mosaic_prob=d["mosaic_prob"], mixup_prob=d["mixup_prob"])
+    tr = DetectionTrainer(AutoSpeedNetwork("n", cfg.num_classes, *hw), cfg, seed=SEED,
+                          device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p50, p99, total, enq, loss = timed_steps(tr.fit_step, batches, DET_WARM, DET_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    final = float(loss)
+    if not math.isfinite(final) or not all(torch.isfinite(e).all() for e in tr.state.ema.values()):
+        raise AssertionError(f"detection trainer: non-finite loss {final} or EMA")
+    print(f"detection trainer f32 (TF32 off), AutoSpeed n {hw[0]}x{hw[1]} batch {batch}, "
+          f"max_boxes {cfg.max_boxes}, mosaic {d['mosaic_prob']}, mixup {d['mixup_prob']}, lr "
+          f"{cfg.lr} warm-up {cfg.warmup_steps}, EMA {cfg.ema_decay}, clip "
+          f"{cfg.grad_clip_norm}, {card}: p50 {p50!r} ms, p99 {p99!r} ms over {DET_TIMED} steps "
+          f"after {DET_WARM} warm-up (CUDA events, steps back to back), "
+          f"{DET_TIMED * batch / total * 1e3!r} samples/s, host enqueue p50 {enq!r} ms a step, "
+          f"peak max_memory_allocated {peak!r} GiB, final loss {final!r}; YoloBatcher "
+          f"{host_s * 1e3:.1f} ms of host time a batch (made before the timed steps)")
+    val = val_batches(batches[:DET_VAL], hw)
+    kw = dict(max_det=300, iou_thresh=0.65, conf_thresh=0.001)
+    torch.cuda.synchronize()
+    reset_counts()  # count only the validation's launches
+    map50, map_full = tr.validate(iter(val), conf=0.001, iou=0.65, max_det=300)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect_launches(launches, {"nms_greedy": DET_VAL})
+    if not (math.isfinite(map50) or math.isnan(map50)):
+        raise AssertionError(f"detection validate: mAP {map50}")
+    # the same candidates again (EMA weights), the kernel against the plain version
+    tops = []
+    with weights_swapped_in(tr.model, tr.state.ema), torch.no_grad():
+        for images, _, _ in val:
+            top = tr.candidates(images, conf=0.001, max_det=300)
+            got = nms_greedy(*top, **kw)
+            ref = nms_greedy_plain(*top, **kw)
+            torch.cuda.synchronize()
+            if not all(bits_equal(a, b) for a, b in zip(got, ref)):
+                raise AssertionError("the validation's NMS disagrees with its plain version")
+            tops.append(top)
+    k = tops[0][1].shape[-1]
+    live = int((tops[0][1][0] >= 0.001).sum())
+    one = tuple(t[0].contiguous() for t in tops[0])
+    kernel = lambda top: nms_greedy(*top, **kw)  # noqa: E731
+    us = device_us(kernel, [one] * 20)
+    batch_us = device_us(kernel, tops * 5)
+    plain_us = device_us(lambda top: nms_greedy_plain(*top, **kw), [one])
+    ops = nms_ops(one, True, conf=0.001)  # the IoU tests of the live rows, and the areas
+    bound_ms, bound_by = bound(ops, k * 24 + 300 * 25, F32_OPS_PER_S)
+    print(f"detection validate, {DET_VAL} batches of {batch} at max_det 300, conf 0.001, iou "
+          f"0.65: mAP@50 {map50!r}, mAP@[.5:.95] {map_full!r} (random weights); "
+          f"{launches['nms_greedy']} NMS launches (one a batch, a stream an image), each "
+          f"bit-equal to nms_greedy_plain on the same candidates (k = {k} a stream, {live} of "
+          f"them above conf in stream 0)")
+    print(f"kernel nms_greedy k={k} (the detection validation's), {card}: {us!r} us a stream "
+          f"(profiler device time), {batch_us!r} us a batch of {batch} streams; bound "
+          f"{bound_ms * 1e3!r} us by {bound_by} ({ops} f32 operations at 67 TFLOP/s), share "
+          f"{bound_ms * 1e3 / us!r}; plain version {plain_us!r} us")
+    del tr
+    torch.cuda.empty_cache()
+    return {"nms_greedy": launches["nms_greedy"]}, dict(us=us, batch_us=batch_us,
+                                                         plain_us=plain_us)
+
+
+def phase_other_trainers(card):
+    """Phase 37c: OTHER_WARM + OTHER_TIMED steps of the AutoSteer 2.0,
+    AutoDrive, AutoSteer-temporal and Lite trainers at their JAX defaults,
+    f32, on seeded synthetic data: finite losses and step p50."""
+    from autoware_vision_pilot_tpu_torch.models.lite import build_lite_model
+    from autoware_vision_pilot_tpu_torch.train.autodrive_trainer import (AutoDriveTrainer,
+                                                                         AutoDriveTrainerConfig)
+    from autoware_vision_pilot_tpu_torch.train.autosteer_temporal_trainer import (
+        AutoSteerTemporalTrainer, AutoSteerTemporalTrainerConfig)
+    from autoware_vision_pilot_tpu_torch.train.autosteer_trainer import (AutoSteerTrainer,
+                                                                         AutoSteerTrainerConfig)
+    from autoware_vision_pilot_tpu_torch.train.lite_trainer import (LiteTrainer,
+                                                                    load_experiment_config)
+
+    rng = np.random.default_rng(SEED + 73)
+    hw = (512, 1024)
+    results = {}
+
+    def report(name, step, inputs, batch):
+        p50, p99, total, enq, loss = timed_steps(step, inputs, OTHER_WARM, OTHER_TIMED)
+        value = float(loss)
+        if not math.isfinite(value):
+            raise AssertionError(f"{name}: non-finite loss {value}")
+        results[name] = p50
+        print(f"{name} f32, {card}: p50 {p50!r} ms, p99 {p99!r} ms over {OTHER_TIMED} steps "
+              f"after {OTHER_WARM} (CUDA events), {OTHER_TIMED * batch / total * 1e3!r} "
+              f"samples/s, host enqueue p50 {enq!r} ms, loss {value!r}")
+
+    images = [rng.integers(0, 256, (8, *hw, 3), dtype=np.uint8) for _ in range(2)]
+    steer = AutoSteerTrainer(AutoSteerTrainerConfig(input_hw=hw), seed=SEED, device="cuda")
+    rows = hw[0] // 8
+    t_h = [(rng.random((8, rows, 1, 1)) > 0.3).astype(np.float32) for _ in range(2)]
+    report("AutoSteer 2.0 trainer 512x1024 batch 8", steer.fit_step,
+           [(im, rng.random(th.shape).astype(np.float32) * th, th)
+            for im, th in zip(images, t_h)], 8)
+    del steer
+    torch.cuda.empty_cache()
+    drive = AutoDriveTrainer(AutoDriveTrainerConfig(input_hw=hw), seed=SEED, device="cuda")
+    report("AutoDrive trainer 512x1024 batch 8 (two frames a sample)", drive.fit_step,
+           [(images[0], images[1], rng.random(8).astype(np.float32),
+             rng.uniform(-1, 1, 8).astype(np.float32),
+             (rng.random(8) > 0.5).astype(np.float32))], 8)
+    del drive
+    torch.cuda.empty_cache()
+    temporal = AutoSteerTemporalTrainer(AutoSteerTemporalTrainerConfig(), seed=SEED,
+                                        device="cuda")
+    masks = [((rng.random((32, 80, 160, 6)) > 0.8).astype(np.float32),
+              rng.uniform(-30, 30, 32), rng.uniform(-30, 30, 32)) for _ in range(2)]
+    report("AutoSteer-temporal trainer 80x160 batch 32", temporal.fit_step, masks, 32)
+    del temporal
+    cfg = load_experiment_config(REPO / "configs" / "SceneSegLite.yaml")
+    cfg["experiment"]["output_dir"] = str(REPO / "build" / "smoke_lite")
+    r = cfg["dataset"]["augmentations"]["rescaling"]
+    lhw, lb = (r["height"], r["width"]), cfg["dataloader"]["batch_size"]
+    nc = cfg["loss"]["num_classes"]
+    lite_batches = []
+    for _ in range(2):
+        lab = rng.integers(0, nc, (lb, *lhw)).astype(np.int32)
+        lab[rng.random((lb, *lhw)) < 0.05] = cfg["loss"]["ignore_index"]
+        lite_batches.append((rng.integers(0, 256, (lb, *lhw, 3), dtype=np.uint8), lab))
+
+    def cycle():
+        while True:
+            yield from lite_batches
+
+    # the config's network section sets no output_channels (3 by default, in
+    # both packages) while its loss has 19 classes: the head is built with
+    # the loss's classes, as a run of this config needs
+    lite = LiteTrainer(build_lite_model(cfg, output_channels=nc), cfg, cycle, input_hw=lhw,
+                       device="cuda")
+    lite.fit(2)  # the user's entry point, two steps
+    gen = lite.generator
+    step = lambda im, lab: lite.run_step(lite.state, lite.normalized(im), lite.targets(lab),  # noqa: E731
+                                         gen)[1]
+    report(f"Lite trainer, SceneSegLite.yaml ({cfg['network']['model']}, "
+           f"{cfg['network']['backbone']['type']}) {lhw[0]}x{lhw[1]} batch {lb}", step,
+           lite_batches, lb)
+    lite.close()
+    del lite
+    torch.cuda.empty_cache()
+    return results
+
+
 def host_costs_of(root):
     """--host-costs ROOT: phase 7's host-cost measurement alone, over the
     port package found in ROOT (this repository, or an earlier commit of it
@@ -4701,6 +5000,14 @@ def main():
     timed("36b", phase_train_bench, card)
     paths["QAT export"] = timed("36c", phase_qat_export, card)
     print(f"wall time of phase 36 (s): {walls}, {sum(walls.values()):.1f} s in all")
+    # the remaining trainers: detection on the card against the CPU, the
+    # detection trainer at full width with its validation on the NMS kernel,
+    # and a few steps of each other trainer
+    walls.clear()
+    timed("37a", phase_det_f32)
+    paths["detection validation"], _ = timed("37b", phase_det_bench, card)
+    timed("37c", phase_other_trainers, card)
+    print(f"wall time of phase 37 (s): {walls}, {sum(walls.values()):.1f} s in all")
     for path, counts in paths.items():
         for name, n in counts.items():
             # the paths at min_channels 128 and above tally the mma.sync

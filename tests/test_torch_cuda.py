@@ -575,7 +575,8 @@ def bits_equal(a, b):
     return torch.equal(a, b)
 
 
-@pytest.mark.parametrize("k", [1, 31, 32, 33, 255, 256, 257, 1024])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 255, 256, 257, 1024, 1025, 1200,
+                               nms_kernel.MAX_K])
 @pytest.mark.parametrize("kind", ["live", "dead", "degenerate", "nan"])
 def test_nms_kernel_every_cluster_size(cuda, k, kind):
     """Every output bit-equal to the plain version at clusters of 1-8
@@ -780,8 +781,9 @@ def test_nms_kernel_matches_plain_version(cuda, kind, seed, A, class_aware, max_
 
 def test_nms_kernel_rejects_bad_candidates_on_the_card(cuda):
     boxes, scores, cls = (torch.from_numpy(a).to(cuda) for a in nms_candidates("random", 13))
-    with pytest.raises(ValueError):  # k = 1200 > 1024
-        nms_greedy(boxes[:1200], scores[:1200], cls[:1200], max_det=300)
+    k = nms_kernel.MAX_K + 1  # one candidate past what the kernel takes
+    with pytest.raises(ValueError):
+        nms_greedy(boxes[:k], scores[:k], cls[:k], max_det=300)
     with pytest.raises(ValueError):
         nms_greedy(boxes[:256], scores[:256], cls[:256].cpu())
     with pytest.raises(ValueError):
@@ -1009,7 +1011,7 @@ def test_lane_filter_kernel_on_a_batch(cuda, n, hw):
 
 
 @pytest.mark.parametrize("n", [1, 3, 8])
-@pytest.mark.parametrize("k", [33, 256, 1024])
+@pytest.mark.parametrize("k", [33, 256, 1024, 1025, 1200, nms_kernel.MAX_K])
 def test_nms_kernel_on_a_batch(cuda, n, k):
     """N candidate sets in one launch (a cluster each): every stream's
     outputs bit-equal (NaN payloads included) to the plain version and to
@@ -1522,3 +1524,36 @@ def test_qat_export_int8_calls_match_plain(cuda):
     made = {k: int8_conv.route_launches[k] - before[k] for k in before}
     assert len(calls) == 30 and all(calls)
     assert sum(made.values()) == 30 and made["mma"] >= 1, made
+
+
+def test_detection_validation_nms_on_card(cuda, monkeypatch):
+    """DetectionTrainer.validate's NMS at max_det 300, conf 0.001, iou 0.65
+    on AutoSpeed "n" at 512x1024 (k = min(4 * 300, A) = 1,200 a stream):
+    one kernel launch for the batch, bit-equal to the plain version on the
+    same candidates, and validate's mAP the same with the plain version in
+    the kernel's place."""
+    from autoware_vision_pilot_tpu_torch.models.auto_speed import AutoSpeedNetwork
+    from autoware_vision_pilot_tpu_torch.train import detection_trainer as dt
+
+    tr = dt.DetectionTrainer(AutoSpeedNetwork("n", 4, 512, 1024), dt.DetectionTrainerConfig(),
+                             device=cuda)
+    images = frames((512, 1024), 2, seed=80).numpy()
+    top = tr.candidates(images, 0.001, 300)
+    assert tuple(top[1].shape) == (2, 1200)
+    kw = dict(max_det=300, iou_thresh=0.65, conf_thresh=0.001)
+    before = nms_greedy.launches
+    out = tr.predictions(images, 0.001, 0.65, 300)
+    torch.cuda.synchronize()
+    assert nms_greedy.launches == before + 1
+    assert bits_equal_all(out, nms_greedy_plain(*top, **kw))
+    val = []
+    for b in range(2):
+        keep = out[3][b].nonzero()[:, 0][::3][:6].cpu()
+        val.append((out[0][b].cpu()[keep].numpy() + 1.5, out[2][b].cpu()[keep].numpy()))
+    batches = [(images, [v[0] for v in val], [v[1] for v in val])]
+    before = nms_greedy.launches
+    got = tr.validate(iter(batches))
+    assert nms_greedy.launches == before + 1
+    monkeypatch.setattr(dt, "nms_greedy", nms_greedy_plain)
+    assert tr.validate(iter(batches)) == got
+    assert nms_greedy.launches == before + 1

@@ -16,8 +16,8 @@ target tree: the file's values replace every leaf. The test hands it
 ``jax.eval_shape``'s tree in place of the op-by-op init (~40 s a net on
 an 8-core CPU); nothing else of JAX's CLI is changed.
 
-The CLI's refusals (``--checkpoint``, ``--bench`` on the CPU) and its
-smoke mode are here too; its ``--int8`` is in tests/test_torch_lite_int8.py
+The CLI's refusals (``--bench`` on the CPU, a missing ``--checkpoint``)
+and its smoke mode are here too; its ``--int8`` is in tests/test_torch_lite_int8.py
 and its ``--onnx`` in tests/test_torch_convert_import.py.
 """
 import json
@@ -130,7 +130,7 @@ def test_eval_lite_refuses_what_is_not_ported():
             "--device", "cpu"]
     with pytest.raises(FileNotFoundError):  # --onnx is ported: a missing file, not a refusal
         teval.main(base + ["--onnx", "missing.onnx"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(FileNotFoundError):  # --checkpoint is ported: a missing directory
         teval.main(base + ["--checkpoint", "ckpt/"])
     with pytest.raises(ValueError, match="--bench times the card"):
         teval.main(base + ["--height", "32", "--width", "64", "--bench"])

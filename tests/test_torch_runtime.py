@@ -382,7 +382,10 @@ for m in ("app", "runtime", "runtime.fleet", "runtime.pipeline", "perception.tra
           "middleware", "middleware.transport", "middleware.ros2_codec", "middleware.nodes",
           "utils", "utils.visualization", "utils.video_viz", "utils.rerun_logger",
           "drivers.gstreamer", "train", "train.losses", "train.metrics", "train.datasets",
-          "train.train_step", "train.legacy_trainer", "train.qat"):
+          "train.train_step", "train.legacy_trainer", "train.qat", "train.optim",
+          "train.detection_loss", "train.yolo_data", "train.detection_trainer",
+          "train.autosteer_trainer", "train.autosteer_temporal_trainer",
+          "train.autodrive_trainer", "train.lite_trainer", "train.augment", "train.teachers"):
     importlib.import_module("autoware_vision_pilot_tpu_torch." + m)
 from autoware_vision_pilot_tpu_torch.export.checkpoints import load_msgpack
 tree = load_msgpack(sys.argv[1])
