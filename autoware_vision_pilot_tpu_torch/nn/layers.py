@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.int8_conv import dynamic_input_scale, int8_conv2d, int8_conv_transpose
+from ..parallel.sharding import batch_shard
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch's convention, running = (1 - m) running + m batch: flax's 0.9
@@ -49,7 +50,19 @@ def dropout_generator(generator: torch.Generator):
 def keep_mask(shape, keep_prob: float, device) -> torch.Tensor:
     """A bool mask of ``shape`` on ``device``, each value True with
     probability ``keep_prob`` (uniform < p, as ``jax.random.bernoulli``),
-    drawn on the device of the enclosing ``dropout_generator``'s generator."""
+    drawn on the device of the enclosing ``dropout_generator``'s generator.
+    Inside ``parallel.sharding.batch_sharded`` dim 0 is this rank's rows of
+    a batch split over W ranks: the whole batch's mask is drawn, the same
+    on every rank, and the rank keeps its rows."""
+    shard = batch_shard()
+    if shard is None:
+        return draw_keep_mask(shape, keep_prob, device)
+    n = shape[0]
+    whole = draw_keep_mask((shard.world * n, *shape[1:]), keep_prob, device)
+    return whole[shard.rank * n:(shard.rank + 1) * n]
+
+
+def draw_keep_mask(shape, keep_prob: float, device) -> torch.Tensor:
     generator = _MASK_GENERATOR.get()
     if generator is None:
         raise RuntimeError("a train-mode forward draws its dropout masks inside "
@@ -246,14 +259,72 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        shard = batch_shard()
+        if shard is not None:
+            y, mean, var = _SyncedBatchNorm.apply(x, self.weight, self.bias, self.eps, shard)
+            self._update_running(mean, var)
+            return y
         y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
                                                   True, 0.0, self.eps)
         with torch.no_grad():
             var = invstd.double().pow(-2).sub_(self.eps)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+        self._update_running(mean, var)
         return y
+
+    @torch.no_grad()
+    def _update_running(self, mean, var):
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+
+
+class _SyncedBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm of one rank's rows with the statistics of the
+    whole batch, as JAX's SPMD BatchNorm computes them over a sharded
+    batch: each rank's count, mean and sum of squared deviations (f32) go
+    into its row of a (W, 2C + 1) f64 buffer, one all-reduce gathers the
+    rows, and the ranks' statistics are combined (Chan et al.) into the
+    mean and biased variance of all the rows, the same on every rank. The
+    backward all-reduces the two per-channel sums that the input's gradient
+    takes over the whole batch; the weight's and bias's gradients are this
+    rank's parts (the train step averages the gradients over the ranks).
+    -> (y, mean, var), the statistics f64."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, shard):
+        xf = x.float()
+        c = x.shape[1]
+        n = xf.numel() // c
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        rows = torch.zeros((shard.world, 2 * c + 1), dtype=torch.float64, device=x.device)
+        rows[shard.rank, 0] = n
+        rows[shard.rank, 1:c + 1] = mean
+        rows[shard.rank, c + 1:] = var.double() * n
+        torch.distributed.all_reduce(rows, group=shard.group)
+        counts, means, m2 = rows[:, :1], rows[:, 1:c + 1], rows[:, c + 1:]
+        total = counts.sum()
+        g_mean = (counts * means).sum(0) / total
+        g_var = (m2 + counts * (means - g_mean) ** 2).sum(0) / total
+        mean32, invstd = g_mean.float(), torch.rsqrt(g_var + eps).float()
+        xhat = (xf - mean32[:, None, None]) * invstd[:, None, None]
+        y = xhat * weight.float()[:, None, None] + bias.float()[:, None, None]
+        ctx.save_for_backward(x, weight, mean32, invstd)
+        ctx.total, ctx.group = float(total), shard.group
+        ctx.mark_non_differentiable(g_mean, g_var)
+        return y.to(x.dtype), g_mean, g_var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        g = dy.float()
+        xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
+        local = torch.stack([g.sum((0, 2, 3)), (g * xhat).sum((0, 2, 3))])
+        whole = local.clone()
+        torch.distributed.all_reduce(whole, group=ctx.group)
+        dx = (weight.float() * invstd)[:, None, None] * (
+            g - whole[0][:, None, None] / ctx.total - xhat * (whole[1][:, None, None] / ctx.total))
+        return (dx.to(x.dtype), local[1].to(weight.dtype), local[0].to(weight.dtype),
+                None, None)
 
 
 class Dropout(nn.Module):

@@ -13,9 +13,12 @@ its own full device-resident state (EgoLanes temporal ring, LaneFilter
 history, LaneTracker width cache, Bayes filter, steering ring, and its own
 PathFinder generator), so a stream's results do not depend on the others.
 
-Several GPUs (the JAX package's ``mesh``, streams sharded over chips) are
-not ported yet: ``mesh`` raises NotImplementedError (ROADMAP Queue 1
-item 6.6, with data parallelism).
+Over a local mesh (core/mesh.py; the JAX package's ``mesh``, streams
+sharded over chips) the stream axis is split in equal shards over the
+mesh's data devices, one process driving them all: a replica of the
+networks on each device, a batched step a shard (each launches its own
+preprocess, walk, letterbox and NMS kernels), no collective. Stream i keeps
+its seed, and its results come back in stream order, on the first device.
 """
 from __future__ import annotations
 
@@ -27,16 +30,24 @@ import torch
 
 from ..control.pi_controller import PIController
 from ..control.speed_planner import SpeedPlanner
+from ..core.mesh import data_devices
+from ..parallel.multichip_inference import concat_outputs, local_mesh, module_device, replicas_on
 from .config import Config
-from .pipeline import (SCALAR_FIELDS, DeviceStaging, FrameResult, LateralState, _sync_debug,
+from .pipeline import (SCALAR_FIELDS, DeviceStaging, FrameResult, _sync_debug,
                        build_batched_lateral_step, build_batched_longitudinal_step,
                        detections, init_lateral_states, lane_departure)
 
 __all__ = ["FleetLateralPipeline", "FleetLongitudinalPipeline",
            "FleetEngine", "unpack_fleet_scalars", "SCALAR_FIELDS"]
 
-MESH_TODO = ("a fleet over several GPUs (mesh) is not ported yet: ROADMAP Queue 1 item 6.6; "
-             "run one FleetEngine a card")
+
+def mesh_shards(mesh, n: int) -> list:
+    """The data devices of a local ``mesh`` over which ``n`` streams split
+    in equal shards."""
+    devices = data_devices(local_mesh(mesh, "the fleet"))
+    if n % len(devices):
+        raise ValueError(f"{n} streams do not split over the mesh's {len(devices)} devices")
+    return devices
 
 
 class FleetLateralPipeline:
@@ -55,26 +66,52 @@ class FleetLateralPipeline:
         """pad_to > n_streams runs the step at a larger physical batch:
         padding streams carry zero frames and their own state, and outputs
         are sliced back to n_streams. Each stream's results do not depend
-        on the others, padding included (tests/test_torch_fleet.py)."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
+        on the others, padding included (tests/test_torch_fleet.py). Over a
+        ``mesh`` the pad_to streams (padding included) split in equal
+        shards over its data devices."""
         self.n_streams = n_streams
         self.pad_to = max(pad_to, n_streams) if pad_to else n_streams
         self.mask_hw = (net_hw[0] // 4, net_hw[1] // 4)
-        self.device = next(lanes.parameters()).device
-        self._step = build_batched_lateral_step(lanes, steer_net, cfg, frame_hw=frame_hw,
-                                                crop_y=crop_y, dtype=dtype, net_hw=net_hw)
 
-    def init_states(self, seed: int = 0) -> LateralState:
-        return init_lateral_states(self.pad_to, seed, self.mask_hw, self.device)
+        def step_on(lanes, steer_net):
+            return build_batched_lateral_step(lanes, steer_net, cfg, frame_hw=frame_hw,
+                                              crop_y=crop_y, dtype=dtype, net_hw=net_hw)
 
-    def __call__(self, frames_u8, states: LateralState, noise=None):
+        if mesh is None:
+            self.device = module_device(lanes)
+            self._step, self._shards = step_on(lanes, steer_net), None
+        else:
+            devices = mesh_shards(mesh, self.pad_to)
+            lanes_on, steer_on = replicas_on(lanes, devices), replicas_on(steer_net, devices)
+            steps = {d: step_on(lanes_on[d], steer_on[d]) for d in lanes_on}
+            self.device = devices[0]
+            self._shards = [(d, steps[d]) for d in devices]
+
+    def init_states(self, seed: int = 0):
+        if self._shards is None:
+            return init_lateral_states(self.pad_to, seed, self.mask_hw, self.device)
+        per = self.pad_to // len(self._shards)
+        return tuple(init_lateral_states(per, seed, self.mask_hw, d, first=k * per)
+                     for k, (d, _) in enumerate(self._shards))
+
+    def __call__(self, frames_u8, states, noise=None):
         n_pad = self.pad_to - self.n_streams
         if n_pad:
             frames_u8 = torch.cat([frames_u8, frames_u8.new_zeros((n_pad, *frames_u8.shape[1:]))])
             if noise is not None:
                 noise = torch.cat([noise, noise.new_zeros((n_pad, *noise.shape[1:]))])
-        out, states = self._step(frames_u8, states, noise)
+        if self._shards is None:
+            out, states = self._step(frames_u8, states, noise)
+        else:
+            per = self.pad_to // len(self._shards)
+            outs, new = [], []
+            for k, ((d, step), state) in enumerate(zip(self._shards, states)):
+                rows = slice(k * per, (k + 1) * per)
+                o, st = step(frames_u8[rows].to(d, non_blocking=True), state,
+                             None if noise is None else noise[rows].to(d, non_blocking=True))
+                outs.append(o)
+                new.append(st)
+            out, states = concat_outputs(outs, self.device), tuple(new)
         if n_pad:
             out = {k: v[:self.n_streams] for k, v in out.items()}
         return out, states
@@ -85,20 +122,34 @@ class FleetLongitudinalPipeline:
 
     The single-stream device step is stateless (tracking lives on the
     host), so the fleet step is the batched step: (N, H, W, 3) -> (N,
-    max_det, 7) packed detection tables.
+    max_det, 7) packed detection tables. Over a ``mesh`` the streams split
+    in equal shards over its data devices, a replica of the network on
+    each, and the tables come back in stream order on the first device.
     """
 
     def __init__(self, net, cfg: Config, n_streams: int, frame_hw=(720, 1280),
                  input_hw=(640, 640), dtype=torch.bfloat16, max_det: int = 64, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
         self.n_streams = n_streams
-        self._step = build_batched_longitudinal_step(net, cfg, frame_hw=frame_hw,
-                                                     input_hw=input_hw, dtype=dtype,
-                                                     max_det=max_det)
+
+        def step_on(net):
+            return build_batched_longitudinal_step(net, cfg, frame_hw=frame_hw,
+                                                   input_hw=input_hw, dtype=dtype,
+                                                   max_det=max_det)
+
+        if mesh is None:
+            self._step, self._shards = step_on(net), None
+        else:
+            devices = mesh_shards(mesh, n_streams)
+            steps = {d: step_on(m) for d, m in replicas_on(net, devices).items()}
+            self._shards = [(d, steps[d]) for d in devices]
 
     def __call__(self, frames_u8):
-        return self._step(frames_u8)
+        if self._shards is None:
+            return self._step(frames_u8)
+        per = self.n_streams // len(self._shards)
+        return concat_outputs([step(frames_u8[k * per:(k + 1) * per].to(d, non_blocking=True))
+                               for k, (d, step) in enumerate(self._shards)],
+                              self._shards[0][0])
 
 
 def unpack_fleet_scalars(scalars) -> list[dict]:

@@ -236,18 +236,19 @@ def build_lateral_step(lanes: EgoLanesNetwork, steer_net: AutoSteerTemporalNet,
 STREAM_SEED_STEP = 0x9E3779B9  # odd: i -> seed + i * step is one-to-one mod 2**32
 
 
-def stream_generators(n: int, seed: int = 0, device="cuda") -> tuple:
-    """PathFinder's generators of N streams: stream i's is seeded with
-    ``(seed + i * 0x9E3779B9) mod 2**32`` (a seed of 32 bits, which the CPU
-    generator keeps whole), so that the streams draw independent noise and
-    stream 0 draws what a single-stream pipeline seeded with ``seed``
-    draws. The counterpart of the JAX fleet's ``jax.random.split(key(seed),
-    n)`` (the two give different numbers)."""
+def stream_generators(n: int, seed: int = 0, device="cuda", first: int = 0) -> tuple:
+    """PathFinder's generators of streams ``first`` to ``first + n - 1``:
+    stream i's is seeded with ``(seed + i * 0x9E3779B9) mod 2**32`` (a seed
+    of 32 bits, which the CPU generator keeps whole), so that the streams
+    draw independent noise, stream 0 draws what a single-stream pipeline
+    seeded with ``seed`` draws, and a stream keeps its seed on whichever
+    shard of a fleet it lands. The counterpart of the JAX fleet's
+    ``jax.random.split(key(seed), n)`` (the two give different numbers)."""
     if not 0 <= seed < 2 ** 32:
         raise ValueError(f"seed must be in [0, 2**32), got {seed}")
     return tuple(torch.Generator(device=device).manual_seed((seed + i * STREAM_SEED_STEP)
                                                             % 2 ** 32)
-                 for i in range(n))
+                 for i in range(first, first + n))
 
 
 def init_lateral_state(seed: int = 0, mask_hw=(80, 160), device="cuda") -> LateralState:
@@ -261,10 +262,11 @@ def init_lateral_state(seed: int = 0, mask_hw=(80, 160), device="cuda") -> Later
     )
 
 
-def init_lateral_states(n: int, seed: int = 0, mask_hw=(80, 160), device="cuda"
-                        ) -> LateralState:
-    """The initial state of N streams: every tensor with a leading N axis,
-    and ``stream_generators(n, seed)``."""
+def init_lateral_states(n: int, seed: int = 0, mask_hw=(80, 160), device="cuda",
+                        first: int = 0) -> LateralState:
+    """The initial state of N streams, from stream ``first`` on: every
+    tensor with a leading N axis, and ``stream_generators(n, seed,
+    first=first)``."""
     streams = (n,)
     return LateralState(
         prev_lane_raw=torch.zeros((n, *mask_hw, 3), device=device),
@@ -272,7 +274,7 @@ def init_lateral_states(n: int, seed: int = 0, mask_hw=(80, 160), device="cuda"
         lane_tracker=LaneTrackerState.init(device, streams),
         bayes=BayesState.init(device=device, streams=streams),
         steering=steering_init(device, streams),
-        generator=stream_generators(n, seed, device),
+        generator=stream_generators(n, seed, device, first),
     )
 
 

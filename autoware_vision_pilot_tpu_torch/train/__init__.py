@@ -1,8 +1,8 @@
 """Training of the port: the losses, the metrics, the datasets, the train
-step on one card and the optax pieces (train/optim.py), the legacy,
-detection, AutoSteer, AutoSteer-temporal, AutoDrive and Lite trainers, the
-YOLO data, the augmentations, the depth teacher and QAT (train/qat.py).
-Training over several cards is ROADMAP Queue 1 item 6.6."""
+step on one card or over a world mesh of cards (data parallelism), the
+optax pieces (train/optim.py), the legacy, detection, AutoSteer,
+AutoSteer-temporal, AutoDrive and Lite trainers, the YOLO data, the
+augmentations, the depth teacher and QAT (train/qat.py)."""
 from .losses import (
     segmentation_ce_loss,
     binary_seg_loss,

@@ -7,8 +7,10 @@ height map, the EMA, a warm-up cosine schedule and AdamW; validation by
 the lane metrics and the vector AP at 0.02, 0.05 and 0.10.
 
 The loss and the metrics take JAX's NHWC (B, H, 1, 1) layout; the port's
-network gives NCHW, which the trainer permutes. One device; ``mesh``
-raises (ROADMAP Queue 1 item 6.6).
+network gives NCHW, which the trainer permutes. On one card, or over a
+world mesh as train/train_step.py runs one (each rank its rows; the
+validation's rows gathered, so every rank reports the whole set's
+metrics).
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ from ..models.auto_steer import AutoSteerNetwork
 from ..nn.layers import dropout_generator
 from .metrics import vector_ap
 from .optim import warmup_cosine_decay_schedule
-from .train_step import (MESH, adamw, create_seg_train_state, ema_update, load_variables,
-                         optimizer_step, to_device_images, weights_swapped_in)
+from ..parallel.sharding import all_reduce_mean, batch_sharded, eval_rows, gather_rows
+from .train_step import (adamw, average_gradients, create_seg_train_state, data_mesh,
+                         ema_update, load_variables, optimizer_step, shard_rows,
+                         to_device_images, weights_swapped_in)
 
 MAP_THRESHOLDS = (0.02, 0.05, 0.10)
 
@@ -71,12 +75,12 @@ class AutoSteerTrainerConfig:
 
 class AutoSteerTrainer:
     """AutoSteer 2.0 "n" at ``cfg.input_hw``, its weights ``variables`` (a
-    JAX tree) or seeded from ``seed``, on ``device``."""
+    JAX tree) or seeded from ``seed``, on ``device``; ``mesh`` a world mesh
+    to train over, or None."""
 
     def __init__(self, cfg: AutoSteerTrainerConfig, mesh=None, seed: int = 0, *,
                  variables: Optional[dict] = None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(MESH)
+        self.mesh = data_mesh(mesh)
         self.cfg = cfg
         self.device = torch.device(device)
         model = AutoSteerNetwork("n", *cfg.input_hw)
@@ -98,32 +102,42 @@ class AutoSteerTrainer:
         """One step; targets (B, H / 8, 1, 1) NHWC -> the loss, a 0-d tensor
         on the device."""
         opt = self.state.optimizer
-        t_xp, t_h = (torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(self.device)
+        first, rows, sharded = shard_rows(self.mesh, len(images_u8))
+        rows = slice(first, first + rows)
+        t_xp, t_h = (torch.from_numpy(np.ascontiguousarray(t[rows], np.float32)).to(self.device)
                      for t in (target_xp, target_h))
         self.model.train()
         opt.zero_grad(set_to_none=True)
-        with dropout_generator(self.generator):
-            lane, height = self.forward(images_u8)
+        with dropout_generator(self.generator), batch_sharded(self.mesh if sharded else None):
+            lane, height = self.forward(images_u8[rows])
         loss, _ = autosteer_loss(lane, height, t_xp, t_h, self.cfg.xp_weight)
         loss.backward()
+        average_gradients(opt, self.mesh)
         optimizer_step(opt)
         self.state.step += 1
         ema_update(self.state, self.model, self.cfg.ema_decay)
-        return loss.detach()
+        loss = loss.detach()
+        return all_reduce_mean(self.mesh, loss)[0] if sharded else loss
 
     @torch.no_grad()
     def _outputs(self, val_batches):
         """(lane (B, H), height probability (B, H), t_xp, t_h) a batch, numpy,
-        from the EMA weights in eval mode."""
+        from the EMA weights in eval mode; over a world mesh each rank runs
+        its rows and the batch is gathered."""
         self.model.eval()
         with weights_swapped_in(self.model, self.state.ema):
             for images, t_xp, t_h in val_batches:
-                lane, height = self.forward(images)
-                n = len(images)
-                lane = lane.cpu().numpy().reshape(n, -1)
-                prob = 1.0 / (1.0 + np.exp(-height.cpu().numpy().reshape(n, -1)))
-                yield (lane, prob, np.asarray(t_xp, np.float32).reshape(n, -1),
-                       np.asarray(t_h, np.float32).reshape(n, -1))
+                rows = eval_rows(self.mesh, len(images))
+                n = rows.stop - rows.start
+                mine = []
+                if n:
+                    lane, height = self.forward(images[rows])
+                    lane = lane.cpu().numpy().reshape(n, -1)
+                    prob = 1.0 / (1.0 + np.exp(-height.cpu().numpy().reshape(n, -1)))
+                    mine = [(lane, prob, np.asarray(t_xp, np.float32)[rows].reshape(n, -1),
+                             np.asarray(t_h, np.float32)[rows].reshape(n, -1))]
+                parts = gather_rows(self.mesh, mine)
+                yield tuple(np.concatenate(p) for p in zip(*parts))
 
     def validate(self, val_batches, detect_thresh: float = 0.5):
         """Over (images, t_xp, t_h) batches, from one forward each: the mean
@@ -174,6 +188,9 @@ class AutoSteerTrainer:
             return state_dict_to_variables(self.model)
 
     def save(self, name: str = "last"):
+        """``ckpt_dir/name.msgpack`` (rank 0 over a world mesh)."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         p = pathlib.Path(self.cfg.ckpt_dir)
         p.mkdir(parents=True, exist_ok=True)
         save_msgpack(p / f"{name}.msgpack", self.variables())

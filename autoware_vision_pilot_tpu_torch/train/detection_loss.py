@@ -11,7 +11,9 @@ stops are JAX's: the CIoU ``alpha`` and the assigner's inputs are
 detached. Ties resolve as in JAX: the assigner's top-k is a stable
 descending sort (``lax.top_k`` keeps the lower index first) and argmax
 takes the first maximum in both. The loss takes the head's train-mode
-output, NHWC maps, as the JAX loss does.
+output, NHWC maps, as the JAX loss does. Inside a data-parallel step
+(parallel/sharding.py::batch_sharded) the normalizer, the target scores'
+sum, is the whole batch's.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 
 from ..models.auto_speed import device_anchors
 from ..models.yolo_layers import dfl_decode
+from ..parallel.sharding import batch_normalizer
 
 GAINS = {"box": 7.5, "cls": 0.5, "dfl": 1.5}
 
@@ -162,7 +165,7 @@ def detection_loss(outputs: Sequence[torch.Tensor], gt_boxes_xywh, gt_labels, gt
 
     tb, ts, fg = assign(torch.sigmoid(pred_scores).detach(), (pd_xyxy * strd[None]).detach(),
                         anc * strd, gt_labels, gt_xyxy, gt_mask, nc=nc)
-    ts_sum = ts.sum().clamp_min(1.0)
+    ts_sum = batch_normalizer(ts.sum(), 1.0)
 
     # class BCE
     bce = (pred_scores.clamp_min(0) - pred_scores * ts +

@@ -6,8 +6,12 @@ gradients clipped by their global norm, AdamW with weight decay, and
 validation by mAP@50 and mAP@[.5:.95].
 
 The JAX trainer is one jitted SPMD step over a mesh; here it is an eager
-step on one device (several cards are ROADMAP Queue 1 item 6.6, and
-``mesh`` raises until then). The validation's NMS is the port's kernel on
+step, on one card or over a world mesh (a process a card, as
+train/train_step.py runs it: each rank its rows of the batch, the loss's
+normalizer over the whole batch, the gradients averaged). Over a world
+mesh each rank scores its rows of every validation batch and the
+detections are gathered, so every rank reports the whole set's mAP. The
+validation's NMS is the port's kernel on
 the card (ops/kernels/nms_kernel.py, after nms_topk, as nms_fixed runs
 them): one launch a validation
 batch, a stream an image, each stream's k = min(4 * max_det, A)
@@ -30,8 +34,10 @@ from ..ops.postprocess import nms_topk
 from .detection_loss import detection_loss
 from .metrics import detection_map
 from .optim import warmup_cosine_decay_schedule
-from .train_step import (MESH, adamw, create_seg_train_state, ema_update, load_variables,
-                         optimizer_step, to_device_images, weights_swapped_in)
+from ..parallel.sharding import all_reduce_mean, batch_sharded, eval_rows, gather_rows
+from .train_step import (adamw, average_gradients, create_seg_train_state,
+                         data_mesh, ema_update, load_variables, optimizer_step, shard_rows,
+                         to_device_images, weights_swapped_in)
 
 
 @dataclasses.dataclass
@@ -58,12 +64,12 @@ class DetectionTrainerConfig:
 class DetectionTrainer:
     """model: an AutoSpeedNetwork (its train mode gives the raw maps). Its
     weights are ``variables`` (a JAX tree) or seeded from ``seed``; it moves
-    to ``device``. f32, as the JAX trainer."""
+    to ``device``. f32, as the JAX trainer. ``mesh``: a world mesh to train
+    over (every rank passes the same batches and seed), or None."""
 
     def __init__(self, model, cfg: DetectionTrainerConfig, mesh=None, seed: int = 0, *,
                  variables: Optional[dict] = None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(MESH)
+        self.mesh = data_mesh(mesh)
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = load_variables(model, variables, seed).to(self.device,
@@ -90,19 +96,23 @@ class DetectionTrainer:
         """One optimization step on a YoloBatcher batch -> the loss, a 0-d
         tensor on the device (nothing waits for it)."""
         model, opt = self.model, self.state.optimizer
-        x = to_device_images(images_u8, self.device)
-        tgt = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        first, rows, sharded = shard_rows(self.mesh, len(images_u8))
+        rows = slice(first, first + rows)
+        x = to_device_images(images_u8[rows], self.device)
+        tgt = [torch.from_numpy(np.ascontiguousarray(a[rows])).to(self.device)
                for a in (boxes, labels, mask)]
         model.train()
         opt.zero_grad(set_to_none=True)
-        with dropout_generator(self.generator):
+        with dropout_generator(self.generator), batch_sharded(self.mesh if sharded else None):
             outs = model(x)
-        loss, _ = detection_loss(outs, *tgt, nc=self.cfg.num_classes, gains=self.cfg.gains)
+            loss, _ = detection_loss(outs, *tgt, nc=self.cfg.num_classes, gains=self.cfg.gains)
         loss.backward()
+        average_gradients(opt, self.mesh)
         optimizer_step(opt)
         self.state.step += 1
         ema_update(self.state, model, self.ema_decay(self.state.step))
-        return loss.detach()
+        loss = loss.detach()
+        return all_reduce_mean(self.mesh, loss)[0] if sharded else loss
 
     @torch.no_grad()
     def candidates(self, images_u8: np.ndarray, conf: float = 0.001, max_det: int = 300):
@@ -137,12 +147,18 @@ class DetectionTrainer:
         preds, gts = [], []
         with weights_swapped_in(self.model, self.state.ema if use_ema else None):
             for images, gt_boxes, gt_cls in val_batches:
-                bb, ss, cc, vv = (t.cpu().numpy() for t in self.predictions(
-                    images, conf, iou, max_det))
-                for b in range(len(bb)):
-                    v = vv[b]
-                    preds.append((bb[b][v], ss[b][v], cc[b][v]))
-                    gts.append((np.asarray(gt_boxes[b]), np.asarray(gt_cls[b])))
+                rows = eval_rows(self.mesh, len(images))
+                mine = []
+                if rows.stop > rows.start:
+                    bb, ss, cc, vv = (t.cpu().numpy() for t in self.predictions(
+                        images[rows], conf, iou, max_det))
+                    mine = [((bb[b][v], ss[b][v], cc[b][v]),
+                             (np.asarray(gt_boxes[rows.start + b]),
+                              np.asarray(gt_cls[rows.start + b])))
+                            for b, v in enumerate(vv)]
+                for pred, gt in gather_rows(self.mesh, mine):
+                    preds.append(pred)
+                    gts.append(gt)
         return detection_map(preds, gts, self.cfg.num_classes)
 
     def variables(self) -> dict:
@@ -153,7 +169,9 @@ class DetectionTrainer:
     def save(self, name: str = "last"):
         """``ckpt_dir/name.msgpack``: the EMA weights and the BatchNorm
         statistics in flax's layout, which the JAX package's load_msgpack
-        reads."""
+        reads. Over a world mesh rank 0 writes it."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         p = pathlib.Path(self.cfg.ckpt_dir)
         p.mkdir(parents=True, exist_ok=True)
         save_msgpack(p / f"{name}.msgpack", self.variables())

@@ -11,8 +11,10 @@ validation, resume, the ``last`` and ``best_mIoU`` msgpack files and a
 asked for).
 
 The JAX trainer is one jitted SPMD step over a mesh; this one runs
-train/train_step.py's step on one device (``mesh`` raises: ROADMAP Queue 1
-item 6.6). It keeps its training state with export/checkpoints.py's
+train/train_step.py's step, on one card or over a world mesh (a process a
+card; the validation's confusion matrix summed over the ranks, and the
+files written by rank 0). It keeps its training state with
+export/checkpoints.py's
 ``save_checkpoint`` (the port's ``path/step_N``, where JAX uses orbax), and
 resumes from ``checkpoint.load_from`` with ``load_checkpoint``.
 """
@@ -29,10 +31,11 @@ import torch.nn.functional as F
 from ..convert.from_jax import state_dict_to_variables
 from ..export.checkpoints import load_checkpoint, save_checkpoint, save_msgpack
 from ..ops.preprocess import device_mean_std
+from ..parallel.sharding import cross_replica_psum, eval_rows
 from . import optim
 from .losses import lanes_bce_edge_loss, segmentation_ce_loss, ssi_mae_depth_loss
 from .metrics import confusion_matrix, miou_from_confusion
-from .train_step import MESH, create_seg_train_state, load_variables, make_seg_train_step
+from .train_step import create_seg_train_state, data_mesh, load_variables, make_seg_train_step
 
 
 def load_experiment_config(path: str | pathlib.Path) -> Dict[str, Any]:
@@ -90,15 +93,16 @@ class LiteTrainer:
     are None goes through ``pseudo_labeler(images_u8) -> labels`` (the
     DepthAnythingV2 pseudo-labeling path, lite_trainer_base.py:249-278).
     The model's weights are ``variables`` (a JAX tree) or seeded from the
-    config's ``experiment.seed``; it moves to ``device``."""
+    config's ``experiment.seed``; it moves to ``device``. ``mesh``: a world
+    mesh to train over (every rank iterates the same batches), or None."""
 
     def __init__(self, model, cfg: Dict[str, Any], batch_iter: Callable,
                  val_iter: Optional[Callable] = None, input_hw=(512, 1024),
                  num_classes: Optional[int] = None, mesh=None,
                  pseudo_labeler: Optional[Callable] = None, *,
                  variables: Optional[dict] = None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(MESH)
+        self.mesh = data_mesh(mesh)
+        self.main_process = self.mesh is None or self.mesh.rank == 0
         self.pseudo_labeler = pseudo_labeler
         self.cfg = cfg
         self.batch_iter = batch_iter
@@ -112,7 +116,8 @@ class LiteTrainer:
         self.class_weights = (torch.tensor(aw["values"], dtype=torch.float32, device=self.device)
                               if aw and aw.get("enabled") else None)
         self.out_dir = pathlib.Path(cfg.get("experiment", {}).get("output_dir", "runs/lite"))
-        self.out_dir.mkdir(parents=True, exist_ok=True)
+        if self.main_process:
+            self.out_dir.mkdir(parents=True, exist_ok=True)
 
         seed = int(cfg.get("experiment", {}).get("seed", 42))
         self.model = load_variables(model, variables, seed).to(self.device,
@@ -122,7 +127,8 @@ class LiteTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.loss_type = loss_cfg.get("type", "cross_entropy")
         micro = int(cfg.get("training", {}).get("grad_accum_steps", 1))
-        self.run_step = make_seg_train_step(self._loss_fn(loss_cfg), microbatches=micro)
+        self.run_step = make_seg_train_step(self._loss_fn(loss_cfg), mesh=self.mesh,
+                                            microbatches=micro)
         self._mean, self._std = (t.reshape(1, 3, 1, 1) for t in device_mean_std(self.device))
         self.best_miou = -1.0
         self._maybe_resume()
@@ -172,7 +178,9 @@ class LiteTrainer:
             print(f"[lite] resumed from {load_from} at step {int(self.state.step)}")
 
     def _init_loggers(self):
-        self._wandb = None
+        self._wandb = self._tb = self._metrics_file = None
+        if not self.main_process:
+            return
         w = self.cfg.get("experiment", {}).get("wandb") or {}
         if w.get("enabled"):
             try:
@@ -183,7 +191,6 @@ class LiteTrainer:
                 print(f"[lite] wandb disabled ({e})")
         # TensorBoard (the reference's SummaryWriter) where it is installed;
         # the JSONL log always
-        self._tb = None
         try:
             from torch.utils.tensorboard import SummaryWriter
             self._tb = SummaryWriter(str(self.out_dir / "tb"))
@@ -193,11 +200,14 @@ class LiteTrainer:
 
     def close(self):
         """Close the metrics log and the TensorBoard writer."""
-        self._metrics_file.close()
+        if self._metrics_file:
+            self._metrics_file.close()
         if self._tb:
             self._tb.close()
 
     def _log_scalar(self, name: str, value: float, step: int):
+        if not self.main_process:
+            return
         self._metrics_file.write(json.dumps({"step": step, name: value}) + "\n")
         self._metrics_file.flush()
         if self._tb:
@@ -206,7 +216,8 @@ class LiteTrainer:
             self._wandb.log({name: value}, step=step)
 
     def _save_weights(self, name: str):
-        save_msgpack(self.out_dir / name, state_dict_to_variables(self.model))
+        if self.main_process:
+            save_msgpack(self.out_dir / name, state_dict_to_variables(self.model))
 
     # -- training --
     def fit(self, max_steps: Optional[int] = None):
@@ -223,13 +234,13 @@ class LiteTrainer:
                 labels = self.pseudo_labeler(images)
             self.state, loss = self.run_step(self.state, self.normalized(images),
                                              self.targets(labels), self.generator)
-            if (step + 1) % log_every == 0:
+            if (step + 1) % log_every == 0 and self.main_process:
                 value = float(loss)
                 print(f"[lite] step {step + 1} loss {value:.4f}")
                 self._log_scalar("train/loss", value, step + 1)
             if val_every and (step + 1) % val_every == 0:
                 self.validate(step + 1)
-        if t.get("save_last", True):
+        if t.get("save_last", True) and self.main_process:
             self._save_weights("last.msgpack")
             save_checkpoint(self._ckpt_dir(), self.state)
         return self.state
@@ -238,20 +249,29 @@ class LiteTrainer:
     def validate(self, step: int):
         """mIoU over ``val_iter()`` (cross_entropy only; the dense
         regressions validate on their loss), logged; a new best is saved as
-        best_mIoU.msgpack. -> the mIoU or None."""
+        best_mIoU.msgpack. Over a world mesh each rank scores its rows of
+        each batch and the confusion matrix is summed over the ranks. -> the
+        mIoU or None."""
         if self.val_iter is None or self.loss_type != "cross_entropy":
             return None
         self.model.eval()
         cm_total = None
         for images, labels in self.val_iter():
-            pred = self.model(self.normalized(images)).argmax(1).cpu().numpy()
-            cm = confusion_matrix(pred, np.asarray(labels), self.num_classes,
-                                  ignore_index=self.ignore_index)
+            rows = eval_rows(self.mesh, len(images))
+            cm = np.zeros((self.num_classes, self.num_classes), np.int64)
+            if rows.stop > rows.start:
+                pred = self.model(self.normalized(images[rows])).argmax(1).cpu().numpy()
+                cm = confusion_matrix(pred, np.asarray(labels)[rows], self.num_classes,
+                                      ignore_index=self.ignore_index)
             cm_total = cm if cm_total is None else cm_total + cm
         if cm_total is None:
             return None
+        if self.mesh is not None:
+            cm_total = cross_replica_psum(torch.from_numpy(np.asarray(cm_total)).to(self.device),
+                                          self.mesh).cpu().numpy()
         _, miou, overall = miou_from_confusion(cm_total)
-        print(f"[lite] step {step} val mIoU {miou:.4f} overall {overall:.4f}")
+        if self.main_process:
+            print(f"[lite] step {step} val mIoU {miou:.4f} overall {overall:.4f}")
         self._log_scalar("val/miou", miou, step)
         self._log_scalar("val/overall", overall, step)
         if miou > self.best_miou and self.cfg.get("training", {}).get("save_best", True):

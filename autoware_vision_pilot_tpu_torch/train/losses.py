@@ -13,12 +13,17 @@
 The dense losses take the port's NCHW logits and NCHW targets (class ids
 are (B, H, W)); the BEV losses take (N,) and (2, N) point tensors. Each
 reduces to a scalar and is differentiable with autograd, with the JAX
-functions' arithmetic.
+functions' arithmetic. Inside a data-parallel step (parallel/sharding.py::
+batch_sharded) the batch-wide parts (the weighted CE's normalizer, the SSI
+extrema and mean, robust_mae's quantile and count) are taken over the
+whole batch, so that the ranks' losses average to the whole batch's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.sharding import batch_gather, batch_normalizer
 
 SOBEL_GX = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))
 SOBEL_GY = ((1.0, 2.0, 1.0), (0.0, 0.0, 0.0), (-1.0, -2.0, -1.0))
@@ -39,7 +44,7 @@ def segmentation_ce_loss(logits, target_onehot_or_ids, class_weights=None):
     w = w.reshape(1, C, 1, 1)
     nll = -(tgt * logp)
     wsum = torch.sum(tgt * w, dim=1)
-    return torch.sum(nll * w) / torch.clamp_min(torch.sum(wsum), 1e-12)
+    return torch.sum(nll * w) / batch_normalizer(torch.sum(wsum), 1e-12)
 
 
 def _bce_with_logits(logits, target):
@@ -53,8 +58,10 @@ def binary_seg_loss(logits, target):
 
 
 def _ssi_norm(x):
-    """(x - min) / (max - mean): the reference's get_ssi_nom_tensor."""
-    return (x - torch.min(x)) / (torch.max(x) - torch.mean(x))
+    """(x - min) / (max - mean): the reference's get_ssi_nom_tensor, the
+    extrema and mean over the whole batch."""
+    whole = batch_gather(x)
+    return (x - torch.min(whole)) / (torch.max(whole) - torch.mean(whole))
 
 
 def _sobel(x_n1hw):
@@ -98,10 +105,11 @@ def quantile_linear(x, q: float):
 
 
 def robust_mae(pred, gt, quantile: float = 0.9):
-    """Mean of |err| below its q-th quantile (a masked mean)."""
+    """Mean of |err| below its q-th quantile (a masked mean), the quantile
+    and the count over the whole batch."""
     err = torch.abs(pred - gt)
-    mask = err < quantile_linear(err, quantile)
-    return torch.sum(err * mask) / torch.clamp_min(torch.sum(mask), 1)
+    mask = err < quantile_linear(batch_gather(err.detach()), quantile)
+    return torch.sum(err * mask) / batch_normalizer(torch.sum(mask), 1)
 
 
 def ssi_mae_depth_loss(pred_n1hw, gt_n1hw, edge_scale: float = 1.0):

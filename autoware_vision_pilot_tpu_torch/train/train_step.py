@@ -2,12 +2,24 @@
 autoware_vision_pilot_tpu/train/train_step.py.
 
 The JAX step is one jitted SPMD program over a mesh; here it is an eager
-PyTorch step on one device: forward in train mode (BatchNorm on batch
-statistics, dropout and stochastic depth from an explicit generator),
-autograd, the optimizer, then the EMA. Gradient accumulation (the
-reference's batch-size-by-accumulation trick, train_scene_seg.py:113-129)
-runs the microbatches in order, the BatchNorm running statistics carried
-from one to the next, and averages their gradients, as the JAX scan does.
+PyTorch step: forward in train mode (BatchNorm on batch statistics,
+dropout and stochastic depth from an explicit generator), autograd, the
+optimizer, then the EMA. Gradient accumulation (the reference's
+batch-size-by-accumulation trick, train_scene_seg.py:113-129) runs the
+microbatches in order, the BatchNorm running statistics carried from one
+to the next, and averages their gradients, as the JAX scan does.
+
+Over a world mesh (core/mesh.py; one process a card, as torch DDP runs)
+every rank is given the whole batch and runs its rows of each microbatch,
+as JAX shards the (microbatches, B / microbatches) reshape of it: rank r's
+part of microbatch i is rows i B / mb + r B / (mb W) up to the next
+rank's. Its forward and loss run inside ``parallel.sharding.
+batch_sharded``, so BatchNorm, dropout and the losses see the whole
+microbatch (parallel/sharding.py); the gradients are averaged over the
+ranks once, after the last microbatch; the optimizer and the EMA then step
+alike on every rank, whose weights stay bit-equal. A batch whose
+microbatches do not divide the world runs whole on every rank, as JAX
+replicates it. A mesh of one device changes nothing.
 
 ``TrainState`` holds the module (the JAX ``params`` and ``batch_stats``
 are its parameters and buffers), the optimizer (``opt_state``), the step
@@ -15,8 +27,6 @@ and the EMA copies of the parameters. ``adamw`` stands in for
 ``optax.adamw(lr)`` with optax's defaults. bf16 compute is
 ``compute_dtype=torch.bfloat16``: autocast over f32 master weights, the
 counterpart of a flax net with ``dtype=jnp.bfloat16`` and f32 params.
-Data parallelism over several cards (the JAX ``mesh``) is ROADMAP Queue 1
-item 6.6.
 """
 from __future__ import annotations
 
@@ -29,12 +39,10 @@ import torch
 from torch import nn
 
 from ..convert.from_jax import variables_to_state_dict
+from ..core.mesh import Mesh
 from ..nn.layers import dropout_generator, init_seeded
+from ..parallel.sharding import all_reduce_mean, batch_sharded, pmean_gradients
 from . import optim
-
-
-MESH = ("training over a mesh of several cards is ROADMAP Queue 1 item 6.6; "
-        "this runs on one device")
 
 
 @dataclasses.dataclass
@@ -79,6 +87,36 @@ def optimizer_step(optimizer: torch.optim.Optimizer) -> None:
     optimizer.step()
 
 
+def data_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """The mesh a train step runs over: a world mesh (one process a rank),
+    or None for None and for a mesh of one device. A local mesh of several
+    devices raises: a step over several cards runs a process a card."""
+    if mesh is None or mesh.group is not None:
+        return mesh
+    if mesh.size != 1:
+        raise ValueError(f"a train step over several devices runs one process a device; "
+                         f"got the local {mesh}: launch one process a card (torchrun) and "
+                         "make_mesh() inside the world (parallel/distributed.py)")
+    return None
+
+
+def shard_rows(mesh: Optional[Mesh], n: int):
+    """This rank's rows of a (micro)batch of ``n`` rows -> (first, count,
+    sharded): its equal shard over a world mesh when ``n`` divides by the
+    world size, else all ``n`` (replicated, not sharded)."""
+    if mesh is None or n % mesh.size:
+        return 0, n, False
+    count = n // mesh.size
+    return mesh.rank * count, count, True
+
+
+def average_gradients(optimizer: torch.optim.Optimizer, mesh: Optional[Mesh]) -> None:
+    """The optimizer's gradients averaged over a world mesh's ranks, in
+    place (nothing without one)."""
+    if mesh is not None:
+        pmean_gradients((p.grad for g in optimizer.param_groups for p in g["params"]), mesh)
+
+
 def make_seg_train_step(loss_fn: Callable, mesh=None, microbatches: int = 1,
                         ema_decay: Optional[float] = None,
                         compute_dtype: torch.dtype = torch.float32):
@@ -92,9 +130,11 @@ def make_seg_train_step(loss_fn: Callable, mesh=None, microbatches: int = 1,
     the gradients averaged. ``generator`` (on any device; its masks are
     moved to the images') draws the dropout and stochastic-depth masks.
     The update is in place: the module, the optimizer and the EMA of
-    ``state`` change, and its step counts one more."""
-    if mesh is not None:
-        raise NotImplementedError(MESH)
+    ``state`` change, and its step counts one more. Over a world ``mesh``
+    each rank passes the whole batch and the same generator state, runs
+    its rows, and gets the whole batch's mean loss (see the module's
+    docstring)."""
+    mesh = data_mesh(mesh)
 
     def step(state: TrainState, images: torch.Tensor, targets: torch.Tensor,
              generator: torch.Generator):
@@ -103,17 +143,20 @@ def make_seg_train_step(loss_fn: Callable, mesh=None, microbatches: int = 1,
         if B % microbatches:
             raise ValueError(f"batch {B} does not split into {microbatches} microbatches")
         n = B // microbatches
+        first, rows, sharded = shard_rows(mesh, n)
         model.train()
         opt.zero_grad(set_to_none=True)
         losses = []
-        with dropout_generator(generator):
+        with dropout_generator(generator), batch_sharded(mesh if sharded else None):
             for i in range(microbatches):
+                lo = i * n + first
                 with torch.autocast(images.device.type, dtype=compute_dtype,
                                     enabled=compute_dtype != torch.float32):
-                    out = model(images[i * n:(i + 1) * n])
-                loss = loss_fn(out.float(), targets[i * n:(i + 1) * n])
+                    out = model(images[lo:lo + rows])
+                loss = loss_fn(out.float(), targets[lo:lo + rows])
                 loss.backward()
                 losses.append(loss.detach())
+        average_gradients(opt, mesh)
         if microbatches > 1:
             for group in opt.param_groups:
                 for p in group["params"]:
@@ -123,7 +166,8 @@ def make_seg_train_step(loss_fn: Callable, mesh=None, microbatches: int = 1,
         if ema_decay is not None and state.ema is not None:
             ema_update(state, model, ema_decay)
         state.step += 1
-        return state, torch.stack(losses).mean()
+        loss = torch.stack(losses).mean()
+        return state, all_reduce_mean(mesh, loss)[0] if sharded else loss
 
     return step
 

@@ -272,8 +272,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              80x160 masks, and the Lite trainer on configs/SceneSegLite.yaml
              as written (DeepLabV3+, its 512x1024 crop, batch 8; the head
              built with the loss's 19 classes): finite losses and step p50.
+38. data parallelism and the mesh: (a) 36b's step through
+             make_seg_train_step(mesh=...) on the world mesh of an NCCL world
+             of one process, in turns with no mesh: step p50/p99 of both
+             beside 36b's; (b) a gloo world of 2 processes on cuda:0 (spawned
+             by parallel/distributed.py::run_world; NCCL refuses two ranks on
+             one card): one f32 step of SceneSeg at full depth, 160x320,
+             batch 4, microbatches 2, sgd 0.1, held to the same step in one
+             process (loss, every weight and BatchNorm statistic within
+             1e-3 * max|ref|), the ranks' states bit-equal, its time (one
+             card, two ranks: not a speed figure), started after (a) on a
+             thread, its ranks starting while (d) and (c)'s checks run;
+             (c) the fleet at N = 8 in
+             f32 over [cuda:0] (bit-equal to no mesh) and [cuda:0, cuda:0]
+             (two shards of 4) against no mesh at phase 18's bars, then
+             FleetEngine in bf16 over the two shards: two preprocess, walk,
+             letterbox and NMS launches a tick, tick p50/p99 beside phase
+             18's; (d) make_sharded_infer on the clip (batch 10, two shards)
+             and make_tp_infer on SceneSeg over (data=1, model=2), both on
+             [cuda:0, cuda:0], f32, held to the unsharded forward at 1e-3 *
+             max|ref|.
 The run prints its wall time, and that of phases 19-25, 26-28, 29-32,
-33-35, 36 and 37.
+33-35, 36, 37 and 38.
 """
 from __future__ import annotations
 
@@ -2888,6 +2908,7 @@ def phase_fleet(card):
         raise AssertionError("non-finite fleet results")
     host_p = percentiles(np.diff(stamps)[3:] * 1e3)
     dev_p = percentiles(engine.device_ms[3:])
+    LATENCY["fleet"] = host_p
     print(f"bf16 FleetEngine, N = {FLEET_N} streams at full width, {FLEET_TICKS} ticks, "
           f"{card}: tick p50 {host_p[0]!r} ms, p99 {host_p[1]!r} ms (host, between ticks, "
           f"after 3); upload to results on the host p50 {dev_p[0]!r} ms, p99 {dev_p[1]!r} ms "
@@ -4512,6 +4533,8 @@ def phase_train_bench(card):
             raise AssertionError(f"train step{label}: non-finite EMA")
         p50, p99 = percentiles(steps)
         results[label] = p50
+        if not label:
+            LATENCY["train step"] = (p50, p99)
         print(f"train step bf16{label}, SceneSeg full width and depth {TRAIN_HW[0]}x"
               f"{TRAIN_HW[1]} batch {batch}, AdamW 1e-4, {card}: p50 {p50!r} ms, p99 "
               f"{p99!r} ms over {timed} steps after {TRAIN_WARM} warm-up (CUDA events between "
@@ -4890,6 +4913,439 @@ def phase_other_trainers(card):
     return results
 
 
+# ---------- phase 38: data parallelism and the mesh ----------
+
+DP_HW, DP_BATCH, DP_MICRO = (160, 320), 4, 2  # phase 38b: full-depth SceneSeg, f32
+DP_WARM, DP_TIMED = 2, 6  # phase 38a: steps a turn, four turns
+MESH_TICKS = 3  # phase 38c's f32 checks
+
+
+def dp_net(hw, device):
+    """SceneSeg at full width and depth for ``hw`` inputs, seeded, on ``device``."""
+    from autoware_vision_pilot_tpu_torch.models import SceneSegNetwork
+    from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded
+
+    net = init_seeded(SceneSegNetwork((hw[0] // 32, hw[1] // 32)),
+                      torch.Generator().manual_seed(SEED))
+    return net.to(device, memory_format=CL)
+
+
+def sgd_step_state(net, images, ids, mesh):
+    """One make_seg_train_step step (sgd 0.1, the CE, microbatches
+    DP_MICRO, masks from a CPU generator) -> (loss, the state dict on the
+    CPU). sgd, not AdamW: AdamW moves a weight by ~lr whatever the sign of a
+    gradient that is 0 but for rounding, sgd by the gradient itself."""
+    from autoware_vision_pilot_tpu_torch.train import (create_seg_train_state,
+                                                       make_seg_train_step,
+                                                       segmentation_ce_loss)
+    from autoware_vision_pilot_tpu_torch.train.optim import sgd
+
+    state = create_seg_train_state(net, sgd(0.1))
+    step = make_seg_train_step(segmentation_ce_loss, mesh=mesh, microbatches=DP_MICRO)
+    state, loss = step(state, images, ids, torch.Generator().manual_seed(SEED + 81))
+    return float(loss), {k: t.detach().cpu().clone() for k, t in net.state_dict().items()}
+
+
+def dp_rank(images, ids, ref_path):
+    """Phase 38b's rank of a gloo world on cuda:0: the world mesh, and one
+    f32 step of its rows of the batch from fresh weights, timed after a
+    first step (~17 s of a process's first CUDA work); the state after it
+    is held here to the one-process reference state (torch.save'd at
+    ``ref_path``) and hashed for the ranks' bit-equality (imports no JAX).
+    -> (err, tol) by tensor, the loss, the hash, the step's time, stamps."""
+    import hashlib
+
+    from autoware_vision_pilot_tpu_torch.core.mesh import make_mesh
+
+    stamps = {"in the rank": time.time()}
+    no_tf32()
+    mesh = make_mesh()
+    images, ids = images.cuda(), ids.cuda()
+    net = dp_net(DP_HW, "cuda")
+    stamps["mesh and net"] = time.time()
+    sgd_step_state(net, images, ids, mesh)  # the process's first step
+    torch.cuda.synchronize()
+    stamps["first step"] = time.time()
+    net = dp_net(DP_HW, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, state = sgd_step_state(net, images, ids, mesh)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    stamps["second step"] = time.time()
+    digest, errors = hashlib.sha256(), {}
+    for name, ref in torch.load(ref_path, map_location="cpu").items():
+        t = state[name]
+        digest.update(t.numpy().tobytes())
+        errors[name] = ((t.float() - ref.float()).abs().max().item(),
+                        1e-3 * ref.float().abs().max().item())
+    return {"rank": mesh.rank, "devices": [str(d) for d in mesh.devices.flat], "loss": loss,
+            "errors": errors, "digest": digest.hexdigest(), "s": s, "stamps": stamps}
+
+
+def phase_dp_world_one(card):
+    """Phase 38a: tools/bench_train.py's configuration (SceneSeg, 320x640,
+    batch 16, bf16, AdamW 1e-4) through make_seg_train_step(mesh=...) on
+    the world mesh of an NCCL world of one process, in turns with the same
+    step without a mesh (mesh, none, none, mesh; DP_WARM + DP_TIMED steps a
+    turn, CUDA events between steps run back to back): step p50/p99 of
+    each beside phase 36b's, finite losses."""
+    import copy
+    import tempfile
+
+    import torch.distributed as dist
+    from autoware_vision_pilot_tpu_torch.core.mesh import make_mesh
+    from autoware_vision_pilot_tpu_torch.parallel.distributed import destroy_world, init_world
+    from autoware_vision_pilot_tpu_torch.train import (create_seg_train_state,
+                                                       make_seg_train_step,
+                                                       segmentation_ce_loss)
+    from autoware_vision_pilot_tpu_torch.train.train_step import adamw
+
+    batches = train_batches(2, TRAIN_BATCH, TRAIN_HW, SEED + 84, "cuda")
+    seeded = dp_net(TRAIN_HW, "cpu")
+    times = {"world mesh": [], "no mesh": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world(1, 0, f"file://{tmp}/store", device="cuda:0")
+        try:
+            mesh = make_mesh()
+            if mesh.group is None or mesh.size != 1 or dist.get_backend() != "nccl":
+                raise AssertionError(f"phase 38a: {mesh} on {dist.get_backend()}, expected an "
+                                     "NCCL world mesh of 1")
+            for label in ("world mesh", "no mesh", "no mesh", "world mesh"):
+                net = copy.deepcopy(seeded).to("cuda", memory_format=CL)
+                state = create_seg_train_state(net, adamw(1e-4))
+                step = make_seg_train_step(segmentation_ce_loss, compute_dtype=torch.bfloat16,
+                                           mesh=mesh if label == "world mesh" else None)
+                gen = torch.Generator(device="cuda").manual_seed(SEED + 85)
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(DP_WARM + DP_TIMED + 1)]
+                torch.cuda.synchronize()
+                events[0].record()
+                for i in range(DP_WARM + DP_TIMED):
+                    state, loss = step(state, *batches[i % 2], gen)
+                    events[i + 1].record()
+                torch.cuda.synchronize()
+                times[label] += [events[i].elapsed_time(events[i + 1])
+                                 for i in range(DP_WARM, DP_WARM + DP_TIMED)]
+                if not math.isfinite(float(loss)):
+                    raise AssertionError(f"phase 38a {label}: non-finite loss")
+                del state, step, net
+                torch.cuda.empty_cache()
+        finally:
+            destroy_world()
+    p36 = LATENCY.get("train step", (float("nan"),) * 2)
+    p = {k: percentiles(v) for k, v in times.items()}
+    print(f"train step bf16 over the world mesh of an NCCL world of 1, SceneSeg {TRAIN_HW[0]}x"
+          f"{TRAIN_HW[1]} batch {TRAIN_BATCH}, AdamW 1e-4, {card}: p50 {p['world mesh'][0]!r} "
+          f"ms, p99 {p['world mesh'][1]!r} ms; no mesh in the same turns p50 "
+          f"{p['no mesh'][0]!r} ms, p99 {p['no mesh'][1]!r} ms ({2 * DP_TIMED} steps each, "
+          f"turns mesh, none, none, mesh); phase 36b's step, no mesh: p50 {p36[0]!r} ms, p99 "
+          f"{p36[1]!r} ms")
+
+
+def dp_batch():
+    g = torch.Generator().manual_seed(SEED + 86)
+    return (torch.randn(DP_BATCH, 3, *DP_HW, generator=g).contiguous(memory_format=CL),
+            torch.randint(0, 3, (DP_BATCH, *DP_HW), generator=g))
+
+
+def start_dp_world_two():
+    """Phase 38b's world, started on a thread after this process has run
+    the one-process reference step, whose state goes to the ranks through a
+    file: the ranks spend ~30 s starting and loading their CUDA kernels,
+    during which 38d and 38c's checks (nothing timed) run here. -> (the
+    future of run_world's result, the executor, the start time, the
+    reference loss, the file's directory)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from autoware_vision_pilot_tpu_torch.parallel.distributed import run_world
+
+    no_tf32()
+    images, ids = dp_batch()
+    ref_loss, ref = sgd_step_state(dp_net(DP_HW, "cuda"), images.cuda(), ids.cuda(), None)
+    tmp = tempfile.TemporaryDirectory()
+    torch.save(ref, os.path.join(tmp.name, "ref.pt"))
+    pool = ThreadPoolExecutor(1)
+    return (pool.submit(run_world, dp_rank, 2, images, ids, os.path.join(tmp.name, "ref.pt"),
+                        device="cuda:0", backend="gloo", timeout=300),
+            pool, time.time(), ref_loss, tmp)
+
+
+def phase_dp_world_two(card, started):
+    """Phase 38b: a gloo world of two processes, both on cuda:0 (NCCL
+    refuses two ranks on one card; gloo reduces CUDA tensors), started by
+    start_dp_world_two: one f32 step (TF32 off) of SceneSeg at full depth,
+    DP_HW, batch DP_BATCH, DP_MICRO microbatches, sgd 0.1, against the same
+    step in this process without a mesh: the loss, every weight and every
+    BatchNorm statistic within 1e-3 * max|ref|, and the two ranks' states
+    bit-equal (their hashes)."""
+    future, pool, t0, ref_loss, tmp = started
+    try:
+        ranks = future.result()
+    finally:
+        pool.shutdown()
+        tmp.cleanup()
+    wall = time.time() - t0
+    stamps = [{k: round(v - t0, 1) for k, v in r["stamps"].items()} for r in ranks]
+    for r, out in enumerate(ranks):
+        if out["rank"] != r or out["devices"] != ["cuda:0", "cuda:0"]:
+            raise AssertionError(f"phase 38b rank {r}: {out['rank']}, {out['devices']}")
+    if ranks[0]["loss"] != ranks[1]["loss"] or ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("phase 38b: the two ranks' states differ")
+    err, tol = held("world of 2 loss", torch.tensor(ranks[0]["loss"]), torch.tensor(ref_loss))
+    worst = 0.0
+    for k, (e, b) in ranks[0]["errors"].items():
+        if not e <= b:
+            raise AssertionError(f"world of 2 {k}: it and one process disagree, {e} > {b}")
+        worst = max(worst, e / b if b else 0.0)
+    print(f"train step f32 over a gloo world of 2 on cuda:0 (one card, two ranks: not a speed "
+          f"figure), SceneSeg full depth {DP_HW[0]}x{DP_HW[1]} batch {DP_BATCH}, microbatches "
+          f"{DP_MICRO}, sgd 0.1, TF32 off, against the same step without a mesh: loss "
+          f"{ranks[0]['loss']!r} vs {ref_loss!r} (err {err!r}, tol {tol!r}); "
+          f"{len(ranks[0]['errors'])} weights and BatchNorm statistics within 1e-3 * max|ref| "
+          f"each (worst err / tol {worst:.3f}); the ranks' states bit-equal (sha256 "
+          f"{ranks[0]['digest'][:16]}...); the step {ranks[0]['s']!r} s / {ranks[1]['s']!r} s "
+          f"in the ranks (after a first step), the world {wall:.1f} s from its start, its "
+          f"spawn included (seconds from the start by rank: {stamps}), {card}")
+
+
+class NetRows:
+    """A forward hook of phase 38c: "record" keeps each call's output;
+    "replay" returns, call by call, the next rows of the recorded outputs
+    (a tick's shards ask in stream order); "off" changes nothing."""
+
+    def __init__(self):
+        self.calls, self.mode, self.ref, self.pos = [], "record", [], (0, 0)
+
+    def __call__(self, module, args, y):
+        if self.mode == "record":
+            self.calls.append(y)
+        if self.mode != "replay":
+            return None
+        n = args[0].shape[0]
+        k, row = self.pos
+        full = self.ref[k]
+        rows = lambda t: t[row:row + n]  # noqa: E731
+        out = tuple(map(rows, full)) if isinstance(full, tuple) else rows(full)
+        row += n
+        self.pos = (k + 1, 0) if row == (full[0] if isinstance(full, tuple) else full).shape[0] \
+            else (k, row)
+        return out
+
+
+def phase_fleet_mesh_f32():
+    """Phase 38c's checks: FleetLateralPipeline and
+    FleetLongitudinalPipeline at N = FLEET_N in f32 (TF32 off) over
+    MESH_TICKS ticks, the states carried, over a mesh of [cuda:0]
+    (bit-equal to no mesh) and of [cuda:0, cuda:0] (two shards of 4)
+    against no mesh at phase 18's bars: each network's outputs within 1e-3
+    * max|ref|; then, the networks fed the unsharded run's outputs, the
+    masks, flags, AutoSteer's angle and the detection tables equal and the
+    lane fits within 5e-3 * max|ref|."""
+    from autoware_vision_pilot_tpu_torch.core.mesh import make_mesh
+    from autoware_vision_pilot_tpu_torch.runtime.config import Config
+    from autoware_vision_pilot_tpu_torch.runtime.fleet import (FleetLateralPipeline,
+                                                               FleetLongitudinalPipeline)
+    from autoware_vision_pilot_tpu_torch.runtime.pipeline import (SCALAR_FIELDS,
+                                                                  build_lateral_pipeline,
+                                                                  build_longitudinal_pipeline)
+
+    no_tf32()
+    n, cfg = FLEET_N, Config()
+    one, two = make_mesh(devices=["cuda:0"]), make_mesh(devices=["cuda:0", "cuda:0"])
+    lat = build_lateral_pipeline("cuda", torch.float32, SEED)
+    lon = build_longitudinal_pipeline("cuda", torch.float32, SEED)
+    fs = frames(MESH_TICKS * n, FRAME_HW, SEED + 87).cuda().view(MESH_TICKS, n, *FRAME_HW, 3)
+    hooks = {"lanes": NetRows(), "steer": NetRows(), "pred": NetRows()}
+    handles = [m.register_forward_hook(hooks[k]) for k, m in
+               (("lanes", lat.lanes), ("steer", lat.steer_net), ("pred", lon.net))]
+
+    def run(mesh, mode):
+        for h in hooks.values():
+            h.mode, h.calls, h.pos = mode, [], (0, 0)
+        fleet = FleetLateralPipeline(lat.lanes, lat.steer_net, cfg, n, dtype=torch.float32,
+                                     mesh=mesh)
+        fleet_lon = FleetLongitudinalPipeline(lon.net, cfg, n, dtype=torch.float32, mesh=mesh)
+        states, outs = fleet.init_states(SEED), []
+        for tick in range(MESH_TICKS):
+            out, states = fleet(fs[tick], states)
+            outs.append((out, fleet_lon(fs[tick])))
+        return outs
+
+    def same(a, b):
+        return all(torch.equal(torch.nan_to_num(a[0][k]), torch.nan_to_num(b[0][k]))
+                   for k in a[0]) and torch.equal(a[1], b[1])
+
+    flags = [SCALAR_FIELDS.index(f) for f in ("autosteer_deg", "fused_valid", "path_valid")]
+    try:
+        ref = run(None, "record")
+        for h in hooks.values():
+            h.ref = h.calls
+        if not all(same(a, b) for a, b in zip(run(one, "off"), ref)):
+            raise AssertionError("the fleet over a one-device mesh differs from no mesh")
+        run(two, "record")
+        worst = {}
+        for name, h in hooks.items():
+            for k, full in enumerate(h.ref):
+                parts = h.calls[2 * k:2 * k + 2]
+                if isinstance(full, tuple):
+                    full, parts = full[1], [p[1] for p in parts]
+                err = (torch.cat(parts) - full).abs().max().item() / full.abs().max().item()
+                worst[name] = max(worst.get(name, 0.0), err)
+                if not err <= 1e-3:
+                    raise AssertionError(f"the {name} network over two shards is {err!r} * "
+                                         "max|ref| from no mesh")
+        fits = 0.0
+        for (out, tables), (want, want_tables) in zip(run(two, "replay"), ref):
+            fin = torch.isfinite(want["coeffs"])
+            scale = torch.where(fin, want["coeffs"], 0.0).abs().amax(-1, keepdim=True)
+            fit = ((torch.where(fin, out["coeffs"], 0.0) - torch.where(fin, want["coeffs"], 0.0))
+                   .abs() / scale.clamp_min(1e-30)).max().item()
+            fits = max(fits, fit)
+            if not (torch.equal(out["lane_masks"], want["lane_masks"])
+                    and torch.equal(out["scalars"][:, flags], want["scalars"][:, flags])
+                    and torch.equal(torch.isnan(out["coeffs"]), torch.isnan(want["coeffs"]))
+                    and fit <= 5e-3 and torch.equal(tables, want_tables)):
+                raise AssertionError("the fleet over two shards fed the unsharded networks' "
+                                     "outputs differs from no mesh")
+    finally:
+        for h in handles:
+            h.remove()
+    print(f"f32 fleet N = {n} over the mesh [cuda:0]: bit-equal to no mesh over {MESH_TICKS} "
+          f"ticks; over [cuda:0, cuda:0] (two shards of {n // 2}): networks within "
+          f"{worst} * max|ref| (tol 1e-3), fed the unsharded outputs masks, flags and "
+          f"AutoSteer equal, lane fits {fits!r} * max|ref| (tol 5e-3), detection tables equal")
+    del lat, lon
+    torch.cuda.empty_cache()
+
+
+def phase_fleet_mesh_engine(card):
+    """Phase 38c's timing: FleetEngine in bf16 over [cuda:0, cuda:0] (N =
+    FLEET_N in two shards) for FLEET_TICKS ticks under sync-debug "error":
+    two preprocess, walk, letterbox and NMS launches a tick, tick p50/p99
+    beside phase 18's. -> the launch counts."""
+    from autoware_vision_pilot_tpu_torch.core.mesh import make_mesh
+    from autoware_vision_pilot_tpu_torch.perception.tracking import ObjectFinder
+    from autoware_vision_pilot_tpu_torch.runtime.config import Config
+    from autoware_vision_pilot_tpu_torch.runtime.fleet import (FleetEngine,
+                                                               FleetLateralPipeline,
+                                                               FleetLongitudinalPipeline)
+    from autoware_vision_pilot_tpu_torch.runtime.pipeline import (build_lateral_pipeline,
+                                                                  build_longitudinal_pipeline)
+
+    n, cfg, two = FLEET_N, Config(), make_mesh(devices=["cuda:0", "cuda:0"])
+    lat = build_lateral_pipeline("cuda", torch.bfloat16, SEED)
+    lon = build_longitudinal_pipeline("cuda", torch.bfloat16, SEED)
+    fleet = FleetLateralPipeline(lat.lanes, lat.steer_net, cfg, n, mesh=two)
+    fleet_lon = FleetLongitudinalPipeline(lon.net, cfg, n, mesh=two)
+    rng = np.random.default_rng(SEED + 88)
+    base = rng.integers(0, 256, (n, *FRAME_HW, 3), dtype=np.uint8)
+    ticks = [np.roll(base, 41 * t, axis=2) ^ np.uint8(t) for t in range(FLEET_TICKS)]
+    stamps = []
+
+    def source(it):
+        def next_tick():
+            stamps.append(time.perf_counter())
+            return next(it, None)
+        return next_tick
+
+    def finders():
+        return [ObjectFinder(np.eye(3), FRAME_HW[1], FRAME_HW[0]) for _ in range(n)]
+
+    FleetEngine(cfg, fleet, fleet_lon, finders(), frame_source=source(iter(ticks[:3]))).run()
+    engine = FleetEngine(cfg, fleet, fleet_lon, finders(), frame_source=source(iter(ticks)))
+    stamps.clear()
+    torch.cuda.synchronize()
+    reset_counts()  # count only this path's launches
+    results = engine.run(pipeline_depth=1, sync_check=True)
+    counts = read_counts()
+    expect_launches(counts, {"fused_preprocess": 2 * FLEET_TICKS,
+                             "lane_filter_walk": 2 * FLEET_TICKS,
+                             "fused_letterbox": 2 * FLEET_TICKS, "nms_greedy": 2 * FLEET_TICKS,
+                             "int8_quantize": 0, "int8_conv": 0})
+    if len(results) != FLEET_TICKS or any(len(r) != n for r in results) or not all(
+            np.isfinite([x.steering_deg, x.set_speed]).all() for r in results for x in r):
+        raise AssertionError("the fleet over two shards: short, out of order or non-finite")
+    host_p = percentiles(np.diff(stamps)[3:] * 1e3)
+    dev_p = percentiles(engine.device_ms[3:])
+    p18 = LATENCY.get("fleet", (float("nan"),) * 2)
+    print(f"bf16 FleetEngine over [cuda:0, cuda:0], N = {n} in two shards, {FLEET_TICKS} ticks, "
+          f"{card}: tick p50 {host_p[0]!r} ms, p99 {host_p[1]!r} ms (host, between ticks, "
+          f"after 3); upload to results p50 {dev_p[0]!r} ms, p99 {dev_p[1]!r} ms (CUDA "
+          f"events); phase 18's unsharded tick p50 {p18[0]!r} ms, p99 {p18[1]!r} ms; no host "
+          f"sync in any dispatch; launches {counts}")
+    del lat, lon, fleet, fleet_lon, engine
+    torch.cuda.empty_cache()
+    return {k: v for k, v in counts.items() if v}
+
+
+class ClipNets(torch.nn.Module):
+    """BASELINE config 3's forward: a window of uint8 720p frames through
+    the preprocess kernel into EgoLanes and DomainSeg."""
+
+    def __init__(self, lanes, domain, dtype):
+        super().__init__()
+        self.lanes, self.domain, self.dtype = lanes, domain, dtype
+
+    def forward(self, frames_u8):
+        from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (
+            fused_preprocess)
+
+        x = fused_preprocess(frames_u8, OUT_HW, self.dtype)
+        return self.lanes(x), self.domain(x)
+
+
+def phase_sharded_infer_and_tp(card):
+    """Phase 38d, f32 with TF32 off: make_sharded_infer over [cuda:0,
+    cuda:0] on the clip (EgoLanes + DomainSeg behind the preprocess kernel,
+    a window of CLIP_BATCH 720p frames, two shards of 5: one preprocess
+    launch a shard), and make_tp_infer on SceneSeg over (data=1, model=2)
+    on [cuda:0, cuda:0] (each conv, transposed conv and Linear split on its
+    output channels), each held to the unsharded forward at 1e-3 *
+    max|ref|. -> the preprocess launches."""
+    from autoware_vision_pilot_tpu_torch.core.mesh import make_mesh
+    from autoware_vision_pilot_tpu_torch.parallel.multichip_inference import make_sharded_infer
+    from autoware_vision_pilot_tpu_torch.parallel.tensor_parallel import (ChannelSplit,
+                                                                          make_tp_infer,
+                                                                          shard_variables_tp)
+
+    no_tf32()
+    twice = ["cuda:0", "cuda:0"]
+    clip = ClipNets(seg_wrappers()["EgoLanes"](dtype=torch.float32).model.eval(),
+                    seg_wrappers()["DomainSeg"](dtype=torch.float32).model.eval(), torch.float32)
+    window = frames(CLIP_BATCH, FRAME_HW, SEED + 89).cuda()
+    with torch.no_grad():
+        ref = clip(window)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = make_sharded_infer(clip, make_mesh(devices=twice))(window)
+    launches = read_counts()["fused_preprocess"]
+    if launches != 2:
+        raise AssertionError(f"the sharded clip launched the preprocess kernel {launches} times")
+    errs = [held(f"sharded clip {name}", g, r) for name, g, r in
+            zip(("EgoLanes", "DomainSeg"), got, ref)]
+    del clip, got, ref
+    net = dp_net(OUT_HW, "cuda").eval()
+    x = (torch.randn(1, 3, *OUT_HW, generator=torch.Generator().manual_seed(SEED + 90))
+         .cuda().contiguous(memory_format=CL))
+    with torch.no_grad():
+        ref = net(x)
+    mesh = make_mesh((1, 2), ("data", "model"), twice)
+    (replica,) = shard_variables_tp(net, mesh)
+    split = sum(isinstance(m, ChannelSplit) for m in replica.modules())
+    tp_err, tp_tol = held("tensor-parallel SceneSeg", make_tp_infer([replica], mesh)(x), ref)
+    print(f"f32, {card}: make_sharded_infer over [cuda:0, cuda:0] on the clip (EgoLanes + "
+          f"DomainSeg, a window of {CLIP_BATCH} 720p frames in two shards of "
+          f"{CLIP_BATCH // 2}, one preprocess launch a shard) within 1e-3 * max|ref| of the "
+          f"unsharded forward ((max_abs_err, tol) {errs}); make_tp_infer on SceneSeg "
+          f"320x640 over (data=1, model=2) on [cuda:0, cuda:0], {split} layers split on their "
+          f"output channels: max_abs_err {tp_err!r}, tol {tp_tol!r}")
+    del net, replica
+    torch.cuda.empty_cache()
+    return launches
+
+
 def host_costs_of(root):
     """--host-costs ROOT: phase 7's host-cost measurement alone, over the
     port package found in ROOT (this repository, or an earlier commit of it
@@ -5008,6 +5464,17 @@ def main():
     paths["detection validation"], _ = timed("37b", phase_det_bench, card)
     timed("37c", phase_other_trainers, card)
     print(f"wall time of phase 37 (s): {walls}, {sum(walls.values()):.1f} s in all")
+    # data parallelism and the mesh: the train step over an NCCL world of 1 and a
+    # gloo world of 2 on the one card, the fleet over a mesh of the card twice,
+    # the sharded clip and tensor parallelism
+    walls.clear()
+    timed("38a", phase_dp_world_one, card)
+    world = timed("38b start", start_dp_world_two)  # 38d and 38c's checks run meanwhile
+    paths["sharded clip"] = {"fused_preprocess": timed("38d", phase_sharded_infer_and_tp, card)}
+    timed("38c checks", phase_fleet_mesh_f32)
+    timed("38b", phase_dp_world_two, card, world)
+    paths["fleet over a mesh"] = timed("38c engine", phase_fleet_mesh_engine, card)
+    print(f"wall time of phase 38 (s): {walls}, {sum(walls.values()):.1f} s in all")
     for path, counts in paths.items():
         for name, n in counts.items():
             # the paths at min_channels 128 and above tally the mma.sync

@@ -107,9 +107,20 @@ def test_autosteer_loss_matches_jax():
 
 
 def test_autosteer_mesh_raises():
-    with pytest.raises(NotImplementedError, match="6.6"):
-        tst.AutoSteerTrainer(tst.AutoSteerTrainerConfig(input_hw=STEER_HW), mesh=object(),
-                             device="cpu")
+    """A mesh of one device trains and validates as mesh=None does, bit for
+    bit (one step from seed 0)."""
+    from autoware_vision_pilot_tpu_torch.core.mesh import make_mesh
+
+    batch = steer_batch(37)
+    runs = []
+    for mesh in (None, make_mesh(devices=["cpu"])):
+        tr = tst.AutoSteerTrainer(tst.AutoSteerTrainerConfig(input_hw=STEER_HW), mesh=mesh,
+                                  device="cpu")
+        runs.append((tr.fit_step(*batch), tr.model.state_dict(), tr.validate([batch])))
+    (loss, want, metrics), (got_loss, got, got_metrics) = runs
+    assert torch.equal(got_loss, loss)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert got_metrics == metrics
 
 
 def test_temporal_trainer_matches_jax(tmp_path, monkeypatch):

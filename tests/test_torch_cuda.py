@@ -1557,3 +1557,136 @@ def test_detection_validation_nms_on_card(cuda, monkeypatch):
     monkeypatch.setattr(dt, "nms_greedy", nms_greedy_plain)
     assert tr.validate(iter(batches)) == got
     assert nms_greedy.launches == before + 1
+
+
+# ---------- data parallelism and the mesh ----------
+
+class Replay:
+    """A forward hook: records each call's output, or (``ref`` set) returns
+    the next rows of the recorded outputs call by call, so that a tick's
+    shards get their streams' rows in order."""
+
+    def __init__(self):
+        self.calls, self.ref, self.row = [], None, 0
+
+    def __call__(self, module, args, y):
+        if self.ref is None:
+            self.calls.append(y)
+            return None
+        n, full = args[0].shape[0], self.ref[0]
+        rows = lambda t: t[self.row:self.row + n]  # noqa: E731
+        out = tuple(map(rows, full)) if isinstance(full, tuple) else rows(full)
+        self.row += n
+        if self.row == (full[0] if isinstance(full, tuple) else full).shape[0]:
+            self.ref, self.row = self.ref[1:], 0
+        return out
+
+
+def test_fleet_over_a_mesh_of_the_card_twice(cuda):
+    """The fleet at N = 4, f32 with TF32 off at the small geometry, over
+    [cuda:0] (bit-equal to no mesh) and over [cuda:0, cuda:0] (two shards
+    of 2, a replica of the networks shared on the one card) against no
+    mesh, 2 ticks, the networks fed the unsharded run's outputs: masks,
+    flags, AutoSteer's angle and the detection tables equal, lane fits
+    within 5e-3 * max|ref|; each kernel launches once a shard a tick."""
+    from autoware_vision_pilot_tpu_torch.core.mesh import make_mesh
+    from autoware_vision_pilot_tpu_torch.runtime.fleet import (FleetLateralPipeline,
+                                                               FleetLongitudinalPipeline)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    lat = build_lateral_pipeline(cuda, torch.float32, **LATERAL)
+    lon = build_longitudinal_pipeline(cuda, torch.float32, seed=1, frame_hw=(120, 200),
+                                      input_hw=(128, 128))
+    fs = frames((120, 200), 8, seed=14).to(cuda).view(2, 4, 120, 200, 3)
+    hooks = [Replay(), Replay(), Replay()]
+    handles = [m.register_forward_hook(h) for m, h in zip((lat.lanes, lat.steer_net, lon.net),
+                                                         hooks)]
+
+    def run(mesh):
+        fl = FleetLateralPipeline(lat.lanes, lat.steer_net, lat_cfg(), 4, frame_hw=(120, 200),
+                                  crop_y=20, dtype=torch.float32, net_hw=(96, 192), mesh=mesh)
+        fo = FleetLongitudinalPipeline(lon.net, lat_cfg(), 4, frame_hw=(120, 200),
+                                       input_hw=(128, 128), dtype=torch.float32, mesh=mesh)
+        states, outs = fl.init_states(0), []
+        for tick in fs:
+            out, states = fl(tick, states)
+            outs.append((out, fo(tick)))
+        return outs
+
+    try:
+        want = run(None)
+        got = run(make_mesh(devices=[cuda]))
+        for (a, ta), (b, tb) in zip(got, want):
+            assert torch.equal(ta, tb)
+            assert all(torch.equal(torch.nan_to_num(a[k]), torch.nan_to_num(b[k])) for k in a)
+        for h in hooks:
+            h.ref = list(h.calls)
+        before = (fused_preprocess.launches, lane_filter_walk.launches, fused_letterbox.launches,
+                  nms_greedy.launches)
+        got = run(make_mesh(devices=[cuda, cuda]))
+        assert (fused_preprocess.launches, lane_filter_walk.launches, fused_letterbox.launches,
+                nms_greedy.launches) == tuple(b + 4 for b in before)
+    finally:
+        for h in handles:
+            h.remove()
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    flags = [SCALAR_FIELDS.index(f) for f in ("autosteer_deg", "fused_valid", "path_valid")]
+    for (a, ta), (b, tb) in zip(got, want):
+        assert torch.equal(ta, tb) and torch.equal(a["lane_masks"], b["lane_masks"])
+        assert torch.equal(a["scalars"][:, flags], b["scalars"][:, flags])
+        assert torch.equal(torch.isnan(a["coeffs"]), torch.isnan(b["coeffs"]))
+        fin = torch.isfinite(b["coeffs"])
+        scale = torch.where(fin, b["coeffs"], 0.0).abs().amax().clamp_min(1e-30)
+        assert (torch.where(fin, a["coeffs"] - b["coeffs"], 0.0).abs() <= 5e-3 * scale).all()
+
+
+def test_synced_batchnorm_world_of_one(cuda, tmp_path):
+    """An NCCL world of one process: the train step over its world mesh is
+    bit-equal to the step without a mesh (at one rank BatchNorm keeps its
+    local path: nothing to sync); and the synced BatchNorm's own arithmetic,
+    run over that world, is held to the local one at 1e-5 (output, running
+    statistics, input and weight gradients)."""
+    import torch.distributed as dist
+    from autoware_vision_pilot_tpu_torch.core.mesh import make_mesh
+    from autoware_vision_pilot_tpu_torch.nn import layers as tl
+    from autoware_vision_pilot_tpu_torch.parallel.distributed import destroy_world, init_world
+    from autoware_vision_pilot_tpu_torch.parallel.sharding import BatchShard
+    from autoware_vision_pilot_tpu_torch.train import (create_seg_train_state,
+                                                       make_seg_train_step,
+                                                       segmentation_ce_loss)
+    from autoware_vision_pilot_tpu_torch.train.train_step import adamw
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(4, 3, 16, 32, generator=g).to(cuda)
+    ids = torch.randint(0, 3, (4, 16, 32), generator=g).to(cuda)
+    init_world(1, 0, f"file://{tmp_path / 'store'}", device=cuda)
+    try:
+        mesh = make_mesh()
+        assert mesh.size == 1 and mesh.group is not None and dist.get_backend() == "nccl"
+        runs = []
+        for m in (None, mesh):
+            net = tl.init_seeded(torch.nn.Sequential(
+                tl.Conv2d(3, 8, 3, 1, 1), tl.BatchNorm2d(8), tl.Dropout(0.2),
+                tl.Conv2d(8, 3, 1)), torch.Generator().manual_seed(6)).to(cuda)
+            state = create_seg_train_state(net, adamw(1e-3))
+            step = make_seg_train_step(segmentation_ce_loss, mesh=m, microbatches=2)
+            state, loss = step(state, x, ids, torch.Generator().manual_seed(7))
+            runs.append((loss, net.state_dict()))
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])
+        bn = tl.init_seeded(tl.BatchNorm2d(8), torch.Generator().manual_seed(8)).to(cuda)
+        h = torch.randn(4, 8, 16, 32, generator=g).to(cuda).requires_grad_(True)
+        w = bn.weight.detach().clone().requires_grad_(True)
+        y, mean, var = tl._SyncedBatchNorm.apply(h, w, bn.bias, bn.eps,
+                                                 BatchShard(mesh.group, 1, 0))
+        (y * y).sum().backward()
+        h2 = h.detach().clone().requires_grad_(True)
+        w2 = bn.weight.detach().clone().requires_grad_(True)
+        y2, mean2, invstd = torch.native_batch_norm(h2, w2, bn.bias, None, None, True, 0.0,
+                                                    bn.eps)
+        (y2 * y2).sum().backward()
+    finally:
+        destroy_world()
+    for a, b in ((y, y2), (mean.float(), mean2), (var.float(), invstd.double().pow(-2).sub(
+            bn.eps).float()), (h.grad, h2.grad), (w.grad, w2.grad)):
+        assert (a - b).abs().max().item() <= 1e-5 * max(b.abs().max().item(), 1.0)

@@ -118,10 +118,26 @@ def test_schedule_and_ema_ramp(trained):
     assert float(ttr.ema_decay(2)) == float(d)
 
 
-def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="6.6"):
+def test_mesh_raises(tmp_path):
+    """A mesh of one device trains as mesh=None does, bit for bit (one
+    step from seed 0); a local mesh of two devices is refused (a step over
+    several cards runs a process a card)."""
+    from autoware_vision_pilot_tpu_torch.core.mesh import make_mesh
+
+    batch = next(iter(tyd.YoloBatcher(synthetic_dataset(2, 24), input_hw=HW, batch_size=BATCH,
+                                      max_boxes=MAX_BOXES, seed=25)))
+    runs = []
+    for mesh in (None, make_mesh(devices=["cpu"])):
+        tr = tdt.DetectionTrainer(tas.AutoSpeedNetwork("n", 4, *HW),
+                                  tdt.DetectionTrainerConfig(**config(tmp_path, "m")),
+                                  mesh=mesh, device="cpu")
+        runs.append((tr.fit_step(*batch), tr.model.state_dict()))
+    (loss, want), (got_loss, got) = runs
+    assert torch.equal(got_loss, loss)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    with pytest.raises(ValueError, match="one process a device"):
         tdt.DetectionTrainer(tas.AutoSpeedNetwork("n", 4, *HW), tdt.DetectionTrainerConfig(),
-                             mesh=object(), device="cpu")
+                             mesh=make_mesh(devices=["cpu", "cpu"]), device="cpu")
 
 
 def test_validate_matches_jax(trained):

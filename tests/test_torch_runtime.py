@@ -175,11 +175,24 @@ def test_queues_and_timers_match_jax(capsys):
 
 
 def test_fleet_refuses_a_mesh(programs):
+    """A mesh of one device serves the fleet as mesh=None does, bit for bit
+    (one tick of 2 streams, both programs)."""
+    from autoware_vision_pilot_tpu_torch.core.mesh import make_mesh
+
     _, lat, lon = programs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.FleetLateralPipeline(lat.lanes, lat.steer_net, Config(), 2, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.FleetLongitudinalPipeline(lon.net, Config(), 2, mesh=object())
+    frames = torch.from_numpy(np.stack(distinct_frames(2, 60)))
+    kw = dict(frame_hw=FRAME_HW, crop_y=CROP_Y, dtype=torch.float32, net_hw=NET_HW)
+    runs = []
+    for mesh in (None, make_mesh(devices=["cpu"])):
+        fleet = trt.FleetLateralPipeline(lat.lanes, lat.steer_net, Config(), 2, mesh=mesh, **kw)
+        out, _ = fleet(frames, fleet.init_states(3))
+        runs.append((out, trt.FleetLongitudinalPipeline(
+            lon.net, Config(), 2, frame_hw=FRAME_HW, input_hw=LON_HW, dtype=torch.float32,
+            mesh=mesh)(frames)))
+    (out, tables), (got, got_tables) = runs
+    assert torch.equal(got_tables, tables)
+    for k in out:
+        assert torch.equal(torch.nan_to_num(got[k]), torch.nan_to_num(out[k])), k
 
 
 def write_video(path, n, seed):
@@ -385,7 +398,9 @@ for m in ("app", "runtime", "runtime.fleet", "runtime.pipeline", "perception.tra
           "train.train_step", "train.legacy_trainer", "train.qat", "train.optim",
           "train.detection_loss", "train.yolo_data", "train.detection_trainer",
           "train.autosteer_trainer", "train.autosteer_temporal_trainer",
-          "train.autodrive_trainer", "train.lite_trainer", "train.augment", "train.teachers"):
+          "train.autodrive_trainer", "train.lite_trainer", "train.augment", "train.teachers",
+          "core", "core.mesh", "core.dtypes", "parallel", "parallel.distributed",
+          "parallel.sharding", "parallel.multichip_inference", "parallel.tensor_parallel"):
     importlib.import_module("autoware_vision_pilot_tpu_torch." + m)
 from autoware_vision_pilot_tpu_torch.export.checkpoints import load_msgpack
 tree = load_msgpack(sys.argv[1])
@@ -400,8 +415,8 @@ def test_port_imports_no_jax(tmp_path):
     """In a subprocess where importing jax, flax, msgpack or the JAX package
     raises, the serving modules of the port (the host IPC bindings, the
     middleware and its nodes, the visualization and telemetry too), its
-    calibration, importers, quantization and training import and read a
-    weight file."""
+    calibration, importers, quantization, training, meshes and parallelism
+    import and read a weight file."""
     from autoware_vision_pilot_tpu.export.checkpoints import save_msgpack
     path = tmp_path / "w.msgpack"
     save_msgpack(path, {"params": {"w": np.ones((2, 3), np.float32)}})

@@ -340,5 +340,22 @@ def test_batchnorm_train_mode_matches_flax(momentum, eps):
 
 
 def test_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 6.6"):
-        tts.make_seg_train_step(tlo.segmentation_ce_loss, mesh=object())
+    """A mesh of one device runs the step as mesh=None does, bit for bit:
+    one step of a conv, BatchNorm, dropout and conv net, microbatches 2."""
+    from autoware_vision_pilot_tpu_torch.core.mesh import make_mesh
+
+    rng = np.random.default_rng(40)
+    x = torch.from_numpy(rng.normal(0, 1, (4, 3, 8, 16)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 3, (4, 8, 16)))
+    runs = []
+    for mesh in (None, make_mesh(devices=["cpu"])):
+        net = tl.init_seeded(torch.nn.Sequential(tl.Conv2d(3, 8, 3, 1, 1), tl.BatchNorm2d(8),
+                                                 tl.Dropout(0.2), tl.Conv2d(8, 3, 1)),
+                             torch.Generator().manual_seed(41))
+        state = tts.create_seg_train_state(net, tts.adamw(1e-3))
+        step = tts.make_seg_train_step(tlo.segmentation_ce_loss, mesh=mesh, microbatches=2)
+        state, loss = step(state, x, ids, torch.Generator().manual_seed(42))
+        runs.append((loss, net.state_dict()))
+    (loss, want), (got_loss, got) = runs
+    assert torch.equal(got_loss, loss)
+    assert all(torch.equal(got[k], want[k]) for k in want)
