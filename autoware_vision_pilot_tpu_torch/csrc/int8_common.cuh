@@ -1,8 +1,8 @@
-// What the int8 kernels of int8_conv.cu, int8_conv_sm90.cu and
-// int8_pointwise.cu share: the SM count of a device, the activation
-// quantize of one value (the quantize kernel's, and the pointwise and dot
-// routes' on load, so that both give the same int8 values), and the int8
-// conv's epilogue, one for every route:
+// What the int8 kernels of int8_conv.cu, int8_conv_sm90.cu,
+// int8_conv_halo.cu and int8_pointwise.cu share: the SM count of a device,
+// the activation quantize of one value (the quantize kernel's, and the
+// pointwise and dot routes' on load, so that both give the same int8
+// values), and the int8 conv's epilogue, one for every route:
 //   y = cast(f32(acc) * dequant) + bias, dequant = x_scale * w_scale[n] for
 //   a scalar input scale, w_scale[n] alone for a per-channel one (folded
 //   into the weights), or the int32 accumulators themselves.
@@ -98,43 +98,6 @@ __device__ __forceinline__ uint32_t quantize4_fast_path(const float* v, const fl
     word |= (uint32_t)(q & 0xff) << (8 * j);
   }
   return word;
-}
-
-// A 16-byte copy from global to shared memory that bypasses the registers
-// (cp.async.cg); with valid false it writes 16 zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int bytes = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// mma.sync.m16n8k32 s8 x s8 -> s32, as the mma.sync and pointwise routes
-// issue it. D = A(16x32 s8, row) * B(32x8 s8, col) + D, s32 accumulators.
-// Fragments (lane = 4*g + t): a0 = A[g][4t..4t+3], a1 = A[g+8][4t..],
-// a2 = A[g][16+4t..], a3 = A[g+8][16+4t..]; b0 = B[4t..4t+3][g],
-// b1 = B[16+4t..][g]; d0,d1 = D[g][2t, 2t+1], d2,d3 = D[g+8][2t, 2t+1].
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 struct Epilogue {

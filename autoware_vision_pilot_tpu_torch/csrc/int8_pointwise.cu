@@ -61,21 +61,6 @@
 //   shared memory until all have read it. int32 sums are exact in any order, so the result is
 //   bit-equal to one block's. No workspace, no memset, one launch.
 //
-// The transposed conv with kernel == stride (avp_int8_conv_transpose, the
-// int8 branch of nn/layers.py::ConvTranspose2d, :187-208, for the U-neck
-// and head upsamples) runs on this route's kernel unchanged up to the
-// epilogue: it is the product of the (M = B h w, K = C) activation and the
-// (N = kh kw O, K) weights, rows ordered (i, j, o) (a (kh, kw, O, C)
-// buffer), and the result (m, n) belongs at out[b, h kh + i, w kw + j, o]
-// (depth to space). The epilogue reads the column's factors at o = n % O
-// (w_scale[o], bias[o]) and writes each 16-byte chunk at its place in that
-// layout; a chunk lies inside one (i, j) segment of O channels when O is a
-// multiple of its values (4, or 8 for bf16), and is then one vector store,
-// else value by value. The scale is one scalar (static or dynamic), as
-// the JAX layer's. A route of its own would repeat the loads, the quantize,
-// the MMA and the cluster sums for one different address per chunk, so
-// it shares them.
-//
 // "dot" (M <= 8 and M * C <= 32 KB, the SE convs' M = 1): a lane takes
 // one 16-channel chunk of an output channel's K (lanes = a power of two of
 // one warp, or up to four warps a channel: the plan's choice). It loads
@@ -136,23 +121,9 @@ constexpr int SMEM_MAX = 200 * 1024;  // the dynamic shared memory a launch may 
 
 struct PwArgs {
   const double* rcp;  // RN64(1 / scale): one, or C (per_channel); null for an int8 x
-  avp::Epilogue e;    // out (M, N), or with d2s_O the transposed conv's (B, h kh, w kw, O)
+  avp::Epilogue e;    // out (M, N)
   int M, C, N, per_channel, k_per_rank, cs, bm, stages;
-  int d2s_O, d2s_kh, d2s_kw, d2s_w;  // the transposed conv's O, kh, kw, w; d2s_O = 0: none
 };
-
-// The output offset of result (m, n): m * N + n, or for the transposed
-// conv (D2S: m = (b h + y) w + x, n = (i kw + j) O + o) that of out[b,
-// y kh + i, x kw + j, o].
-template <bool D2S>
-__device__ __forceinline__ long long out_offset(const PwArgs& a, int m, int n) {
-  if (!D2S) return (long long)m * a.N + n;
-  const int seg = n / a.d2s_O, o = n - seg * a.d2s_O;
-  const int i = seg / a.d2s_kw, j = seg - i * a.d2s_kw;
-  const int by = m / a.d2s_w, x = m - by * a.d2s_w;
-  return (((long long)by * a.d2s_kh + i) * a.d2s_w + x) * ((long long)a.d2s_kw * a.d2s_O) +
-         (long long)j * a.d2s_O + o;
-}
 
 #ifdef AVP_PW_STAMPS
 // A stage split for chip_smoke.py (built with -DAVP_PW_STAMPS, never by
@@ -333,15 +304,13 @@ __device__ __forceinline__ void to_f32(const int (&v)[W], float (&f)[W]) {
 
 // One 16-byte chunk of an output row: the ch (4, or 8 for bf16) columns
 // from n of row m, col[k] the factors of column n + k, as one vector store
-// at out_offset(m, n) when `vec` (the chunk's values then lie side by
-// side), else value by value inside N, each at its own offset. The values
-// are int8_common.cuh::store_out's, two bf16 rounded by one conversion.
-template <bool D2S>
+// when `vec`, else value by value inside N. The values are
+// int8_common.cuh::store_out's, two bf16 rounded by one conversion.
 __device__ __forceinline__ void store_chunk(const PwArgs& a, int m, int n, int ch, bool vec,
                                             const int (&v)[8], const avp::Column* col) {
   const avp::Epilogue& e = a.e;
   if (vec) {
-    const long long i = out_offset<D2S>(a, m, n);
+    const long long i = (long long)m * a.N + n;
     if (e.out_kind == 2) {
       *reinterpret_cast<int4*>(static_cast<int*>(e.out) + i) = make_int4(v[0], v[1], v[2], v[3]);
     } else if (e.out_kind == 0) {
@@ -376,7 +345,7 @@ __device__ __forceinline__ void store_chunk(const PwArgs& a, int m, int n, int c
   }
 #pragma unroll
   for (int k = 0; k < 8; ++k)
-    if (k < ch && n + k < e.N) avp::store_at(e, out_offset<D2S>(a, m, n + k), col[k], v[k]);
+    if (k < ch && n + k < e.N) avp::store_out(e, m, n + k, col[k], v[k]);
 }
 
 // One block: the bm x BN output tile (m tile blockIdx.x / cs, n tile
@@ -385,9 +354,7 @@ __device__ __forceinline__ void store_chunk(const PwArgs& a, int m, int n, int c
 // warpgroup takes 64 rows; with bm = 64 both take the same rows and each
 // half of every K step's slices (a split of K inside the block, which
 // halves each thread's quantize), and the epilogue adds their two tiles.
-// D2S: the transposed conv's depth-to-space epilogue (a.d2s_*); an
-// instance of its own, so that the 1x1 conv's code is as it was.
-template <typename T, int NJ, bool D2S>
+template <typename T, int NJ>
 __global__ void __launch_bounds__(THREADS, 1)
     int8_pointwise_kernel(const __grid_constant__ CUtensorMap map_x,
                           const __grid_constant__ CUtensorMap map_w, const PwArgs a) {
@@ -458,8 +425,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     if (a.e.out_kind != 2)
       for (int c = lane; c < BN; c += 128)
-        cols[c] = n0 + c < a.N ? avp::column(a.e, D2S ? (n0 + c) % a.d2s_O : n0 + c)
-                               : avp::Column{0.f, 0.f};
+        cols[c] = n0 + c < a.N ? avp::column(a.e, n0 + c) : avp::Column{0.f, 0.f};
     if (a.cs > 1) {
       cluster.sync();
       cluster.sync();
@@ -575,8 +541,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int* out_tile = reinterpret_cast<const int*>(tiles);
   const int ch = a.e.out_kind == 1 ? 8 : 4;
   const int chunks = BN / ch;
-  const bool vec = a.N % ch == 0 && (D2S ? a.d2s_O : a.N) % ch == 0 &&
-                   ((uintptr_t)a.e.out & 15) == 0;
+  const bool vec = a.N % ch == 0 && ((uintptr_t)a.e.out & 15) == 0;
   for (int i = tid; i < rows * chunks; i += CONSUMERS) {
     const int r = rank * rpr + i / chunks, c = (i % chunks) * ch;
     const int m = m0 + r, n = n0 + c;
@@ -584,7 +549,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int4* src = reinterpret_cast<const int4*>(out_tile + r * PITCH + c);
     const int4 x = src[0], y = ch == 8 ? src[1] : make_int4(0, 0, 0, 0);
     const int v[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
-    store_chunk<D2S>(a, m, n, ch, vec && n + ch <= a.N, v, cols + c);
+    store_chunk(a, m, n, ch, vec && n + ch <= a.N, v, cols + c);
   }
   // no rank exits while a bulk add still reads its tile
   if (a.cs > 1) cluster.sync();
@@ -592,13 +557,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   stamps.write();
 }
 
-template <typename T, int NJ, bool D2S>
+template <typename T, int NJ>
 cudaError_t launch_pointwise(const CUtensorMap& map_x, const CUtensorMap& map_w,
                              const PwArgs& a, int m_tiles, int n_tiles, int smem,
                              cudaStream_t stream) {
   // the dynamic shared-memory limit is set once per kernel and device
   static bool ready[MAX_DEVICES] = {false};
-  const void* kernel = reinterpret_cast<const void*>(int8_pointwise_kernel<T, NJ, D2S>);
+  const void* kernel = reinterpret_cast<const void*>(int8_pointwise_kernel<T, NJ>);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -626,14 +591,14 @@ cudaError_t launch_pointwise(const CUtensorMap& map_x, const CUtensorMap& map_w,
   return cudaGetLastError();
 }
 
-template <typename T, bool D2S>
+template <typename T>
 cudaError_t pointwise_bn(const CUtensorMap& mx, const CUtensorMap& mw, const PwArgs& a,
                          int bn, int m_tiles, int n_tiles, int smem, cudaStream_t s) {
   switch (bn) {
-    case 64: return launch_pointwise<T, 1, D2S>(mx, mw, a, m_tiles, n_tiles, smem, s);
-    case 128: return launch_pointwise<T, 2, D2S>(mx, mw, a, m_tiles, n_tiles, smem, s);
-    case 192: return launch_pointwise<T, 3, D2S>(mx, mw, a, m_tiles, n_tiles, smem, s);
-    default: return launch_pointwise<T, 4, D2S>(mx, mw, a, m_tiles, n_tiles, smem, s);
+    case 64: return launch_pointwise<T, 1>(mx, mw, a, m_tiles, n_tiles, smem, s);
+    case 128: return launch_pointwise<T, 2>(mx, mw, a, m_tiles, n_tiles, smem, s);
+    case 192: return launch_pointwise<T, 3>(mx, mw, a, m_tiles, n_tiles, smem, s);
+    default: return launch_pointwise<T, 4>(mx, mw, a, m_tiles, n_tiles, smem, s);
   }
 }
 
@@ -856,9 +821,9 @@ bool bad_common(const void* x, int in_kind, const void* rcp, int per_channel, co
          (in_kind != 0 && (rcp == nullptr || (per_channel && (uintptr_t)rcp % 16)));
 }
 
-// The pointwise kernel's launch for avp_int8_conv_pointwise and
-// avp_int8_conv_transpose: checks the plan, encodes the activation's map
-// and picks the instance; `a` holds the epilogue and d2s_*.
+// The pointwise kernel's launch for avp_int8_conv_pointwise: checks the
+// plan, encodes the activation's map and picks the instance; `a` holds the
+// epilogue.
 int launch_pw(const void* x, int in_kind, const void* rcp, int per_channel,
               const void* w_map, PwArgs a, int M, int C, int N, int bm, int bn, int m_tiles,
               int n_tiles, int cs, int k_per_rank, void* stream) {
@@ -898,18 +863,11 @@ int launch_pw(const void* x, int in_kind, const void* rcp, int per_channel,
   a.bm = bm;
   a.stages = stages;
   cudaStream_t s = (cudaStream_t)stream;
-  if (a.d2s_O) {  // the transposed conv takes a float input alone
-    if (in_kind == 1)
-      return (int)pointwise_bn<__nv_bfloat16, true>(map_x, map_w, a, bn, m_tiles, n_tiles, smem,
-                                                    s);
-    return (int)pointwise_bn<float, true>(map_x, map_w, a, bn, m_tiles, n_tiles, smem, s);
-  }
   if (in_kind == 0)
-    return (int)pointwise_bn<signed char, false>(map_x, map_w, a, bn, m_tiles, n_tiles, smem, s);
+    return (int)pointwise_bn<signed char>(map_x, map_w, a, bn, m_tiles, n_tiles, smem, s);
   if (in_kind == 1)
-    return (int)pointwise_bn<__nv_bfloat16, false>(map_x, map_w, a, bn, m_tiles, n_tiles, smem,
-                                                   s);
-  return (int)pointwise_bn<float, false>(map_x, map_w, a, bn, m_tiles, n_tiles, smem, s);
+    return (int)pointwise_bn<__nv_bfloat16>(map_x, map_w, a, bn, m_tiles, n_tiles, smem, s);
+  return (int)pointwise_bn<float>(map_x, map_w, a, bn, m_tiles, n_tiles, smem, s);
 }
 
 }  // namespace
@@ -949,35 +907,6 @@ extern "C" int avp_int8_conv_pointwise(const void* x, int in_kind, const void* s
   a.e = epilogue(scale, per_channel, w_scale, bias, out, N, out_kind);
   return launch_pw(x, in_kind, rcp, per_channel, w_map, a, M, C, N, bm, bn, m_tiles, n_tiles,
                    cs, k_per_rank, stream);
-}
-
-// The transposed conv with kernel == stride and padding 0 on the pointwise
-// route, `stream` and the return value as avp_int8_conv_pointwise's. x:
-// (B, h, w, C) NHWC (M = B h w pixels) of bf16 (in_kind 1) or f32 (2);
-// scale: one f32 (the epilogue multiplies it into w_scale), rcp its
-// reciprocal;
-// w_map: avp_int8_weight_map's map of the (kh, kw, O, C) int8 weights as
-// N = kh kw O rows of C, box_n = bn; w_scale and bias: (O,); out: (B, h
-// kh, w kw, O) of out_kind; O, kh, kw and w (the input's width) place the
-// results. The plan's numbers as avp_int8_conv_pointwise's for N.
-extern "C" int avp_int8_conv_transpose(const void* x, int in_kind, const void* scale,
-                                       const void* rcp, const void* w_map, const void* w_scale,
-                                       const void* bias, void* out, int M, int C, int O,
-                                       int kh, int kw, int w, int out_kind, int bm, int bn,
-                                       int m_tiles, int n_tiles, int cs, int k_per_rank,
-                                       void* stream) {
-  if (in_kind == 0 || O <= 0 || kh <= 0 || kw <= 0 || w <= 0 || M % w ||
-      (long long)kh * kw * O > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const int N = kh * kw * O;
-  PwArgs a = {};
-  a.e = epilogue(scale, 0, w_scale, bias, out, N, out_kind);
-  a.d2s_O = O;
-  a.d2s_kh = kh;
-  a.d2s_kw = kw;
-  a.d2s_w = w;
-  return launch_pw(x, in_kind, rcp, 0, w_map, a, M, C, N, bm, bn, m_tiles, n_tiles, cs,
-                   k_per_rank, stream);
 }
 
 // The dot route on `stream`, for M <= 8 rows and M * C <= 32 KB, `lanes`

@@ -1,9 +1,9 @@
-// The Hopper (sm_90a) building blocks that int8_conv_sm90.cu and
-// int8_pointwise.cu share: shared-memory addresses, mbarriers, TMA tile
-// loads and the host's encoding of their tensor maps, and int8 wgmma with
-// its shared-memory descriptor (B, or A and B, in shared memory, K-major,
-// 128-byte swizzle: the layout a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
-// writes).
+// The Hopper (sm_90a) building blocks that int8_conv_sm90.cu,
+// int8_conv_halo.cu and int8_pointwise.cu share: shared-memory addresses,
+// mbarriers, TMA tile loads and stores and the host's encoding of their
+// tensor maps, a stage clock for stamped builds, and int8 wgmma with its
+// shared-memory descriptors (K-major: 128-byte swizzle, the layout a TMA
+// load with CU_TENSOR_MAP_SWIZZLE_128B writes, or none).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
@@ -89,6 +89,74 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// A tile from shared memory (`src`, laid out as the map's box) to the
+// tensor of a 5-D map at the given coordinates, as one bulk-group copy;
+// coordinates outside the tensor are not written.
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// Closes this thread's bulk copies issued so far into one bulk group.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read their
+// shared-memory source (the source may then be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are still in flight
+// (their writes to global memory done).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A stage split for chip_smoke.py's builds with -DAVP_*_STAMPS (never
+// kernels/build.py's): one thread of each block adds up the SM clocks it
+// spends in each of up to 5 stages and writes them, with the block's first
+// and last %globaltimer and its clocks in all, as 8 words a block at
+// out[8 * blockIdx.x].
+struct StageClock {
+  unsigned long long g0;
+  long long c0, t, c[5];
+  __device__ __forceinline__ void start() {
+    g0 = global_ns();
+    c0 = t = clock64();
+#pragma unroll
+    for (int i = 0; i < 5; ++i) c[i] = 0;
+  }
+  __device__ __forceinline__ void lap(int i) {
+    const long long now = clock64();
+    c[i] += now - t;
+    t = now;
+  }
+  __device__ __forceinline__ void write(unsigned long long* out) {
+    if (!out) return;
+    unsigned long long* o = out + 8 * blockIdx.x;
+    o[0] = g0;
+    o[1] = global_ns();
+    o[2] = (unsigned long long)(clock64() - c0);
+#pragma unroll
+    for (int i = 0; i < 5; ++i) o[3 + i] = (unsigned long long)c[i];
+  }
+};
+
+// The same clock where a build has no stamps: nothing.
+struct NoClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void lap(int) {}
+  __device__ __forceinline__ void write(unsigned long long*) {}
+};
+
 // The same shared-memory offset in block `rank` of the cluster.
 __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
   uint32_t r;
@@ -125,6 +193,17 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   d |= (uint64_t)(1024 >> 4) << 32;  // stride byte offset: 8 rows
   d |= (uint64_t)1 << 62;            // 128-byte swizzle
   return d;
+}
+
+// Shared-memory matrix descriptor without swizzle: K-major core matrices of
+// 8 rows x 16 bytes (128 contiguous bytes), `lbo` bytes from one to the
+// next along K and `sbo` bytes from one to the next 8 rows; the start
+// address needs 16-byte alignment alone.
+__device__ __forceinline__ uint64_t smem_desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  return d;  // layout type 0: no swizzle
 }
 
 // Keeps the compiler from moving reads or writes of the registers across
@@ -205,6 +284,105 @@ __device__ __forceinline__ void wgmma_m64n64k32_rs(int (&d)[32], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D(64xN s32) += A(64x32 s8) * B(32xN s8) for N = 8, 16, 24, 32, 48 or 64,
+// A and B from shared memory (descriptors), accumulators as
+// wgmma_m64n128k32's: d[4p + 2h + e] is row 16w + g + 8h, column 8p + 2t +
+// e, N / 2 registers.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(int (&d)[N / 2], uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(int (&d)[4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, %4, %5, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(int (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<24>(int (&d)[12], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(int (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<48>(int (&d)[24], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23}, %24, %25, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // ------------------------------------------------------------------- host
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -232,28 +410,39 @@ inline EncodeTiled encoder() {
 
 constexpr int ENCODE_FAILED = 100000;  // + the CUresult
 
-// A map of `rank` (2 or 4) dims, innermost first, of elements of `type` and
-// `elem` bytes with dense strides, 128-byte swizzle, zeros outside the
-// tensor. Returns 0 or ENCODE_FAILED + the CUresult.
-inline int encode(CUtensorMap* map, CUtensorMapDataType type, int elem, int rank,
-                  const void* ptr, const uint64_t* dims, const uint32_t* box) {
+// A map of `rank` (2 to 5) dims, innermost first, of elements of `type`,
+// with the byte strides of dims 1.. in `strides`, boxes `box` and
+// `swizzle`, zeros outside the tensor (a load) or nothing written there (a
+// store). Returns 0 or ENCODE_FAILED + the CUresult.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
+                      const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encoder();
   if (!fn) return ENCODE_FAILED + (int)CUDA_ERROR_NOT_FOUND;
-  cuuint64_t gdim[4], gstride[3];
-  cuuint32_t bdim[4], estride[4];
-  uint64_t bytes = (uint64_t)elem;
+  cuuint64_t gdim[5], gstride[4];
+  cuuint32_t bdim[5], estride[5];
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     bdim[i] = box[i];
     estride[i] = 1;
-    bytes *= dims[i];
-    if (i + 1 < rank) gstride[i] = bytes;
+    if (i + 1 < rank) gstride[i] = strides[i];
   }
   const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), gdim, gstride,
-                        bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+// A map of `rank` (2 to 5) dims, innermost first, of elements of `type` and
+// `elem` bytes with dense strides, `swizzle` (128-byte by default), zeros
+// outside the tensor. Returns 0 or ENCODE_FAILED + the CUresult.
+inline int encode(CUtensorMap* map, CUtensorMapDataType type, int elem, int rank,
+                  const void* ptr, const uint64_t* dims, const uint32_t* box,
+                  CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  uint64_t strides[4];
+  uint64_t bytes = (uint64_t)elem;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = bytes *= dims[i];
+  return encode_map(map, type, rank, ptr, dims, strides, box, swizzle);
 }
 
 // The map of (N, KH, KW, C) int8 weights in boxes of 128 channels x

@@ -39,11 +39,13 @@ SIGNATURES = {
     "avp_letterbox_set_stamps": (_P,),
     # x, xq, scale, per_channel, pixels, C, in_bf16, stream
     "avp_int8_quantize": (_P, _P, _P, _I, _L, _I, _I, _P),
-    # xq, w, w_scale, x_scale, bias, out, B, H, W, C, N, KH, KW, pad,
-    # out_kind, bm, grid_x, grid_y, stream
-    "avp_int8_conv_mma": (_P,) * 6 + (_I,) * 12 + (_P,),
+    # xq, w_map, w_scale, x_scale, bias, out, B, H, W, C, N, KH, KW, pad,
+    # out_kind, th, tw, bn, m_tiles, n_tiles, blocks, hstages, resident, stream
+    "avp_int8_conv_halo": (_P,) * 6 + (_I,) * 17 + (_P,),
     # w, N, KH, KW, C, box_n, map_out
     "avp_int8_weight_map": (_P,) + (_I,) * 5 + (_P,),
+    # w, O, S, C, map_out
+    "avp_int8_d2s_weight_map": (_P,) + (_I,) * 3 + (_P,),
     # xq, w_map, w_scale, x_scale, bias, out, ws, B, H, W, C, N, KH, KW,
     # pad, out_kind, th, tw, m_tiles, n_tiles, splits, per_split, blocks,
     # stream
@@ -51,14 +53,19 @@ SIGNATURES = {
     # x, in_kind, scale, rcp, per_channel, w_map, w_scale, bias, out, M, C,
     # N, out_kind, bm, bn, m_tiles, n_tiles, cs, k_per_rank, stream
     "avp_int8_conv_pointwise": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 10 + (_P,),
-    # x, in_kind, scale, rcp, w_map, w_scale, bias, out, M, C, O, kh, kw, w,
-    # out_kind, bm, bn, m_tiles, n_tiles, cs, k_per_rank, stream
-    "avp_int8_conv_transpose": (_P, _I, _P, _P) + (_P,) * 4 + (_I,) * 13 + (_P,),
+    # xq, w_map, w_scale, x_scale, bias, out, ws, B, h, w, C, O, kh, kw,
+    # out_kind, th, tw, m_tiles, n_tiles, splits, per_split, blocks,
+    # tma_store, stream
+    "avp_int8_conv_d2s": (_P,) * 7 + (_I,) * 16 + (_P,),
     # x, in_kind, scale, rcp, per_channel, w, w_scale, bias, out, M, C, N,
     # out_kind, lanes, stream
     "avp_int8_conv_dot": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 5 + (_P,),
     # stamps (a build with -DAVP_PW_STAMPS; else cudaErrorNotSupported)
     "avp_int8_pointwise_set_stamps": (_P,),
+    # stamps (builds with -DAVP_HALO_STAMPS, -DAVP_D2S_STAMPS; else
+    # cudaErrorNotSupported)
+    "avp_int8_halo_set_stamps": (_P,),
+    "avp_int8_d2s_set_stamps": (_P,),
     # blocks, threads, cluster, stream
     "avp_launch_floor": (_I, _I, _I, _P),
     # masks, weights, starts, N, H, W, stamps, stream

@@ -1,7 +1,8 @@
 """Int8 convolution: the wrappers of csrc/int8_conv.cu,
-csrc/int8_conv_sm90.cu and csrc/int8_pointwise.cu, the port of the int8
-branch of autoware_vision_pilot_tpu/nn/layers.py::Conv2d (:81-113), which
-the JAX package leaves to XLA.
+csrc/int8_conv_sm90.cu, csrc/int8_conv_halo.cu and csrc/int8_pointwise.cu,
+the port of the int8 branch of autoware_vision_pilot_tpu/nn/layers.py::Conv2d
+(:81-113) and ConvTranspose2d (:187-208), which the JAX package leaves to
+XLA.
 
 Kernels, each with its wrapper, its plain PyTorch version and its count of
 launches:
@@ -18,17 +19,20 @@ launches:
   convs: TMA loads, the quantize into wgmma's register A fragments, K
   split over the blocks of a cluster), "dot" (1x1 convs of at most 8
   pixels, the M = 1 SE convs: a lane per 16 channels of an output
-  channel) and "mma" (mma.sync, for windows larger than 1x1 with C <
-  128).
+  channel) and "halo" (windows larger than 1x1 with C < 128, and a 1x1
+  window with padding: each tile's input halo loaded once by TMA, each
+  tap's wgmma reading it through a shifted descriptor, N tiles of 8-64).
   ``int8_conv.launches`` counts every conv launch;
   ``int8_conv.route_launches`` counts them by route.
 
 - ``int8_conv_transpose``: the int8 branch of ConvTranspose2d
-  (nn/layers.py:187-208) for kernel == stride, padding 0: one product of
-  the (M = B h w, K = C) activation and the (kh kw O, C) weights on the
-  "pointwise" route's kernel, whose epilogue writes each result (m, (i, j,
-  o)) to out[b, h kh + i, w kw + j, o] (depth to space), with w_scale[o]
-  and bias[o]; ``int8_conv_transpose.launches`` counts its launches.
+  (nn/layers.py:187-208) for kernel == stride, padding 0: int8_quantize,
+  then one product of the (M = B h w, K = C) int8 activation and the (kh kw
+  O, C) weights on the wgmma kernel ("d2s" plan), N tiled within each (i,
+  j) output segment, whose epilogue writes each result (m, (i, j, o)) to
+  out[b, h kh + i, w kw + j, o] (depth to space) through a TMA store, with
+  w_scale[o] and bias[o]; ``int8_conv_transpose.launches`` counts the
+  product's launches.
 
 ``int8_conv2d`` is the whole conv on a float input: on the "pointwise"
 and "dot" routes one launch that quantizes as it loads (bit-equal to the
@@ -59,11 +63,23 @@ from ...kernels import build
 CL = torch.channels_last
 IN_DTYPES = (torch.float32, torch.bfloat16)
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
-ROUTES = ("wgmma", "splitk", "mma", "pointwise", "dot")
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int32: 4}
+ROUTES = ("wgmma", "splitk", "halo", "pointwise", "dot")
 FUSED_ROUTES = ("pointwise", "dot")  # they take a float input and quantize it
 _IN_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 TILE = 128      # the wgmma route's BM = BN = BK (csrc/int8_conv_sm90.cu)
-MMA_BK = 64     # the mma.sync route's K step (csrc/int8_conv.cu)
+# the halo route (csrc/int8_conv_halo.cu): its N tiles (wgmma's small N
+# shapes), the channels of a halo chunk and of a weight box, of a slab (one
+# 16-byte pixel row), its most halo stages, its weight ring, and the dynamic
+# shared memory a launch may take
+HALO_WIDTHS = (8, 16, 24, 32, 48, 64)
+HALO_CHUNK = 128
+HALO_SLAB = 16
+HALO_STAGES = 4
+HALO_WSTAGES = 4
+HALO_SMEM = 113 * 1024   # two blocks an SM
+HALO_BLOCKS_PER_SM = 2
+SMEM_LIMIT = 232_448  # an H100's shared memory a block can use (227 KB)
 PW_WIDTHS = (64, 128, 192, 256)  # the pointwise route's N tiles (csrc/int8_pointwise.cu)
 PW_BK = 16      # its K ranges are multiples of 16 channels (a TMA box starts on 16 bytes)
 PW_STEP = 128   # its K step: 128 channels, one 128-byte row of an int8 TMA box
@@ -208,12 +224,15 @@ int8_quantize.launches = 0
 
 class Int8ConvPlan(NamedTuple):
     """How one int8 conv runs. ``grid`` is (M tiles, N tiles, K splits).
-    The wgmma routes tile M as rectangles of ``th`` x ``tw`` output pixels
-    of one image and K as ``iters`` steps of (tap r, tap s, a chunk of
-    ``bk`` channels), ``per_split`` steps to a split; a unit of work is one
-    (M tile, N tile, split), and each of the ``blocks`` persistent blocks
-    takes every blocks-th unit. The mma route tiles M as ``bm`` flat rows
-    and K in steps of ``bk`` bytes, one block per tile. The pointwise route
+    The wgmma routes (and the transposed conv's "d2s") tile M as rectangles
+    of ``th`` x ``tw`` output pixels of one image and K as ``iters`` steps
+    of (tap r, tap s, a chunk of ``bk`` channels), ``per_split`` steps to a
+    split; a unit of work is one (M tile, N tile, split), and each of the
+    ``blocks`` persistent blocks takes every blocks-th unit. The halo route
+    tiles M as th x tw rectangles too and N as ``bn`` channels, one split;
+    its K is ``iters`` (tap, 128-channel chunk) weight steps, its halo ring
+    has ``stages`` stages, and ``resident`` keeps every weight step in
+    shared memory for a block's life. The pointwise route
     tiles M as ``bm`` flat rows (a consumer warpgroup per 64) and N as
     ``bn`` channels (bn / 64 wgmmas); the K splits are the blocks of one
     cluster, and split z takes the channels [z * per_split * bk, (z + 1) *
@@ -232,23 +251,82 @@ class Int8ConvPlan(NamedTuple):
     iters: int
     per_split: int
     blocks: int
+    stages: int = 0
+    resident: bool = False
 
     @property
     def splits(self) -> int:
         return self.grid[2]
 
 
+def _widths(OW: int, bm: int = TILE) -> list:
+    """The rectangle widths the plans weigh, widest first."""
+    return sorted({min(OW, bm), *(w for w in (128, 64, 32, 16, 8) if w <= OW)}, reverse=True)
+
+
 def _rectangle(OH: int, OW: int, bm: int = TILE) -> tuple:
     """The th x tw pixel rectangle (th * tw <= bm) that covers the OH x OW
     map in the fewest M tiles; the widest of those."""
     best = None
-    for tw in sorted({min(OW, bm), *(w for w in (128, 64, 32, 16, 8) if w <= OW)},
-                     reverse=True):
+    for tw in _widths(OW, bm):
         th = min(bm // tw, OH)
         tiles = math.ceil(OH / th) * math.ceil(OW / tw)
         if best is None or tiles < best[0]:
             best = (tiles, th, tw)
     return best[1], best[2]
+
+
+def _whole_rows_rectangle(OH: int, OW: int, bm: int = TILE) -> tuple:
+    """_rectangle's choice among the rectangles whose th divides OH, so that
+    no tile crosses an image's last row (the d2s epilogue's output map runs
+    the B h rows of all images together)."""
+    best = None
+    for tw in _widths(OW, bm):
+        th = max(d for d in range(1, min(bm // tw, OH) + 1) if OH % d == 0)
+        tiles = OH // th * math.ceil(OW / tw)
+        if best is None or tiles < best[0]:
+            best = (tiles, th, tw)
+    return best[1], best[2]
+
+
+def halo_width(tw: int, KW: int) -> int:
+    """The halo route's row of halo pixels in shared memory: the power of
+    two, at least 8, that holds tw + KW - 1 (csrc/int8_conv_halo.cu)."""
+    return max(8, 1 << (tw + KW - 2).bit_length())
+
+
+def _halo_rectangle(OH: int, OW: int, KH: int, KW: int, bm: int = TILE) -> tuple:
+    """The halo route's th x tw rectangle: for each halo width hw (a power
+    of two from 8 to bm, at least KW), tw = hw - KW + 1 outputs a row (OW at
+    most) and th = bm // hw rows (OH at most), so that the tile's halo
+    positions th hw fill the bm accumulator rows; the fewest tiles, then the
+    fewest halo pixels loaded, (th + KH - 1) hw a tile. Raises ValueError
+    where no width holds the window."""
+    best = None
+    for hw in (8, 16, 32, 64, 128):
+        if hw < KW or hw > bm:
+            continue
+        tw, th = min(hw - KW + 1, OW), min(bm // hw, OH)
+        tiles = math.ceil(OH / th) * math.ceil(OW / tw)
+        key = (tiles, tiles * (th + KH - 1) * hw)
+        if best is None or key < best[0]:
+            best = (key, th, tw)
+    if best is None:
+        raise ValueError(f"window {KH}x{KW}: its halo exceeds a TMA box (a row of at most "
+                         f"{bm} pixels)")
+    return best[1], best[2]
+
+
+def _k_splits(tiles: int, iters: int, sms: int) -> tuple:
+    """The wgmma kernel's K splits of ``tiles`` output tiles of ``iters`` K
+    steps -> (splits, steps a split): up to sms // tiles contiguous ranges
+    of at least 4 steps where the tiles fill at most half of the SMs, else
+    one."""
+    splits = max(1, min(sms // tiles, iters // 4))
+    if 2 * tiles > sms or splits < 2:
+        return 1, iters
+    per_split = math.ceil(iters / splits)
+    return math.ceil(iters / per_split), per_split  # no split left without a K step
 
 
 @functools.lru_cache(maxsize=4096)
@@ -275,8 +353,8 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
       (clusters_at_once); and the N tile of PW_WIDTHS whose plan costs least by
       _pointwise_cost (the quantize a thread against the partial tile a
       rank hands on, in waves of the SMs);
-    - "mma" for the rest (windows larger than 1x1 with C < 128, and a 1x1
-      window with padding).
+    - "halo" for the rest (windows larger than 1x1 with C < 128, and a 1x1
+      window with padding): _halo_plan.
 
     The wgmma routes launch persistent blocks, one per SM or one per unit
     of work, whichever is fewer.
@@ -299,7 +377,7 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
     if KH * KW == 1 and pad == 0:
         return _pointwise_plan(M, C, N, sms)
     if KH * KW == 1 or C < TILE:
-        return _mma_plan(M, N, KH * KW * C, sms)
+        return _halo_plan(B, H, W, C, N, KH, KW, pad, sms)
     th, tw = _rectangle(OH, OW)
     m_tiles = B * math.ceil(OH / th) * math.ceil(OW / tw)
     n_tiles = math.ceil(N / TILE)
@@ -307,25 +385,82 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
     if n_tiles > 65535:
         raise ValueError(f"N = {N}: more output channels than the grid holds")
     tiles = m_tiles * n_tiles
-    splits = max(1, min(sms // tiles, iters // 4))
-    route = "splitk" if 2 * tiles <= sms and splits >= 2 else "wgmma"
-    if route == "wgmma":
-        splits = 1
-    per_split = math.ceil(iters / splits)
-    splits = math.ceil(iters / per_split)  # no split left without a K step
-    units = tiles * splits
-    return Int8ConvPlan(route, TILE, TILE, TILE, (m_tiles, n_tiles, splits), th, tw,
-                        iters, per_split, min(units, sms))
+    splits, per_split = _k_splits(tiles, iters, sms)
+    return Int8ConvPlan("splitk" if splits > 1 else "wgmma", TILE, TILE, TILE,
+                        (m_tiles, n_tiles, splits), th, tw, iters, per_split,
+                        min(tiles * splits, sms))
 
 
-def _mma_plan(M: int, N: int, K: int, sms: int) -> Int8ConvPlan:
-    """The "mma" plan of a conv of M pixels, N output channels and K =
-    KH * KW * C: 128x128 tiles where they fill the SMs, else 64x64. It
-    runs any shape, so a test may hand it a 1x1 conv as well."""
-    bm = 128 if math.ceil(M / 128) * math.ceil(N / 128) >= sms else 64
-    iters = math.ceil(K / MMA_BK)
-    grid = (math.ceil(M / bm), math.ceil(N / bm), 1)
-    return Int8ConvPlan("mma", bm, bm, MMA_BK, grid, 0, 0, iters, iters, grid[0] * grid[1])
+class HaloLayout(NamedTuple):
+    """The halo route's shared memory (csrc/int8_conv_halo.cu::layout): the
+    16-channel slabs of a halo chunk and a slab's pitch (128-byte aligned
+    for TMA), a halo stage, the weights (resident or the ring), an output
+    segment's staging pitch and the staging, the epilogue's factors of
+    every output channel, and the launch's dynamic shared memory (1024
+    bytes of it align the base)."""
+    slabs: int
+    slab_pitch: int
+    halo_bytes: int
+    weight_bytes: int
+    seg_pitch: int
+    stage_bytes: int
+    table_bytes: int
+    smem: int
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def halo_layout(th: int, tw: int, KH: int, KW: int, C: int, N: int, bn: int, stages: int,
+                resident: bool) -> HaloLayout:
+    """The shared memory of a halo launch; the kernel's own arithmetic."""
+    nc = math.ceil(C / HALO_CHUNK)
+    # a chunk's slabs: 8, or C's own rounded up to an even count (a 32-channel step)
+    slabs = HALO_CHUNK // HALO_SLAB if nc > 1 else (C // HALO_SLAB + 1) // 2 * 2
+    # a slab: the halo, and what the taps of the TILE positions read past it
+    hw = halo_width(tw, KW)
+    slab_pitch = _round_up(max((th + KH - 1) * hw, TILE + (KH - 1) * hw + KW - 1) * HALO_SLAB,
+                           128)
+    halo_bytes = _round_up(slabs * slab_pitch, 1024)
+    weight_bytes = (KH * KW * nc if resident else HALO_WSTAGES) * bn * HALO_CHUNK
+    # a segment: an output row of the tile where one N tile holds N, else a
+    # pixel's bn channels; 4-byte values at most, shifted by up to 15 bytes
+    rows = math.ceil(N / bn) == 1
+    seg_pitch = _round_up((tw * N if rows else bn) * 4, 16) + 16
+    stage_bytes = (th if rows else th * tw) * seg_pitch
+    table_bytes = _round_up(N * 8, 128)  # (dequant, bias) of each output channel
+    smem = 1024 + stages * halo_bytes + weight_bytes + stage_bytes + table_bytes
+    return HaloLayout(slabs, slab_pitch, halo_bytes, weight_bytes, seg_pitch, stage_bytes,
+                      table_bytes, smem)
+
+
+def _halo_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int, pad: int,
+               sms: int = SMS) -> Int8ConvPlan:
+    """The "halo" plan of a conv (C a multiple of 16): the rectangle of
+    _halo_rectangle, N tiles of the narrowest HALO_WIDTHS that holds N (64
+    above it), the weights resident where one N tile holds N and they fit,
+    and as many halo stages (2 to HALO_STAGES) as HALO_SMEM holds;
+    persistent blocks, HALO_BLOCKS_PER_SM an SM or one per unit. It runs
+    any stride-1 window, so a test may hand it a 1x1 conv as well. Raises
+    ValueError for a halo larger than a TMA box or than the shared
+    memory."""
+    OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
+    bn = next((w for w in HALO_WIDTHS if w >= N), HALO_WIDTHS[-1])
+    n_tiles = math.ceil(N / bn)
+    th, tw = _halo_rectangle(OH, OW, KH, KW)
+    if th + KH - 1 > 256:
+        raise ValueError(f"window {KH}x{KW}: its halo exceeds a TMA box (256 rows)")
+    steps = KH * KW * math.ceil(C / HALO_CHUNK)
+    for resident in (True, False) if n_tiles == 1 else (False,):
+        for stages in range(HALO_STAGES, 1, -1):
+            if halo_layout(th, tw, KH, KW, C, N, bn, stages, resident).smem <= HALO_SMEM:
+                m_tiles = B * math.ceil(OH / th) * math.ceil(OW / tw)
+                units = m_tiles * n_tiles
+                return Int8ConvPlan("halo", TILE, bn, HALO_CHUNK, (m_tiles, n_tiles, 1), th, tw,
+                                    steps, steps, min(units, HALO_BLOCKS_PER_SM * sms), stages,
+                                    resident)
+    raise ValueError(f"window {KH}x{KW} at C = {C}: its halo does not fit in shared memory")
 
 
 def _pointwise_plan(M: int, C: int, N: int, sms: int) -> Int8ConvPlan:
@@ -414,19 +549,25 @@ def int8_conv_plain(xq: torch.Tensor, weight: torch.Tensor,
 
 
 def _weight_map(lib, weight: torch.Tensor, N: int, KH: int, KW: int, C: int,
-                box_n: int = TILE) -> bytes:
+                box_n: int = TILE, d2s: bool = False) -> bytes:
     """The weights' 128-byte TMA map (boxes of 128 channels x ``box_n``
-    output channels), encoded once and kept on the weight tensor itself.
-    The map holds the address, the shape and the box alone, so it is
-    encoded again only when they change."""
-    key = (weight.data_ptr(), N, KH, KW, C, box_n)
+    output channels; with ``d2s`` the transposed conv's (KH KW, N = O, C)
+    weights in boxes of 128 channels x 128 o of one segment), encoded once
+    and kept on the weight tensor itself. The map holds the address, the
+    shape and the box alone, so it is encoded again only when they
+    change."""
+    key = (weight.data_ptr(), N, KH, KW, C, box_n, d2s)
     kept = getattr(weight, "_tma_map", None)
     if kept is not None and kept[0] == key:
         return kept[1]
     buf = ctypes.create_string_buffer(128)
-    _check_err("avp_int8_weight_map",
-               lib.avp_int8_weight_map(weight.data_ptr(), N, KH, KW, C, box_n,
-                                       ctypes.addressof(buf)))
+    if d2s:
+        err = lib.avp_int8_d2s_weight_map(weight.data_ptr(), N, KH * KW, C,
+                                          ctypes.addressof(buf))
+    else:
+        err = lib.avp_int8_weight_map(weight.data_ptr(), N, KH, KW, C, box_n,
+                                      ctypes.addressof(buf))
+    _check_err("avp_int8_weight_map", err)
     weight._tma_map = (key, buf.raw)
     return buf.raw
 
@@ -521,8 +662,8 @@ def _launch(plan: Int8ConvPlan, x: torch.Tensor, weight: torch.Tensor,
     """Runs ``plan`` on CUDA tensors of the current device that _conv has
     checked (C a multiple of 16): x int8, or f32/bf16 on the "pointwise"
     and "dot" routes. _conv passes the plan of the shape; a test may pass
-    another plan of it (fewer persistent blocks, one split, the mma.sync
-    route for a 1x1 conv)."""
+    another plan of it (fewer persistent blocks, one split, the halo route
+    for a 1x1 conv)."""
     B, C, H, W = x.shape
     N, _, KH, KW = weight.shape
     OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
@@ -549,12 +690,14 @@ def _launch(plan: Int8ConvPlan, x: torch.Tensor, weight: torch.Tensor,
         else:
             err = lib.avp_int8_conv_dot(*head, weight.data_ptr(), *tail, splits, stream)
         _check_err(f"avp_int8_conv_{plan.route}", err)
-    elif plan.route == "mma":
-        err = lib.avp_int8_conv_mma(
-            x.data_ptr(), weight.data_ptr(), weight_scale.data_ptr(), x_ptr,
-            b_ptr, out.data_ptr(), B, H, W, C, N, KH, KW, pad, kind, plan.bm,
-            plan.grid[0], plan.grid[1], stream)
-        _check_err("avp_int8_conv_mma", err)
+    elif plan.route == "halo":
+        m_tiles, n_tiles, _ = plan.grid
+        err = lib.avp_int8_conv_halo(
+            x.data_ptr(), _weight_map(lib, weight, N, KH, KW, C, plan.bn),
+            weight_scale.data_ptr(), x_ptr, b_ptr, out.data_ptr(), B, H, W, C, N, KH, KW, pad,
+            kind, plan.th, plan.tw, plan.bn, m_tiles, n_tiles, plan.blocks, plan.stages,
+            int(plan.resident), stream)
+        _check_err("avp_int8_conv_halo", err)
     else:
         m_tiles, n_tiles, splits = plan.grid
         # split-K: each split's (M, N) partial sums, then one arrival
@@ -631,18 +774,35 @@ def int8_conv_transpose_plain(xq: torch.Tensor, weight: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=1024)
-def int8_conv_transpose_plan(M: int, C: int, N: int, sms: int = SMS) -> Int8ConvPlan:
-    """The plan of an int8 transposed conv with kernel == stride as the
-    product of M = B h w pixels, K = C channels (a multiple of 16) and N =
-    kh kw O columns: the "pointwise" plan of that product at any M (the
-    dot route has no depth-to-space epilogue)."""
-    if min(M, C, N) <= 0 or padded_channels(C) != C:
-        raise ValueError(f"no int8 conv-transpose of M={M} C={C} N={N}")
+def int8_conv_transpose_plan(B: int, h: int, w: int, C: int, O: int, kh: int, kw: int,
+                             sms: int = SMS) -> Int8ConvPlan:
+    """The "d2s" plan of an int8 transposed conv with kernel == stride: the
+    wgmma kernel's plan of the 1x1 conv of the (B, h, w, C) int8
+    activation (C a multiple of 16) with N tiled within each of the kh kw
+    output segments, kh kw ceil(O / 128) N tiles of 128; the rectangle of
+    _whole_rows_rectangle and the wgmma route's K splits."""
+    if min(B, h, w, C, O, kh, kw) <= 0 or padded_channels(C) != C:
+        raise ValueError(f"no int8 conv-transpose of B={B} h={h} w={w} C={C} O={O} "
+                         f"kernel {kh}x{kw}")
     if C > MAX_K:
         raise ValueError(f"K = {C} > {MAX_K}: int32 accumulators could overflow")
-    if M >= 2 ** 31 or math.ceil(N / PW_WIDTHS[-1]) > 65535:
-        raise ValueError(f"M = {M}, N = {N}: more than the grid holds")
-    return _pointwise_cheapest(M, C, N, sms)
+    if B * h * w >= 2 ** 31 or kh * kw * O >= 2 ** 31:
+        raise ValueError(f"M = {B * h * w}, N = {kh * kw * O}: more than an int32 indexes")
+    th, tw = _whole_rows_rectangle(h, w)
+    m_tiles = B * (h // th) * math.ceil(w / tw)
+    n_tiles = kh * kw * math.ceil(O / TILE)
+    iters = math.ceil(C / TILE)
+    splits, per_split = _k_splits(m_tiles * n_tiles, iters, sms)
+    return Int8ConvPlan("d2s", TILE, TILE, TILE, (m_tiles, n_tiles, splits), th, tw, iters,
+                        per_split, min(m_tiles * n_tiles * splits, sms))
+
+
+def d2s_tma_store(O: int, out_dtype: torch.dtype) -> bool:
+    """Whether the d2s epilogue stores through the output's 5-D TMA map: its
+    strides (O outputs a pixel) must be multiples of 16 bytes, and O must
+    hold a box (128 bytes of outputs); else it stores value by value."""
+    nbytes = O * _ELEM_BYTES[out_dtype]
+    return nbytes % 16 == 0 and nbytes >= 128
 
 
 def int8_conv_transpose(x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor,
@@ -651,14 +811,13 @@ def int8_conv_transpose(x: torch.Tensor, weight: torch.Tensor, weight_scale: tor
                         plain: bool = False) -> torch.Tensor:
     """The int8 transposed conv of nn/layers.py:187-208 with kernel ==
     stride and padding 0. ``x`` (B, C, h, w) channels_last, f32 or bf16,
-    quantized with the scalar ``x_scale`` as it loads; ``weight`` int8 (C,
-    O, kh, kw) over a (kh, kw, O, C)
-    buffer; ``weight_scale`` f32 (O,); ``bias`` (O,) in ``out_dtype``
-    (the input's dtype by default; int32 gives the accumulators) -> (B, O,
-    h kh, w kw) channels_last. On a CUDA tensor one launch of the
-    "pointwise" kernel with its depth-to-space epilogue, or an error; on a
-    CPU tensor, or with ``plain=True``, the plain version. Counts its
-    launches in ``int8_conv_transpose.launches``."""
+    quantized with the scalar ``x_scale``; ``weight`` int8 (C, O, kh, kw)
+    over a (kh, kw, O, C) buffer; ``weight_scale`` f32 (O,); ``bias`` (O,)
+    in ``out_dtype`` (the input's dtype by default; int32 gives the
+    accumulators) -> (B, O, h kh, w kw) channels_last. On a CUDA tensor
+    two launches, int8_quantize and the wgmma kernel's "d2s" variant, or an
+    error; on a CPU tensor, or with ``plain=True``, the plain version.
+    Counts the d2s launches in ``int8_conv_transpose.launches``."""
     if out_dtype is None:
         out_dtype = x.dtype
     if x.dtype not in IN_DTYPES:
@@ -698,21 +857,24 @@ def int8_conv_transpose(x: torch.Tensor, weight: torch.Tensor, weight_scale: tor
     if Cp != C:  # the kernel copies 16 channels at a time; zeros add nothing
         x = pad_channels(x, Cp)
         weight = F.pad(weight.permute(2, 3, 1, 0), (0, Cp - C)).permute(3, 2, 0, 1)
-    N = kh * kw * O
-    plan = int8_conv_transpose_plan(B * h * w, Cp, N, _sm_count(index))
-    _check_aligned(x, weight)
+    plan = int8_conv_transpose_plan(B, h, w, Cp, O, kh, kw, _sm_count(index))
+    xq = int8_quantize(x, x_scale)
+    _check_aligned(xq, weight)
     lib = build.load()
     out = torch.empty((B, h * kh, w * kw, O), dtype=out_dtype, device=x.device)
-    rcp = _reciprocal(x_scale)
     b_ptr = bias.data_ptr() if bias is not None and out_dtype != torch.int32 else None
     m_tiles, n_tiles, splits = plan.grid
-    err = lib.avp_int8_conv_transpose(
-        x.data_ptr(), _IN_KIND[x.dtype], x_scale.data_ptr(),
-        rcp.data_ptr(), _weight_map(lib, weight, N, 1, 1, Cp, plan.bn),
-        weight_scale.data_ptr(), b_ptr, out.data_ptr(), B * h * w, Cp, O, kh, kw, w,
-        _OUT_KIND[out_dtype], plan.bm, plan.bn, m_tiles, n_tiles, splits,
-        plan.per_split * plan.bk, _raw_stream(index))
-    _check_err("avp_int8_conv_transpose", err)
+    # split-K: each split's (M, n_tiles 128) partial sums, then one arrival
+    # counter a tile
+    ws = (torch.empty(splits * B * h * w * n_tiles * TILE + m_tiles * n_tiles,
+                      dtype=torch.int32, device=x.device) if splits > 1 else None)
+    err = lib.avp_int8_conv_d2s(
+        xq.data_ptr(), _weight_map(lib, weight, O, kh, kw, Cp, d2s=True),
+        weight_scale.data_ptr(), x_scale.data_ptr(), b_ptr, out.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, h, w, Cp, O, kh, kw, _OUT_KIND[out_dtype],
+        plan.th, plan.tw, m_tiles, n_tiles, splits, plan.per_split, plan.blocks,
+        int(d2s_tma_store(O, out_dtype)), _raw_stream(index))
+    _check_err("avp_int8_conv_d2s", err)
     int8_conv_transpose.launches += 1
     return out.permute(0, 3, 1, 2)
 

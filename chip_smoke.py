@@ -4,13 +4,15 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --parent ROOT       # also time the lane-filter walk,
                                               # NMS, int8 1x1 ("pointwise",
-                                              # "dot") and letterbox kernels
+                                              # "dot"), window conv with C <
+                                              # 128, transposed conv and
+                                              # letterbox kernels
                                               # of the port in ROOT (an
                                               # earlier commit, from git
                                               # archive) against this tree's:
                                               # parent, this, this, parent;
-                                              # the 1x1 kernels' and the
-                                              # letterbox's stage splits;
+                                              # the 1x1, halo, d2s and
+                                              # letterbox stage splits;
                                               # phase 8's host costs of ROOT's
                                               # package in turns
     python3 chip_smoke.py --host-costs ROOT   # phase 7's host costs alone, of
@@ -31,7 +33,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              bit-equal, with CUDA-event and torch.profiler device times.
   4. int8 kernels: the int8 quantize and conv kernels against their plain
              versions at shapes that between them take every route of
-             int8_conv_plan (wgmma, split-K, mma.sync, pointwise, dot; every
+             int8_conv_plan (wgmma, split-K, halo, pointwise, dot; every
              1x1 conv of the main path, a ragged N, a batch of two), bf16
              and f32 outputs, scalar and per-channel scales, through
              int8_conv on the int8 input and int8_conv2d on the float one:
@@ -46,11 +48,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              that together exceed the 50 MB L2: profiler device time of the
              conv and the quantize (and of the conv with one block per unit
              of work in place of the persistent blocks; at a 1x1 conv, of
-             int8_conv2d, which absorbs the quantize, and of PR 2's mma.sync
-             kernel on the same inputs), the bound, the share of the bound,
-             and two yardsticks that the port never calls: the bf16 cuDNN
-             conv of the same shape and torch._int_mm on a pre-built im2col
-             matrix.
+             int8_conv2d, which absorbs the quantize), the bound, the share
+             of the bound, and two yardsticks that the port never calls: the
+             bf16 cuDNN conv of the same shape and torch._int_mm on a
+             pre-built im2col matrix; then the same for the halo route's
+             shapes (HALO_TIMED: the QAT export's 64 -> 3 3x3 at 320x640, and
+             64 -> 96 at 20x40). With --parent, the parent's transposed conv
+             and mma.sync conv against this tree's d2s and halo kernels in
+             turns (PARENT_D2S, PARENT_HALO), and the new kernels' stage
+             splits from a build with -DAVP_HALO_STAMPS -DAVP_D2S_STAMPS.
   5. lane filter: the lane-filter walk kernel against its plain version
              (torch.equal on the weight images and start points) on 30 mask
              sets from the script's own rasteriser (10 kinds of scene x 2
@@ -69,7 +75,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   8. int8:   the same on the selective-int8 main path (int8=True, min_ch
              256, bench.py's default): 72 int8 conv launches per frame by
              route (18 wgmma, 12 split-K, 22 pointwise, 20 dot, none on
-             mma.sync) and 30 quantize launches (the 1x1 convs quantize as
+             halo) and 30 quantize launches (the 1x1 convs quantize as
              they load); on one
              frame, each of the 72 int8 convs against its plain version on
              the same input (torch.equal); device time per frame by kind of
@@ -193,17 +199,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              variant of phase 4; the 21 new int8 shapes timed as in phase 4.
  28. Lite CLI: export/eval_lite.py::main on SceneSegLite, --synthetic 4
              --bench, bf16 and --int8: its summary line and launches.
- 29. int8 transpose kernel: the int8 transposed conv (k == s; the pointwise
-             route with a depth-to-space epilogue, csrc/int8_pointwise.cu)
-             against its plain version at the main path's five shapes, O =
-             3, 12, 20, C = 200 and a batch of two: f32 and bf16 in, f32,
-             bf16 and int32 out, static and dynamic scales, bit for bit;
-             the five shapes timed over rotating inputs past the L2 with
-             the bound, its share, the plain version, cuDNN's bf16
-             conv_transpose2d and torch._int_mm (yardsticks only).
+ 29. int8 transpose kernel: the int8 transposed conv (k == s; the quantize,
+             then the wgmma kernel's d2s variant with its depth-to-space
+             TMA-store epilogue, csrc/int8_conv_sm90.cu) against its plain
+             version at the main path's five shapes, O = 3, 12, 20, C = 200,
+             a batch of two and a K split: f32 and bf16 in, f32, bf16 and
+             int32 out, static and dynamic scales, bit for bit; the five
+             shapes timed over rotating inputs past the L2 (the pair and the
+             quantize alone) with the function's and the pair's bounds and
+             shares, the plain version, cuDNN's bf16 conv_transpose2d and
+             torch._int_mm (yardsticks only).
  30. int8 + transposes: the main path with quantize_for_int8_conv(...,
              256, quantize_transpose=True) on each network: 72 int8 convs
-             and 11 transposed convs a frame, one frame under sync-debug
+             and 11 transposed convs a frame (41 quantize launches: each
+             transpose quantizes first), one frame under sync-debug
              "error", launches by route over WARM + TIMED frames, every int8
              module of one frame bit-equal to its plain version, p50/p99
              beside phase 8's.
@@ -252,7 +261,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              and at batch 8; (c) LegacySegTrainer with
              qat=True, qat_min_channels 32 at 320x640 for two steps, the
              observers' scales, int8_variables_from_qat, the int8 net on the
-             card: launches by route (mma.sync among them), every int8 conv
+             card: launches by route (halo among them), every int8 conv
              bit-equal to its plain version, the float and int8 nets through
              save_msgpack / load_msgpack bit-equal.
 37. trainers: (a) one DetectionTrainer step of AutoSpeed "n" at 128x256,
@@ -346,7 +355,8 @@ INT8_SHAPES = (
     (1, 480, 20, 1, 1, 1, "dot"),          # SE fc1 of stage 4, N = 20
     (3, 480, 200, 60, 90, 1, "wgmma"),     # channel tail, ragged N and pixel rectangles
     (3, 672, 100, 9, 13, 1, "splitk"),     # one tile, 11 splits, channel tail, ragged N
-    (3, 64, 96, 20, 40, 1, "mma"),         # a 3x3 window with C < 128
+    (3, 64, 96, 20, 40, 1, "halo"),        # a 3x3 window with C < 128
+    (3, 64, 3, 320, 640, 1, "halo"),       # the QAT export's head, N = 3
     (1, 672, 100, 9, 13, 1, "pointwise"),  # ragged M and N
     (1, 480, 112, 20, 40, 2, "pointwise"),  # a batch of two
     (1, 1152, 48, 1, 1, 2, "dot"),         # a batch of two SE squeezes
@@ -360,7 +370,7 @@ INT8_SHAPES = (
 # at M = 117, C = 1152, N = 100: every N tile, both M tiles, every cluster size
 PW_VARIANTS = tuple((bm, bn, cs) for bn in (64, 128, 192, 256) for bm in (64, 128)
                     for cs in (1, 8)) + tuple((64, 128, cs) for cs in range(2, 8))
-CONV_KERNEL = {"wgmma": "int8_conv_wgmma", "splitk": "int8_conv_wgmma", "mma": "int8_conv_mma",
+CONV_KERNEL = {"wgmma": "int8_conv_wgmma", "splitk": "int8_conv_wgmma", "halo": "int8_conv_halo",
                "pointwise": "int8_conv_pointwise", "dot": "int8_conv_dot"}
 # (window, cin, cout, h, w, convs per frame): the 24 distinct int8 convs of
 # the main path at 320x640 (72 convs, 669.7 GOP)
@@ -376,9 +386,13 @@ MAIN_INT8 = (
 )
 # the shape at which the JSON line reports each kernel
 RECORD_SHAPES = {"int8_quantize": (3, 256, 256, 160, 320), "int8_conv_wgmma": (3, 256, 256, 160, 320),
-                 "int8_conv_mma": (1, 1152, 320, 10, 20),
+                 "int8_conv_halo": (3, 64, 3, 320, 640),
                  "int8_conv_pointwise": (1, 1152, 320, 10, 20),
                  "int8_conv_dot": (1, 1152, 48, 1, 1)}
+# (window, cin, cout, h, w, convs per frame) of the halo route timed in
+# phase 4: the QAT export's head (1 a frame on its path) and the 3x3 C < 128
+# shape of INT8_SHAPES
+HALO_TIMED = ((3, 64, 3, 320, 640, 1), (3, 64, 96, 20, 40, 0))
 INT8_REF_FRAMES = 4
 PROFILE_FRAMES = 20
 HOST_FRAMES = 20  # per round; rounds bf16, int8, int8, bf16
@@ -723,20 +737,18 @@ def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
     path), bf16 with a scalar scale, each timed over rotating inputs (and
     weights) that together exceed the L2 where the shape allows. At a 1x1
     shape also int8_conv2d (one launch that quantizes on load: what the
-    paths run) and the "mma" route's mma.sync kernel on the same int8 inputs. -> the
-    JSON records' timings (of RECORD_SHAPES found in ``table``)."""
+    paths run). -> the JSON records' timings (of RECORD_SHAPES found in
+    ``table``)."""
     import torch.nn.functional as F
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
-        _launch, _mma_plan, _reciprocal, int8_conv, int8_conv2d, int8_conv_plain,
+        _launch, _reciprocal, int8_conv, int8_conv2d, int8_conv_plain,
         int8_conv_plan, int8_quantize, int8_quantize_plain, pad_channels, padded_channels)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # the frame's int8 device time from the shapes alone: the 3x3 convs and
-    # their quantize, the 1x1 convs as they run now, and as they ran on the
-    # mma.sync kernel after a separate quantize
+    # their quantize, and the 1x1 convs
     frame = dict.fromkeys(("3x3 conv", "3x3 quantize", "3x3 channel pads (C % 16 != 0)",
-                           "1x1 conv (quantize on load)",
-                           "1x1 on mma.sync + quantize (before)"), 0.0)
+                           "1x1 conv (quantize on load)"), 0.0)
     missing = {k: [] for k in frame}  # shapes the profiler recorded nothing of
     records = {}
     for k, cin, cout, h, w, per_frame in table:
@@ -768,10 +780,6 @@ def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
             x, wt, ws, b, sx, _, _ = ksets[i]
             return int8_conv2d(x, wt, ws, sx, b, pad)
 
-        def old_mma(i):
-            x, wt, ws, b, sx, xq, _ = ksets[i]
-            return _launch(_mma_plan(M, cout, K, sms), xq, wt, ws, sx, b, pad, torch.bfloat16)
-
         def conv_one_block_a_unit(i):
             x, wt, ws, b, sx, xq, _ = ksets[i]
             return _launch(plan._replace(blocks=math.prod(plan.grid)), xq, wt, ws, sx,
@@ -791,7 +799,7 @@ def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
              "cudnn": device_us(cudnn, idx),
              "pad": device_us(channel_pads, idx) if extra else 0.0}
         if k == 1:
-            t["conv2d"], t["old_mma"] = device_us(conv2d, idx), device_us(old_mma, idx)
+            t["conv2d"] = device_us(conv2d, idx)
         conv_ms = cuda_ms(conv, idx)
         # the persistent schedule against one block per unit of work
         one_each = (device_us(conv_one_block_a_unit, idx)
@@ -821,8 +829,7 @@ def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
         q_bms, _ = bound(0, h * w * cin * 3)
         share = bms * 1e3 / t["conv"] if t["conv"] > 0 else float("nan")
         rate = ops / (t["conv"] * 1e-6) / 1e12 if t["conv"] > 0 else float("nan")
-        parts = ({"1x1 conv (quantize on load)": t["conv2d"],
-                  "1x1 on mma.sync + quantize (before)": t["old_mma"] + t["quantize"]}
+        parts = ({"1x1 conv (quantize on load)": t["conv2d"]}
                  if k == 1 else {"3x3 conv": t["conv"], "3x3 quantize": t["quantize"],
                                  "3x3 channel pads (C % 16 != 0)": t["pad"]})
         for kind, us in parts.items():
@@ -836,9 +843,7 @@ def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
                            else float("nan"))
             fused_note = (f"; int8_conv2d on the bf16 input (conv and the quantize it "
                           f"absorbs, one launch) {t['conv2d']!r} us, bound "
-                          f"{fused_bms * 1e3!r} us by {fused_by}, share {fused_share!r}; "
-                          f"PR 2's mma.sync kernel on the same int8 inputs "
-                          f"{t['old_mma']!r} us (+ quantize {t['quantize']!r} us)")
+                          f"{fused_bms * 1e3!r} us by {fused_by}, share {fused_share!r}")
         print(f"int8 shape {k}x{k} {cin}->{cout} at {h}x{w} (M {M}, N {cout}, K {K}), "
               f"{per_frame} per frame, route {plan.route} grid {plan.grid}, "
               f"{plan.blocks} blocks, {card}: "
@@ -874,7 +879,7 @@ def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
                         x, wt, ws, sx, b, pad, plain=True), one) / 1e3)
             else:
                 records[name] = dict(
-                    ms=(t["old_mma"] if name == "int8_conv_mma" else t["conv"]) / 1e3,
+                    ms=t["conv"] / 1e3,
                     bound_ms=bms, bound_by=by, library_ms=lib,
                     plain_ms=device_us(lambda i: int8_conv_plain(
                         xq, wt, ws, sx, b, pad, torch.bfloat16), one) / 1e3)
@@ -896,6 +901,8 @@ def phase_int8_kernels(card):
     for name, err in check_pointwise_variants(g).items():
         worst[name] = max(worst[name], err)
     records = time_int8_shapes(g, card)
+    records.update(time_int8_shapes(g, card, HALO_TIMED, "the halo route's shapes (the QAT "
+                                                          "export's head a frame)"))
     return {name: dict(max_abs_err=worst[name], **rec) for name, rec in records.items()}
 
 
@@ -957,7 +964,7 @@ def read_counts():
             "fused_letterbox": fused_letterbox.launches, "nms_greedy": nms_greedy.launches,
             "int8_quantize": int8_quantize.launches, "int8_conv": int8_conv.launches,
             "int8_conv_wgmma": r["wgmma"] + r["splitk"], "int8_conv_splitk": r["splitk"],
-            "int8_conv_mma": r["mma"], "int8_conv_pointwise": r["pointwise"],
+            "int8_conv_halo": r["halo"], "int8_conv_pointwise": r["pointwise"],
             "int8_conv_dot": r["dot"], "int8_conv_transpose": int8_conv_transpose.launches}
 
 
@@ -1075,7 +1082,7 @@ def check_convs_on_path(pipe, frame, transposes=0):
 KINDS = (("int8 conv, wgmma and split-K", "int8_conv_wgmma_kernel"),
          ("int8 conv, pointwise (quantize on load)", "int8_pointwise_kernel"),
          ("int8 conv, dot (quantize on load)", "int8_dot_kernel"),
-         ("int8 conv, mma.sync", "int8_conv_kernel"),
+         ("int8 conv, halo", "int8_conv_halo_kernel"),
          ("int8 quantize", "quantize_kernel"),
          # the 12 split-K arrival counters, and the memsets of the rest of the frame
          ("memsets", "Memset"))
@@ -1236,7 +1243,7 @@ def phase_int8(card, bf16_pipe, parent_root=None):
     expect_launches(launches, {"fused_preprocess": n, "int8_quantize": 30 * n,
                                "int8_conv": 72 * n, "int8_conv_wgmma": 30 * n,
                                "int8_conv_splitk": 12 * n, "int8_conv_pointwise": 22 * n,
-                               "int8_conv_dot": 20 * n, "int8_conv_mma": 0})
+                               "int8_conv_dot": 20 * n, "int8_conv_halo": 0})
     check_convs_on_path(pipe, pool[0])
     profile_frames(pipe, pool, card)
     host_costs(bf16_pipe, pipe, pool, card)
@@ -1775,6 +1782,129 @@ def phase_pointwise_parent(card, parent):
         del sets
         torch.cuda.empty_cache()
     return times
+
+
+# --parent's turns of the two kernels redesigned for this card: the window
+# conv with C < 128 at the QAT export's head and INT8_SHAPES' 64 -> 96
+# (window, cin, cout, h, w; the parent's mma.sync kernel where the parent
+# has one, this tree's halo kernel), and the transposed conv at
+# MAIN_TRANSPOSES (the parent's pointwise D2S instance, this tree's quantize
+# and d2s)
+PARENT_HALO = ((3, 64, 3, 320, 640), (3, 64, 96, 20, 40))
+# the stage splits of the new kernels, from this tree built with
+# -DAVP_HALO_STAMPS -DAVP_D2S_STAMPS
+HALO_STAGES = ("halo wait", "taps (weight waits, wgmma)", "staging",
+               "copy out", "the epilogue's first barrier")
+D2S_STAGES = ("load wait", "wgmma", "epilogue (staging, bulk stores issued)",
+              "split-K sums", "waiting for the last tile's stores to read the staging")
+
+
+def stamped_int8(pkg, pb, out):
+    """The halo and d2s kernels of the port in ``pkg`` with their stage
+    stamps: its int8_conv.cu, int8_conv_sm90.cu and int8_conv_halo.cu built
+    with -DAVP_HALO_STAMPS -DAVP_D2S_STAMPS into a library of their own
+    under ``out``. -> (its int8_conv module over that library, the halo's
+    stamps, the d2s stamps)."""
+    import ctypes
+
+    csrc = pkg / "csrc"
+    lib = build_library(pb, csrc, [csrc / "int8_conv.cu", csrc / "int8_conv_sm90.cu",
+                                   csrc / "int8_conv_halo.cu"], out / "libstamped_int8.so",
+                        ("-DAVP_HALO_STAMPS", "-DAVP_D2S_STAMPS"))
+    stamps = []
+    for setter in (lib.avp_int8_halo_set_stamps, lib.avp_int8_d2s_set_stamps):
+        buf = torch.zeros(STAMP_WORDS * 4096, dtype=torch.int64, device="cuda")
+        if setter(ctypes.c_void_p(buf.data_ptr())):
+            raise RuntimeError(f"could not set a stamp buffer of {csrc}")
+        stamps.append(buf)
+    return int8_wrapper_of(pkg, lib), *stamps
+
+
+def transpose_sets(g, cin, cout, h, w):
+    """Rotating bf16 inputs of a 2x2 transposed conv, together above the L2
+    where the shape allows, as phase 29's."""
+    M, N = h * w, 4 * cout
+    set_bytes = M * cin * 2 + N * cin * 3 + M * N * 2
+    n = max(2, min(64, math.ceil(1.2 * L2_BYTES / set_bytes)))
+    sets = [transpose_inputs(g, (cin, cout, 2, h, w, 1), torch.bfloat16) for _ in range(n)]
+    return sets, list(range(n)) * max(1, math.ceil(20 / n))
+
+
+def phase_d2s_halo_parent(card, parent):
+    """--parent: the parent's window conv with C < 128 and transposed conv
+    (through its own int8_conv module and plans) against this tree's halo
+    and d2s kernels on the same bf16 inputs, outputs equal, profiler device
+    time in turns (parent, this, this, parent) at PARENT_HALO and
+    MAIN_TRANSPOSES; then this tree's stage splits (stamped_int8) at the
+    same shapes, mean ns a block over 4 launches."""
+    from autoware_vision_pilot_tpu_torch.kernels import build as this_build
+    from autoware_vision_pilot_tpu_torch.ops.kernels import int8_conv as ours
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_quantize
+
+    theirs = parent[3]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator().manual_seed(SEED + 19)
+    mods = (("parent", theirs), ("this tree", ours))
+    halo_sets = {}
+    for k, cin, cout, h, w in PARENT_HALO:
+        set_bytes = h * w * cin + cout * cin * k * k
+        n = max(2, min(64, math.ceil(1.2 * L2_BYTES / set_bytes)))
+        sets = []
+        for _ in range(n):
+            x, wt, ws, b, sx = int8_inputs(g, (k, cin, cout, h, w), torch.bfloat16)
+            sets.append((int8_quantize(x, sx), wt, ws, b, sx))
+        idx = list(range(n)) * max(1, math.ceil(20 / n))
+        fns = {name: (lambda i, m=mod: m.int8_conv(*sets[i][:3], sets[i][4], sets[i][3], k // 2,
+                                                   torch.bfloat16)) for name, mod in mods}
+        if not torch.equal(fns["parent"](0), fns["this tree"](0)):
+            raise AssertionError(f"{k}x{k} {cin}->{cout} at {h}x{w}: the parent's output differs")
+        routes = {name: mod.int8_conv_plan(1, h, w, cin, cout, k, k, k // 2, sms).route
+                  for name, mod in mods}
+        label = (f"int8 conv {k}x{k} {cin}->{cout} at {h}x{w}, int8 in, bf16 out (parent "
+                 f"{routes['parent']}, this tree {routes['this tree']})")
+        t = alternate(label, fns, idx, card)
+        print(f"{label}, {card}: parent {float(np.mean(t['parent']))!r} us, this tree "
+              f"{float(np.mean(t['this tree']))!r} us (mean of two turns each)")
+        halo_sets[(k, cin, cout, h, w)] = sets[:4]
+    sx = torch.tensor(0.0213, device="cuda")
+    d2s_sets = {}
+    for cin, cout, h, w, _ in MAIN_TRANSPOSES:
+        sets, idx = transpose_sets(g, cin, cout, h, w)
+        fns = {name: (lambda i, m=mod: m.int8_conv_transpose(*sets[i][:3], sx, sets[i][3]))
+               for name, mod in mods}
+        if not torch.equal(fns["parent"](0), fns["this tree"](0)):
+            raise AssertionError(f"transpose {cin}->{cout} at {h}x{w}: the parent's output differs")
+        label = (f"int8 transpose 2x2 {cin}->{cout} at {h}x{w}, bf16 in and out (parent one "
+                 f"launch, quantize on load; this tree quantize + d2s)")
+        t = alternate(label, fns, idx, card)
+        print(f"{label}, {card}: parent {float(np.mean(t['parent']))!r} us, this tree "
+              f"{float(np.mean(t['this tree']))!r} us (mean of two turns each)")
+        d2s_sets[(cin, cout, h, w)] = sets[:4]
+        del sets
+        torch.cuda.empty_cache()
+    mod, halo_stamps, d2s_stamps = stamped_int8(REPO / "autoware_vision_pilot_tpu_torch",
+                                                this_build, REPO / "build")
+
+    def split(label, stamps, plan, calls, names):
+        runs = [stage_split(mod, stamps, plan, call, len(names)) for call in calls]
+        mean = np.mean([r[0] for r in runs], axis=0)
+        print(f"this tree's {label} stage split, {card} (ns a block, mean over {plan.blocks} "
+              f"blocks x {len(runs)} launches, clock64 laps of the first consumer thread scaled "
+              f"by %globaltimer): " + ", ".join(f"{n} {v:.0f}" for n, v in zip(names, mean))
+              + f"; first stamp to last {np.mean([r[1] for r in runs]):.0f} (slowest block "
+              f"{np.mean([r[2] for r in runs]):.0f})")
+
+    for (k, cin, cout, h, w), sets in halo_sets.items():
+        plan = mod.int8_conv_plan(1, h, w, cin, cout, k, k, k // 2, sms)
+        split(f"halo {k}x{k} {cin}->{cout} at {h}x{w}", halo_stamps, plan,
+              [lambda m, s=s: m.int8_conv(*s[:3], s[4], s[3], k // 2, torch.bfloat16)
+               for s in sets], HALO_STAGES)
+    for (cin, cout, h, w), sets in d2s_sets.items():
+        plan = mod.int8_conv_transpose_plan(1, h, w, cin, cout, 2, 2, sms)
+        split(f"d2s 2x2 {cin}->{cout} at {h}x{w}", d2s_stamps, plan,
+              [lambda m, s=s: m.int8_conv_transpose(*s[:3], sx, s[3]) for s in sets], D2S_STAGES)
+    del halo_sets, d2s_sets
+    torch.cuda.empty_cache()
 
 
 def launch_floor(card):
@@ -3214,7 +3344,7 @@ def phase_int8_wrappers(card):
     n = WARM + TIMED
     pool = frames(n, FRAME_HW, SEED + 24).cuda()
     keys = ("fused_preprocess", "int8_quantize", "int8_conv_wgmma", "int8_conv_pointwise",
-            "int8_conv_dot", "int8_conv_mma")
+            "int8_conv_dot", "int8_conv_halo")
     launches = dict.fromkeys(keys, 0)
     for name, cls in seg_wrappers().items():
         t0 = time.perf_counter()
@@ -3230,7 +3360,7 @@ def phase_int8_wrappers(card):
                     "int8_quantize": routes["wgmma"] + routes["splitk"],
                     "int8_conv_wgmma": routes["wgmma"] + routes["splitk"],
                     "int8_conv_splitk": routes["splitk"], "int8_conv_pointwise":
-                    routes["pointwise"], "int8_conv_dot": routes["dot"], "int8_conv_mma": 0}
+                    routes["pointwise"], "int8_conv_dot": routes["dot"], "int8_conv_halo": 0}
         *_, counts, outs = time_calls(w._fwd, pool, expected,
                                       f"int8 {name}Infer._fwd (min_channels 128; per frame "
                                       f"{routes})", card)
@@ -3520,7 +3650,7 @@ def phase_lite(card):
         expected = {"int8_conv": convs, "int8_quantize": three, "int8_conv_wgmma": three,
                     "int8_conv_splitk": routes["splitk"],
                     "int8_conv_pointwise": routes["pointwise"], "int8_conv_dot": routes["dot"],
-                    "int8_conv_mma": 0}
+                    "int8_conv_halo": 0}
         *_, counts, outs = time_calls(fwd, pool, expected, f"int8 {name} (min_channels 128; "
                                       f"per frame {routes})", card)
         check_finite(name, outs)
@@ -3554,7 +3684,7 @@ def phase_lite_cli(card):
     expected = {"int8_conv": sum(routes.values()), "int8_quantize": three,
                 "int8_conv_wgmma": three, "int8_conv_splitk": routes["splitk"],
                 "int8_conv_pointwise": routes["pointwise"], "int8_conv_dot": routes["dot"],
-                "int8_conv_mma": 0}
+                "int8_conv_halo": 0}
     for extra in ([], ["--int8"]):
         torch.cuda.synchronize()
         reset_counts()
@@ -3581,10 +3711,11 @@ def phase_lite_cli(card):
 MAIN_TRANSPOSES = ((1280, 1280, 10, 20, 2), (1456, 1456, 10, 20, 1), (768, 768, 20, 40, 3),
                    (512, 512, 40, 80, 3), (256, 256, 80, 160, 2))
 # (cin, cout, k, h, w, batch) checked bit for bit in every variant: the five
-# above, then O = 3, O = 12 and 20 (bf16 chunks value by value), C = 200 (K
-# not a multiple of 128 or 16: padded), K = 1456 at a batch of two
+# above, then O = 3, O = 12 and 20 (stored value by value), C = 200 (K not a
+# multiple of 128 or 16: padded), K = 1456 at a batch of two, and split-K
 TRANSPOSE_SHAPES = tuple((c, o, 2, h, w, 1) for c, o, h, w, _ in MAIN_TRANSPOSES) + (
-    (64, 3, 2, 5, 7, 1), (48, 12, 3, 6, 9, 2), (200, 20, 2, 13, 7, 1), (1456, 1456, 2, 10, 20, 2))
+    (64, 3, 2, 5, 7, 1), (48, 12, 3, 6, 9, 2), (200, 20, 2, 13, 7, 1), (1456, 1456, 2, 10, 20, 2),
+    (1456, 64, 2, 4, 4, 1))  # the last: one output tile, K split over 3 blocks
 TRANSPOSE_RECORD = (256, 256, 80, 160)  # the shape the JSON line reports
 INT8_TRANSPOSES = 11
 
@@ -3602,18 +3733,22 @@ def transpose_inputs(g, shape, dtype):
 
 
 def phase_transpose_kernel(card):
-    """Phase 29: the int8 transposed conv (the pointwise route with its
-    depth-to-space epilogue) against its plain version at TRANSPOSE_SHAPES,
-    f32 and bf16 inputs, f32, bf16 and int32 outputs, static and dynamic
-    scales, bit for bit; then the five main-path shapes, bf16 with a static
-    scale, over rotating inputs past the L2: profiler device time, the
-    bound and its share, the plain version's time, and two yardsticks the
-    port never calls: cuDNN's bf16 F.conv_transpose2d and torch._int_mm on
-    the (M, K) x (K, N) product (accumulators only). -> the JSON record."""
+    """Phase 29: the int8 transposed conv (the quantize, then the wgmma
+    kernel's d2s variant with its depth-to-space TMA-store epilogue)
+    against its plain version at TRANSPOSE_SHAPES, f32 and bf16 inputs,
+    f32, bf16 and int32 outputs, static and dynamic scales, bit for bit;
+    then the five main-path shapes, bf16 with a static scale, over rotating
+    inputs past the L2: profiler device time of the pair and of the quantize
+    alone (the d2s kernel is their difference), the bounds of the function
+    (bf16 in, bf16 out) and of the pair (the int8 activation written and
+    read again) and their shares, the plain version's time, and two
+    yardsticks the port never calls: cuDNN's bf16 F.conv_transpose2d and
+    torch._int_mm on the (M, K) x (K, N) product (accumulators only). ->
+    the JSON record."""
     import torch.nn.functional as F
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
-        _reciprocal, _sm_count, dynamic_input_scale, int8_conv_transpose, int8_conv_transpose_plan,
-        int8_quantize, padded_channels)
+        _sm_count, d2s_tma_store, dynamic_input_scale, int8_conv_transpose,
+        int8_conv_transpose_plan, int8_quantize, padded_channels)
 
     g = torch.Generator().manual_seed(SEED + 50)
     worst, checked = 0.0, 0
@@ -3640,12 +3775,11 @@ def phase_transpose_kernel(card):
     frame_us = {"kernel": 0.0, "cuDNN bf16": 0.0}
     for cin, cout, h, w, per_frame in MAIN_TRANSPOSES:
         M, K, N = h * w, cin, 4 * cout
-        plan = int8_conv_transpose_plan(M, padded_channels(cin), N, sms)
+        plan = int8_conv_transpose_plan(1, h, w, padded_channels(cin), cout, 2, 2, sms)
         set_bytes = M * K * 2 + N * K * 3 + M * N * 2  # x bf16, w int8 + bf16, out bf16
         n = max(2, min(64, math.ceil(1.2 * L2_BYTES / set_bytes)))
         sets = [transpose_inputs(g, (cin, cout, 2, h, w, 1), torch.bfloat16) for _ in range(n)]
         sx = torch.tensor(0.0213, device="cuda")
-        _reciprocal(sx)  # kept on the scale, as a static scale's is on the main path
         idx = list(range(n)) * max(1, math.ceil(20 / n))
         w16 = [(wt.float() * ws.reshape(1, -1, 1, 1)).to(torch.bfloat16) for _, wt, ws, _ in sets]
 
@@ -3666,19 +3800,26 @@ def phase_transpose_kernel(card):
             mats.append((a, wt.permute(2, 3, 1, 0).reshape(N, K).t()))  # (K, N) column-major
 
         t = {"kernel": device_us(kernel, idx), "plain": device_us(plain, [0, 1]),
+             "quantize": device_us(lambda i: int8_quantize(sets[i][0], sx), idx),
              "cudnn": device_us(cudnn, idx),
              "int_mm": device_us(lambda i: torch._int_mm(*mats[i % len(mats)]),
                                  list(range(len(mats))) * max(1, math.ceil(20 / len(mats))))}
         ops = 2.0 * M * K * N
         nbytes = M * K * 2 + N * K + M * N * 2 + cout * 6
         bms, by = bound(ops, nbytes)
+        pair_bms, pair_by = bound(ops, nbytes + 2 * M * K)  # xq written, then read
         share = bms * 1e3 / t["kernel"] if t["kernel"] > 0 else float("nan")
+        d2s_us = t["kernel"] - t["quantize"]
         frame_us["kernel"] += per_frame * t["kernel"]
         frame_us["cuDNN bf16"] += per_frame * t["cudnn"]
         print(f"int8 transpose {cin}->{cout} 2x2 at {h}x{w} -> {2 * h}x{2 * w} (M {M}, K {K}, "
-              f"N {N}), {per_frame} per frame, plan bm {plan.bm} bn {plan.bn} grid {plan.grid}, "
-              f"{card}: kernel {t['kernel']!r} us ({t['kernel'].how}), bound {bms * 1e3!r} us "
-              f"by {by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GOP), share {share!r}; plain "
+              f"N {N}), {per_frame} per frame, d2s plan {plan.th}x{plan.tw} rectangles grid "
+              f"{plan.grid} {plan.blocks} blocks, TMA store {d2s_tma_store(cout, torch.bfloat16)}, "
+              f"{card}: quantize + d2s {t['kernel']!r} us ({t['kernel'].how}; quantize "
+              f"{t['quantize']!r} us, d2s {d2s_us!r} us), bound of the function {bms * 1e3!r} us "
+              f"by {by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GOP), share {share!r}; bound of "
+              f"the pair {pair_bms * 1e3!r} us by {pair_by}, share "
+              f"{pair_bms * 1e3 / t['kernel'] if t['kernel'] > 0 else float('nan')!r}; plain "
               f"{t['plain']!r} us; cuDNN bf16 conv_transpose2d {t['cudnn']!r} us; "
               f"torch._int_mm (M, K) x (K, N) {t['int_mm']!r} us (accumulators only, no "
               f"quantize, no depth to space); rotation {n} input sets, "
@@ -3730,10 +3871,12 @@ def phase_int8_transpose(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     launches = drive(pipe, pool, "int8 + transposes", card)
-    expect_launches(launches, {"fused_preprocess": n, "int8_quantize": 30 * n,
+    # each transposed conv quantizes its input in a launch of its own
+    expect_launches(launches, {"fused_preprocess": n,
+                               "int8_quantize": (30 + INT8_TRANSPOSES) * n,
                                "int8_conv": 72 * n, "int8_conv_wgmma": 30 * n,
                                "int8_conv_splitk": 12 * n, "int8_conv_pointwise": 22 * n,
-                               "int8_conv_dot": 20 * n, "int8_conv_mma": 0,
+                               "int8_conv_dot": 20 * n, "int8_conv_halo": 0,
                                "int8_conv_transpose": INT8_TRANSPOSES * n})
     check_convs_on_path(pipe, pool[2], INT8_TRANSPOSES)
     p50, p99 = LATENCY["int8 + transposes"]
@@ -4592,19 +4735,19 @@ def phase_qat_export(card):
     launches = read_counts()
     check_finite("QAT int8 SceneSeg", [out])
     convs = int8_conv_count(int8)
-    expected = {r: 0 for r in ("wgmma", "splitk", "mma", "pointwise", "dot")}
+    expected = {r: 0 for r in ("wgmma", "splitk", "halo", "pointwise", "dot")}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     with torch.no_grad():
         checked = check_int8_convs("QAT export SceneSeg", int8, lambda: int8(x), convs, ())
     for k, c, n, h, w in checked:
         expected[int8_conv_plan(1, h, w, c + -c % 16, n, k, k, (k - 1) // 2, sms).route] += 1
     want = {"int8_conv": convs, "int8_conv_wgmma": expected["wgmma"] + expected["splitk"],
-            "int8_conv_splitk": expected["splitk"], "int8_conv_mma": expected["mma"],
+            "int8_conv_splitk": expected["splitk"], "int8_conv_halo": expected["halo"],
             "int8_conv_pointwise": expected["pointwise"], "int8_conv_dot": expected["dot"],
-            "int8_quantize": expected["wgmma"] + expected["splitk"] + expected["mma"]}
+            "int8_quantize": expected["wgmma"] + expected["splitk"] + expected["halo"]}
     expect_launches(launches, want)
-    if expected["mma"] <= 0:
-        raise AssertionError("the QAT export sent no conv down the mma.sync route")
+    if expected["halo"] <= 0:
+        raise AssertionError("the QAT export sent no conv down the halo route")
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         other = init_seeded(SceneSegNetwork(), torch.Generator().manual_seed(SEED + 1)).eval()
         for name, model, fresh in (
@@ -4630,7 +4773,7 @@ def phase_qat_export(card):
     del trainer, net, int8
     torch.cuda.empty_cache()
     return {k: launches[k] for k in ("int8_quantize", "int8_conv_wgmma", "int8_conv_pointwise",
-                                     "int8_conv_dot", "int8_conv_mma")}
+                                     "int8_conv_dot", "int8_conv_halo")}
 
 
 # ---------- phase 37: the remaining trainers on the card ----------
@@ -5381,6 +5524,7 @@ def main():
     records = {"fused_preprocess": preprocess, **phase_int8_kernels(card)}
     if parent is not None:
         phase_pointwise_parent(card, parent)
+        phase_d2s_halo_parent(card, parent)
     records["lane_filter_walk"] = phase_lane_filter(card, parent)
     phase_f32()
     bf16_pipe = phase_bf16(card)
@@ -5477,9 +5621,9 @@ def main():
     print(f"wall time of phase 38 (s): {walls}, {sum(walls.values()):.1f} s in all")
     for path, counts in paths.items():
         for name, n in counts.items():
-            # the paths at min_channels 128 and above tally the mma.sync
-            # route too, and have no conv for it (a window > 1 with C < 128)
-            if n <= 0 and not (name == "int8_conv_mma" and path != "QAT export"):
+            # the paths at min_channels 128 and above tally the halo route
+            # too, and have no conv for it (a window > 1 with C < 128)
+            if n <= 0 and not (name == "int8_conv_halo" and path != "QAT export"):
                 raise AssertionError(f"the {path} never launched {name}")
             launches[name] += n
     print("batched kernel times at N = 8 against 8 x N = 1, " + card + ": " + "; ".join(
@@ -5494,11 +5638,12 @@ def main():
         "int8_quantize": (pkg + "int8_conv.cu", "autoware_vision_pilot_tpu/nn/layers.py:103"),
         "int8_conv_wgmma": (pkg + "int8_conv_sm90.cu",
                             "autoware_vision_pilot_tpu/nn/layers.py:110"),
-        "int8_conv_mma": (pkg + "int8_conv.cu", "autoware_vision_pilot_tpu/nn/layers.py:110"),
+        "int8_conv_halo": (pkg + "int8_conv_halo.cu",
+                           "autoware_vision_pilot_tpu/nn/layers.py:110"),
         "int8_conv_pointwise": (pkg + "int8_pointwise.cu",
                                 "autoware_vision_pilot_tpu/nn/layers.py:81"),
         "int8_conv_dot": (pkg + "int8_pointwise.cu", "autoware_vision_pilot_tpu/nn/layers.py:81"),
-        "int8_conv_transpose": (pkg + "int8_pointwise.cu",
+        "int8_conv_transpose": (pkg + "int8_conv_sm90.cu",
                                 "autoware_vision_pilot_tpu/nn/layers.py:187"),
         "lane_filter_walk": (pkg + "lane_filter.cu",
                              "autoware_vision_pilot_tpu/perception/lane_filter.py:113"),
@@ -5506,7 +5651,7 @@ def main():
                             "autoware_vision_pilot_tpu/ops/preprocess.py:86"),
         "nms_greedy": (pkg + "nms.cu", "autoware_vision_pilot_tpu/ops/postprocess.py:88"),
     }
-    # The mma.sync kernel keeps the windows > 1 with C < 128: the QAT
+    # The halo kernel keeps the windows > 1 with C < 128: the QAT
     # export's path (phase 36c) launches it. Each path's own kernels: the
     # int8 path's counts above, the lateral and longitudinal programs' here.
     for name in sources:

@@ -19,7 +19,7 @@ import torch
 from autoware_vision_pilot_tpu_torch.models.efficientnet import B0_DRYRUN_STAGES
 from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
 from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
-    PW_BK, PW_WIDTHS, _launch, _mma_plan, int8_conv, int8_conv2d, int8_conv_plain,
+    PW_BK, PW_WIDTHS, _halo_plan, _launch, int8_conv, int8_conv2d, int8_conv_plain,
     int8_conv_plan, int8_quantize, int8_quantize_plain, padded_channels)
 from autoware_vision_pilot_tpu_torch.ops.kernels import (lane_filter_kernel, nms_kernel,
                                                         preprocess_kernel)
@@ -171,15 +171,15 @@ def one_split(plan):
     ("wgmma", 3, 480, 136, (17, 23), 1),    # channel tail, ragged rectangles; one split
     ("splitk", 3, 1456, 768, (5, 9), 1),    # K = 13104 in 108 steps
     ("splitk", 3, 672, 100, (9, 13), 1),    # one output tile, channel tail, ragged N
-    ("mma", 3, 64, 96, (20, 40), 1),        # a 3x3 window with C < 128
-    ("mma", 1, 1152, 48, (1, 1), 1),        # an SE squeeze (M = 1) on PR 2's kernel
+    ("halo", 3, 64, 96, (20, 40), 1),       # a 3x3 window with C < 128
+    ("halo", 1, 1152, 48, (1, 1), 1),       # an SE squeeze (M = 1) forced onto the halo kernel
 ])
 def test_int8_conv_routes_match_plain_version(cuda, route, k, cin, cout, hw, batch):
     """Each route of int8_conv_plan against the plain version: int32
     accumulators and f32/bf16 outputs bit-equal, scalar and
     per-input-channel scales. A shape whose own plan splits K also runs
     on the wgmma route through a one-split plan, and a 1x1 conv on the
-    mma.sync route through its mma plan."""
+    halo route through its halo plan."""
     g = torch.Generator().manual_seed(cin + cout + k)
     x = torch.randn(batch, cin, *hw, generator=g)
     w = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
@@ -190,8 +190,8 @@ def test_int8_conv_routes_match_plain_version(cuda, route, k, cin, cout, hw, bat
     plan = int8_conv_plan(batch, *hw, cin, cout, k, k, k // 2, sm_count())
     if route == "wgmma" and plan.route == "splitk":
         plan = one_split(plan)
-    if route == "mma" and k == 1:
-        plan = _mma_plan(batch * hw[0] * hw[1], cout, cin, sm_count())
+    if route == "halo" and k == 1:
+        plan = _halo_plan(batch, *hw, cin, cout, 1, 1, 0, sm_count())
     assert plan.route == route
 
     def conv(xq, sx, bias, dtype):
@@ -212,6 +212,75 @@ def test_int8_conv_routes_match_plain_version(cuda, route, k, cin, cout, hw, bat
             assert y.dtype == dtype and y.is_contiguous(memory_format=CL)
             assert torch.equal(y, int8_conv_plain(xq, w, w_scale, sx, bias, k // 2, dtype))
     assert int8_conv.route_launches[route] == before + 8
+
+
+# (B, H, W, C, N, window, pad) on the halo route: the QAT export's head (64
+# -> 3 3x3 at 320x640), C = 16, 48 and 112 (K tails), N = 1, 8, 9, 64 and 65
+# (one or two N tiles), a 1x1 window with padding, 5x5, a batch of two, and
+# maps smaller than a tile
+HALO_CARD = [(1, 320, 640, 64, 3, 3, 1), (1, 9, 13, 16, 8, 3, 1), (1, 9, 13, 48, 9, 3, 1),
+             (1, 9, 13, 112, 64, 3, 1), (1, 7, 11, 32, 1, 3, 1), (1, 7, 11, 32, 65, 3, 1),
+             (1, 10, 20, 320, 64, 1, 1), (1, 1, 1, 480, 20, 1, 2), (2, 13, 17, 48, 65, 5, 2),
+             (2, 6, 9, 64, 3, 3, 1), (1, 3, 5, 16, 3, 3, 1)]
+
+
+@pytest.mark.parametrize("B,H,W,C,N,k,pad", HALO_CARD, ids=["-".join(map(str, s)) for s in HALO_CARD])
+def test_int8_halo_route_matches_plain_version(cuda, B, H, W, C, N, k, pad):
+    """The halo kernel against the plain version: f32 and bf16 inputs;
+    f32, bf16 and int32 outputs; a static scalar scale, the dynamic one
+    (dynamic_input_scale) and per-input-channel scales; bit for bit."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import dynamic_input_scale
+    assert int8_conv_plan(B, H, W, C, N, k, k, pad, sm_count()).route == "halo"
+    g = torch.Generator().manual_seed(B + H + C + N + k + pad)
+    x = torch.randn(B, C, H, W, generator=g) * torch.linspace(0.5, 2.0, C).reshape(1, -1, 1, 1)
+    wq = torch.randint(-127, 128, (N, C, k, k), generator=g,
+                       dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+    w_scale = (torch.rand(N, generator=g) * 1e-3 + 1e-4).to(cuda)
+    before = int8_conv.route_launches["halo"]
+    calls = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype).contiguous(memory_format=CL).to(cuda)
+        scales = [torch.tensor(0.0123, device=cuda), dynamic_input_scale(xd)[0],
+                  (x.double().abs().amax(dim=(0, 2, 3)) / 127.0).float().to(cuda)]
+        for sx in scales:
+            xq = int8_quantize(xd, sx)
+            for out in (torch.float32, torch.bfloat16, torch.int32):
+                bias = None if out == torch.int32 else (
+                    torch.randn(N, generator=g) * 0.1).to(out).to(cuda)
+                y = int8_conv(xq, wq, w_scale, sx, bias, pad, out)
+                torch.cuda.synchronize()
+                calls += 1
+                assert y.dtype == out and y.is_contiguous(memory_format=CL)
+                assert torch.equal(y, int8_conv_plain(xq, wq, w_scale, sx, bias, pad, out))
+    assert int8_conv.route_launches["halo"] == before + calls
+
+
+def test_int8_halo_refuses_and_never_falls_back(cuda, monkeypatch):
+    """On the card the halo route launches its kernel or raises: a window
+    whose halo no TMA box holds raises, and the plain versions never run
+    on a CUDA tensor (they do on a CPU one)."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels import int8_conv as k8
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(1, 16, 4, 300, generator=g).contiguous(memory_format=CL).to(cuda)
+    sx = torch.tensor(0.02, device=cuda)
+    wide = torch.randint(-127, 128, (8, 16, 1, 300), generator=g,
+                         dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+    with pytest.raises(ValueError, match="TMA box"):
+        k8.int8_conv2d(x, wide, torch.ones(8, device=cuda), sx, None, (0, 0))
+    w = torch.randint(-127, 128, (3, 16, 3, 3), generator=g,
+                      dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(k8, "int8_conv_plain", boom)
+    monkeypatch.setattr(k8, "int8_quantize_plain", boom)
+    before = k8.int8_conv.route_launches["halo"]
+    k8.int8_conv2d(x, w, torch.ones(3, device=cuda), sx, None, 1)
+    torch.cuda.synchronize()
+    assert k8.int8_conv.route_launches["halo"] == before + 1
+    with pytest.raises(AssertionError):
+        k8.int8_conv2d(x.cpu(), w.cpu(), torch.ones(3), sx.cpu(), None, 1)
 
 
 # (cin, cout, h, w, batch): the main path's ten 1x1 int8 convs, then a
@@ -1263,10 +1332,12 @@ def test_backend_on_card_matches_wrapper(cuda):
 
 # (C, O, k, h, w, batch): the int8 transposed conv (k == s) on the card: the
 # main path's widths at small maps, a K not a multiple of 128 (1456, with
-# the 1456-wide O no N tile divides), O = 3 and O = 12 (chunks value by
-# value in bf16), C = 40 (padded to 48), a batch of two
+# the 1456-wide O no N tile divides), O = 3 and O = 12 (stored value by
+# value), C = 40 (padded to 48), a batch of two, K split over 3 blocks (one
+# output tile, C = 1456), and O = 20 at C = 200 (value by value, C padded)
 TRANSPOSE_CARD = [(256, 256, 2, 20, 40, 1), (1456, 1456, 2, 10, 20, 1), (512, 512, 2, 8, 10, 2),
-                  (64, 3, 2, 5, 7, 1), (48, 12, 3, 6, 9, 2), (40, 64, 2, 3, 5, 1)]
+                  (64, 3, 2, 5, 7, 1), (48, 12, 3, 6, 9, 2), (40, 64, 2, 3, 5, 1),
+                  (1456, 64, 2, 4, 4, 1), (200, 20, 2, 13, 7, 1)]
 
 
 def transpose_inputs(C, O, k, h, w, batch, dtype, seed, device):
@@ -1282,21 +1353,26 @@ def transpose_inputs(C, O, k, h, w, batch, dtype, seed, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("C,O,k,h,w,batch", TRANSPOSE_CARD)
 def test_int8_conv_transpose_matches_plain_version(cuda, C, O, k, h, w, batch, dtype, static):
-    """The kernel (pointwise route, depth-to-space epilogue) against its
-    plain version on the same card inputs, bit for bit: the output and the
-    int32 accumulators."""
+    """The kernel (the wgmma kernel's d2s variant after the quantize) against
+    its plain version on the same card inputs, bit for bit: the outputs in
+    f32 and bf16 and the int32 accumulators."""
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
         dynamic_input_scale, int8_conv_transpose)
     x, weight, ws, bias = transpose_inputs(C, O, k, h, w, batch, dtype, C + O + k, cuda)
     sx = torch.tensor(0.0213, device=cuda) if static else dynamic_input_scale(x)[0]
-    before = int8_conv_transpose.launches
+    before = int8_conv_transpose.launches, int8_quantize.launches
     got = int8_conv_transpose(x, weight, ws, sx, bias)
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    got_other = int8_conv_transpose(x, weight, ws, sx, bias.to(other), other)
     acc = int8_conv_transpose(x, weight, ws, sx, None, torch.int32)
-    assert int8_conv_transpose.launches == before + 2
+    assert (int8_conv_transpose.launches, int8_quantize.launches) == (before[0] + 3,
+                                                                      before[1] + 3)
     want = int8_conv_transpose(x, weight, ws, sx, bias, plain=True)
     assert got.shape == (batch, O, h * k, w * k) and got.dtype == dtype
     assert got.is_contiguous(memory_format=CL)
     assert torch.equal(got, want)
+    assert torch.equal(got_other, int8_conv_transpose(x, weight, ws, sx, bias.to(other), other,
+                                                      plain=True))
     assert torch.equal(acc, int8_conv_transpose(x, weight, ws, sx, None, torch.int32,
                                                 plain=True))
 
@@ -1493,7 +1569,7 @@ def test_qat_export_int8_calls_match_plain(cuda):
     """QAT on the card (one observer forward of SceneSeg at dryrun depth,
     64x128, f32), int8_variables_from_qat at min_channels 32: every int8
     conv of a frame equal to its plain version on its own input, and the
-    mma.sync route among the launches (the head's 64 -> 3 3x3 conv)."""
+    halo route among the launches (the head's 64 -> 3 3x3 conv)."""
     from autoware_vision_pilot_tpu_torch.models import SceneSegNetwork
     from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded
     from autoware_vision_pilot_tpu_torch.train.qat import (collect_act_scales,
@@ -1523,7 +1599,7 @@ def test_qat_export_int8_calls_match_plain(cuda):
         h.remove()
     made = {k: int8_conv.route_launches[k] - before[k] for k in before}
     assert len(calls) == 30 and all(calls)
-    assert sum(made.values()) == 30 and made["mma"] >= 1, made
+    assert sum(made.values()) == 30 and made["halo"] >= 1, made
 
 
 def test_detection_validation_nms_on_card(cuda, monkeypatch):

@@ -228,7 +228,7 @@ def test_plan_rejects_shapes_no_route_takes(shape, match):
 @pytest.mark.parametrize("route,shape", [
     ("wgmma", (1, 80, 160, 512, 512, 3, 3, 1)),   # decode_layer_4: 400 tiles
     ("splitk", (1, 20, 40, 1456, 768, 3, 3, 1)),  # decode_layer_0: 42 tiles
-    ("mma", (1, 20, 40, 64, 96, 3, 3, 1)),        # a 3x3 window with C < 128
+    ("halo", (1, 20, 40, 64, 96, 3, 3, 1)),       # a 3x3 window with C < 128
     ("pointwise", (1, 20, 40, 672, 112, 1, 1, 0)),  # a stage-5 MBConv project
     ("dot", (1, 1, 1, 1152, 48, 1, 1, 0)),         # an SE squeeze, M = 1
 ], ids=ROUTES)

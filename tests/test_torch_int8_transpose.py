@@ -199,28 +199,30 @@ def test_from_jax_loads_the_quantized_tree_in_the_kernel_layout():
         mod.load_state_dict(variables_to_state_dict({"params": bad}, mod))
 
 
-# the main path's transposed convs at 320x640 (M, K, N = kh kw O)
-MAIN_TRANSPOSES = [(200, 1280, 5120), (200, 1456, 5824), (800, 768, 3072),
-                   (3200, 512, 2048), (12800, 256, 1024)]
+# the main path's transposed convs at 320x640 (h, w, C = O), k = s = 2
+MAIN_TRANSPOSES = [(10, 20, 1280), (10, 20, 1456), (20, 40, 768), (40, 80, 512), (80, 160, 256)]
 
 
-@pytest.mark.parametrize("M,C,N", MAIN_TRANSPOSES)
-def test_plan_is_a_pointwise_plan_that_covers_the_product(M, C, N):
-    plan = k.int8_conv_transpose_plan(M, C, N, 132)
-    m_tiles, n_tiles, cs = plan.grid
-    assert plan.route == "pointwise" and plan.bm in (64, 128) and plan.bn in k.PW_WIDTHS
-    assert (m_tiles - 1) * plan.bm < M <= m_tiles * plan.bm
-    assert (n_tiles - 1) * plan.bn < N <= n_tiles * plan.bn
-    k_per_rank = plan.per_split * plan.bk
-    assert k_per_rank % 16 == 0 and (cs - 1) * k_per_rank < C <= cs * k_per_rank
-    assert m_tiles * n_tiles <= k.clusters_at_once(cs, 132) or cs == 1
+@pytest.mark.parametrize("h,w,C", MAIN_TRANSPOSES)
+def test_plan_is_a_pointwise_plan_that_covers_the_product(h, w, C):
+    """The "d2s" plan of the (M = h w, K = C) x (K, N = 4 O) product on the
+    wgmma kernel: rectangles of whole rows of the h x w map, N tiles of 128
+    within each of the 4 output segments, K splits that cover C."""
+    plan = k.int8_conv_transpose_plan(1, h, w, C, C, 2, 2, 132)
+    m_tiles, n_tiles, splits = plan.grid
+    assert plan.route == "d2s" and plan.bm == plan.bn == plan.bk == k.TILE
+    assert h % plan.th == 0 and plan.th * plan.tw <= k.TILE
+    assert m_tiles == h // plan.th * -(-w // plan.tw) and n_tiles == 4 * -(-C // k.TILE)
+    assert plan.iters == -(-C // k.TILE)
+    assert (splits - 1) * plan.per_split < plan.iters <= splits * plan.per_split
+    assert plan.blocks == min(m_tiles * n_tiles * splits, 132)
 
 
 def test_plan_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError):
-        k.int8_conv_transpose_plan(200, 1450, 5800)  # C not a multiple of 16
+        k.int8_conv_transpose_plan(1, 10, 20, 1450, 1450, 2, 2)  # C not a multiple of 16
     with pytest.raises(ValueError):
-        k.int8_conv_transpose_plan(0, 256, 1024)
+        k.int8_conv_transpose_plan(1, 0, 20, 256, 256, 2, 2)
 
 
 def test_wrapper_checks_its_arguments():

@@ -190,10 +190,10 @@ def test_kernel_binding_matches_c_signature():
     declarations in csrc/*.cu: pointers (and the stream) as c_void_p, ints
     as c_int, long longs as c_int64, floats as c_float, in order. The
     library itself is built only on a GPU machine."""
-    assert [p.name for p in build.sources()] == ["int8_conv.cu", "int8_conv_sm90.cu",
-                                                 "int8_pointwise.cu", "lane_filter.cu",
-                                                 "launch_floor.cu", "letterbox.cu", "nms.cu",
-                                                 "preprocess.cu"]
+    assert [p.name for p in build.sources()] == ["int8_conv.cu", "int8_conv_halo.cu",
+                                                 "int8_conv_sm90.cu", "int8_pointwise.cu",
+                                                 "lane_filter.cu", "launch_floor.cu",
+                                                 "letterbox.cu", "nms.cu", "preprocess.cu"]
     decls = {}
     for src in build.sources():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
