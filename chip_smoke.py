@@ -301,8 +301,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              and make_tp_infer on SceneSeg over (data=1, model=2), both on
              [cuda:0, cuda:0], f32, held to the unsharded forward at 1e-3 *
              max|ref|.
+39. data:   write_raw_datasets: 4 seeded samples each of TuSimple
+             (label_data.json, 720x1280), CULane (.lines.txt, 590x1640),
+             BDD100K (train-id PNGs, 720x1280), Mapillary Vistas v1.2 (id
+             PNGs, 1080x1920), KITTI (calib, a 120,000-point velodyne sweep,
+             375x1242) and DrivingStereo (16-bit depth PNGs, 400x881); the
+             port's parsers (data_parsing/*) write the unified layout;
+             check_dataset clean on the two SceneSeg layouts; SceneSegDataset,
+             DepthDataset and EgoLanesMaskDataset read back every label equal
+             to what the parsers wrote; then 4 steps each of the legacy
+             SceneSeg, Scene3D and EgoLanes trainers on what they read
+             (full-width nets, 320x640, batch 2, bf16 autocast): finite
+             losses, parameters moved, no hand-kernel launch; the parsers'
+             host seconds a sample and each trainer's step p50.
 The run prints its wall time, and that of phases 19-25, 26-28, 29-32,
-33-35, 36, 37 and 38.
+33-35, 36, 37, 38 and 39.
 """
 from __future__ import annotations
 
@@ -5489,6 +5502,410 @@ def phase_sharded_infer_and_tp(card):
     return launches
 
 
+# ---------- phase 39: raw annotations -> the unified layout -> the trainers ----------
+
+DATA_SAMPLES, DATA_BATCH = 4, 2  # raw samples a dataset, and the trainers' batch
+# the datasets' published frame sizes (H, W)
+DATA_HW = {"tusimple": (720, 1280), "culane": (590, 1640), "bdd100k": (720, 1280),
+           "mapillary": (1080, 1920), "kitti": (375, 1242), "drivingstereo": (400, 881)}
+KITTI_CALIB = (  # KITTI's 2011_09_26 calibration in the object benchmark's layout
+    "P0: 7.215377e+02 0.000000e+00 6.095593e+02 0.000000e+00 0.000000e+00 7.215377e+02 "
+    "1.728540e+02 0.000000e+00 0.000000e+00 0.000000e+00 1.000000e+00 0.000000e+00\n"
+    "P2: 7.215377e+02 0.000000e+00 6.095593e+02 4.485728e+01 0.000000e+00 7.215377e+02 "
+    "1.728540e+02 2.163791e-01 0.000000e+00 0.000000e+00 1.000000e+00 2.745884e-03\n"
+    "R0_rect: 9.999239e-01 9.837760e-03 -7.445048e-03 -9.869795e-03 9.999421e-01 "
+    "-4.278459e-03 7.402527e-03 4.351614e-03 9.999631e-01\n"
+    "Tr_velo_to_cam: 7.533745e-03 -9.999714e-01 -6.166020e-04 -4.069766e-03 1.480249e-02 "
+    "7.280733e-04 -9.998902e-01 -7.631618e-02 9.998621e-01 7.523790e-03 1.480755e-02 "
+    "-2.717806e-01\n")
+KITTI_POINTS = 120_000  # one HDL-64E sweep
+
+
+def perspective_lanes(rng, hw, vanish_y, rows):
+    """Four lanes through a vanishing point at ``vanish_y``: the x of each
+    at ``rows``, NaN where it leaves the frame or a dash is missing."""
+    h, w = hw
+    vx = w / 2 + rng.normal(0, w / 40)
+    bottoms = (np.array([-0.9, -0.3, 0.3, 0.9]) + rng.normal(0, 0.04, 4)) * w / 2 + vx
+    t = (rows - vanish_y) / (h - vanish_y)
+    xs = vx + (bottoms[:, None] - vx) * t[None] + rng.normal(0, 1.5, (4, len(rows)))
+    xs[:, rows <= vanish_y + 10] = np.nan
+    xs[(xs < 0) | (xs >= w)] = np.nan
+    xs[1::2, (np.arange(len(rows)) // 4) % 2 == 1] = np.nan  # the dashed lanes
+    return xs
+
+
+def blocky_ids(rng, hw, ids, road, cells=(9, 16)):
+    """A label map of ``hw``: random ``ids`` on a grid of ``cells``, the
+    bottom third ``road``, upsampled by nearest."""
+    g = rng.choice(np.asarray(ids, np.uint8), cells)
+    g[cells[0] * 2 // 3:] = road
+    ry, rx = -(-hw[0] // cells[0]), -(-hw[1] // cells[1])
+    return np.ascontiguousarray(np.repeat(np.repeat(g, ry, 0), rx, 1)[:hw[0], :hw[1]])
+
+
+def velodyne_sweep(rng, n=KITTI_POINTS):
+    """One sweep of seeded LiDAR returns in the velodyne frame (x forward,
+    y left, z up; 1.73 m above the road): the ground, and obstacles at
+    random ranges, 64 beams from -24.8 to +2 degrees. (n, 4) float32."""
+    az = rng.uniform(-np.pi, np.pi, n)
+    el = np.radians(rng.uniform(-24.8, 2.0, n))
+    with np.errstate(divide="ignore"):
+        r = np.where(el < -0.01, 1.73 / np.sin(-np.minimum(el, -0.01)), 120.0)
+    r = np.minimum(r, np.where(rng.random(n) < 0.3, rng.uniform(4, 60, n), np.inf))
+    r = np.minimum(r, 120.0)
+    xyz = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az), r * np.sin(el)], -1)
+    return np.c_[xyz, rng.random(n)].astype(np.float32)
+
+
+def write_raw_datasets(root, n=DATA_SAMPLES, seed=SEED):
+    """``n`` seeded samples of each raw format, as the datasets ship them,
+    at their published frame sizes (no dataset is in reach on the card):
+    a TuSimple label_data.json with its clips, CULane .lines.txt files,
+    BDD100K train-id PNGs, Mapillary Vistas v1.2 id PNGs, KITTI calib /
+    velodyne / image_2 files and DrivingStereo 16-bit depth PNGs, each
+    beside its noise image. -> root."""
+    import cv2
+
+    root = pathlib.Path(root)
+    rng = np.random.default_rng(seed)
+
+    def image(path, hw):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        cv2.imwrite(str(path), rng.integers(0, 256, (*hw, 3), dtype=np.uint8))
+
+    hw = DATA_HW["tusimple"]
+    rows = np.arange(160, 720, 10)
+    lines = []
+    for i in range(n):
+        raw_file = f"clips/0313-1/{60 * (i + 1)}/20.jpg"
+        image(root / "tusimple" / raw_file, hw)
+        xs = perspective_lanes(rng, hw, 250, rows)
+        lanes = [np.where(np.isnan(x), -2, np.round(x)).astype(int).tolist() for x in xs]
+        lines.append(json.dumps({"lanes": lanes, "h_samples": rows.tolist(),
+                                 "raw_file": raw_file}))
+    (root / "tusimple" / "label_data.json").write_text("\n".join(lines) + "\n")
+    hw = DATA_HW["culane"]
+    rows = np.arange(hw[0] - 1, 260, -10)
+    for i in range(n):
+        image(root / "culane" / f"{i:05d}.jpg", hw)
+        text = "".join(" ".join(f"{x:.3f} {y}" for x, y in zip(xs, rows) if x == x) + " \n"
+                       for xs in perspective_lanes(rng, hw, 260, rows))
+        (root / "culane" / f"{i:05d}.lines.txt").write_text(text)
+    for name, ids, road in (("bdd100k", list(range(19)) + [255], 0),
+                            ("mapillary", [i for i in range(66) if i != 28], 13)):
+        hw = DATA_HW[name]
+        (root / name / "labels").mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            image(root / name / "images" / f"{i:05d}.jpg", hw)
+            cv2.imwrite(str(root / name / "labels" / f"{i:05d}.png"), blocky_ids(rng, hw, ids, road))
+    for sub in ("calib", "velodyne"):
+        (root / "kitti" / sub).mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        image(root / "kitti" / "image_2" / f"{i:06d}.png", DATA_HW["kitti"])
+        (root / "kitti" / "calib" / f"{i:06d}.txt").write_text(KITTI_CALIB)
+        velodyne_sweep(rng).tofile(root / "kitti" / "velodyne" / f"{i:06d}.bin")
+    hw = DATA_HW["drivingstereo"]
+    (root / "drivingstereo" / "depth").mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        image(root / "drivingstereo" / "left" / f"{i:05d}.jpg", hw)
+        depth = np.where(rng.random(hw) < 0.15, rng.uniform(2, 80, hw) * 256, 0)
+        cv2.imwrite(str(root / "drivingstereo" / "depth" / f"{i:05d}.png"), depth.astype(np.uint16))
+    return root
+
+
+def parse_raw_datasets(raw, out, package="autoware_vision_pilot_tpu_torch"):
+    """The raw datasets of write_raw_datasets through ``package``'s parsers
+    into the unified layout under ``out``: egolanes/ (TuSimple and CULane
+    lane masks by write_unified_sample), bdd100k/ and mapillary/ (SceneSeg
+    colour labels by write_unified_sample), depth/ (KITTI's projected and
+    filled LiDAR, DrivingStereo's depth, by save_depth_sample). -> (what
+    was written by layout: [(name, image as written, label as written)],
+    host seconds a sample of each parser)."""
+    import importlib
+
+    import cv2
+
+    dp = {m: importlib.import_module(f"{package}.data_parsing.{m}") for m in (
+        "common", "tusimple", "culane", "bdd100k", "mapillary", "kitti_depth", "depth_datasets")}
+    raw, out = pathlib.Path(raw), pathlib.Path(out)
+    written = {k: [] for k in ("egolanes", "bdd100k", "mapillary", "depth")}
+    secs = {}
+
+    def unified(layout, name, img, label):
+        dp["common"].write_unified_sample(out / layout, name, img, label)
+        written[layout].append((name, img, label))
+
+    t0 = time.perf_counter()
+    recs = dp["tusimple"].tusimple_to_unified(str(raw / "tusimple" / "label_data.json"))
+    secs["tusimple"] = (time.perf_counter() - t0) / len(recs)
+    for i, rec in enumerate(recs):
+        img = cv2.imread(str(raw / "tusimple" / rec["raw_file"]))
+        unified("egolanes", f"tusimple_{i:05d}", img, (rec["masks"] * 255).astype(np.uint8))
+    paths = sorted((raw / "culane").glob("*.lines.txt"))
+    for p in paths:
+        t0 = time.perf_counter()
+        masks = dp["culane"].culane_to_unified(str(p))
+        secs["culane"] = secs.get("culane", 0.0) + (time.perf_counter() - t0) / len(paths)
+        img = cv2.imread(str(p.with_name(p.name.replace(".lines.txt", ".jpg"))))
+        unified("egolanes", f"culane_{p.name[:5]}", img, (masks * 255).astype(np.uint8))
+    for name in ("bdd100k", "mapillary"):
+        paths = sorted((raw / name / "labels").glob("*.png"))
+        for p in paths:
+            ids = cv2.imread(str(p), cv2.IMREAD_UNCHANGED)
+            t0 = time.perf_counter()
+            if name == "bdd100k":
+                rgb = dp["bdd100k"].bdd100k_drivable_to_sceneseg(ids)
+            else:
+                rgb, valid = dp["mapillary"].mapillary_ids_to_sceneseg(ids)
+                if not valid:
+                    raise AssertionError(f"{p}: the Mapillary sample is not a valid scene")
+            secs[name] = secs.get(name, 0.0) + (time.perf_counter() - t0) / len(paths)
+            unified(name, p.stem, cv2.imread(str(raw / name / "images" / f"{p.stem}.jpg")), rgb)
+    depth = dp["depth_datasets"]
+    kitti = sorted((raw / "kitti" / "velodyne").glob("*.bin"))
+    for i, p in enumerate(kitti):
+        t0 = time.perf_counter()
+        cal = dp["kitti_depth"].parse_kitti_calib((raw / "kitti" / "calib" / f"{p.stem}.txt")
+                                                  .read_text())
+        sparse = dp["kitti_depth"].velodyne_to_depth(
+            np.fromfile(p, np.float32).reshape(-1, 4), cal["P2"].reshape(3, 4),
+            cal["R0_rect"].reshape(3, 3), cal["Tr_velo_to_cam"].reshape(3, 4), DATA_HW["kitti"],
+            fill=False)
+        img = cv2.imread(str(raw / "kitti" / "image_2" / f"{p.stem}.png"))
+        sample = depth.make_depth_sample(img, sparse)
+        secs["kitti"] = secs.get("kitti", 0.0) + (time.perf_counter() - t0) / len(kitti)
+        depth.save_depth_sample(out / "depth", i, *sample)
+        written["depth"].append((str(i), sample[0], sample[1:]))
+    paths = sorted((raw / "drivingstereo" / "depth").glob("*.png"))
+    for i, p in enumerate(paths, len(kitti)):
+        d16 = cv2.imread(str(p), cv2.IMREAD_UNCHANGED)
+        img = cv2.imread(str(raw / "drivingstereo" / "left" / f"{p.stem}.jpg"))
+        t0 = time.perf_counter()
+        sample = depth.drivingstereo_sample(img, d16)
+        secs["drivingstereo"] = secs.get("drivingstereo", 0.0) + (time.perf_counter() - t0) / len(paths)
+        depth.save_depth_sample(out / "depth", i, *sample)
+        written["depth"].append((str(i), sample[0], sample[1:]))
+    return written, secs
+
+
+def unified_loaders(out):
+    """The port's loaders over parse_raw_datasets' layout -> {layout:
+    dataset}: SceneSegDataset (BDD100K with its ROI crop, Mapillary),
+    DepthDataset, EgoLanesMaskDataset."""
+    from autoware_vision_pilot_tpu_torch.train.datasets import (DepthDataset,
+                                                                 EgoLanesMaskDataset,
+                                                                 SceneSegDataset)
+    out = pathlib.Path(out)
+    return {"bdd100k": SceneSegDataset(out / "bdd100k" / "images", out / "bdd100k" / "labels",
+                                       "BDD100K"),
+            "mapillary": SceneSegDataset(out / "mapillary" / "images",
+                                         out / "mapillary" / "labels", "Mapillary"),
+            "depth": DepthDataset(out / "depth" / "image", out / "depth" / "depth"),
+            "egolanes": EgoLanesMaskDataset(out / "egolanes" / "images",
+                                            out / "egolanes" / "labels")}
+
+
+def check_read_back(out, written, loaders):
+    """Each sample the loaders read equals what the parser wrote: the
+    SceneSeg ids decode_scene_seg_mask gave before the write (under
+    BDD100K's ROI crop), the depth and validity bit for bit, the lane masks
+    as the float {0, 1} masks, every image as RGB. Also check_dataset on
+    the two SceneSeg layouts: no bad pairs, no mismatched names, no unknown
+    colours. -> the loaders' host seconds a sample."""
+    import cv2
+
+    from autoware_vision_pilot_tpu_torch.train.datasets import ROI_CROPS, decode_scene_seg_mask
+    from autoware_vision_pilot_tpu_torch.utils.check_data import check_dataset
+
+    out = pathlib.Path(out)
+    for layout in ("bdd100k", "mapillary"):
+        r = check_dataset(out / layout)
+        pixels = sum(img.shape[0] * img.shape[1] for _, img, _ in written[layout])
+        if (r["bad_pairs"] or r["mismatched_names"] or r["unknown_colors"]
+                or r["n_images"] != len(written[layout]) or r["class_pixels"].sum() != pixels):
+            raise AssertionError(f"check_dataset on {layout}: {r}")
+    secs, count = 0.0, 0
+    for layout, ds in loaders.items():
+        samples = sorted(written[layout], key=lambda s: (f"{s[0]}.png" if layout == "depth"
+                                                         else s[0]))
+        if ds.item_count() != (len(samples), 0):
+            raise AssertionError(f"{layout}: item_count {ds.item_count()}")
+        for k, (name, img, label) in enumerate(samples):
+            t0 = time.perf_counter()
+            got_img, got, w = ds.get_train(k)
+            secs += time.perf_counter() - t0
+            count += 1
+            want_img = img[..., ::-1]
+            if layout in ("bdd100k", "mapillary"):
+                want = decode_scene_seg_mask(label)[0]
+                crop = ROI_CROPS.get(ds.dataset)
+                if crop:
+                    l, t, r, b = crop
+                    want, want_img = want[t:b, l:r], want_img[t:b, l:r]
+            elif layout == "depth":
+                want = label[0]
+                validity = cv2.imread(str(out / "depth" / "validity" / f"{name}.png"),
+                                      cv2.IMREAD_UNCHANGED)
+                if not np.array_equal(validity, label[1] * 255):
+                    raise AssertionError(f"depth {name}: the validity read back differs")
+            else:
+                want = (label > 127).astype(np.float32)
+            if not (np.array_equal(got, want) and got.dtype == want.dtype
+                    and np.array_equal(got_img, want_img)):
+                raise AssertionError(f"{layout} {name}: the loader's sample differs from the "
+                                     "parser's")
+    return secs / count
+
+
+def egolanes_batch(samples, hw=TRAIN_HW):
+    """EgoLanesMaskDataset samples -> one EgoLanes batch: the images at
+    ``hw`` (bilinear), the masks at the net's quarter-resolution output
+    (nearest)."""
+    import cv2
+    imgs = [cv2.resize(img, (hw[1], hw[0]), interpolation=cv2.INTER_LINEAR) for img, _, _ in samples]
+    masks = [cv2.resize(m, (hw[1] // 4, hw[0] // 4), interpolation=cv2.INTER_NEAREST)
+             for _, m, _ in samples]
+    return np.stack(imgs), np.stack(masks), np.stack([w for _, _, w in samples])
+
+
+def legacy_steps(trainer, run):
+    """``run(trainer, on_step)`` under bf16 autocast on the card, where
+    ``on_step(loss)`` is called after each step (a host sync) -> (the steps'
+    host seconds, those of their grad_step calls alone (synchronized), the
+    losses, (the names of the parameters that moved, those with a nonzero
+    gradient in the last step, the count of all), the forward's compute
+    dtypes)."""
+    from autoware_vision_pilot_tpu_torch.nn.layers import Conv2d
+
+    inner, grad_times = trainer.grad_step, []
+
+    def grad_step(*args):  # the step alone, without the loading around it
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = inner(*args)
+        torch.cuda.synchronize()
+        grad_times.append(time.perf_counter() - t)
+        return loss
+
+    trainer.grad_step = grad_step
+    params = dict(trainer.model.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    first = next(m for m in trainer.model.modules() if isinstance(m, Conv2d))
+    dtypes = set()
+    hook = first.register_forward_hook(lambda m, a, y: dtypes.add(y.dtype))
+    times, losses = [], []
+    torch.cuda.synchronize()
+    last = [time.perf_counter()]
+
+    def on_step(loss):
+        losses.append(float(loss))
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+
+    try:
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            run(trainer, on_step)
+    finally:
+        hook.remove()
+        del trainer.grad_step
+    trained = [k for k, p in params.items() if p.grad is not None and p.grad.count_nonzero()]
+    moved = [k for k, p in params.items() if not torch.equal(p, before[k])]
+    return times, grad_times, losses, (moved, trained, len(params)), dtypes
+
+
+def phase_data(card):
+    """Phase 39: write_raw_datasets (DATA_SAMPLES of each format at its
+    published size), parse_raw_datasets with the port's parsers into the
+    unified layout, check_dataset on the SceneSeg layouts, the three
+    loaders read back equal to what the parsers wrote (check_read_back),
+    then DATA_SAMPLES * 2 / DATA_BATCH steps each of the legacy SceneSeg
+    trainer (train() over the BDD100K and Mapillary sets), the Scene3D
+    trainer (train() over KITTI and DrivingStereo) and the EgoLanes trainer
+    (grad_step on TuSimple and CULane batches, the masks at the net's
+    output size): full-width nets at 320x640, bf16 autocast, batch
+    DATA_BATCH; each loss finite, every parameter with a gradient moved
+    (Scene3D's pretrained backbone is frozen). No hand
+    kernel is on this path: the launch counts are set to 0 before the steps
+    and must be 0 after. -> the steps' p50 ms by trainer."""
+    import tempfile
+
+    from autoware_vision_pilot_tpu_torch.models import (EgoLanesNetwork, Scene3DNetwork,
+                                                        SceneSegNetwork)
+    from autoware_vision_pilot_tpu_torch.train.legacy_trainer import (LegacySegTrainer,
+                                                                      LegacyTrainerConfig,
+                                                                      make_egolanes_trainer,
+                                                                      make_scene3d_trainer)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        raw = write_raw_datasets(pathlib.Path(tmp) / "raw")
+        t_raw = time.perf_counter() - t0
+        out = pathlib.Path(tmp) / "unified"
+        written, secs = parse_raw_datasets(raw, out)
+        loaders = unified_loaders(out)
+        load_s = check_read_back(out, written, loaders)
+        t_data = time.perf_counter() - t0
+        print(f"dataset parsers, host ({card}): seconds a sample at the published sizes "
+              + ", ".join(f"{k} {DATA_HW[k][0]}x{DATA_HW[k][1]} {v!r}" for k, v in secs.items())
+              + f"; the loaders {load_s!r} s a sample; check_dataset clean on bdd100k and "
+              f"mapillary, every label read back equal; raw fixtures {t_raw:.1f} s, parse, "
+              f"write and read back {t_data - t_raw:.1f} s")
+
+        cfg = lambda d: LegacyTrainerConfig(  # noqa: E731
+            num_epochs=1, hw=TRAIN_HW, batch_schedule=(DATA_BATCH,), val_every=0, log_every=1,
+            ckpt_dir=str(pathlib.Path(tmp) / d))
+        trainers = {
+            "SceneSeg": (LegacySegTrainer(SceneSegNetwork(), [loaders["bdd100k"],
+                                                              loaders["mapillary"]],
+                                          cfg("seg"), seed=SEED, device="cuda"),
+                         lambda tr, cb: tr.train(callbacks=lambda _, loss: cb(loss))),
+            "Scene3D": (make_scene3d_trainer(Scene3DNetwork(), [loaders["depth"]], cfg("depth"),
+                                             seed=SEED, device="cuda"),
+                        lambda tr, cb: tr.train(callbacks=lambda _, loss: cb(loss)))}
+        lanes = loaders["egolanes"]
+        order = np.random.default_rng(SEED).permutation(lanes.item_count()[0])
+
+        def lane_steps(tr, cb):
+            for i in range(0, len(order), DATA_BATCH):
+                batch = egolanes_batch([lanes.get_train(int(k)) for k in order[i:i + DATA_BATCH]])
+                cb(tr.grad_step(*batch))
+
+        trainers["EgoLanes"] = (make_egolanes_trainer(EgoLanesNetwork(), [lanes], cfg("lanes"),
+                                                      seed=SEED, device="cuda"), lane_steps)
+        reset_counts()
+        results = {}
+        for name, (trainer, run) in trainers.items():
+            times, grad_times, losses, moved, dtypes = legacy_steps(trainer, run)
+            if len(losses) != DATA_SAMPLES * 2 // DATA_BATCH:
+                raise AssertionError(f"legacy {name} trainer: {len(losses)} steps")
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"legacy {name} trainer: losses {losses}")
+            moved, trained, total = moved
+            if not trained or set(trained) - set(moved) or dtypes != {torch.bfloat16}:
+                raise AssertionError(f"legacy {name} trainer: {len(moved)} of {total} "
+                                     f"parameters moved, {len(trained)} with a gradient, "
+                                     f"forward dtypes {dtypes}")
+            p50 = float(np.median(times[1:])) * 1e3
+            grad_p50 = float(np.median(grad_times[1:])) * 1e3
+            results[name] = p50
+            print(f"legacy {name} trainer on the parsed layout, {card}: {len(losses)} steps of "
+                  f"batch {DATA_BATCH} at {TRAIN_HW[0]}x{TRAIN_HW[1]}, bf16 autocast, full "
+                  f"width: step p50 {p50!r} ms after the first (host clock, each step synced, "
+                  f"loading and resizing included), of which grad_step p50 {grad_p50!r} ms; "
+                  f"first {times[0] * 1e3!r} ms (grad_step {grad_times[0] * 1e3!r}), losses "
+                  f"{[round(v, 4) for v in losses]}, {len(moved)} of {total} parameters "
+                  f"moved, every one of the {len(trained)} with a gradient in the last step")
+            del trainer
+            torch.cuda.empty_cache()
+        launches = {k: v for k, v in read_counts().items() if v}
+        if launches:
+            raise AssertionError(f"the data path launched hand kernels: {launches}")
+    print(f"phase 39: {time.perf_counter() - t0:.1f} s")
+    return results
+
+
 def host_costs_of(root):
     """--host-costs ROOT: phase 7's host-cost measurement alone, over the
     port package found in ROOT (this repository, or an earlier commit of it
@@ -5619,6 +6036,11 @@ def main():
     timed("38b", phase_dp_world_two, card, world)
     paths["fleet over a mesh"] = timed("38c engine", phase_fleet_mesh_engine, card)
     print(f"wall time of phase 38 (s): {walls}, {sum(walls.values()):.1f} s in all")
+    # the data layer: raw annotations through the parsers into the unified
+    # layout, the loaders, and the legacy trainers on what they read
+    walls.clear()
+    timed(39, phase_data, card)
+    print(f"wall time of phase 39 (s): {walls}")
     for path, counts in paths.items():
         for name, n in counts.items():
             # the paths at min_channels 128 and above tally the halo route

@@ -23,6 +23,7 @@ from autoware_vision_pilot_tpu.train import augment as ja
 from autoware_vision_pilot_tpu_torch.train import augment as ta
 
 from test_torch_layers import ATOL, RTOL
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 B, H, W = 2, 16, 32
 

@@ -38,6 +38,7 @@ from autoware_vision_pilot_tpu_torch.models import (DomainSegNetwork, EgoLanesNe
                                                     Scene3DNetwork, SceneSegNetwork)
 
 from test_torch_layers import P, seeded_variables, to_port
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 FRAME = np.random.default_rng(0).integers(0, 256, (128, 256, 3), dtype=np.uint8)
 DECIDED = 1e-3

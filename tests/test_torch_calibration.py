@@ -14,6 +14,8 @@ from autoware_vision_pilot_tpu.calibration.homography import apply_homography as
 from autoware_vision_pilot_tpu_torch import calibration as tc
 from autoware_vision_pilot_tpu_torch.calibration.homography import apply_homography
 
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
+
 H_TRUE = np.array([[0.02, -0.001, -10.0], [0.0005, 0.05, -30.0], [1e-5, 1e-3, 1.0]])
 K = np.array([[800.0, 0, 640], [0, 800, 360], [0, 0, 1]])
 

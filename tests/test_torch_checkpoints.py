@@ -32,6 +32,7 @@ from autoware_vision_pilot_tpu_torch.models.ego_lanes import EgoLanesNetwork
 from autoware_vision_pilot_tpu_torch.runtime.config import Config, ModelConfig
 
 from test_torch_layers import seeded_variables
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 NETS = {
     "egolanes": (lambda: JLanes(ctx_hw=(2, 4), backbone_stages=J_DRYRUN), (1, 64, 128, 3),

@@ -48,6 +48,7 @@ from autoware_vision_pilot_tpu_torch.nn import layers as tl
 
 from test_torch_eval_lite import ShapeInit
 from test_torch_layers import ATOL, RTOL, seeded_variables
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 CONFIGS = pathlib.Path(__file__).resolve().parents[1] / "configs"
 TINY_IO = ((("input", ("batch_size", 3, 16, 32)),), (("output", ("batch_size", 4, 16, 32)),))

@@ -1766,3 +1766,35 @@ def test_synced_batchnorm_world_of_one(cuda, tmp_path):
     for a, b in ((y, y2), (mean.float(), mean2), (var.float(), invstd.double().pow(-2).sub(
             bn.eps).float()), (h.grad, h2.grad), (w.grad, w2.grad)):
         assert (a - b).abs().max().item() <= 1e-5 * max(b.abs().max().item(), 1.0)
+
+
+def test_data_path_parse_load_and_a_legacy_step_on_card(cuda, tmp_path):
+    """chip_smoke.py phase 39's data path on the card: one sample of each raw
+    format at its published size through the port's parsers into the
+    unified layout, the three loaders read back what the parsers wrote,
+    then one step of the legacy SceneSeg trainer (full width, 320x640,
+    batch 2, bf16 autocast) on what SceneSegDataset reads from the BDD100K
+    and Mapillary layouts: a finite loss, every parameter with a gradient
+    moved, the forward in bf16."""
+    import pathlib
+    import sys
+    repo = str(pathlib.Path(__file__).resolve().parents[1])
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    import chip_smoke
+    from autoware_vision_pilot_tpu_torch.models import SceneSegNetwork
+    from autoware_vision_pilot_tpu_torch.train.legacy_trainer import (LegacySegTrainer,
+                                                                      LegacyTrainerConfig)
+
+    raw = chip_smoke.write_raw_datasets(tmp_path / "raw", n=1, seed=5)
+    written, _ = chip_smoke.parse_raw_datasets(raw, tmp_path / "unified")
+    loaders = chip_smoke.unified_loaders(tmp_path / "unified")
+    chip_smoke.check_read_back(tmp_path / "unified", written, loaders)
+    cfg = LegacyTrainerConfig(num_epochs=1, hw=(320, 640), batch_schedule=(2,), val_every=0,
+                              log_every=1, ckpt_dir=str(tmp_path / "ckpt"))
+    trainer = LegacySegTrainer(SceneSegNetwork(), [loaders["bdd100k"], loaders["mapillary"]],
+                               cfg, seed=5, device=cuda)
+    _, _, losses, (moved, trained, _), dtypes = chip_smoke.legacy_steps(
+        trainer, lambda tr, on_step: tr.train(callbacks=lambda _, loss: on_step(loss)))
+    assert len(losses) == 1 and math.isfinite(losses[0])
+    assert trained and not set(trained) - set(moved) and dtypes == {torch.bfloat16}

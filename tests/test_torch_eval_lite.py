@@ -36,6 +36,7 @@ from autoware_vision_pilot_tpu.train.lite_trainer import load_experiment_config
 from autoware_vision_pilot_tpu_torch.export import eval_lite as teval
 
 from test_torch_layers import ATOL, RTOL, seeded_variables
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 CONFIGS = pathlib.Path(__file__).resolve().parents[1] / "configs"
 HW = (64, 128)

@@ -54,6 +54,7 @@ from autoware_vision_pilot_tpu_torch.runtime.pipeline import (
 from test_torch_lateral import (CROP_Y, FRAME_HW, MASK_HW, NET_HW, SYNTHETIC, GivenLogits,
                                 assert_step_matches, jax_noise, lane_logits, n, random_masks, t)
 from test_torch_layers import port_with, seeded_variables
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 N, TICKS = 3, 3
 PATCH = 20  # the corner patch that names the stream and tick

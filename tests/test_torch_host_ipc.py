@@ -31,6 +31,8 @@ from autoware_vision_pilot_tpu_torch.host import iox2 as tiox2
 from autoware_vision_pilot_tpu_torch.host import shm as tshm
 from autoware_vision_pilot_tpu_torch.middleware import transport as ttransport
 
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PID = os.getpid()
 

@@ -40,6 +40,7 @@ from autoware_vision_pilot_tpu_torch.models import (DomainSegNetwork, EgoLanesNe
 from autoware_vision_pilot_tpu_torch.models.efficientnet import B0_DRYRUN_STAGES
 
 from test_torch_layers import P, seeded_variables
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 IN_HW, CTX = (64, 128), (2, 4)
 FRAME = np.random.default_rng(0).integers(0, 256, (128, 256, 3), dtype=np.uint8)

@@ -58,6 +58,7 @@ from autoware_vision_pilot_tpu_torch.nn import layers as tl
 from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv, int8_quantize
 
 from test_torch_layers import jax_int8_calls, port_int8_calls, seeded_variables, to_port
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 IN_HW, CTX, MIN_CH = (64, 128), (2, 4), 128
 FRAME = np.random.default_rng(1).integers(0, 256, (128, 256, 3), dtype=np.uint8)

@@ -8,6 +8,7 @@ too.
 import pytest
 
 from test_torch_infer_int8 import build_wrappers, check_conv_by_conv, check_weights_and_scales
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture(scope="module", params=["scene_3d"])

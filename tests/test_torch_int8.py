@@ -26,6 +26,7 @@ from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
     dynamic_input_scale, int8_conv, int8_quantize)
 
 from test_torch_layers import from_port, normal_input, seeded_variables, to_port
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 CL = torch.channels_last
 

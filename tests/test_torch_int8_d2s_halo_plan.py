@@ -27,6 +27,8 @@ import torch.nn.functional as F
 
 from autoware_vision_pilot_tpu_torch.ops.kernels import int8_conv as k
 
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
+
 CL = torch.channels_last
 SMS = 132
 ELEM = {torch.float32: 4, torch.bfloat16: 2, torch.int32: 4}

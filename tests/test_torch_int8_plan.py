@@ -25,6 +25,8 @@ from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
     PW_MIN_RANGE, PW_QUANTIZE_NS, PW_REDUCE_NS_PER_BYTE, PW_WIDTHS, ROUTES, SMS, TILE,
     _pointwise_cost, _pointwise_tiles, clusters_at_once, int8_conv_plain, int8_conv_plan)
 
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
+
 CL = torch.channels_last
 # (window, cin, cout, h, w, convs per frame): the 24 distinct int8 convs of
 # the selective-int8 main path at 320x640 (72 convs, 669.7 GOP)

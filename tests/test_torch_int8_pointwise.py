@@ -35,6 +35,7 @@ from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
 
 from test_torch_int8 import bf16_ulps, scale_for
 from test_torch_layers import from_port, normal_input, seeded_variables, to_port
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 CL = torch.channels_last
 # (cin, cout, h, w, convs per frame): the main path's 1x1 int8 convs, the

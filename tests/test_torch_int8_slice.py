@@ -50,6 +50,7 @@ from autoware_vision_pilot_tpu_torch.nn import layers as tl
 from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused
 
 from test_torch_layers import jax_int8_calls, port_int8_calls, seeded_variables
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 OUT_HW, CTX_HW, MIN_CH = (32, 64), (1, 2), 256
 TIE = 1e-4        # logits closer than this are undecided

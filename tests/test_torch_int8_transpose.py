@@ -35,6 +35,7 @@ from autoware_vision_pilot_tpu_torch.nn import layers as tl
 from autoware_vision_pilot_tpu_torch.ops.kernels import int8_conv as k
 
 from test_torch_layers import from_port, normal_input, seeded_variables, to_port
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 

@@ -37,6 +37,7 @@ from autoware_vision_pilot_tpu_torch.nn import layers as tl
 from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused
 
 from test_torch_layers import from_port, seeded_variables, to_port
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 OUT_HW, CTX_HW, MIN_CH = (32, 64), (1, 2), 256
 INT8 = (tl.Int8Conv2d, tl.Int8ConvTranspose2d)

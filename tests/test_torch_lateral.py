@@ -71,6 +71,7 @@ from autoware_vision_pilot_tpu_torch.runtime.pipeline import (
 
 from test_lane_filter import make_lane_masks
 from test_torch_layers import ATOL, RTOL, port_with, seeded_variables
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 FIT_TOL = 5e-3

@@ -26,6 +26,8 @@ from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (
 from autoware_vision_pilot_tpu_torch.ops.preprocess import (bilinear_taps, letterbox,
                                                             letterbox_geometry)
 
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
+
 # phase 11's sizes: landscape (pad rows), the KITTI size (an odd pad), pad
 # columns with a width that is not a multiple of 8; and portrait, nh = 1
 SIZES = [((720, 1280), (640, 640)), ((375, 1242), (640, 640)), ((360, 640), (181, 333)),

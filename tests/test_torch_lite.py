@@ -37,6 +37,7 @@ from autoware_vision_pilot_tpu_torch.train import metrics as tmetrics
 from autoware_vision_pilot_tpu_torch.train.lite_trainer import load_experiment_config
 
 from test_torch_layers import P, assert_close, normal_input, port_with, seeded_variables, to_port
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 CONFIGS = pathlib.Path(__file__).resolve().parents[1] / "configs"
 IMAGE = (1, 64, 128, 3)

@@ -44,6 +44,7 @@ from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv, int
 
 from test_torch_layers import port_with, seeded_variables, to_port
 from test_torch_lite import lite_config
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 CONFIGS = pathlib.Path(__file__).resolve().parents[1] / "configs"
 HW = (64, 128)

@@ -50,6 +50,7 @@ from autoware_vision_pilot_tpu_torch.runtime.pipeline import build_longitudinal_
 from test_torch_cuda import nms_candidates as candidates
 from test_torch_layers import (P, assert_close, normal_input, port_with, seeded_variables,
                                to_port)
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 FRAME_HW, INPUT_HW = (180, 320), (128, 128)  # scale 0.4, pad_y 28
 MAX_DET = 64

@@ -54,6 +54,7 @@ from autoware_vision_pilot_tpu_torch.perception import path_finder as tpf
 from test_middleware import FakeCapture, _install_fake_ros2
 from test_torch_lateral import PF_TOL, assert_close_scaled
 from test_torch_layers import P, seeded_variables
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 IN_HW, CTX = (32, 64), (1, 2)
 FRAMES = [np.random.default_rng(s).integers(0, 256, (64, 128, 3), dtype=np.uint8)

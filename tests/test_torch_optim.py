@@ -14,6 +14,8 @@ import torch
 from autoware_vision_pilot_tpu_torch.train import optim
 from autoware_vision_pilot_tpu_torch.train.train_step import optimizer_step
 
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
+
 COUNTS = (0, 1, 2, 7, 99, 100, 101, 250, 999, 1000, 5000)
 SCHEDULES = {
     "warmup_cosine": (lambda m: m.warmup_cosine_decay_schedule(0.0, 1e-3, 100, 1000,

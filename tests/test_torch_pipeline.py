@@ -26,6 +26,7 @@ from autoware_vision_pilot_tpu_torch.convert.from_jax import variables_to_state_
 from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused
 
 from test_torch_layers import ATOL, RTOL, seeded_variables
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 OUT_HW, CTX_HW = (64, 128), (2, 4)

@@ -28,6 +28,8 @@ from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_
 from autoware_vision_pilot_tpu_torch.ops.preprocess import (
     IMAGENET_MEAN, IMAGENET_STD, bilinear_taps, preprocess_imagenet, resize_bilinear)
 
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
+
 SHAPES = [  # (H, W) -> (h, w)
     ((72, 128), (32, 64)),    # downscale, the main path's 2.25x / 2x
     ((24, 40), (48, 96)),     # upscale

@@ -31,6 +31,7 @@ from autoware_vision_pilot_tpu_torch.nn import layers as tl
 
 from test_torch_layers import (from_port, jax_int8_calls, normal_input, port_int8_calls,
                                port_with, seeded_variables, to_port)
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 
 class JNet(fnn.Module):

@@ -38,6 +38,8 @@ from autoware_vision_pilot_tpu_torch.runtime.config import Config
 from autoware_vision_pilot_tpu_torch.runtime.pipeline import (
     PipelineEngine, build_lateral_pipeline, build_longitudinal_pipeline, sink_wants_frame)
 
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
+
 REPO = Path(__file__).resolve().parents[1]
 FRAME_HW, CROP_Y, NET_HW, LON_HW = (120, 200), 20, (96, 192), (128, 128)
 

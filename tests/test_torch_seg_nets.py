@@ -34,6 +34,7 @@ from autoware_vision_pilot_tpu_torch.models.multitask import (
 from autoware_vision_pilot_tpu_torch.ops import postprocess as tpost
 
 from test_torch_layers import P, assert_close, normal_input, port_with, seeded_variables, to_port
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 IMAGE = (1, 64, 128, 3)
 CTX = (2, 4)

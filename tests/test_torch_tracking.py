@@ -31,6 +31,8 @@ from autoware_vision_pilot_tpu_torch.perception import tracking as ttr
 from autoware_vision_pilot_tpu_torch.runtime import config as tconfig
 from autoware_vision_pilot_tpu_torch.runtime import pipeline as tpipe
 
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
+
 W, H = 1280, 720
 # image -> ground plane: x across (m), y ahead (m); the bottom row is 0 m ahead
 HOMOGRAPHY = np.array([[0.02, 0.0, -12.8], [0.0, -0.12, 86.4], [0.0, 0.0, 1.0]])

@@ -17,6 +17,8 @@ import types
 import numpy as np
 import pytest
 
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
+
 cv2 = pytest.importorskip("cv2")
 
 from autoware_vision_pilot_tpu import app as japp

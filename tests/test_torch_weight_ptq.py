@@ -43,6 +43,7 @@ from autoware_vision_pilot_tpu_torch.nn import layers as tl
 
 from test_torch_layers import (ATOL, P, RTOL, from_port, normal_input, port_with,
                                seeded_variables, to_port)
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 class JUp(fnn.Module):
     """A 3x3 conv and a 2x2 transposed conv (per-input-channel scales)."""

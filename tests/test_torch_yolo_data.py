@@ -7,6 +7,8 @@ import pytest
 from autoware_vision_pilot_tpu.train import yolo_data as jyd
 from autoware_vision_pilot_tpu_torch.train import yolo_data as tyd
 
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
+
 
 def samples(mod, n=5, seed=0, hw=(60, 100)):
     rng = np.random.default_rng(seed)

@@ -31,6 +31,7 @@ from autoware_vision_pilot_tpu_torch.models import ego_path as tep
 
 from test_torch_layers import (P, assert_close, normal_input, port_with,
                                seeded_variables, to_port)
+from test_torch_train_step import one_thread  # noqa: F401 (an autouse fixture)
 
 STEER_HW = (128, 1024)
 DRIVE_HW = (128, 256)
