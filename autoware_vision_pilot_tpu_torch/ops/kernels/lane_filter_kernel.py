@@ -3,15 +3,16 @@ counterpart of XLA's fusion of the JAX package's start-point scan and
 window-walk ``lax.scan``s (autoware_vision_pilot_tpu/perception/
 lane_filter.py:80-199, ``_find_start`` and both ``direction_scan``s).
 
-On a CUDA tensor it launches the kernel, a thread-block cluster of 8 blocks
-for each stream of a batch, or raises; on a CPU tensor it runs the plain
-version, perception/lane_filter.py::lane_filter_walk_plain.
+On a CUDA tensor it launches the kernel through its operator
+``torch.ops.avp.lane_filter_walk`` (csrc/torch_ops.cpp), a thread-block
+cluster of 8 blocks for each stream of a batch, or raises; on a CPU tensor
+it runs the plain version, perception/lane_filter.py::lane_filter_walk_plain.
 """
 from __future__ import annotations
 
 import torch
 
-from ...kernels import build
+from . import torch_ops
 
 # what fits the kernel's shared memory: each of its 8 blocks stages an
 # eighth of the mask, the two walking blocks hold the mask as two bitmasks,
@@ -31,7 +32,8 @@ def lane_filter_walk(masks: torch.Tensor):
     a cluster a stream, and every stream's result is the one a call on it
     alone gives.
 
-    Counts its kernel launches in ``lane_filter_walk.launches``.
+    Counts its kernel launches in ``lane_filter_walk.launches`` (not the
+    calls that torch.export traces).
     """
     if masks.dtype != torch.float32:
         raise TypeError(f"masks must be float32, got {masks.dtype}")
@@ -62,20 +64,12 @@ def _launch(masks: torch.Tensor, stamps: torch.Tensor | None = None):
     W, 3). ``stamps``, a (16,) int64 CUDA tensor, receives stream 0's
     walking blocks' %globaltimer at their stages (see csrc/lane_filter.cu);
     the path passes none."""
-    H, W, _ = masks.shape[-3:]
-    lead = masks.shape[:-3]
-    n = masks.shape[0] if lead else 1
-    weights = torch.empty((*lead, 2, H, W), dtype=torch.int32, device=masks.device)
-    starts = torch.empty((*lead, 2, 3), dtype=torch.int32, device=masks.device)
-    with torch.cuda.device(masks.device):
-        err = build.load().avp_lane_filter_walk(
-            masks.data_ptr(), weights.data_ptr(), starts.data_ptr(), n, H, W,
-            None if stamps is None else stamps.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"avp_lane_filter_walk failed: cudaError_t {err}")
-    lane_filter_walk.launches += 1
-    return weights, starts
+    torch_ops.load()
+    weights, starts = torch.ops.avp.lane_filter_walk(masks if masks.dim() == 4 else masks[None],
+                                                     stamps)
+    if not torch.compiler.is_compiling():  # a trace launches nothing
+        lane_filter_walk.launches += 1
+    return (weights, starts) if masks.dim() == 4 else (weights[0], starts[0])
 
 
 lane_filter_walk.launches = 0

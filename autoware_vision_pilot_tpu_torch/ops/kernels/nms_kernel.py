@@ -3,7 +3,8 @@ counterpart of XLA's lowering of the JAX package's ``nms_fixed`` after its
 top-k (autoware_vision_pilot_tpu/ops/postprocess.py:51-111, the greedy
 ``fori_loop`` at :88-97).
 
-On a CUDA tensor it launches the kernel, a thread-block cluster of
+On a CUDA tensor it launches the kernel through its operator
+``torch.ops.avp.nms_greedy`` (csrc/torch_ops.cpp), a thread-block cluster of
 ``cluster_size(k)`` blocks for each stream of a batch, or raises; on a CPU tensor it runs the plain
 version, ops/postprocess.py::nms_greedy_plain. The top-k before
 it stays a PyTorch sort (ops/postprocess.py::nms_topk), as it is XLA's
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ...kernels import build
+from . import torch_ops
 from ..postprocess import nms_greedy_plain, nms_topk
 
 MAX_K = 1248  # 39 words of 32 rows: what one block's shared memory holds (csrc/nms.cu)
@@ -40,7 +41,8 @@ def nms_greedy(top_boxes: torch.Tensor, top_scores: torch.Tensor, top_cls: torch
     cluster a stream, and every stream's result is the one a call on it
     alone gives.
 
-    Counts its kernel launches in ``nms_greedy.launches``.
+    Counts its kernel launches in ``nms_greedy.launches`` (not the calls
+    that torch.export traces).
     """
     if top_boxes.dtype != torch.float32 or top_scores.dtype != torch.float32:
         raise TypeError(f"boxes and scores must be float32, got {top_boxes.dtype}, "
@@ -83,24 +85,14 @@ def _launch(top_boxes, top_scores, top_cls, max_det, iou_thresh, conf_thresh, cl
     checked CUDA candidates, one stream or a batch. ``stamps``, a (5,)
     int64 CUDA tensor, receives stream 0's block 0's %globaltimer at its
     stages (see csrc/nms.cu); the path passes none."""
-    device = top_scores.device
-    lead, k = top_scores.shape[:-1], top_scores.shape[-1]
-    n = lead[0] if lead else 1
-    boxes = torch.empty((*lead, max_det, 4), dtype=torch.float32, device=device)
-    scores = torch.empty((*lead, max_det), dtype=torch.float32, device=device)
-    classes = torch.empty((*lead, max_det), dtype=torch.int32, device=device)
-    valid = torch.empty((*lead, max_det), dtype=torch.bool, device=device)
-    with torch.cuda.device(device):
-        err = build.load().avp_nms_greedy(
-            top_boxes.data_ptr(), top_scores.data_ptr(), top_cls.data_ptr(),
-            boxes.data_ptr(), scores.data_ptr(), classes.data_ptr(), valid.data_ptr(),
-            n, k, max_det, iou_thresh, conf_thresh, int(class_aware), cs,
-            None if stamps is None else stamps.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"avp_nms_greedy failed: cudaError_t {err}")
-    nms_greedy.launches += 1
-    return boxes, scores, classes, valid
+    one = top_scores.dim() == 1
+    torch_ops.load()
+    candidates = (top_boxes, top_scores, top_cls)
+    out = torch.ops.avp.nms_greedy(*(t[None] if one else t for t in candidates), max_det,
+                                   iou_thresh, conf_thresh, bool(class_aware), cs, stamps)
+    if not torch.compiler.is_compiling():  # a trace launches nothing
+        nms_greedy.launches += 1
+    return tuple(t[0] for t in out) if one else out
 
 
 nms_greedy.launches = 0

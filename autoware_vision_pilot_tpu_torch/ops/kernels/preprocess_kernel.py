@@ -4,9 +4,11 @@ fused_preprocess_pallas, and of csrc/letterbox.cu, the port of XLA's fusion
 of autoware_vision_pilot_tpu/ops/preprocess.py::letterbox, with the
 letterbox kernel's schedule (``letterbox_plan``, pure Python).
 
-On a CUDA tensor each function launches its kernel, or raises; on a CPU
-tensor it runs the plain version (ops/preprocess.py::preprocess_imagenet,
-::letterbox). Either way the image is (B, 3, h, w) in channels_last memory,
+On a CUDA tensor each function launches its kernel through its operator
+(``torch.ops.avp.fused_preprocess``, ``torch.ops.avp.fused_letterbox``:
+csrc/torch_ops.cpp, which torch.export records as one node), or raises; on
+a CPU tensor it runs the plain version (ops/preprocess.py::
+preprocess_imagenet, ::letterbox). Either way the image is (B, 3, h, w) in channels_last memory,
 the layout the first conv reads.
 """
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ...kernels import build
+from . import torch_ops
 from ..preprocess import (LETTERBOX_PAD, device_mean_std, device_taps, letterbox,
                           letterbox_geometry, preprocess_imagenet)
 
@@ -77,14 +79,8 @@ def _launch(frames, out_hw, out_dtype):
     h, w = out_hw
     tables = (*device_taps(H, h, frames.device), *device_taps(W, w, frames.device),
               *_mean_inv_std(frames.device))
-    out = torch.empty((B, h, w, 3), dtype=out_dtype, device=frames.device)
-    with torch.cuda.device(frames.device):
-        err = build.load().avp_fused_preprocess(
-            frames.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables),
-            _frame_stride(frames), B, H, W, h, w, int(out_dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"avp_fused_preprocess failed: cudaError_t {err}")
+    torch_ops.load()
+    out = torch.ops.avp.fused_preprocess(frames, *tables, h, w, out_dtype == torch.bfloat16)
     return out.permute(0, 3, 1, 2)
 
 
@@ -95,13 +91,15 @@ def fused_preprocess(frame_u8: torch.Tensor, out_hw: Tuple[int, int] = (320, 640
     resized, RGB, ImageNet-normalised (B, 3, h, w) ``out_dtype`` in
     channels_last memory (B = 1 for a single frame).
 
-    Counts its kernel launches in ``fused_preprocess.launches``.
+    Counts its kernel launches in ``fused_preprocess.launches`` (not the
+    calls that torch.export traces).
     """
     frames = _frames(frame_u8, out_hw, out_dtype)
     if frames.device.type == "cpu":
         return preprocess_imagenet(frames, out_hw, out_dtype).permute(0, 3, 1, 2)
     out = _launch(frames, out_hw, out_dtype)
-    fused_preprocess.launches += 1
+    if not torch.compiler.is_compiling():  # a trace launches nothing
+        fused_preprocess.launches += 1
     return out
 
 
@@ -202,16 +200,10 @@ def _launch_letterbox(frames, out_hw, out_dtype):
     h, w = out_hw
     dev = frames.device
     _, (nh, nw), (pad_x, pad_y) = letterbox_geometry(out_hw, (H, W))
-    out = torch.empty((B, h, w, 3), dtype=out_dtype, device=dev)
     tables = (*device_taps(H, nh, dev), *device_taps(W, nw, dev))
-    with torch.cuda.device(dev):
-        err = build.load().avp_letterbox(
-            frames.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables),
-            _frame_stride(frames), B, H, W, h, w, nh, nw, pad_y, pad_x,
-            letterbox_pad_bits(out_dtype), int(out_dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"avp_letterbox failed: cudaError_t {err}")
+    torch_ops.load()
+    out = torch.ops.avp.fused_letterbox(frames, *tables, h, w, pad_y, pad_x,
+                                        letterbox_pad_bits(out_dtype), out_dtype == torch.bfloat16)
     return out.permute(0, 3, 1, 2)
 
 
@@ -223,7 +215,8 @@ def fused_letterbox(frame_u8: torch.Tensor, out_hw: Tuple[int, int] = (640, 640)
     pad_y)): scaled to fit, centred on gray 114, RGB, [0, 1]. Every pixel,
     pad included, is written by the one launch.
 
-    Counts its kernel launches in ``fused_letterbox.launches``.
+    Counts its kernel launches in ``fused_letterbox.launches`` (not the
+    calls that torch.export traces).
     """
     frames = _frames(frame_u8, out_hw, out_dtype)
     hw = tuple(frames.shape[1:3])
@@ -234,7 +227,8 @@ def fused_letterbox(frame_u8: torch.Tensor, out_hw: Tuple[int, int] = (640, 640)
         x, scale, pad_xy = letterbox(frames, out_hw, hw, dtype=out_dtype)
         return x.permute(0, 3, 1, 2), scale, pad_xy
     out = _launch_letterbox(frames, out_hw, out_dtype)
-    fused_letterbox.launches += 1
+    if not torch.compiler.is_compiling():
+        fused_letterbox.launches += 1
     return out, scale, pad_xy
 
 

@@ -126,7 +126,7 @@ def _rank_main(fn, rank, world_size, init_method, device, backend, timeout, args
         destroy_world()
 
 
-def run_world(fn: Callable, world_size: int, *args, device="cpu", backend: Optional[str] = None,
+def run_world(fn: Callable, world_size: int, *args, device="cuda", backend: Optional[str] = None,
               timeout: float = DEFAULT_TIMEOUT_S) -> list:
     """``fn(*args)`` in each rank of a new world of ``world_size`` spawned
     processes on this host (``fn`` importable by name; the processes start

@@ -169,8 +169,10 @@ class LaneTrackerOutput(NamedTuple):
 
 def _last_valid_x(bev, mask):
     """x of the bottom-most valid sample (of sample 0 if none is valid)."""
-    rows = torch.arange(MAX_PTS, device=bev.device)
-    idx = torch.where(mask, rows, -1).amax(-1).clamp(0, MAX_PTS - 1)
+    # the row indices as f32 (exact below 2**24): inductor's Triton code for
+    # an int64 max over a where() does not compile (torch 2.11)
+    rows = torch.arange(MAX_PTS, dtype=torch.float32, device=bev.device)
+    idx = torch.where(mask, rows, -1.0).amax(-1).clamp(0, MAX_PTS - 1).long()
     return bev[..., 0].gather(-1, idx[..., None])[..., 0]
 
 

@@ -131,6 +131,13 @@ def process_noise(generator, device) -> torch.Tensor:
         u = torch.stack([torch.rand(STATE_DIM, generator=g, device=device) for g in generator])
     else:
         u = torch.rand(STATE_DIM, generator=generator, device=device)
+    return noise_from_uniform(u)
+
+
+def noise_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """The process noise from ``torch.rand``'s U(0, 1) draws: a program
+    exported with its draw as an input (export/native_app.py) computes it
+    in the graph."""
     return u * (2 * NOISE_EPS) - NOISE_EPS
 
 

@@ -162,7 +162,9 @@ def build_batched_lateral_step(lanes: EgoLanesNetwork, steer_net: AutoSteerTempo
     @torch.inference_mode()
     def step(frames_u8, state: LateralState, noise: Optional[torch.Tensor] = None):
         x = fused_preprocess(frames_u8[:, crop_y:], net_hw, dtype)   # (N, 3, h, w)
-        lane_logits32 = lanes(x).permute(0, 2, 3, 1).float()         # (N, h/4, w/4, 3)
+        # contiguous, as the walk kernel reads its masks: the card's channels_last
+        # output already is; a trace's meta convs may give another layout
+        lane_logits32 = lanes(x).permute(0, 2, 3, 1).float().contiguous()  # (N, h/4, w/4, 3)
 
         # temporal AutoSteer on [t-1, t] stacked logits
         stacked = torch.cat([state.prev_lane_raw, lane_logits32], -1)

@@ -314,8 +314,31 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              (full-width nets, 320x640, batch 2, bf16 autocast): finite
              losses, parameters moved, no hand-kernel launch; the parsers'
              host seconds a sample and each trainer's step p50.
+40. export: (a) the operator library (csrc/torch_ops.cpp, g++ against
+             libtorch, linked to the kernels' library): torch.library.opcheck
+             of avp::fused_preprocess, fused_letterbox, lane_filter_walk and
+             nms_greedy at the exported steps' shapes, each bit-equal to its
+             plain version (phases 1-39 reach the four kernels through these
+             operators); (b) export_model in bf16 for SceneSeg, Scene3D,
+             DomainSeg, EgoLanes (1, 3, 320, 640), AutoSpeed, AutoSteer and
+             AutoDrive (1, 3, 512, 1024), each saved, loaded and held to the
+             eager module; an Int8Conv2d on the card refused; export_stablehlo
+             of fused_preprocess -> SceneSeg -> argmax_mask from a 720p frame,
+             whose graph calls the operator and whose loaded program launches
+             the kernel (profiler); (c) the port's tools/export_native_app.py
+             --longitudinal on the card (torch.export + AOTInductor of the
+             lateral step, f32, and of AutoSpeed "n" at 640x640), the port's
+             C++ loop (host/tools/visionpilot_app.cpp, built by g++ on a
+             thread since phase 2) with --golden, --lon and --dump over 16
+             state-carried frames against a Python replay of the same
+             package, each operator called at least once a frame inside the
+             C++ process, then 300 frames published to a pid-named /dev/shm
+             segment and republished by the port's StatePublisherBridge; the
+             AOTInductor compile seconds and the loop's p50/p99; (d)
+             export/benchmark_models.py::compare_precisions on SceneSeg
+             (f32, bf16, int8 weight-only PTQ): ms/iter and mIoU vs f32.
 The run prints its wall time, and that of phases 19-25, 26-28, 29-32,
-33-35, 36, 37, 38 and 39.
+33-35, 36, 37, 38, 39 and 40.
 """
 from __future__ import annotations
 
@@ -324,14 +347,18 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parent
+# AOTInductor's cache (phase 40) under build/, beside the kernels' build
+os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(REPO / "build" / "inductor_cache"))
 FRAME_HW = (720, 1280)
 ODD_HW = (375, 1242)  # a KITTI-sized frame: upscale rows, downscale columns
 OUT_HW = (320, 640)
@@ -1679,6 +1706,12 @@ def stamped_letterbox(pkg, pb, out):
 
     if not (pkg / "csrc" / "letterbox.cu").exists():
         print(f"stage split of {pkg}'s letterbox: not measured (no csrc/letterbox.cu)")
+        return None
+    if "torch.ops.avp" in (pkg / "ops" / "kernels" / "preprocess_kernel.py").read_text():
+        # its wrapper launches through this process's operator library
+        # (csrc/torch_ops.cpp), not a stamped library of its own
+        print(f"stage split of {pkg}'s letterbox: not measured (launched through the avp "
+              "operators)")
         return None
     lib = build_library(pb, pkg / "csrc", [pkg / "csrc" / "letterbox.cu"],
                         out / "libstamped_letterbox.so", ("-DAVP_LB_STAMPS",))
@@ -5906,6 +5939,343 @@ def phase_data(card):
     return results
 
 
+# ---------- phase 40: the operators, the exported programs, the native app ----------
+
+APP_FRAMES = 16  # the golden run: the probe, then 16 frames with the state carried
+APP_TIMED_FRAMES = 300  # the publishing run, which also times the loop
+APP_EGO_SPEED = 12.5
+
+
+def start_app_build():
+    """Phase 40c's C++ loop (export/native_app.py::build_app, g++ against
+    libtorch, ~30 s), built on a thread while the earlier phases run. ->
+    (the executor, the future of the binary's path)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from autoware_vision_pilot_tpu_torch.export.native_app import build_app
+
+    pool = ThreadPoolExecutor(1)
+    return pool, pool.submit(build_app)
+
+
+def op_inputs():
+    """Each avp operator's arguments at the shapes of the exported steps: the
+    lateral crop 720x1280[420:] -> 320x640 bf16, the letterbox 720x1280 ->
+    640x640 bf16, the walk on 80x160 masks, NMS on the 256 candidates that
+    nms_topk keeps for max_det 64. -> {name: (args, plain version's outputs)}."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.nms_kernel import cluster_size
+    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (
+        _mean_inv_std, letterbox_pad_bits)
+    from autoware_vision_pilot_tpu_torch.ops.postprocess import nms_greedy_plain, nms_topk
+    from autoware_vision_pilot_tpu_torch.ops.preprocess import (device_taps, letterbox,
+                                                                letterbox_geometry,
+                                                                preprocess_imagenet)
+    from autoware_vision_pilot_tpu_torch.perception.lane_filter import lane_filter_walk_plain
+
+    dev = torch.device("cuda")
+    frame = frames(1, FRAME_HW, SEED + 90)
+    crop = frame[:, LATERAL_CROP:]
+    h, w = crop.shape[1:3]
+    _, (nh, nw), (pad_x, pad_y) = letterbox_geometry(LON_HW, FRAME_HW)
+    masks = torch.from_numpy(lane_masks(LANE_HW, "dashed", SEED + 91))[None]
+    top = nms_topk(*nms_candidates("random", SEED + 92), max_det=MAX_DET, conf_thresh=CONF)
+    k = top[1].shape[-1]
+    nms_kw = dict(max_det=MAX_DET, iou_thresh=IOU, conf_thresh=CONF, class_aware=True)
+    bf16 = torch.bfloat16
+    return {
+        "fused_preprocess": (
+            (frame.to(dev)[:, LATERAL_CROP:], *device_taps(h, OUT_HW[0], dev),
+             *device_taps(w, OUT_HW[1], dev),
+             *_mean_inv_std(dev), *OUT_HW, True),
+            (preprocess_imagenet(crop, OUT_HW, bf16),)),
+        "fused_letterbox": (
+            (frame.to(dev), *device_taps(FRAME_HW[0], nh, dev), *device_taps(FRAME_HW[1], nw, dev),
+             *LON_HW, pad_y, pad_x, letterbox_pad_bits(bf16), True),
+            (letterbox(frame, LON_HW, FRAME_HW, dtype=bf16)[0],)),
+        "lane_filter_walk": ((masks.to(dev),), lane_filter_walk_plain(masks)),
+        "nms_greedy": (
+            (*(t[None].to(dev) for t in top), MAX_DET, IOU, CONF, True, cluster_size(k)),
+            tuple(t[None] for t in nms_greedy_plain(*top, **nms_kw))),
+    }
+
+
+def phase_ops(card):
+    """Phase 40a: the operator library (csrc/torch_ops.cpp) built and loaded;
+    torch.library.opcheck of each avp operator at the exported steps'
+    shapes (schema, fake implementation, dispatch); each operator's outputs
+    bit-equal to its plain version on the same inputs."""
+    from autoware_vision_pilot_tpu_torch.kernels import build
+    from autoware_vision_pilot_tpu_torch.ops.kernels import torch_ops
+
+    t0 = time.perf_counter()
+    torch_ops.load()
+    print(f"operator library {build.OPS_LIBRARY.relative_to(REPO)} loaded in "
+          f"{time.perf_counter() - t0:.2f} s: torch.ops.avp.{{{', '.join(torch_ops.OPS)}}}")
+    for name, (args, plain) in op_inputs().items():
+        op = getattr(torch.ops.avp, name).default
+        torch.library.opcheck(op, args)
+        out = op(*args)
+        out = out if isinstance(out, tuple) else (out,)
+        torch.cuda.synchronize()
+        if not all(bits_equal(a.cpu(), b) for a, b in zip(out, plain)):
+            raise AssertionError(f"avp::{name} differs from its plain version")
+        print(f"avp::{name} on {tuple(args[0].shape)}, {card}: opcheck passed (schema, fake "
+              "tensor, dispatch); outputs bit-equal to the plain version (max_abs_err 0)")
+
+
+class SegFromFrame(torch.nn.Module):
+    """uint8 720p frame -> fused_preprocess (the kernel) -> SceneSeg ->
+    argmax_mask: the program of phase 40b's export_stablehlo."""
+
+    def __init__(self, seg):
+        super().__init__()
+        self.seg = seg
+
+    def forward(self, frame_u8):
+        from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
+        from autoware_vision_pilot_tpu_torch.ops.postprocess import argmax_mask
+
+        x = fused_preprocess(frame_u8, OUT_HW, torch.bfloat16)
+        return argmax_mask(self.seg(x).permute(0, 2, 3, 1))
+
+
+def phase_exports(card):
+    """Phase 40b: export/stablehlo_export.py::export_model in bf16 for the
+    seven families at EXPORT_SHAPES (seed-0 weights), each saved, loaded
+    (load_stablehlo) and run on a seeded input, held to the eager module
+    (every output within 1e-2 * max|eager|, two bf16 ulps of the largest);
+    an Int8Conv2d on the card refused (NotImplementedError); then
+    export_stablehlo of fused_preprocess -> SceneSeg -> argmax_mask from a
+    720p uint8 frame: the graph holds torch.ops.avp.fused_preprocess, the
+    loaded program launches the kernel (profiler) and its mask equals the
+    eager module's. -> {"fused_preprocess": the program's calls}."""
+    from autoware_vision_pilot_tpu_torch.export.stablehlo_export import (
+        EXPORT_SHAPES, export_model, export_stablehlo, load_stablehlo)
+    from autoware_vision_pilot_tpu_torch.inference.infer import load_weights
+    from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
+    from autoware_vision_pilot_tpu_torch.ops.kernels import torch_ops
+    from autoware_vision_pilot_tpu_torch.tools.export_all import build as build_net
+
+    out = REPO / "build" / f"exports_{os.getpid()}"
+    rng = np.random.default_rng(SEED + 93)
+    for name, shape in EXPORT_SHAPES.items():
+        net, _, n_in = build_net(name)
+        net = load_weights(net, device="cuda", dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        path = export_model(net, name, out, torch.bfloat16)
+        seconds = time.perf_counter() - t0
+        prog = load_stablehlo(path)
+        x = tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                  .to("cuda", torch.bfloat16) for _ in range(n_in))
+        with torch.no_grad():
+            got, ref = prog(*x), net(*x)
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+        errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref)]
+        bars = [1e-2 * float(b.float().abs().max()) for b in ref]
+        if len(got) != len(ref) or any(e > b for e, b in zip(errs, bars)) or \
+                any(a.shape != b.shape or a.dtype != b.dtype for a, b in zip(got, ref)):
+            raise AssertionError(f"exported {name}: max_abs_err {errs}, bars {bars}")
+        print(f"export_model {name} {shape} bf16 -> {path.name} ({path.stat().st_size >> 20} "
+              f"MiB) in {seconds:.1f} s, {card}: loaded program vs eager max_abs_err {errs} "
+              f"(bar 1e-2 * max|eager|: {bars}; bit-equal "
+              f"{all(torch.equal(a, b) for a, b in zip(got, ref))})")
+        del net, prog
+    q = torch.nn.Sequential(Int8Conv2d(128, 128, 3, 1, device="cuda", dtype=torch.bfloat16))
+    try:
+        export_stablehlo(q, (torch.zeros((1, 128, 8, 8), device="cuda"),), out / "int8.pt2")
+    except NotImplementedError as e:
+        print(f"an Int8Conv2d on the card is not exported: {e}")
+    else:
+        raise AssertionError("an Int8Conv2d on the card was exported")
+
+    seg = load_weights(build_net("SceneSeg")[0], device="cuda", dtype=torch.bfloat16)
+    model = SegFromFrame(seg).eval()
+    frame = frames(1, FRAME_HW, SEED + 94)[0].cuda()
+    path = export_stablehlo(model, (frame,), out / "SceneSegFromFrame.pt2")
+    targets = [n.target for n in torch.export.load(path).graph.nodes if n.op == "call_function"]
+    if torch.ops.avp.fused_preprocess.default not in targets:
+        raise AssertionError(f"the exported SceneSeg program holds no avp::fused_preprocess: "
+                             f"{sorted(set(map(str, targets)))}")
+    prog = load_stablehlo(path)
+    before = torch_ops.calls()["fused_preprocess"]
+    # late in the run a trace can drop device records (device_us): up to five
+    # traces of three calls each, GUARDS sleeps on each side
+    for traces in range(1, 6):
+        with torch.no_grad(), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(GUARDS):
+                torch.cuda._sleep(100)
+            for _ in range(3):
+                mask = prog(frame)
+            for _ in range(GUARDS):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages() if "fused_preprocess_kernel" in e.key)
+        if kernels > 0:
+            break
+    calls = torch_ops.calls()["fused_preprocess"] - before
+    with torch.no_grad():
+        ref = model(frame)
+    if kernels <= 0 or calls != 3 * traces or not torch.equal(mask, ref):
+        raise AssertionError(f"the loaded SceneSeg program: {kernels} preprocess kernels on the "
+                             f"card in {traces} traces, {calls} operator calls, mask equal "
+                             f"{torch.equal(mask, ref)}")
+    print(f"export_stablehlo fused_preprocess -> SceneSeg -> argmax_mask from a 720p uint8 frame "
+          f"-> {path.name}, {card}: the graph calls torch.ops.avp.fused_preprocess; the loaded "
+          f"program's 3 calls launched fused_preprocess_kernel {kernels} time(s) (profiler, trace "
+          f"{traces}), {calls} operator calls in all, mask {tuple(mask.shape)} equal to the eager "
+          f"module's")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"fused_preprocess": calls}
+
+
+def app_line(stdout, what):
+    for line in stdout.splitlines():
+        if line.startswith(what):
+            return line
+    raise AssertionError(f"the loop printed no '{what}' line:\n{stdout}")
+
+
+def app_op_calls(stdout):
+    words = app_line(stdout, "op calls:").split()[2:]
+    return {words[i]: int(words[i + 1]) for i in range(0, len(words), 2)}
+
+
+def phase_native_app(card, app_build):
+    """Phase 40c: the port's tools/export_native_app.py --longitudinal on the
+    card (the lateral step at 720x1280, crop 420, EgoLanes at 320x640, f32;
+    AutoSpeed "n" at 640x640 with the letterbox and NMS), each torch.export
+    + AOTInductor; the port's C++ loop (host/tools/visionpilot_app.cpp,
+    built on a thread since phase 2) with --ops, --lon, --golden and --dump
+    over APP_FRAMES seeded frames: the golden probe within 2e-3, the final
+    scalars equal to a Python replay of the same package (flags exact, the
+    rest within 1e-4), each of the four operators called at least once a
+    frame inside the C++ process; then APP_TIMED_FRAMES frames publishing to
+    a pid-named /dev/shm segment, republished by the port's
+    StatePublisherBridge on an InProcTransport: advancing frame ids, the
+    longitudinal fields (ego speed, planner, RSS) in the POD; the AOTI
+    compile seconds and the loop's p50/p99. -> the operator calls of the
+    two runs of the loop, by name."""
+    from autoware_vision_pilot_tpu_torch.export.native_app import replay_native_app
+    from autoware_vision_pilot_tpu_torch.host.shm import SharedStateReader
+    from autoware_vision_pilot_tpu_torch.kernels import build
+    from autoware_vision_pilot_tpu_torch.middleware.transport import InProcTransport
+    from autoware_vision_pilot_tpu_torch.runtime.pipeline import SCALAR_FIELDS
+    from autoware_vision_pilot_tpu_torch.simulation import StatePublisherBridge
+    from autoware_vision_pilot_tpu_torch.tools import export_native_app as tool
+
+    out = REPO / "build" / f"native_app_{os.getpid()}"
+    t0 = time.perf_counter()
+    tool.main([str(out), "--longitudinal"])  # prints each bundle's export and compile seconds
+    print(f"the port's tools/export_native_app.py --longitudinal, {card}: "
+          f"{time.perf_counter() - t0:.1f} s in all (the two bundles in two processes; seed-0 "
+          "weights, f32)")
+    app = app_build[1].result()
+    app_build[0].shutdown()
+    stack = frames(APP_FRAMES, FRAME_HW, SEED + 95).numpy()
+    np.save(out / "stack.npy", stack)
+    dump = out / "final.npy"
+    cmd = [str(app), str(out), "lateral", "--ops", str(build.OPS_LIBRARY), "--lon",
+           "longitudinal", "--frames", str(out / "stack.npy")]
+    r = subprocess.run(cmd + ["--golden", "--max-frames", str(APP_FRAMES), "--dump", str(dump),
+                              "--state-shm", f"/avp_smoke_app_{os.getpid()}"],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0 or "golden probe: max|diff|" not in r.stderr:
+        raise AssertionError(f"the native loop failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+    golden = app_line(r.stderr, "golden probe")
+    calls = app_op_calls(r.stdout)
+    if min(calls.values()) < APP_FRAMES + 1:
+        raise AssertionError(f"the C++ loop called the operators {calls} times over "
+                             f"{APP_FRAMES + 1} frames")
+    final_cpp = np.load(dump)
+    final_py = replay_native_app(out, "lateral", list(stack))[-1]
+    flags = [SCALAR_FIELDS.index("fused_valid"), SCALAR_FIELDS.index("path_valid")]
+    if not (np.array_equal(final_cpp[flags], final_py[flags])
+            and np.allclose(final_cpp, final_py, rtol=1e-4, atol=1e-4)):
+        raise AssertionError(f"the C++ loop's final scalars {final_cpp} differ from the Python "
+                             f"replay's {final_py}")
+    print(f"native loop, lateral + longitudinal packages, {APP_FRAMES} state-carried frames after "
+          f"the probe, {card}: {golden}; final scalars {final_cpp.tolist()} vs the Python replay "
+          f"of the same package: max|diff| {float(np.abs(final_cpp - final_py).max())!r} (flags "
+          f"exact, tol 1e-4); operator calls inside the C++ process {calls} "
+          f"({APP_FRAMES + 1} frames)")
+
+    seg = f"/avp_smoke_pub_{os.getpid()}"
+    proc = subprocess.Popen(cmd + ["--max-frames", str(APP_TIMED_FRAMES), "--ego-speed",
+                                   str(APP_EGO_SPEED), "--state-shm", seg],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    transport, msgs = InProcTransport(), []
+    transport.subscribe("/visionpilot/state", msgs.append)
+    bridge = None
+    try:
+        deadline = time.time() + 300
+        while bridge is None and proc.poll() is None and time.time() < deadline:
+            try:
+                bridge = StatePublisherBridge(transport, rate_hz=1000.0, shm_name=seg)
+            except RuntimeError:  # not created yet
+                time.sleep(0.02)
+        if bridge is None:
+            raise AssertionError("the loop's state segment never appeared")
+        spinner = threading.Thread(target=bridge.spin, daemon=True)
+        spinner.start()
+        stdout, stderr = proc.communicate(timeout=600)
+        bridge.stop()
+        spinner.join(10)
+        last = bridge.reader.read()  # the final state: the mapping outlives the unlink
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if bridge is not None:
+            bridge.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"the publishing loop failed ({proc.returncode}):\n{stdout}\n{stderr}")
+    ids = [m["frame"] for m in msgs]
+    if len(ids) < 3 or ids != sorted(set(ids)):
+        raise AssertionError(f"the bridge republished frame ids {ids}")
+    if last.frame_number != APP_TIMED_FRAMES or abs(last.ego_speed_ms - APP_EGO_SPEED) > 1e-9 \
+            or not last.ideal_speed_ms > 0 or not np.isfinite(last.control_effort_ms2) \
+            or not last.safe_distance_m > 0:
+        raise AssertionError(f"the last published state is wrong: frame {last.frame_number}, "
+                             f"ego {last.ego_speed_ms}, ideal {last.ideal_speed_ms}, effort "
+                             f"{last.control_effort_ms2}, RSS {last.safe_distance_m}")
+    calls2 = app_op_calls(stdout)
+    if min(calls2.values()) < APP_TIMED_FRAMES:
+        raise AssertionError(f"the publishing loop called the operators {calls2} times over "
+                             f"{APP_TIMED_FRAMES} frames")
+    print(f"native loop publishing to {seg}, {APP_TIMED_FRAMES} frames, {card}: "
+          f"{app_line(stdout, 'visionpilot_app:')}; the port's StatePublisherBridge "
+          f"republished {len(ids)} states on an InProcTransport, frame ids {ids[0]}..{ids[-1]} "
+          f"advancing; the last POD: frame {last.frame_number}, ego {last.ego_speed_ms!r} m/s, "
+          f"ideal speed {last.ideal_speed_ms!r} m/s, RSS distance {last.safe_distance_m!r} m, "
+          f"effort {last.control_effort_ms2!r} m/s^2, CIPO {bool(last.cipo_exists)} (seed-0 "
+          f"AutoSpeed makes no track: phase 17); operator calls {calls2}")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {k: calls[k] + calls2[k] for k in calls}
+
+
+def phase_compare_precisions(card):
+    """Phase 40d: export/benchmark_models.py::compare_precisions on SceneSeg
+    (seed 0) at (1, 3, 320, 640): ms/iter (CUDA events) and agreement with
+    f32 for f32, bf16 and int8 weight-only PTQ."""
+    from autoware_vision_pilot_tpu_torch.export.benchmark_models import (build as build_net,
+                                                                          compare_precisions)
+
+    res = compare_precisions(build_net("SceneSeg"), (1, 3, *OUT_HW), runs=50, name="SceneSeg",
+                             device="cuda")
+    for precision in ("bf16", "int8"):
+        if not 0.0 <= res[precision]["miou_vs_f32"] <= 1.0:
+            raise AssertionError(f"{precision}: {res[precision]}")
+    print(f"compare_precisions SceneSeg (1, 3, 320, 640), 20 warm-up + 50 timed, {card}: " +
+          "; ".join(f"{k} {v['ms_per_iter']!r} ms/iter" +
+                    (f", mIoU vs f32 {v['miou_vs_f32']!r}" if k != "f32" else "")
+                    for k, v in res.items()))
+    torch.cuda.empty_cache()
+
+
 def host_costs_of(root):
     """--host-costs ROOT: phase 7's host-cost measurement alone, over the
     port package found in ROOT (this repository, or an earlier commit of it
@@ -5935,6 +6305,7 @@ def main():
     card = phase_device()
     sys.path.insert(0, str(REPO))
     phase_build()
+    app_build = start_app_build()  # phase 40c's C++ loop, built meanwhile
     parent = parent_kernels(parent_root)
     launch_floor(card)
     preprocess, crop = phase_kernel()
@@ -6041,6 +6412,13 @@ def main():
     walls.clear()
     timed(39, phase_data, card)
     print(f"wall time of phase 39 (s): {walls}")
+    # the operators, the exported programs, the native app and the precisions
+    walls.clear()
+    timed("40a", phase_ops, card)
+    paths["exported programs"] = timed("40b", phase_exports, card)
+    paths["native app"] = timed("40c", phase_native_app, card, app_build)
+    timed("40d", phase_compare_precisions, card)
+    print(f"wall time of phase 40 (s): {walls}, {sum(walls.values()):.1f} s in all")
     for path, counts in paths.items():
         for name, n in counts.items():
             # the paths at min_channels 128 and above tally the halo route

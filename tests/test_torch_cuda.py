@@ -1798,3 +1798,79 @@ def test_data_path_parse_load_and_a_legacy_step_on_card(cuda, tmp_path):
         trainer, lambda tr, on_step: tr.train(callbacks=lambda _, loss: on_step(loss)))
     assert len(losses) == 1 and math.isfinite(losses[0])
     assert trained and not set(trained) - set(moved) and dtypes == {torch.bfloat16}
+
+
+def avp_op_cases(cuda):
+    """Each avp operator's arguments at the exported steps' shapes: the
+    lateral crop 720x1280[420:] -> 320x640 bf16, the letterbox 720x1280 ->
+    640x640 bf16, the walk on 80x160 masks, NMS on nms_topk's 256."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import (
+        _mean_inv_std, letterbox_pad_bits)
+    from autoware_vision_pilot_tpu_torch.ops.preprocess import device_taps
+
+    frame = frames((720, 1280), 1, 40).to(cuda)
+    _, (nh, nw), (pad_x, pad_y) = letterbox_geometry((640, 640), (720, 1280))
+    masks = (torch.rand((1, 80, 160, 3), generator=torch.Generator().manual_seed(41)) > 0.8)
+    boxes, scores, cls = (torch.from_numpy(a).to(cuda) for a in nms_candidates("random", 42))
+    top = nms_topk(boxes, scores, cls, max_det=64, conf_thresh=0.5)
+    bf16 = torch.bfloat16
+    return {
+        "fused_preprocess": (frame[:, 420:], *device_taps(300, 320, cuda),
+                             *device_taps(1280, 640, cuda), *_mean_inv_std(cuda), 320, 640, True),
+        "fused_letterbox": (frame, *device_taps(720, nh, cuda), *device_taps(1280, nw, cuda),
+                            640, 640, pad_y, pad_x, letterbox_pad_bits(bf16), True),
+        "lane_filter_walk": (masks.float().to(cuda),),
+        "nms_greedy": (*(t[None] for t in top), 64, 0.5, 0.5, True,
+                       nms_kernel.cluster_size(top[1].shape[-1])),
+    }
+
+
+@pytest.mark.parametrize("name", ["fused_preprocess", "fused_letterbox", "lane_filter_walk",
+                                  "nms_greedy"])
+def test_avp_operator_opcheck(cuda, name):
+    """torch.library.opcheck of each dispatcher operator of the kernels
+    (csrc/torch_ops.cpp): its schema, fake implementation and dispatch;
+    every call counted by the library's own counter."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels import torch_ops
+
+    torch_ops.load()
+    args = avp_op_cases(cuda)[name]
+    before = torch_ops.calls()[name]
+    torch.library.opcheck(getattr(torch.ops.avp, name).default, args)
+    torch.cuda.synchronize()
+    assert torch_ops.calls()[name] > before
+
+
+def test_exported_scene_seg_launches_fused_preprocess(cuda, tmp_path):
+    """export_stablehlo of fused_preprocess -> SceneSeg (dryrun depth) on
+    the card: the graph calls torch.ops.avp.fused_preprocess, and the
+    loaded program launches the kernel and gives the eager module's
+    logits."""
+    from autoware_vision_pilot_tpu_torch.export.stablehlo_export import (export_stablehlo,
+                                                                         load_stablehlo)
+    from autoware_vision_pilot_tpu_torch.models.scene_seg import SceneSegNetwork
+    from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded
+    from autoware_vision_pilot_tpu_torch.ops.kernels import torch_ops
+
+    class SegFromFrame(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.seg = init_seeded(SceneSegNetwork((10, 20), B0_DRYRUN_STAGES),
+                                   torch.Generator().manual_seed(0))
+
+        def forward(self, frame_u8):
+            return self.seg(fused_preprocess(frame_u8, (320, 640), torch.float32))
+
+    model = SegFromFrame().to(cuda).eval()
+    frame = frames((720, 1280), 1, 43)[0].to(cuda)
+    path = export_stablehlo(model, (frame,), tmp_path / "seg.pt2")
+    nodes = [n.target for n in torch.export.load(path).graph.nodes if n.op == "call_function"]
+    assert torch.ops.avp.fused_preprocess.default in nodes
+    prog = load_stablehlo(path)
+    before, launches = torch_ops.calls()["fused_preprocess"], fused_preprocess.launches
+    with torch.no_grad():
+        got = prog(frame)
+        torch.cuda.synchronize()
+        assert torch_ops.calls()["fused_preprocess"] == before + 1
+        assert fused_preprocess.launches == launches  # the program calls the operator itself
+        assert torch.equal(got, model(frame))

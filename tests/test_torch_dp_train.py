@@ -126,7 +126,7 @@ def det_case():
 @pytest.fixture(scope="module")
 def world(case):
     return run_world(cases.dp_world, WORLD, {k: v for k, v in case.items() if k != "jax"},
-                     timeout=180)
+                     device="cpu", timeout=180)
 
 
 @pytest.fixture(scope="module")

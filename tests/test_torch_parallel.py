@@ -79,7 +79,7 @@ def world(case):
 
 def run_timed(fn, arg):
     t0 = time.monotonic()
-    out = tdist.run_world(fn, WORLD, arg, timeout=120)
+    out = tdist.run_world(fn, WORLD, arg, device="cpu", timeout=120)
     assert time.monotonic() - t0 < 120
     return out
 
@@ -186,7 +186,7 @@ def test_backend_follows_the_device():
 def test_a_failing_rank_fails_the_world_and_ends_it():
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
-        tdist.run_world(cases.failing_world, WORLD, None, timeout=60)
+        tdist.run_world(cases.failing_world, WORLD, None, device="cpu", timeout=60)
     assert time.monotonic() - t0 < 60
 
 

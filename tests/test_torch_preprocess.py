@@ -204,7 +204,17 @@ def test_kernel_binding_matches_c_signature():
                            ctypes.c_int64 if "long long" in p else
                            ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
                            for p in params.split(",")]
-    assert decls.keys() == build.SIGNATURES.keys()
+    # the four kernels of the exported steps are bound by csrc/torch_ops.cpp,
+    # whose declarations must repeat the kernels' own
+    op_decls = dict(re.findall(r"\nint (\w+)\(([^)]*)\);",
+                               build.OPS_SOURCE.read_text().split('extern "C" {')[1]))
+    assert sorted(op_decls) == ["avp_fused_preprocess", "avp_lane_filter_walk", "avp_letterbox",
+                                "avp_nms_greedy"]
+    for src in build.sources():
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            if name in op_decls:
+                assert op_decls[name].split() == params.split(), name
+    assert decls.keys() - op_decls.keys() == build.SIGNATURES.keys()
     for name, argtypes in build.SIGNATURES.items():
         assert list(argtypes) == decls[name], name
     assert build.LIBRARY.parent == Path(build.__file__).resolve().parents[2] / "build" / "torch_kernels"
