@@ -422,9 +422,10 @@ extern "C" int avp_int8_halo_set_stamps(void* stamps) {
 
 // Launches the halo route on `stream` and returns cudaGetLastError() (0 on
 // success), or 100000 + a CUresult if the input's tensor map is refused.
-// xq: (B, H, W, C) int8, 16-byte aligned, C a multiple of 16; w_map: the 128
-// bytes avp_int8_weight_map wrote for the (N, KH, KW, C) weights with box_n
-// = bn; w_scale: (N,) f32; x_scale: one f32, or null for a per-channel input
+// xq: (B, H, W, C) int8, 16-byte aligned, C a multiple of 16; w: the (N,
+// KH, KW, C) int8 weights, 16-byte aligned (their map in boxes of bn output
+// channels encoded at the first launch and kept, sm90.cuh::weight_map);
+// w_scale: (N,) f32; x_scale: one f32, or null for a per-channel input
 // scale already folded into the weights; bias: (N,) of the output type, or
 // null; out: (B, OH, OW, N), OH = H + 2 pad - KH + 1 (stride 1), f32
 // (out_kind 0), bf16 (1) or the int32 accumulators (2), 16-byte aligned.
@@ -432,7 +433,7 @@ extern "C" int avp_int8_halo_set_stamps(void* stamps) {
 // the power of two >= tw + KW - 1 and >= 8, at most 128), bn (8, 16, 24, 32, 48 or 64
 // output channels), the m and n tiles, the persistent blocks, the halo
 // stages (2-4) and whether the weights are resident (one N tile only).
-extern "C" int avp_int8_conv_halo(const void* xq, const void* w_map, const void* w_scale,
+extern "C" int avp_int8_conv_halo(const void* xq, const void* w, const void* w_scale,
                                   const void* x_scale, const void* bias, void* out, int B, int H,
                                   int W, int C, int N, int KH, int KW, int pad, int out_kind,
                                   int th, int tw, int bn, int m_tiles, int n_tiles, int blocks,
@@ -467,7 +468,7 @@ extern "C" int avp_int8_conv_halo(const void* xq, const void* w_map, const void*
   a.e.N = N;
   a.e.out_kind = out_kind;
   const long long M = (long long)B * a.OH * a.OW;
-  if (!out || !w_map || B <= 0 || C <= 0 || C % 16 || N <= 0 || KH <= 0 || KW <= 0 ||
+  if (!out || !w || B <= 0 || C <= 0 || C % 16 || N <= 0 || KH <= 0 || KW <= 0 ||
       pad < 0 || a.OH <= 0 || a.OW <= 0 || M > 0x7fffffffLL || out_kind < 0 || out_kind > 2 ||
       (bn != 8 && bn != 16 && bn != 24 && bn != 32 && bn != 48 && bn != 64) ||
       th <= 0 || tw <= 0 || th * a.hw > BM || a.hh > 256 ||
@@ -476,7 +477,8 @@ extern "C" int avp_int8_conv_halo(const void* xq, const void* w_map, const void*
       blocks <= 0 || blocks > a.units || hstages < 2 || hstages > MAX_HSTAGES ||
       (resident && n_tiles != 1))
     return (int)cudaErrorInvalidValue;
-  if ((uintptr_t)xq % 16 || (uintptr_t)out % 16) return (int)cudaErrorMisalignedAddress;
+  if ((uintptr_t)xq % 16 || (uintptr_t)out % 16 || (uintptr_t)w % 16)
+    return (int)cudaErrorMisalignedAddress;
   const Layout l = layout(th, tw, a.hh, a.hw, KH, KW, a.slabs, bn, a.taps, a.nc, N, n_tiles,
                           hstages, resident);
   if (l.smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
@@ -490,10 +492,11 @@ extern "C" int avp_int8_conv_halo(const void* xq, const void* w_map, const void*
   alignas(64) CUtensorMap map_x, map_w;
   const uint64_t dims[4] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)B};
   const uint32_t box[4] = {(uint32_t)SLAB, (uint32_t)a.hw, (uint32_t)a.hh, 1u};
-  const int err = encode(&map_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 4, xq, dims, box,
-                         CU_TENSOR_MAP_SWIZZLE_NONE);
+  int err = encode(&map_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 4, xq, dims, box,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err) return err;
-  memcpy(&map_w, w_map, sizeof(map_w));
+  err = weight_map(&map_w, w, N, KH, KW, C, bn);
+  if (err) return err;
   cudaStream_t s = (cudaStream_t)stream;
   switch (bn) {
     case 8: return (int)launch_halo<8>(map_x, map_w, a, blocks, l.smem, s);

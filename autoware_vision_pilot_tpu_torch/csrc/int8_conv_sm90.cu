@@ -1,5 +1,6 @@
 // Int8 convolution for Hopper (sm_90a), part 2: the wgmma/TMA route, its
-// split-K form, and the int8 transposed conv on the same kernel ("d2s").
+// split-K form, its strided form ("strided": any stride, dilation and
+// padding), and the int8 transposed conv on the same kernel ("d2s").
 //
 // Replaces, with int8_conv_halo.cu and int8_pointwise.cu, the int8 conv of
 // autoware_vision_pilot_tpu/nn/layers.py::Conv2d (:110-113), which the JAX
@@ -104,6 +105,27 @@
 // accumulators need more than the 80 registers a thread that allows).
 // Split-K with int32 atomic adds into one zeroed (M, N) sum that the last
 // split reads back was slower at the 20x40 shapes and no faster at 10x20.
+//
+// The strided form ("strided": JAX's window_strides, rhs_dilation and a
+// padding per dimension, nn/layers.py:73-79): the same kernel and the same
+// implicit GEMM; only the input's box changes. Output pixel (oh, ow) reads
+// tap (r, q) at (oh sh + r dh - ph, ow sw + q dw - pw), so the A box of the
+// tile at (oh0, ow0) starts at (oh0 sh + r dh - ph, ow0 sw + q dw - pw) and
+// takes every sh-th row and sw-th column: the input's tensor map is encoded
+// with those as its traversal strides (cuTensorMapEncodeTiled's
+// elementStrides; the box then spans tw sw columns and th sh rows and lands
+// as the same th x tw x 128-byte tile, TMA's zero fill still the padding).
+// Chosen over the im2col mode (cuTensorMapEncodeIm2col) because the tiled
+// map keeps the rectangle tile, the K loop and the byte count of every
+// stage as they are: the im2col mode walks a flat run of output pixels
+// (the plan's rectangles would go) and would need its own map a tap.
+// Dilation moves only the taps' origins. A traversal stride is at most 8
+// and a box at most 256 elements: the plan keeps tw sw and th sh within
+// 256, and a dimension with a stride above 8 takes one output a tile along
+// it (a box of one element, no traversal stride). Where C < 128 the same
+// route runs with K padded to 128 by TMA's zero fill of the channels past
+// C, in the input box and the weight box alike (JAX selects 64-channel
+// strided convs at min_channels 32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -169,7 +191,8 @@ struct WgArgs {
   avp::Epilogue e;
   int* ws;             // (splits, M, N) int32 partial sums when split, else null
   unsigned* arrivals;  // (m_tiles * n_tiles) zeroed counters when split
-  int M, OH, OW, pad, KW, nc, th, tw, tiles_h, tiles_w, iters, per_split, splits;
+  int M, OH, OW, KW, nc, th, tw, tiles_h, tiles_w, iters, per_split, splits;
+  int pad_h, pad_w, sh, sw, dh, dw;  // the padding, strides and dilation a dimension
   int m_tiles, n_tiles, units;  // units = m_tiles * n_tiles * splits
   // d2s: the transposed conv's O, kh, kw, its N tiles a segment (ceil(O /
   // 128)), and whether the output map stores the tiles (else value by value)
@@ -341,8 +364,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           mbar_expect_tx(full(s), tx);
           const int tap = it / a.nc, c0 = (it % a.nc) * BK;
           const int r = tap / a.KW, q = tap % a.KW;
-          tma_load_4d(a_base + s * A_STAGE, &map_x, full(s), c0, t.ow0 + q - a.pad,
-                      t.oh0 + r - a.pad, t.b);
+          tma_load_4d(a_base + s * A_STAGE, &map_x, full(s), c0, t.ow0 * a.sw + q * a.dw - a.pad_w,
+                      t.oh0 * a.sh + r * a.dh - a.pad_h, t.b);
           if (D2S)
             tma_load_4d(b_base + s * B_STAGE, &map_w, full(s), c0, t.o0, t.seg, 0);
           else
@@ -524,16 +547,35 @@ int launch_wg(const CUtensorMap& map_x, const CUtensorMap& map_w, const CUtensor
   return (int)cudaGetLastError();
 }
 
+// The extent of one dimension's box and its traversal stride for `t`
+// outputs a tile at stride `s`: t s elements at stride s, or one element
+// for one output (any stride).
+void strided_box(int t, int s, uint32_t* box, uint32_t* estride) {
+  *box = t == 1 ? 1u : (uint32_t)(t * s);
+  *estride = t == 1 ? 1u : (uint32_t)s;
+}
+
 // The arguments both entry points share, checked: the 4-D map of the int8
-// NHWC input in boxes of the th x tw rectangle, and WgArgs up to the
-// epilogue's pointers. Returns 0, cudaErrorInvalidValue, or 100000 + a
-// CUresult.
+// NHWC input in boxes of the th x tw rectangle (each dimension's box t s
+// elements at traversal stride s), and WgArgs up to the epilogue's
+// pointers. Returns 0, cudaErrorInvalidValue, or 100000 + a CUresult.
 int prepare(WgArgs& a, CUtensorMap* map_x, const void* xq, int B, int H, int W, int C, int N,
-            int KH, int KW, int pad, int out_kind, int th, int tw, int m_tiles, int n_tiles,
-            int splits, int per_split, int blocks, void* ws) {
-  a.OH = H + 2 * pad - KH + 1;
-  a.OW = W + 2 * pad - KW + 1;
-  a.pad = pad;
+            int KH, int KW, int pad_h, int pad_w, int sh, int sw, int dh, int dw, int out_kind,
+            int th, int tw, int m_tiles, int n_tiles, int splits, int per_split, int blocks,
+            void* ws) {
+  if (KH <= 0 || KW <= 0 || pad_h < 0 || pad_w < 0 || sh <= 0 || sw <= 0 || dh <= 0 || dw <= 0 ||
+      th <= 0 || tw <= 0)
+    return (int)cudaErrorInvalidValue;
+  a.OH = (H + 2 * pad_h - dh * (KH - 1) - 1) / sh + 1;
+  a.OW = (W + 2 * pad_w - dw * (KW - 1) - 1) / sw + 1;
+  if (H + 2 * pad_h - dh * (KH - 1) - 1 < 0 || W + 2 * pad_w - dw * (KW - 1) - 1 < 0)
+    a.OH = a.OW = 0;
+  a.pad_h = pad_h;
+  a.pad_w = pad_w;
+  a.sh = sh;
+  a.sw = sw;
+  a.dh = dh;
+  a.dw = dw;
   a.KW = KW;
   a.nc = (C + BK - 1) / BK;
   a.th = th;
@@ -552,7 +594,8 @@ int prepare(WgArgs& a, CUtensorMap* map_x, const void* xq, int B, int H, int W, 
   const long long M = (long long)B * a.OH * a.OW;
   if (B <= 0 || C <= 0 || C % 16 || N <= 0 || a.OH <= 0 || a.OW <= 0 ||
       M > 0x7fffffffLL || out_kind < 0 || out_kind > 2 || th <= 0 || tw <= 0 ||
-      th * tw > BM || th > 256 || tw > 256 ||
+      th * tw > BM || (th > 1 && (sh > 8 || th * sh > 256)) ||
+      (tw > 1 && (sw > 8 || tw * sw > 256)) ||
       (long long)m_tiles != (long long)B * a.tiles_h * a.tiles_w || n_tiles <= 0 ||
       splits <= 0 || (long long)m_tiles * n_tiles * splits > 0x7fffffffLL || blocks <= 0 ||
       (long long)blocks > (long long)m_tiles * n_tiles * splits ||
@@ -562,8 +605,12 @@ int prepare(WgArgs& a, CUtensorMap* map_x, const void* xq, int B, int H, int W, 
   if ((uintptr_t)xq % 16) return (int)cudaErrorMisalignedAddress;
   a.M = (int)M;
   const uint64_t dims[4] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)B};
-  const uint32_t box[4] = {(uint32_t)BK, (uint32_t)tw, (uint32_t)th, 1u};
-  return encode(map_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 4, xq, dims, box);
+  const uint64_t strides[3] = {(uint64_t)C, (uint64_t)C * W, (uint64_t)C * W * H};
+  uint32_t box[4] = {(uint32_t)BK, 1u, 1u, 1u}, estride[4] = {1u, 1u, 1u, 1u};
+  strided_box(tw, sw, &box[1], &estride[1]);
+  strided_box(th, sh, &box[2], &estride[2]);
+  return encode_map(map_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, xq, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B, estride);
 }
 
 avp::Epilogue epilogue(const void* w_scale, const void* x_scale, const void* bias, void* out,
@@ -580,37 +627,9 @@ avp::Epilogue epilogue(const void* w_scale, const void* x_scale, const void* bia
 
 }  // namespace
 
-// The weights' tensor map, encoded once per weight by the wrapper, which
-// keeps the 128 bytes written to map_out beside the weight: boxes of 128
-// channels x box_n output channels (128 on the wgmma routes, the plan's N
-// tile on the pointwise and halo routes). w: (N, KH, KW, C) int8, 16-byte
-// aligned, C a multiple of 16. Returns 0, or 100000 + the driver's CUresult.
-extern "C" int avp_int8_weight_map(const void* w, int N, int KH, int KW, int C,
-                                   int box_n, void* map_out) {
-  if (N <= 0 || KH <= 0 || KW <= 0 || C <= 0 || C % 16 || box_n <= 0 || box_n > 256)
-    return (int)cudaErrorInvalidValue;
-  if ((uintptr_t)w % 16) return (int)cudaErrorMisalignedAddress;
-  alignas(64) CUtensorMap map;
-  const int err = encode_weights(&map, w, N, KH, KW, C, box_n);
-  if (err == 0) memcpy(map_out, &map, sizeof(map));
-  return err;
-}
-
-// The transposed conv's weights' tensor map, kept by the wrapper as
-// avp_int8_weight_map's: w, the (S = kh kw, O, C) int8 buffer (16-byte
-// aligned, C a multiple of 16), as the 4-D tensor (C, O, S, 1) in boxes of
-// 128 channels x 128 o of one segment (zeros past O). Returns 0, or 100000 +
-// the driver's CUresult.
-extern "C" int avp_int8_d2s_weight_map(const void* w, int O, int S, int C, void* map_out) {
-  if (O <= 0 || S <= 0 || C <= 0 || C % 16) return (int)cudaErrorInvalidValue;
-  if ((uintptr_t)w % 16) return (int)cudaErrorMisalignedAddress;
-  alignas(64) CUtensorMap map;
-  const uint64_t dims[4] = {(uint64_t)C, (uint64_t)O, (uint64_t)S, 1u};
-  const uint32_t box[4] = {(uint32_t)BK, (uint32_t)BN, 1u, 1u};
-  const int err = encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 4, w, dims, box);
-  if (err == 0) memcpy(map_out, &map, sizeof(map));
-  return err;
-}
+// The weight maps encoded in this process so far (sm90.cuh::weight_maps):
+// one a (weight address, shape, box) key; tests/test_torch_cuda.py reads it.
+extern "C" long long avp_int8_weight_map_encodes() { return weight_maps().encodes(); }
 
 // The stamp buffer of a build with -DAVP_D2S_STAMPS (chip_smoke.py's stage
 // split of the d2s variant), 8 words a block; without stamps,
@@ -624,34 +643,42 @@ extern "C" int avp_int8_d2s_set_stamps(void* stamps) {
 #endif
 }
 
-// Launches the wgmma route on `stream` and returns cudaGetLastError() (0 on
-// success), or 100000 + a CUresult if the input's tensor map is refused.
-// xq: (B, H, W, C) int8, 16-byte aligned, C a multiple of 16; w_map: the
-// 128 bytes avp_int8_weight_map wrote; w_scale: (N,) f32; x_scale: one f32,
-// or null for a per-channel input scale already folded into the weights;
-// bias: (N,) of the output type, or null; out: (B, OH, OW, N), OH = H + 2 pad
-// - KH + 1 (stride 1), f32 (out_kind 0), bf16 (1) or the int32 accumulators
-// (2). The plan's numbers: the th x tw pixel rectangle, the tiles (m_tiles,
+// Launches the wgmma route (and its split-K and strided forms) on `stream`
+// and returns cudaGetLastError() (0 on success), or 100000 + a CUresult if
+// a tensor map is refused. xq: (B, H, W, C) int8, 16-byte aligned, C a
+// multiple of 16; w: the (N, KH, KW, C) int8 weights, 16-byte aligned (their
+// map is encoded at the first launch and kept, sm90.cuh::weight_map);
+// w_scale: (N,) f32; x_scale: one f32, or null for a per-channel input
+// scale already folded into the weights; bias: (N,) of the output type, or
+// null; pad_h, pad_w, stride_h, stride_w, dil_h, dil_w: the conv's padding
+// (each side), strides and dilation a dimension; out: (B, OH, OW, N), OH =
+// (H + 2 pad_h - dil_h (KH - 1) - 1) / stride_h + 1, f32 (out_kind 0), bf16
+// (1) or the int32 accumulators (2). The plan's numbers: the th x tw pixel
+// rectangle (th stride_h and tw stride_w at most 256, and stride_h,
+// stride_w at most 8, except along a dimension of one output a tile), the
+// tiles (m_tiles,
 // n_tiles), the K splits and the K steps per split, and the blocks to
 // launch (each takes every blocks-th unit of work). With splits > 1, ws is
 // an int32 workspace of splits * M * N partial sums followed by m_tiles *
 // n_tiles arrival counters, which this call zeroes on `stream` before the
 // launch; its contents need no other preparation.
-extern "C" int avp_int8_conv_wgmma(const void* xq, const void* w_map,
-                                   const void* w_scale, const void* x_scale,
-                                   const void* bias, void* out, void* ws, int B,
-                                   int H, int W, int C, int N, int KH, int KW,
-                                   int pad, int out_kind, int th, int tw,
-                                   int m_tiles, int n_tiles, int splits,
-                                   int per_split, int blocks, void* stream) {
+extern "C" int avp_int8_conv_wgmma(const void* xq, const void* w, const void* w_scale,
+                                   const void* x_scale, const void* bias, void* out, void* ws,
+                                   int B, int H, int W, int C, int N, int KH, int KW, int pad_h,
+                                   int pad_w, int stride_h, int stride_w, int dil_h, int dil_w,
+                                   int out_kind, int th, int tw, int m_tiles, int n_tiles,
+                                   int splits, int per_split, int blocks, void* stream) {
   WgArgs a;
   alignas(64) CUtensorMap map_x, map_w;
-  int err = prepare(a, &map_x, xq, B, H, W, C, N, KH, KW, pad, out_kind, th, tw, m_tiles,
-                    n_tiles, splits, per_split, blocks, ws);
+  int err = prepare(a, &map_x, xq, B, H, W, C, N, KH, KW, pad_h, pad_w, stride_h, stride_w,
+                    dil_h, dil_w, out_kind, th, tw, m_tiles, n_tiles, splits, per_split, blocks,
+                    ws);
   if (err) return err;
-  if (!out || n_tiles != (N + BN - 1) / BN) return (int)cudaErrorInvalidValue;
+  if (!out || !w || n_tiles != (N + BN - 1) / BN) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)w % 16) return (int)cudaErrorMisalignedAddress;
   a.e = epilogue(w_scale, x_scale, bias, out, N, out_kind);
-  memcpy(&map_w, w_map, sizeof(map_w));
+  err = weight_map(&map_w, w, N, KH, KW, C, BN);
+  if (err) return err;
   if (out_kind == 0) return launch_wg<0, false>(map_x, map_w, map_w, a, blocks, stream);
   if (out_kind == 1) return launch_wg<1, false>(map_x, map_w, map_w, a, blocks, stream);
   return launch_wg<2, false>(map_x, map_w, map_w, a, blocks, stream);
@@ -659,8 +686,10 @@ extern "C" int avp_int8_conv_wgmma(const void* xq, const void* w_map,
 
 // The transposed conv with kernel == stride ("d2s") on `stream`, the return
 // value as avp_int8_conv_wgmma's. xq: (B, h, w, C) int8 (the quantized
-// activation), 16-byte aligned, C a multiple of 16; w_map: the 128 bytes
-// avp_int8_d2s_weight_map wrote for the (kh kw, O, C) weights; w_scale and
+// activation), 16-byte aligned, C a multiple of 16; wt: the (kh kw, O, C)
+// int8 weights, 16-byte aligned, as the 4-D tensor (C, O, kh kw, 1) in
+// boxes of 128 channels x 128 o of one segment (zeros past O; the map kept
+// as avp_int8_conv_wgmma's); w_scale and
 // bias: (O,); x_scale: the scalar the activation was quantized with; out:
 // (B, h kh, w kw, O) of out_kind, 16-byte aligned. The plan's numbers as
 // avp_int8_conv_wgmma's for the 1x1 conv of N = kh kw ceil(O / 128) 128
@@ -668,19 +697,20 @@ extern "C" int avp_int8_conv_wgmma(const void* xq, const void* w_map,
 // w * n_tiles * 128 partial sums and the counters. tma_store: store the
 // tiles through the output's 5-D map (needs O * bytes a multiple of 16 and O
 // at least 128 bytes of outputs), else value by value.
-extern "C" int avp_int8_conv_d2s(const void* xq, const void* w_map, const void* w_scale,
+extern "C" int avp_int8_conv_d2s(const void* xq, const void* wt, const void* w_scale,
                                  const void* x_scale, const void* bias, void* out, void* ws,
                                  int B, int h, int w, int C, int O, int kh, int kw,
                                  int out_kind, int th, int tw, int m_tiles, int n_tiles,
                                  int splits, int per_split, int blocks, int tma_store,
                                  void* stream) {
   if (O <= 0 || kh <= 0 || kw <= 0 || (long long)kh * kw * O > 0x7fffffffLL || !out ||
-      !x_scale)
+      !x_scale || !wt)
     return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)wt % 16) return (int)cudaErrorMisalignedAddress;
   WgArgs a;
   alignas(64) CUtensorMap map_x, map_w, map_out;
-  int err = prepare(a, &map_x, xq, B, h, w, C, kh * kw * O, 1, 1, 0, out_kind, th, tw, m_tiles,
-                    n_tiles, splits, per_split, blocks, ws);
+  int err = prepare(a, &map_x, xq, B, h, w, C, kh * kw * O, 1, 1, 0, 0, 1, 1, 1, 1, out_kind, th,
+                    tw, m_tiles, n_tiles, splits, per_split, blocks, ws);
   if (err) return err;
   a.O = O;
   a.kh = kh;
@@ -692,7 +722,14 @@ extern "C" int avp_int8_conv_d2s(const void* xq, const void* w_map, const void* 
       (tma_store && ((O * elem) % 16 || O * elem < 128 || (uintptr_t)out % 16)))
     return (int)cudaErrorInvalidValue;
   a.e = epilogue(w_scale, x_scale, bias, out, O, out_kind);
-  memcpy(&map_w, w_map, sizeof(map_w));
+  const int S = kh * kw;
+  err = weight_maps().get(&map_w, {1, (long long)(uintptr_t)wt, O, S, C, 1, BN},
+                          [&](CUtensorMap* m) {
+                            const uint64_t dims[4] = {(uint64_t)C, (uint64_t)O, (uint64_t)S, 1u};
+                            const uint32_t box[4] = {(uint32_t)BK, (uint32_t)BN, 1u, 1u};
+                            return encode(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 4, wt, dims, box);
+                          });
+  if (err) return err;
   memset(&map_out, 0, sizeof(map_out));
   if (tma_store) {
     static const CUtensorMapDataType types[3] = {CU_TENSOR_MAP_DATA_TYPE_FLOAT32,

@@ -825,9 +825,9 @@ bool bad_common(const void* x, int in_kind, const void* rcp, int per_channel, co
 // plan, encodes the activation's map and picks the instance; `a` holds the
 // epilogue.
 int launch_pw(const void* x, int in_kind, const void* rcp, int per_channel,
-              const void* w_map, PwArgs a, int M, int C, int N, int bm, int bn, int m_tiles,
+              const void* w, PwArgs a, int M, int C, int N, int bm, int bn, int m_tiles,
               int n_tiles, int cs, int k_per_rank, void* stream) {
-  if (bad_common(x, in_kind, rcp, per_channel, w_map, M, C, N, a.e.out_kind) ||
+  if (bad_common(x, in_kind, rcp, per_channel, w, M, C, N, a.e.out_kind) ||
       (bm != 64 && bm != 128) || (bn != 64 && bn != 128 && bn != 192 && bn != 256) ||
       cs < 1 || cs > MAX_CLUSTER || k_per_rank <= 0 || k_per_rank % 16 ||
       (long long)k_per_rank * cs < C || (long long)k_per_rank * (cs - 1) >= C ||
@@ -851,9 +851,10 @@ int launch_pw(const void* x, int in_kind, const void* rcp, int per_channel,
                                                CU_TENSOR_MAP_DATA_TYPE_FLOAT32};
   const uint64_t dims[2] = {(uint64_t)C, (uint64_t)M};
   const uint32_t box[2] = {(uint32_t)(STEP / elem), (uint32_t)bm};
-  const int err = sm90::encode(&map_x, types[in_kind], elem, 2, x, dims, box);
+  int err = sm90::encode(&map_x, types[in_kind], elem, 2, x, dims, box);
   if (err) return err;
-  memcpy(&map_w, w_map, sizeof(map_w));
+  err = sm90::weight_map(&map_w, w, N, 1, 1, C, bn);
+  if (err) return err;
 
   a.rcp = (const double*)rcp;
   a.M = M; a.C = C; a.N = N;
@@ -890,22 +891,23 @@ extern "C" int avp_int8_pointwise_set_stamps(void* stamps) {
 // quantized with, C values if per_channel, else one, which the epilogue
 // then multiplies into w_scale; rcp: for a float x, 1 / scale in f64
 // (correctly rounded), as many values, 16-byte aligned; for an int8 x,
-// unused; w_map: the 128 bytes avp_int8_weight_map wrote for the (N, C)
-// int8 weights with box_n = bn; w_scale: (N,) f32; bias: (N,) of the
+// unused; w: the (N, C) int8 weights, 16-byte aligned (their map in boxes
+// of bn output channels encoded at the first launch and kept,
+// sm90.cuh::weight_map); w_scale: (N,) f32; bias: (N,) of the
 // output type, or null; out: (M, N) f32 (out_kind 0), bf16 (1) or the
 // int32 accumulators (2). The plan's numbers: the tile's bm (64 or 128)
 // rows and bn (64, 128, 192 or 256) columns, the m and n tiles, the
 // cluster size cs (1-8) and the channels of K each rank takes, a multiple
 // of 16 (the last rank takes the rest).
 extern "C" int avp_int8_conv_pointwise(const void* x, int in_kind, const void* scale,
-                                       const void* rcp, int per_channel, const void* w_map,
+                                       const void* rcp, int per_channel, const void* w,
                                        const void* w_scale, const void* bias, void* out,
                                        int M, int C, int N, int out_kind, int bm, int bn,
                                        int m_tiles, int n_tiles, int cs, int k_per_rank,
                                        void* stream) {
   PwArgs a = {};
   a.e = epilogue(scale, per_channel, w_scale, bias, out, N, out_kind);
-  return launch_pw(x, in_kind, rcp, per_channel, w_map, a, M, C, N, bm, bn, m_tiles, n_tiles,
+  return launch_pw(x, in_kind, rcp, per_channel, w, a, M, C, N, bm, bn, m_tiles, n_tiles,
                    cs, k_per_rank, stream);
 }
 

@@ -3,13 +3,16 @@
 // mbarriers, TMA tile loads and stores and the host's encoding of their
 // tensor maps, a stage clock for stamped builds, and int8 wgmma with its
 // shared-memory descriptors (K-major: 128-byte swizzle, the layout a TMA
-// load with CU_TENSOR_MAP_SWIZZLE_128B writes, or none).
+// load with CU_TENSOR_MAP_SWIZZLE_128B writes, or none), and the weights'
+// maps, encoded once per (address, shape, box) for the process.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "map_cache.hpp"
 
 namespace avp {
 namespace sm90 {
@@ -413,10 +416,13 @@ constexpr int ENCODE_FAILED = 100000;  // + the CUresult
 // A map of `rank` (2 to 5) dims, innermost first, of elements of `type`,
 // with the byte strides of dims 1.. in `strides`, boxes `box` and
 // `swizzle`, zeros outside the tensor (a load) or nothing written there (a
-// store). Returns 0 or ENCODE_FAILED + the CUresult.
+// store). `elem_strides` (1 by default) are the traversal strides: a load
+// takes every elem_strides[i]-th element of box[i], ceil(box[i] /
+// elem_strides[i]) of them, packed. Returns 0 or ENCODE_FAILED + the
+// CUresult.
 inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
                       const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
-                      CUtensorMapSwizzle swizzle) {
+                      CUtensorMapSwizzle swizzle, const uint32_t* elem_strides = nullptr) {
   const EncodeTiled fn = encoder();
   if (!fn) return ENCODE_FAILED + (int)CUDA_ERROR_NOT_FOUND;
   cuuint64_t gdim[5], gstride[4];
@@ -424,7 +430,7 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, cons
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     bdim[i] = box[i];
-    estride[i] = 1;
+    estride[i] = elem_strides ? elem_strides[i] : 1;
     if (i + 1 < rank) gstride[i] = strides[i];
   }
   const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), gdim, gstride,
@@ -452,6 +458,19 @@ inline int encode_weights(CUtensorMap* map, const void* w, int N, int KH, int KW
   const uint64_t dims[4] = {(uint64_t)C, (uint64_t)KW, (uint64_t)KH, (uint64_t)N};
   const uint32_t box[4] = {128u, 1u, 1u, (uint32_t)box_n};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 4, w, dims, box);
+}
+
+// The process's weight maps (map_cache.hpp).
+inline MapCache<CUtensorMap>& weight_maps() {
+  static MapCache<CUtensorMap> maps;
+  return maps;
+}
+
+// encode_weights' map of (N, KH, KW, C) int8 weights with box_n output
+// channels a box, encoded at the first launch and kept for the process.
+inline int weight_map(CUtensorMap* map, const void* w, int N, int KH, int KW, int C, int box_n) {
+  return weight_maps().get(map, {0, (long long)(uintptr_t)w, N, KH, KW, C, box_n},
+                           [&](CUtensorMap* m) { return encode_weights(m, w, N, KH, KW, C, box_n); });
 }
 
 }  // namespace sm90

@@ -126,10 +126,8 @@ class QuantizedInference:
 # ------------------------------------------------------- the selective int8 path
 
 def _int8_from(conv: Conv2d, sx: Optional[torch.Tensor]) -> Int8Conv2d:
-    if conv.groups != 1 or conv.stride != (1, 1) or conv.dilation != (1, 1):
-        raise NotImplementedError(
-            "the int8 conv covers groups 1, stride 1, dilation 1; got "
-            f"groups={conv.groups} stride={conv.stride} dilation={conv.dilation}")
+    """export/quantize.py:128-145 on one conv, whatever its stride,
+    dilation and groups (the int8 conv keeps them)."""
     w = conv.weight.float()  # the model's own weights, bf16 or f32, in f32
     if sx is not None and sx.dim() == 1:
         # fold per-input-channel activation scales into the kernel:
@@ -137,8 +135,10 @@ def _int8_from(conv: Conv2d, sx: Optional[torch.Tensor]) -> Int8Conv2d:
         w = w * sx.reshape(1, -1, 1, 1)
     scale = f32_div(w.abs().amax(dim=(1, 2, 3)).clamp_min(1e-8), 127.0)
     wq = torch.clamp(torch.round(w / scale.reshape(-1, 1, 1, 1)), -127, 127)
-    out_ch, in_ch, kh, kw = conv.weight.shape
-    q = Int8Conv2d(in_ch, out_ch, (kh, kw), conv.padding, conv.bias is not None,
+    out_ch, in_per_group, kh, kw = conv.weight.shape
+    q = Int8Conv2d(in_per_group * conv.groups, out_ch, (kh, kw), conv.padding,
+                   conv.bias is not None, stride=conv.stride, dilation=conv.dilation,
+                   groups=conv.groups,
                    input_scale_shape=None if sx is None else tuple(sx.shape),
                    device=w.device, dtype=conv.weight.dtype)
     q.weight.copy_(wq.to(torch.int8))

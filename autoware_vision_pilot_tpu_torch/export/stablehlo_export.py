@@ -9,8 +9,9 @@ StableHLO), which ``load_stablehlo`` loads and runs without the module's
 Python code, and which AOTInductor can compile to a package that a C++
 process runs (export/native_app.py). The names stay the JAX package's. A
 program exported on the card calls the hand kernels as the dispatcher
-operators ``torch.ops.avp.*`` (csrc/torch_ops.cpp); one exported on the CPU
-holds their plain versions.
+operators ``torch.ops.avp.*`` (csrc/torch_ops.cpp), the int8 convs and
+transposed convs among them; one exported on the CPU holds their plain
+versions.
 """
 from __future__ import annotations
 
@@ -43,25 +44,6 @@ class _Fn(torch.nn.Module):
         return self.fn(*args)
 
 
-def _require_exportable(fn) -> None:
-    """Raise if ``fn`` holds an int8 conv (Int8Conv2d, Int8ConvTranspose2d)
-    on the card: its kernels encode their TMA maps on the host at each
-    call, through ctypes, and are not operators that an exported program
-    can call (ROADMAP Queue 2: the int8 entry points as C++ operators). On
-    the CPU they export as their plain versions."""
-    from ..nn.layers import Int8Conv2d, Int8ConvTranspose2d
-
-    if not isinstance(fn, torch.nn.Module):
-        return
-    for m in fn.modules():
-        if isinstance(m, (Int8Conv2d, Int8ConvTranspose2d)) and any(
-                t.is_cuda for t in (*m.parameters(), *m.buffers())):
-            raise NotImplementedError(
-                f"an {type(m).__name__} on the card cannot be exported: its kernels are "
-                "called through ctypes, not as operators (ROADMAP Queue 2: the int8 entry "
-                "points as C++ operators)")
-
-
 def export_stablehlo(fn: Callable, example_args: Sequence,
                      path: str | pathlib.Path) -> pathlib.Path:
     """``torch.export`` of ``fn`` (a module, or any callable, wrapped in
@@ -71,7 +53,6 @@ def export_stablehlo(fn: Callable, example_args: Sequence,
     port keeps must be filled before a trace, by one eager call on the same
     device, or the trace would keep fake tensors in them: this runs that
     call first."""
-    _require_exportable(fn)
     module = fn if isinstance(fn, torch.nn.Module) else _Fn(fn)
     example_args = tuple(example_args)
     with torch.no_grad():

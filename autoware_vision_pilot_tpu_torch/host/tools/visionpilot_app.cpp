@@ -42,7 +42,7 @@
 //
 // Prints the frames' wall time per frame past the first (mean, p50, p99:
 // upload, the packages and the download of their outputs) and, with --ops, each
-// operator's calls in this process. Exit 0 on success (and golden parity,
+// operator's calls in this process, and the int8 operators' calls a frame. Exit 0 on success (and golden parity,
 // if requested).
 
 #include <dlfcn.h>
@@ -75,8 +75,11 @@
 namespace {
 
 // the operators in the order of csrc/torch_ops.cpp's counters
-const char* const kOps[] = {"fused_preprocess", "fused_letterbox", "lane_filter_walk",
-                            "nms_greedy"};
+const char* const kOps[] = {"fused_preprocess",    "fused_letterbox",   "lane_filter_walk",
+                            "nms_greedy",          "int8_quantize",     "int8_conv_wgmma",
+                            "int8_conv_splitk",    "int8_conv_strided", "int8_conv_halo",
+                            "int8_conv_pointwise", "int8_conv_dot",     "int8_conv_d2s"};
+constexpr int kNumOps = sizeof(kOps) / sizeof(kOps[0]);
 
 struct Manifest {
   std::string package, device = "cpu";
@@ -524,7 +527,12 @@ int main(int argc, char** argv) {
               percentile(lat_times, 0.5), percentile(lon_times, 0.5));
   if (op_calls != nullptr) {
     std::printf("op calls:");
-    for (int i = 0; i < 4; ++i) std::printf(" %s %lld", kOps[i], op_calls(i));
+    for (int i = 0; i < kNumOps; ++i) std::printf(" %s %lld", kOps[i], op_calls(i));
+    std::printf("\n");
+    // the int8 operators (an int8 package's quantize and conv routes) a frame
+    std::printf("int8 op calls a frame:");
+    for (int i = 4; i < kNumOps; ++i)
+      std::printf(" %s %.3f", kOps[i], (double)op_calls(i) / (double)std::max<long>(done, 1));
     std::printf("\n");
   }
   std::fflush(stdout);

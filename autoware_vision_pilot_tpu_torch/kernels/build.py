@@ -7,11 +7,12 @@ PyTorch's headers, all of them at once, at first use. The kernels' objects
 are linked into one shared library with a plain C interface,
 ``build/torch_kernels/libavp_kernels.so`` at the repository root, and
 torch_ops.cpp into ``libavp_torch_ops.so`` beside it, linked to that library
-and to libtorch: the dispatcher operators ``torch.ops.avp.*`` of the four
-kernels that exported programs call (ops/kernels/torch_ops.py loads it).
-A hash of the sources, the headers they include (``csrc/*.cuh``) and the
-compile commands, stored beside the libraries, decides whether a later
-process rebuilds them. A failed compile raises with the compiler's stderr.
+and to libtorch: the dispatcher operators ``torch.ops.avp.*`` through which
+the wrappers, exported programs and the C++ loop call the kernels
+(ops/kernels/torch_ops.py loads it). A hash of the sources, the headers
+they include (``csrc/*.cuh``, ``csrc/*.hpp``) and the compile commands,
+stored beside the libraries, decides whether a later process rebuilds
+them. A failed compile raises with the compiler's stderr.
 Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -33,36 +34,15 @@ OPS_LIBRARY = BUILD_DIR / "libavp_torch_ops.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argtypes; every function returns a cudaError_t as int. The
-# four kernels of the exported steps (preprocess, letterbox, lane-filter walk,
-# NMS) are called through their operators (csrc/torch_ops.cpp), not from here.
+# kernels themselves (preprocess, letterbox, lane-filter walk, NMS, the int8
+# quantize and convs) are called through their operators
+# (csrc/torch_ops.cpp), not from here: these are the stamp buffers of
+# chip_smoke.py's stamped builds and the launch floor.
 SIGNATURES = {
     # stamps (a build with -DAVP_LB_STAMPS; else cudaErrorNotSupported)
     "avp_letterbox_set_stamps": (_P,),
-    # x, xq, scale, per_channel, pixels, C, in_bf16, stream
-    "avp_int8_quantize": (_P, _P, _P, _I, _L, _I, _I, _P),
-    # xq, w_map, w_scale, x_scale, bias, out, B, H, W, C, N, KH, KW, pad,
-    # out_kind, th, tw, bn, m_tiles, n_tiles, blocks, hstages, resident, stream
-    "avp_int8_conv_halo": (_P,) * 6 + (_I,) * 17 + (_P,),
-    # w, N, KH, KW, C, box_n, map_out
-    "avp_int8_weight_map": (_P,) + (_I,) * 5 + (_P,),
-    # w, O, S, C, map_out
-    "avp_int8_d2s_weight_map": (_P,) + (_I,) * 3 + (_P,),
-    # xq, w_map, w_scale, x_scale, bias, out, ws, B, H, W, C, N, KH, KW,
-    # pad, out_kind, th, tw, m_tiles, n_tiles, splits, per_split, blocks,
-    # stream
-    "avp_int8_conv_wgmma": (_P,) * 7 + (_I,) * 16 + (_P,),
-    # x, in_kind, scale, rcp, per_channel, w_map, w_scale, bias, out, M, C,
-    # N, out_kind, bm, bn, m_tiles, n_tiles, cs, k_per_rank, stream
-    "avp_int8_conv_pointwise": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 10 + (_P,),
-    # xq, w_map, w_scale, x_scale, bias, out, ws, B, h, w, C, O, kh, kw,
-    # out_kind, th, tw, m_tiles, n_tiles, splits, per_split, blocks,
-    # tma_store, stream
-    "avp_int8_conv_d2s": (_P,) * 7 + (_I,) * 16 + (_P,),
-    # x, in_kind, scale, rcp, per_channel, w, w_scale, bias, out, M, C, N,
-    # out_kind, lanes, stream
-    "avp_int8_conv_dot": (_P, _I, _P, _P, _I) + (_P,) * 4 + (_I,) * 5 + (_P,),
     # stamps (a build with -DAVP_PW_STAMPS; else cudaErrorNotSupported)
     "avp_int8_pointwise_set_stamps": (_P,),
     # stamps (builds with -DAVP_HALO_STAMPS, -DAVP_D2S_STAMPS; else
@@ -80,7 +60,8 @@ def sources(csrc: Path = CSRC) -> list[Path]:
 
 def _digest(csrc: Path = CSRC, ops_cmd: tuple = ()) -> str:
     h = hashlib.sha256(" ".join((*NVCC_FLAGS, *ops_cmd)).encode())
-    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh"), *csrc.glob("*.cpp")]):
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh"), *csrc.glob("*.hpp"),
+                       *csrc.glob("*.cpp")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()

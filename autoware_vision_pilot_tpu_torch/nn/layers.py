@@ -120,7 +120,9 @@ class Int8Conv2d(nn.Module):
     the JAX ``x_scale``: () or (in_ch,) when per-input-channel scales were
     folded into the weights), so ``isinstance`` tells which convs run int8
     and Conv2d's forward stays free of branches. export/quantize.py swaps
-    Conv2d modules for these; it covers stride 1, groups 1, dilation 1.
+    Conv2d modules for these, with the conv's own padding, ``stride``,
+    ``dilation`` and ``groups`` (JAX passes them to its int8
+    ``lax.conv_general_dilated`` as to the float one, nn/layers.py:73-79).
 
     Without ``input_scale`` the scale is dynamic, max(max|x|, 1e-6) / 127,
     kept on the device; each call then records the running ``observed_amax``
@@ -129,12 +131,16 @@ class Int8Conv2d(nn.Module):
     """
 
     def __init__(self, in_ch, out_ch, kernel_size=3, padding=0, bias=True, *,
-                 input_scale_shape=None, device=None, dtype=None):
+                 stride=1, dilation=1, groups=1, input_scale_shape=None, device=None,
+                 dtype=None):
         super().__init__()
         kh, kw = _pair(kernel_size)
         self.padding = _pair(padding)
+        self.stride = _pair(stride)
+        self.dilation = _pair(dilation)
+        self.groups = groups
         self.weight = nn.Parameter(
-            torch.empty((out_ch, in_ch, kh, kw), device=device, dtype=torch.int8,
+            torch.empty((out_ch, in_ch // groups, kh, kw), device=device, dtype=torch.int8,
                         memory_format=torch.channels_last), requires_grad=False)
         self.register_buffer(
             "weight_scale", torch.empty(out_ch, device=device, dtype=torch.float32))
@@ -151,10 +157,12 @@ class Int8Conv2d(nn.Module):
         sx = self.input_scale
         if sx is None:
             sx, amax = dynamic_input_scale(x)
-            self.observed_amax = (amax if self.observed_amax is None
-                                  else torch.maximum(self.observed_amax, amax))
+            if not torch.compiler.is_compiling():  # a trace keeps no fake tensor here
+                self.observed_amax = (amax if self.observed_amax is None
+                                      else torch.maximum(self.observed_amax, amax))
         return int8_conv2d(x, self.weight, self.weight_scale, sx, self.bias,
-                           self.padding, plain=self.plain)
+                           self.padding, stride=self.stride, dilation=self.dilation,
+                           groups=self.groups, plain=self.plain)
 
 
 class ConvTranspose2d(nn.Module):
@@ -213,8 +221,9 @@ class Int8ConvTranspose2d(nn.Module):
         sx = self.input_scale
         if sx is None:
             sx, amax = dynamic_input_scale(x)
-            self.observed_amax = (amax if self.observed_amax is None
-                                  else torch.maximum(self.observed_amax, amax))
+            if not torch.compiler.is_compiling():  # a trace keeps no fake tensor here
+                self.observed_amax = (amax if self.observed_amax is None
+                                      else torch.maximum(self.observed_amax, amax))
         return int8_conv_transpose(x, self.weight, self.weight_scale, sx, self.bias,
                                    plain=self.plain)
 

@@ -2,7 +2,9 @@
 csrc/int8_conv_sm90.cu, csrc/int8_conv_halo.cu and csrc/int8_pointwise.cu,
 the port of the int8 branch of autoware_vision_pilot_tpu/nn/layers.py::Conv2d
 (:81-113) and ConvTranspose2d (:187-208), which the JAX package leaves to
-XLA.
+XLA. On the card every kernel is called as a dispatcher operator,
+``torch.ops.avp.*`` (csrc/torch_ops.cpp, loaded by torch_ops.py), so that a
+program with int8 convs exports and runs without Python.
 
 Kernels, each with its wrapper, its plain PyTorch version and its count of
 launches:
@@ -13,9 +15,11 @@ launches:
   ``cast(f32(acc) * dequant) + bias`` with dequant = sx * w_scale for a
   scalar sx, w_scale alone for a per-channel one, which the weights carry
   (:110-113); or the accumulators themselves for ``out_dtype=torch.int32``.
-  ``int8_conv_plan`` picks one of five routes: "wgmma" (TMA loads and
+  ``int8_conv_plan`` picks one of six routes: "wgmma" (TMA loads and
   wgmma on 128x128 tiles), "splitk" (the same kernel over slices of K; the
-  split that finishes a tile last runs its epilogue), "pointwise" (1x1
+  split that finishes a tile last runs its epilogue), "strided" (the same
+  kernel for any stride, dilation and padding a dimension, each tap's input
+  box read at the stride by TMA's traversal strides), "pointwise" (1x1
   convs: TMA loads, the quantize into wgmma's register A fragments, K
   split over the blocks of a cluster), "dot" (1x1 convs of at most 8
   pixels, the M = 1 SE convs: a lane per 16 channels of an output
@@ -37,20 +41,23 @@ launches:
 ``int8_conv2d`` is the whole conv on a float input: on the "pointwise"
 and "dot" routes one launch that quantizes as it loads (bit-equal to the
 quantize kernel: it multiplies by 1 / sx in float64, which ``_reciprocal``
-keeps on the scale tensor), on the others quantize, then conv. On a CUDA
-tensor a wrapper launches its kernel or raises; on a CPU tensor it runs
-the plain version, which computes the conv in float64 on the int8 values
-(exact: |acc| <= 127^2 * K < 2^53) and the same epilogue in torch ops.
-Every scale is a tensor on the input's device, so no launch waits for the
-host.
+keeps on the scale tensor in eager runs and a traced program computes), on
+the others quantize, then conv. On a CUDA tensor a wrapper launches its
+kernel or raises; on a CPU tensor it runs the plain version, which
+computes the conv in float64 on the int8 values (exact: |acc| <= 127^2 * K
+< 2^53) and the same epilogue in torch ops. Every scale is a tensor on the
+input's device, so no launch waits for the host.
 
-The kernels cover what the selective-int8 path needs: groups 1, stride 1,
-dilation 1, any window with symmetric padding, NHWC (channels_last) inputs
-and (O, kh, kw, I) weights, i.e. OIHW weights in channels_last memory.
+The convs take JAX's whole int8 rule (nn/layers.py:73-79): any window, a
+symmetric padding a dimension, a stride and a dilation a dimension, and
+groups (one launch a group, on the group's channels); NHWC
+(channels_last) inputs and (O, kh, kw, I/groups) weights, i.e. OIHW
+weights in channels_last memory. The launch counters count eager launches
+(a trace records the operator, and an exported program's calls are
+counted by the operator library, torch_ops.calls()).
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import NamedTuple, Optional
@@ -58,16 +65,18 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ...kernels import build
+from . import torch_ops
 
 CL = torch.channels_last
 IN_DTYPES = (torch.float32, torch.bfloat16)
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int32: 4}
-ROUTES = ("wgmma", "splitk", "halo", "pointwise", "dot")
+ROUTES = ("wgmma", "splitk", "strided", "halo", "pointwise", "dot")
 FUSED_ROUTES = ("pointwise", "dot")  # they take a float input and quantize it
 _IN_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 TILE = 128      # the wgmma route's BM = BN = BK (csrc/int8_conv_sm90.cu)
+MAX_BOX = 256   # a TMA box's most elements a dimension
+MAX_TRAVERSAL = 8  # a TMA map's most traversal stride
 # the halo route (csrc/int8_conv_halo.cu): its N tiles (wgmma's small N
 # shapes), the channels of a halo chunk and of a weight box, of a slab (one
 # 16-byte pixel row), its most halo stages, its weight ring, and the dynamic
@@ -115,11 +124,34 @@ def dynamic_input_scale(x: torch.Tensor):
     return f32_div(amax, 127.0), amax
 
 
-def _pad(padding) -> int:
-    ph, pw = (padding, padding) if isinstance(padding, int) else tuple(padding)
-    if ph != pw or ph < 0:
-        raise ValueError(f"int8 conv needs one symmetric padding, got {padding}")
-    return ph
+def _pair(v) -> tuple:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def geometry(padding, stride=1, dilation=1) -> tuple:
+    """(pad_h, pad_w, stride_h, stride_w, dil_h, dil_w) of a conv: JAX's
+    padding [(ph, ph), (pw, pw)], window_strides and rhs_dilation, each an
+    int or a pair."""
+    (ph, pw), (sh, sw), (dh, dw) = _pair(padding), _pair(stride), _pair(dilation)
+    if min(ph, pw) < 0 or min(sh, sw, dh, dw) < 1:
+        raise ValueError(f"no int8 conv with padding {padding}, strides {stride}, dilations "
+                         f"{dilation}: padding must be >= 0, strides and dilations >= 1")
+    return ph, pw, sh, sw, dh, dw
+
+
+def out_size(H: int, W: int, KH: int, KW: int, geo: tuple) -> tuple:
+    """The conv's output (OH, OW) (lax.conv_general_dilated's), each 0 or
+    less where the window does not fit the padded input."""
+    ph, pw, sh, sw, dh, dw = geo
+    eh, ew = H + 2 * ph - dh * (KH - 1), W + 2 * pw - dw * (KW - 1)
+    return (eh - 1) // sh + 1 if eh > 0 else 0, (ew - 1) // sw + 1 if ew > 0 else 0
+
+
+def _stride_one(geo: tuple) -> bool:
+    """A stride-1 conv without dilation and with one padding: the routes
+    before "strided" take it."""
+    ph, pw, sh, sw, dh, dw = geo
+    return ph == pw and (sh, sw, dh, dw) == (1, 1, 1, 1)
 
 
 def _check_nhwc(x: torch.Tensor, what: str) -> None:
@@ -138,28 +170,16 @@ def _check_scale(x_scale: torch.Tensor, cin: int, device) -> None:
                          f"{tuple(x_scale.shape)}")
 
 
-def _check_aligned(*tensors: torch.Tensor) -> None:
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the int8 kernels need 16-byte aligned tensors")
-
-
-def _check_err(name: str, err: int) -> None:
-    if err >= 100000:
-        raise RuntimeError(f"{name}: the driver refused a tensor map, CUresult {err - 100000}")
-    if err != 0:
-        raise RuntimeError(f"{name} failed: cudaError_t {err}")
-
-
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _raw_stream(index: int) -> int:
-    """The current stream of CUDA device ``index``, as the handle the C
-    entry points take. torch.cuda.current_stream() builds a Stream object
-    under a device guard, which costs the host more than the launch."""
-    return torch._C._cuda_getCurrentRawStream(index)
+def _eager() -> bool:
+    """Not inside a trace (torch.export, torch.compile): only eager
+    launches are counted here, and only eager runs keep caches on
+    tensors."""
+    return not torch.compiler.is_compiling()
 
 
 # ------------------------------------------------------------------ quantize
@@ -186,8 +206,9 @@ def pad_channels(t: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def int8_quantize(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) f32/bf16 channels_last -> int8 channels_last.
-    Counts its kernel launches in ``int8_quantize.launches``."""
+    """(B, C, H, W) f32/bf16 channels_last -> int8 channels_last; on the
+    card the operator ``avp::int8_quantize``. Counts its kernel launches in
+    ``int8_quantize.launches``."""
     if x.dtype not in IN_DTYPES:
         raise TypeError(f"x must be one of {IN_DTYPES}, got {x.dtype}")
     _check_nhwc(x, "x")
@@ -200,20 +221,15 @@ def int8_quantize(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
     if index != torch.cuda.current_device():  # the kernels launch on the current device
         with torch.cuda.device(index):
             return int8_quantize(x, x_scale)
-    B, C, H, W = x.shape
+    C = x.shape[1]
     Cp = padded_channels(C)
     if Cp != C:  # the kernel takes 16 channels a thread; the pad is cut off again
         sp = F.pad(x_scale, (0, Cp - C), value=1.0) if x_scale.dim() == 1 else x_scale
         return int8_quantize(pad_channels(x, Cp), sp)[:, :C].contiguous(memory_format=CL)
-    xq = torch.empty_like(x, dtype=torch.int8, memory_format=CL)
-    _check_aligned(x, xq)
-    scale = x_scale.contiguous()
-    err = build.load().avp_int8_quantize(
-        x.data_ptr(), xq.data_ptr(), scale.data_ptr(),
-        int(x_scale.dim() == 1), B * H * W, C, int(x.dtype == torch.bfloat16),
-        _raw_stream(index))
-    _check_err("avp_int8_quantize", err)
-    int8_quantize.launches += 1
+    torch_ops.load()
+    xq = torch.ops.avp.int8_quantize(x, x_scale.contiguous())
+    if _eager():
+        int8_quantize.launches += 1
     return xq
 
 
@@ -264,12 +280,14 @@ def _widths(OW: int, bm: int = TILE) -> list:
     return sorted({min(OW, bm), *(w for w in (128, 64, 32, 16, 8) if w <= OW)}, reverse=True)
 
 
-def _rectangle(OH: int, OW: int, bm: int = TILE) -> tuple:
-    """The th x tw pixel rectangle (th * tw <= bm) that covers the OH x OW
-    map in the fewest M tiles; the widest of those."""
+def _rectangle(OH: int, OW: int, bm: int = TILE, max_h: int = MAX_BOX,
+               max_w: int = MAX_BOX) -> tuple:
+    """The th x tw pixel rectangle (th * tw <= bm, th <= max_h, tw <=
+    max_w) that covers the OH x OW map in the fewest M tiles; the widest of
+    those."""
     best = None
-    for tw in _widths(OW, bm):
-        th = min(bm // tw, OH)
+    for tw in _widths(min(OW, max_w), bm):
+        th = min(bm // tw, OH, max_h)
         tiles = math.ceil(OH / th) * math.ceil(OW / tw)
         if best is None or tiles < best[0]:
             best = (tiles, th, tw)
@@ -331,10 +349,14 @@ def _k_splits(tiles: int, iters: int, sms: int) -> tuple:
 
 @functools.lru_cache(maxsize=4096)
 def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
-                   pad: int, sms: int = SMS) -> Int8ConvPlan:
-    """The route, tiles, K splits and grid of a stride-1 int8 conv of a
-    (B, H, W, C) NHWC input (C a multiple of 16) with N output channels, a
-    KH x KW window and ``pad`` zeros on each side, on a card of ``sms`` SMs:
+                   pad, sms: int = SMS, stride=1, dilation=1) -> Int8ConvPlan:
+    """The route, tiles, K splits and grid of an int8 conv of a (B, H, W,
+    C) NHWC input (C a multiple of 16) with N output channels, a KH x KW
+    window, ``pad`` zeros on each side (an int, or one a dimension),
+    ``stride`` and ``dilation`` (an int, or one a dimension), on a card of
+    ``sms`` SMs. A conv with a stride or a dilation other than 1, or with
+    another padding a dimension, takes "strided" (_strided_plan); the
+    others:
 
     - "wgmma" for windows larger than 1x1 with C >= 128;
     - "splitk" for those of them whose 128x128 output tiles fill less than
@@ -360,8 +382,9 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
     of work, whichever is fewer.
 
     Raises ValueError for a shape that no route takes."""
-    OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
-    if min(B, H, W, C, N, KH, KW) <= 0 or pad < 0:
+    geo = geometry(pad, stride, dilation)
+    OH, OW = out_size(H, W, KH, KW, geo)
+    if min(B, H, W, C, N, KH, KW) <= 0:
         raise ValueError(f"no int8 conv of B={B} H={H} W={W} C={C} N={N} "
                          f"window {KH}x{KW} pad {pad}")
     if OH <= 0 or OW <= 0:
@@ -374,6 +397,9 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
     M = B * OH * OW
     if M >= 2 ** 31:
         raise ValueError(f"M = {M} output pixels: more than an int32 indexes")
+    if not _stride_one(geo):
+        return _strided_plan(B, OH, OW, C, N, KH, KW, geo, sms)
+    pad = geo[0]
     if KH * KW == 1 and pad == 0:
         return _pointwise_plan(M, C, N, sms)
     if KH * KW == 1 or C < TILE:
@@ -389,6 +415,33 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
     return Int8ConvPlan("splitk" if splits > 1 else "wgmma", TILE, TILE, TILE,
                         (m_tiles, n_tiles, splits), th, tw, iters, per_split,
                         min(tiles * splits, sms))
+
+
+def _tile_limit(s: int) -> int:
+    """The most outputs a tile of the strided route takes along a
+    dimension of stride s: its box spans that many times s elements (at
+    most MAX_BOX) at a traversal stride of s (at most MAX_TRAVERSAL); above
+    that, one (a box of one element)."""
+    return MAX_BOX // s if s <= MAX_TRAVERSAL else 1
+
+
+def _strided_plan(B: int, OH: int, OW: int, C: int, N: int, KH: int, KW: int, geo: tuple,
+                  sms: int) -> Int8ConvPlan:
+    """The "strided" plan: the wgmma route's 128x128 tiles over the OH x OW
+    output, the rectangle of _rectangle within _tile_limit of each
+    dimension's stride, K as KH KW ceil(C / 128) steps (C < 128 padded by
+    the loads' zero fill), and the K splits of _k_splits."""
+    _, _, sh, sw, _, _ = geo
+    th, tw = _rectangle(OH, OW, TILE, _tile_limit(sh), _tile_limit(sw))
+    m_tiles = B * math.ceil(OH / th) * math.ceil(OW / tw)
+    n_tiles = math.ceil(N / TILE)
+    if n_tiles > 65535:
+        raise ValueError(f"N = {N}: more output channels than the grid holds")
+    iters = KH * KW * math.ceil(C / TILE)
+    tiles = m_tiles * n_tiles
+    splits, per_split = _k_splits(tiles, iters, sms)
+    return Int8ConvPlan("strided", TILE, TILE, TILE, (m_tiles, n_tiles, splits), th, tw, iters,
+                        per_split, min(tiles * splits, sms))
 
 
 class HaloLayout(NamedTuple):
@@ -534,8 +587,11 @@ def _dot_plan(M: int, C: int, N: int) -> Int8ConvPlan:
 def int8_conv_plain(xq: torch.Tensor, weight: torch.Tensor,
                     weight_scale: torch.Tensor, x_scale: torch.Tensor,
                     bias: Optional[torch.Tensor], padding,
-                    out_dtype: torch.dtype) -> torch.Tensor:
-    acc = F.conv2d(xq.double(), weight.double(), None, 1, padding)
+                    out_dtype: torch.dtype, stride=1, dilation=1,
+                    groups: int = 1) -> torch.Tensor:
+    """The plain version: lax.conv_general_dilated's int32 accumulators in
+    float64 on the int8 values, then nn/layers.py:110-113 in torch ops."""
+    acc = F.conv2d(xq.double(), weight.double(), None, stride, padding, dilation, groups)
     # the float64 sums are exact integers; round() only guards against an
     # algorithm that transforms its inputs (FFT, Winograd)
     acc = acc.round().to(torch.int32).contiguous(memory_format=CL)
@@ -548,51 +604,25 @@ def int8_conv_plain(xq: torch.Tensor, weight: torch.Tensor,
     return y.contiguous(memory_format=CL)
 
 
-def _weight_map(lib, weight: torch.Tensor, N: int, KH: int, KW: int, C: int,
-                box_n: int = TILE, d2s: bool = False) -> bytes:
-    """The weights' 128-byte TMA map (boxes of 128 channels x ``box_n``
-    output channels; with ``d2s`` the transposed conv's (KH KW, N = O, C)
-    weights in boxes of 128 channels x 128 o of one segment), encoded once
-    and kept on the weight tensor itself. The map holds the address, the
-    shape and the box alone, so it is encoded again only when they
-    change."""
-    key = (weight.data_ptr(), N, KH, KW, C, box_n, d2s)
-    kept = getattr(weight, "_tma_map", None)
-    if kept is not None and kept[0] == key:
-        return kept[1]
-    buf = ctypes.create_string_buffer(128)
-    if d2s:
-        err = lib.avp_int8_d2s_weight_map(weight.data_ptr(), N, KH * KW, C,
-                                          ctypes.addressof(buf))
-    else:
-        err = lib.avp_int8_weight_map(weight.data_ptr(), N, KH, KW, C, box_n,
-                                      ctypes.addressof(buf))
-    _check_err("avp_int8_weight_map", err)
-    weight._tma_map = (key, buf.raw)
-    return buf.raw
-
-
 def int8_conv(xq: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor,
               x_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
               padding=0, out_dtype: torch.dtype = torch.bfloat16, *, stride=1,
               groups: int = 1, dilation=1) -> torch.Tensor:
-    """int8 (B, C, H, W) channels_last, int8 OIHW channels_last weights ->
-    (B, O, OH, OW) channels_last in ``out_dtype`` (f32, bf16, or int32 for
-    the raw accumulators). ``x_scale`` is the scale xq was made with. On
-    the card it runs the route ``int8_conv_plan`` picks. Counts its kernel
-    launches in ``int8_conv.launches`` and by route in
-    ``int8_conv.route_launches``."""
+    """int8 (B, C, H, W) channels_last, int8 OIHW (I = C / groups)
+    channels_last weights -> (B, O, OH, OW) channels_last in ``out_dtype``
+    (f32, bf16, or int32 for the raw accumulators). ``x_scale`` is the
+    scale xq was made with. On the card it runs the route
+    ``int8_conv_plan`` picks, once a group. Counts its kernel launches in
+    ``int8_conv.launches`` and by route in ``int8_conv.route_launches``."""
     if xq.dtype != torch.int8 or weight.dtype != torch.int8:
         raise TypeError(f"xq and weight must be int8, got {xq.dtype}, {weight.dtype}")
-    if groups != 1 or stride not in (1, (1, 1)) or dilation not in (1, (1, 1)):
-        raise ValueError(f"int8 conv covers groups 1, stride 1, dilation 1; got "
-                         f"groups={groups} stride={stride} dilation={dilation}")
-    return _conv(xq, weight, weight_scale, x_scale, bias, padding, out_dtype)
+    return _conv(xq, weight, weight_scale, x_scale, bias, padding, out_dtype, stride, dilation,
+                 groups)
 
 
 def _conv(x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor,
           x_scale: torch.Tensor, bias: Optional[torch.Tensor], padding,
-          out_dtype: torch.dtype) -> torch.Tensor:
+          out_dtype: torch.dtype, stride=1, dilation=1, groups: int = 1) -> torch.Tensor:
     """int8_conv and int8_conv2d: ``x`` is int8 (quantized with x_scale) or
     f32/bf16, which the "pointwise" and "dot" routes quantize as they load
     it and the other routes after int8_quantize."""
@@ -603,11 +633,12 @@ def _conv(x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor,
     quantized = x.dtype == torch.int8
     _check_nhwc(x, "xq" if quantized else "x")
     _check_nhwc(weight, "weight")
-    pad = _pad(padding)
+    geo = geometry(padding, stride, dilation)
     B, C, H, W = x.shape
     N, _, KH, KW = weight.shape
-    if weight.shape[1] != C:
-        raise ValueError(f"weight {tuple(weight.shape)} does not take {C} channels")
+    if groups < 1 or C % groups or N % groups or weight.shape[1] * groups != C:
+        raise ValueError(f"weight {tuple(weight.shape)} with groups={groups} does not take "
+                         f"{C} channels")
     if weight_scale.dtype != torch.float32 or weight_scale.shape != (N,):
         raise TypeError(f"weight_scale must be f32 ({N},), got "
                         f"{weight_scale.dtype} {tuple(weight_scale.shape)}")
@@ -620,33 +651,50 @@ def _conv(x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor,
         raise ValueError("x, weight and scales must be on one device")
     if x.device.type == "cpu":
         xq = x if quantized else int8_quantize_plain(x, x_scale)
-        return int8_conv_plain(xq, weight, weight_scale, x_scale, bias, pad, out_dtype)
+        return int8_conv_plain(xq, weight, weight_scale, x_scale, bias, geo[:2], out_dtype,
+                               geo[2:4], geo[4:], groups)
     if x.device.type != "cuda":
         raise ValueError(f"no int8 conv for device {x.device}")
     index = x.get_device()
     if index != torch.cuda.current_device():  # the kernels launch on the current device
         with torch.cuda.device(index):
-            return _conv(x, weight, weight_scale, x_scale, bias, padding, out_dtype)
-    OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
+            return _conv(x, weight, weight_scale, x_scale, bias, padding, out_dtype, stride,
+                         dilation, groups)
+    OH, OW = out_size(H, W, KH, KW, geo)
     if OH <= 0 or OW <= 0:
         raise ValueError(f"window {KH}x{KW} larger than the padded input {H}x{W}")
+    if groups > 1:  # one launch a group, on its channels
+        cg, ng = C // groups, N // groups
+        per_channel = x_scale.dim() == 1
+        outs = [_conv(x[:, g * cg:(g + 1) * cg].contiguous(memory_format=CL),
+                      weight[g * ng:(g + 1) * ng], weight_scale[g * ng:(g + 1) * ng],
+                      x_scale[g * cg:(g + 1) * cg] if per_channel else x_scale,
+                      None if bias is None else bias[g * ng:(g + 1) * ng], padding, out_dtype,
+                      stride, dilation)
+                for g in range(groups)]
+        return torch.cat(outs, dim=1).contiguous(memory_format=CL)
     Cp = padded_channels(C)
     if Cp != C:  # the kernels copy 16 channels at a time; zeros add nothing
         x, weight = pad_channels(x, Cp), pad_channels(weight, Cp)
         if x_scale.dim() == 1:
             x_scale = F.pad(x_scale, (0, Cp - C), value=1.0)
         C = Cp
-    plan = int8_conv_plan(B, H, W, C, N, KH, KW, pad, _sm_count(index))
+    plan = int8_conv_plan(B, H, W, C, N, KH, KW, geo[:2], _sm_count(index), geo[2:4], geo[4:])
     if not quantized and plan.route not in FUSED_ROUTES:
         x = int8_quantize(x, x_scale)
-    return _launch(plan, x, weight, weight_scale, x_scale, bias, pad, out_dtype)
+    return _launch(plan, x, weight, weight_scale, x_scale, bias, geo[:2], out_dtype,
+                   geo[2:4], geo[4:])
 
 
 def _reciprocal(x_scale: torch.Tensor) -> torch.Tensor:
     """1 / x_scale in float64, correctly rounded: the "pointwise" and "dot"
     routes quantize with it (csrc/int8_common.cuh::quantize_rcp, the same
-    values as the division). Kept on the scale tensor while its address
-    and version are unchanged, so a static scale costs one launch, once."""
+    values as the division). In an eager run it is kept on the scale tensor
+    while its address and version are unchanged, so a static scale costs
+    one launch, once; a trace records the reciprocal in the graph (a trace
+    cannot see the kept one)."""
+    if not _eager():
+        return torch.reciprocal(x_scale.double())
     key = (x_scale.data_ptr(), x_scale._version)
     kept = getattr(x_scale, "_rcp", None)
     if kept is not None and kept[0] == key:
@@ -658,63 +706,45 @@ def _reciprocal(x_scale: torch.Tensor) -> torch.Tensor:
 
 def _launch(plan: Int8ConvPlan, x: torch.Tensor, weight: torch.Tensor,
             weight_scale: torch.Tensor, x_scale: torch.Tensor,
-            bias: Optional[torch.Tensor], pad: int, out_dtype: torch.dtype) -> torch.Tensor:
+            bias: Optional[torch.Tensor], pad, out_dtype: torch.dtype, stride=1,
+            dilation=1) -> torch.Tensor:
     """Runs ``plan`` on CUDA tensors of the current device that _conv has
-    checked (C a multiple of 16): x int8, or f32/bf16 on the "pointwise"
-    and "dot" routes. _conv passes the plan of the shape; a test may pass
-    another plan of it (fewer persistent blocks, one split, the halo route
-    for a 1x1 conv)."""
-    B, C, H, W = x.shape
-    N, _, KH, KW = weight.shape
-    OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
+    checked (C a multiple of 16, groups 1) through the route's operator,
+    ``torch.ops.avp.int8_conv_<route>``: x int8, or f32/bf16 on the
+    "pointwise" and "dot" routes. _conv passes the plan of the shape; a
+    test may pass another plan of it (fewer persistent blocks, one split,
+    the halo route for a 1x1 conv)."""
     if x.dtype != torch.int8 and plan.route not in FUSED_ROUTES:
         raise TypeError(f"the {plan.route} route takes an int8 input, got {x.dtype}")
-    _check_aligned(x, weight)
-    lib = build.load()
-    x_ptr = x_scale.data_ptr() if x_scale.dim() == 0 else None
-    b_ptr = bias.data_ptr() if bias is not None and out_dtype != torch.int32 else None
+    torch_ops.load()
     kind = _OUT_KIND[out_dtype]
-    out = torch.empty((B, OH, OW, N), dtype=out_dtype, device=x.device)
-    stream = _raw_stream(x.get_device())
+    b = bias if out_dtype != torch.int32 else None
+    scale = x_scale.contiguous()
+    m_tiles, n_tiles, splits = plan.grid
     if plan.route in FUSED_ROUTES:
-        rcp = None if x.dtype == torch.int8 else _reciprocal(x_scale)
-        head = (x.data_ptr(), _IN_KIND[x.dtype], x_scale.data_ptr(),
-                None if rcp is None else rcp.data_ptr(), int(x_scale.dim() == 1))
-        tail = (weight_scale.data_ptr(), b_ptr, out.data_ptr(), B * H * W, C, N, kind)
-        m_tiles, n_tiles, splits = plan.grid
+        rcp = None if x.dtype == torch.int8 else _reciprocal(scale)
         if plan.route == "pointwise":
-            w_map = _weight_map(lib, weight, N, 1, 1, C, plan.bn)
-            err = lib.avp_int8_conv_pointwise(*head, w_map, *tail, plan.bm, plan.bn,
-                                              m_tiles, n_tiles, splits,
-                                              plan.per_split * plan.bk, stream)
+            out = torch.ops.avp.int8_conv_pointwise(
+                x, weight, weight_scale, scale, rcp, b,
+                [plan.bm, plan.bn, m_tiles, n_tiles, splits, plan.per_split * plan.bk], kind)
         else:
-            err = lib.avp_int8_conv_dot(*head, weight.data_ptr(), *tail, splits, stream)
-        _check_err(f"avp_int8_conv_{plan.route}", err)
+            out = torch.ops.avp.int8_conv_dot(x, weight, weight_scale, scale, rcp, b, splits,
+                                              kind)
     elif plan.route == "halo":
-        m_tiles, n_tiles, _ = plan.grid
-        err = lib.avp_int8_conv_halo(
-            x.data_ptr(), _weight_map(lib, weight, N, KH, KW, C, plan.bn),
-            weight_scale.data_ptr(), x_ptr, b_ptr, out.data_ptr(), B, H, W, C, N, KH, KW, pad,
-            kind, plan.th, plan.tw, plan.bn, m_tiles, n_tiles, plan.blocks, plan.stages,
-            int(plan.resident), stream)
-        _check_err("avp_int8_conv_halo", err)
+        ph = geometry(pad)[0]
+        out = torch.ops.avp.int8_conv_halo(
+            x, weight, weight_scale, scale, b, ph,
+            [plan.th, plan.tw, plan.bn, m_tiles, n_tiles, plan.blocks, plan.stages,
+             int(plan.resident)], kind)
     else:
-        m_tiles, n_tiles, splits = plan.grid
-        # split-K: each split's (M, N) partial sums, then one arrival
-        # counter a tile
-        ws = (torch.empty(splits * B * OH * OW * N + m_tiles * n_tiles,
-                          dtype=torch.int32, device=x.device)
-              if splits > 1 else None)
-        err = lib.avp_int8_conv_wgmma(
-            x.data_ptr(), _weight_map(lib, weight, N, KH, KW, C),
-            weight_scale.data_ptr(), x_ptr, b_ptr, out.data_ptr(),
-            None if ws is None else ws.data_ptr(), B, H, W, C, N, KH, KW, pad,
-            kind, plan.th, plan.tw, m_tiles, n_tiles, splits, plan.per_split,
-            plan.blocks, stream)
-        _check_err("avp_int8_conv_wgmma", err)
-    int8_conv.launches += 1
-    int8_conv.route_launches[plan.route] += 1
-    return out.permute(0, 3, 1, 2)
+        route = getattr(torch.ops.avp, f"int8_conv_{plan.route}")
+        out = route(x, weight, weight_scale, scale, b, list(geometry(pad, stride, dilation)),
+                    [plan.th, plan.tw, m_tiles, n_tiles, splits, plan.per_split, plan.blocks],
+                    kind)
+    if _eager():
+        int8_conv.launches += 1
+        int8_conv.route_launches[plan.route] += 1
+    return out
 
 
 int8_conv.launches = 0
@@ -723,20 +753,23 @@ int8_conv.route_launches = dict.fromkeys(ROUTES, 0)
 
 def int8_conv2d(x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor,
                 x_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                padding=0, *, plain: bool = False) -> torch.Tensor:
+                padding=0, *, stride=1, dilation=1, groups: int = 1,
+                plain: bool = False) -> torch.Tensor:
     """The whole int8 conv of nn/layers.py:81-113 on a float input, in the
     input's dtype: quantize, then conv with the dequant epilogue; on the
-    card a 1x1 conv ("pointwise" and "dot" routes) is one launch that
-    quantizes as it loads, the others int8_quantize and int8_conv.
+    card a 1x1 stride-1 conv ("pointwise" and "dot" routes) is one launch
+    that quantizes as it loads, the others int8_quantize and int8_conv.
     ``plain=True`` runs the plain versions on any device (a reference run
     selects it explicitly; the kernels never fall back to it)."""
     if plain:
+        geo = geometry(padding, stride, dilation)
         xq = int8_quantize_plain(x, x_scale)
-        return int8_conv_plain(xq, weight, weight_scale, x_scale, bias,
-                               _pad(padding), x.dtype)
+        return int8_conv_plain(xq, weight, weight_scale, x_scale, bias, geo[:2], x.dtype,
+                               geo[2:4], geo[4:], groups)
     if x.dtype not in IN_DTYPES:
         raise TypeError(f"x must be one of {IN_DTYPES}, got {x.dtype}")
-    return _conv(x, weight, weight_scale, x_scale, bias, padding, x.dtype)
+    return _conv(x, weight, weight_scale, x_scale, bias, padding, x.dtype, stride, dilation,
+                 groups)
 
 
 # ------------------------------------------------------------ conv transpose
@@ -815,8 +848,9 @@ def int8_conv_transpose(x: torch.Tensor, weight: torch.Tensor, weight_scale: tor
     over a (kh, kw, O, C) buffer; ``weight_scale`` f32 (O,); ``bias`` (O,)
     in ``out_dtype`` (the input's dtype by default; int32 gives the
     accumulators) -> (B, O, h kh, w kw) channels_last. On a CUDA tensor
-    two launches, int8_quantize and the wgmma kernel's "d2s" variant, or an
-    error; on a CPU tensor, or with ``plain=True``, the plain version.
+    two launches, int8_quantize and the wgmma kernel's "d2s" variant (the
+    operator ``avp::int8_conv_d2s``), or an error; on a CPU tensor, or with
+    ``plain=True``, the plain version.
     Counts the d2s launches in ``int8_conv_transpose.launches``."""
     if out_dtype is None:
         out_dtype = x.dtype
@@ -859,24 +893,14 @@ def int8_conv_transpose(x: torch.Tensor, weight: torch.Tensor, weight_scale: tor
         weight = F.pad(weight.permute(2, 3, 1, 0), (0, Cp - C)).permute(3, 2, 0, 1)
     plan = int8_conv_transpose_plan(B, h, w, Cp, O, kh, kw, _sm_count(index))
     xq = int8_quantize(x, x_scale)
-    _check_aligned(xq, weight)
-    lib = build.load()
-    out = torch.empty((B, h * kh, w * kw, O), dtype=out_dtype, device=x.device)
-    b_ptr = bias.data_ptr() if bias is not None and out_dtype != torch.int32 else None
     m_tiles, n_tiles, splits = plan.grid
-    # split-K: each split's (M, n_tiles 128) partial sums, then one arrival
-    # counter a tile
-    ws = (torch.empty(splits * B * h * w * n_tiles * TILE + m_tiles * n_tiles,
-                      dtype=torch.int32, device=x.device) if splits > 1 else None)
-    err = lib.avp_int8_conv_d2s(
-        xq.data_ptr(), _weight_map(lib, weight, O, kh, kw, Cp, d2s=True),
-        weight_scale.data_ptr(), x_scale.data_ptr(), b_ptr, out.data_ptr(),
-        None if ws is None else ws.data_ptr(), B, h, w, Cp, O, kh, kw, _OUT_KIND[out_dtype],
-        plan.th, plan.tw, m_tiles, n_tiles, splits, plan.per_split, plan.blocks,
-        int(d2s_tma_store(O, out_dtype)), _raw_stream(index))
-    _check_err("avp_int8_conv_d2s", err)
-    int8_conv_transpose.launches += 1
-    return out.permute(0, 3, 1, 2)
+    out = torch.ops.avp.int8_conv_d2s(
+        xq, weight, weight_scale, x_scale, bias if out_dtype != torch.int32 else None,
+        [plan.th, plan.tw, m_tiles, n_tiles, splits, plan.per_split, plan.blocks],
+        d2s_tma_store(O, out_dtype), _OUT_KIND[out_dtype])
+    if _eager():
+        int8_conv_transpose.launches += 1
+    return out
 
 
 int8_conv_transpose.launches = 0

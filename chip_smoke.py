@@ -322,8 +322,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              operators); (b) export_model in bf16 for SceneSeg, Scene3D,
              DomainSeg, EgoLanes (1, 3, 320, 640), AutoSpeed, AutoSteer and
              AutoDrive (1, 3, 512, 1024), each saved, loaded and held to the
-             eager module; an Int8Conv2d on the card refused; export_stablehlo
-             of fused_preprocess -> SceneSeg -> argmax_mask from a 720p frame,
+             eager module; export_stablehlo of fused_preprocess -> SceneSeg -> argmax_mask from a 720p frame,
              whose graph calls the operator and whose loaded program launches
              the kernel (profiler); (c) the port's tools/export_native_app.py
              --longitudinal on the card (torch.export + AOTInductor of the
@@ -337,14 +336,40 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              AOTInductor compile seconds and the loop's p50/p99; (d)
              export/benchmark_models.py::compare_precisions on SceneSeg
              (f32, bf16, int8 weight-only PTQ): ms/iter and mIoU vs f32.
+41. the int8 path whole (JAX's int8 rule on strided convs, the int8
+             kernels as avp operators): (a) the longitudinal step (AutoSpeed
+             "n" at 640x640, bf16) quantized at min_channels 128 (28 int8
+             convs, 3 of them stride 2) and 32 (58, 5), calibrated on 4
+             letterboxed seeded frames: 10 warm-up and 50 distinct 720p
+             frames each, launches by route (the strided convs on the
+             "strided" route), every int8 conv of a frame bit-equal to its
+             plain version, p50/p99 beside the bf16 step's; (b) two QAT steps
+             of AutoSteer-temporal, int8_variables_from_qat at min_channels
+             32 (4 int8 convs, 3 strided, the QAT's own selection), each conv
+             bit-equal to its plain version; (c) the int8 main path (72 int8
+             convs) and its variant with the transposed convs quantized (83)
+             through export_stablehlo and load_stablehlo: bit-equal to eager
+             int8 on 3 frames, each int8 operator called as often a frame as
+             the eager frame launches its route; (d) the lateral step with
+             EgoLanes quantized at min_channels 256 and calibrated on the
+             crop, an AOTInductor package exported in a spawned process beside
+             40c's, run by the C++ loop with 40c's longitudinal package:
+             golden probe and 16-frame trajectory against the Python replay,
+             the int8 operators' calls a frame, then 300 frames, its p50/p99
+             beside the f32 loop's. Phase 4 checks the strided route (and a
+             launch a group) bit for bit at the YOLO nets' strided shapes, a
+             dilated, a grouped and a padding-a-dimension conv and strides
+             above 8, and times the strided shapes (bound, cuDNN bf16 at the
+             stride, torch._int_mm on a pre-built im2col).
 The run prints its wall time, and that of phases 19-25, 26-28, 29-32,
-33-35, 36, 37, 38, 39 and 40.
+33-35, 36, 37, 38, 39, 41a-41b, and 40 with 41c-41d.
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import math
+import multiprocessing
 import os
 import pathlib
 import shutil
@@ -411,7 +436,30 @@ INT8_SHAPES = (
 PW_VARIANTS = tuple((bm, bn, cs) for bn in (64, 128, 192, 256) for bm in (64, 128)
                     for cs in (1, 8)) + tuple((64, 128, cs) for cs in range(2, 8))
 CONV_KERNEL = {"wgmma": "int8_conv_wgmma", "splitk": "int8_conv_wgmma", "halo": "int8_conv_halo",
-               "pointwise": "int8_conv_pointwise", "dot": "int8_conv_dot"}
+               "pointwise": "int8_conv_pointwise", "dot": "int8_conv_dot",
+               "strided": "int8_conv_strided"}
+# (kh, kw, cin, cout, h, w, stride, pad, convs a frame on path 41a at
+# min_channels 32): the strided int8 convs of the YOLO-family nets at their
+# input sizes: AutoSpeed "n" at 640x640 (p3_0, p4_0, p5_0, fpn.h3, fpn.h5;
+# at min_channels 128 p4_0, p5_0, fpn.h5), AutoSteer-temporal's c2-c4 (80x160
+# masks) and AutoSteer's two 2x1 head convs at stride (2, 1) (512x1024)
+STRIDED_TIMED = (
+    (3, 3, 64, 64, 160, 160, 2, 1, 1), (3, 3, 128, 128, 80, 80, 2, 1, 1),
+    (3, 3, 128, 256, 40, 40, 2, 1, 1), (3, 3, 64, 64, 80, 80, 2, 1, 1),
+    (3, 3, 128, 128, 40, 40, 2, 1, 1), (3, 3, 32, 64, 40, 80, 2, 1, 0),
+    (3, 3, 64, 128, 20, 40, 2, 1, 0), (3, 3, 128, 128, 10, 20, 2, 1, 0),
+    (2, 1, 64, 32, 128, 256, (2, 1), 0, 0), (2, 1, 64, 32, 64, 128, (2, 1), 0, 0),
+)
+STRIDED_RECORD = (3, 3, 128, 128, 80, 80)  # AutoSpeed's p4_0: the JSON line's shape
+# (kh, kw, cin, cout, h, w, stride, pad, dilation, groups) checked bit for
+# bit besides STRIDED_TIMED: a dilated conv, a grouped one (a launch a
+# group), a padding a dimension, a batch of two, and strides above the
+# TMA's traversal limit of 8 (one output a tile along them)
+STRIDED_CHECKED = (
+    (3, 3, 256, 200, 30, 50, 1, 2, 2, 1), (3, 3, 128, 64, 19, 23, 2, 1, 1, 4),
+    (3, 3, 48, 24, 17, 30, (1, 2), (1, 0), 1, 1), (3, 3, 32, 16, 40, 60, 12, 1, 1, 1),
+    (1, 1, 16, 24, 300, 300, (9, 3), 0, 1, 1),
+)
 # (window, cin, cout, h, w, convs per frame): the 24 distinct int8 convs of
 # the main path at 320x640 (72 convs, 669.7 GOP)
 MAIN_INT8 = (
@@ -933,16 +981,159 @@ def time_int8_shapes(g, card, table=MAIN_INT8, what="the 24 shapes"):
     return records
 
 
+def check_strided_kernels(g):
+    """The "strided" route (and a launch a group) bit-equal to the plain
+    versions at STRIDED_TIMED's and STRIDED_CHECKED's shapes: int8 input
+    (int32, bf16 and f32 outputs) and float input (int8_conv2d), scalar and
+    per-channel scales, batches of one and two. -> the worst error."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv, int8_conv2d, int8_conv_plain, int8_quantize, int8_quantize_plain)
+
+    shapes = [(*s[:8], 1, 1) for s in STRIDED_TIMED] + list(STRIDED_CHECKED)
+    worst = 0.0
+    for i, (kh, kw, cin, cout, h, w, stride, pad, dil, groups) in enumerate(shapes):
+        batch = 1 + i % 2
+        x = (torch.randn(batch, cin, h, w, generator=g)
+             * torch.linspace(0.5, 2.0, cin).reshape(1, -1, 1, 1))
+        weight = torch.randint(-127, 128, (cout, cin // groups, kh, kw), generator=g,
+                               dtype=torch.int8).contiguous(memory_format=CL).cuda()
+        w_scale = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).cuda()
+        scales = {"scalar": torch.tensor(float(x.abs().max()) * 0.9 / 127.0)}
+        if groups == 1:
+            scales["vector"] = (x.double().abs().amax(dim=(0, 2, 3)) / 127.0).float()
+        kw_ = dict(stride=stride, dilation=dil, groups=groups)
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(dtype).cuda().contiguous(memory_format=CL)
+            bias = (torch.randn(cout, generator=g) * 0.1).to(dtype).cuda()
+            for kind, sx in scales.items():
+                sx = sx.cuda()
+                before = int8_conv.route_launches["strided"]
+                xq, xq_ref = int8_quantize(xd, sx), int8_quantize_plain(xd, sx)
+                outs = [int8_conv(xq, weight, w_scale, sx, bias, pad, torch.int32, **kw_),
+                        int8_conv(xq, weight, w_scale, sx, bias, pad, dtype, **kw_),
+                        int8_conv2d(xd, weight, w_scale, sx, bias, pad, **kw_)]
+                refs = [int8_conv_plain(xq_ref, weight, w_scale, sx, bias, pad, t, stride, dil,
+                                        groups) for t in (torch.int32, dtype, dtype)]
+                torch.cuda.synchronize()
+                if int8_conv.route_launches["strided"] != before + 3 * groups:
+                    raise AssertionError(f"{shapes[i]}: the convs did not take the strided "
+                                         "route")
+                errs = [(a.double() - b.double()).abs().max().item() for a, b in zip(outs, refs)]
+                ok = torch.equal(xq, xq_ref) and all(
+                    a.shape == b.shape and a.is_contiguous(memory_format=CL) and torch.equal(a, b)
+                    for a, b in zip(outs, refs))
+                print(f"int8 strided {kh}x{kw} {cin}->{cout} at {batch}x{h}x{w}, stride "
+                      f"{stride}, pad {pad}, dilation {dil}, groups {groups}, {str(dtype)[6:]}, "
+                      f"{kind} scale: int32 acc, output and int8_conv2d max_abs_err {errs} "
+                      "(tol 0: bit-equal)")
+                if not ok:
+                    raise AssertionError("the strided route disagrees with its plain version")
+                worst = max(worst, *errs)
+        del xd, weight
+        torch.cuda.empty_cache()
+    return worst
+
+
+def time_strided_shapes(g, card):
+    """STRIDED_TIMED's shapes, bf16 with a scalar scale, each over rotating
+    inputs (and weights) that together exceed the L2: profiler device time
+    of the conv (the "strided" route) and of its quantize, the bound, the
+    share, and the yardsticks the port never calls: the bf16 cuDNN conv at
+    the same stride and torch._int_mm on a pre-built im2col. -> the JSON
+    record of STRIDED_RECORD."""
+    import torch.nn.functional as F
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
+        geometry, int8_conv, int8_conv_plain, int8_conv_plan, int8_quantize, out_size)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    record, frame, frame128 = None, 0.0, 0.0
+    for kh, kw, cin, cout, h, w, stride, pad, per_frame in STRIDED_TIMED:
+        geo = geometry(pad, stride)
+        OH, OW = out_size(h, w, kh, kw, geo)
+        plan = int8_conv_plan(1, h, w, cin, cout, kh, kw, pad, sms, stride)
+        M, K = OH * OW, kh * kw * cin
+        set_bytes = h * w * cin * 3 + cout * K * 3
+        n = max(2, min(64, math.ceil(1.2 * L2_BYTES / set_bytes)))
+        sets = []
+        for _ in range(n):
+            x = torch.randn(1, cin, h, w, generator=g).to(torch.bfloat16).contiguous(
+                memory_format=CL).cuda()
+            weight = torch.randint(-127, 128, (cout, cin, kh, kw), generator=g,
+                                   dtype=torch.int8).contiguous(memory_format=CL).cuda()
+            ws = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).cuda()
+            b = (torch.randn(cout, generator=g) * 0.1).to(torch.bfloat16).cuda()
+            sx = torch.tensor(float(x.float().abs().max()) / 127.0, device="cuda")
+            sets.append((x, weight, ws, b, sx, int8_quantize(x, sx), weight.to(torch.bfloat16)))
+        idx = list(range(n)) * max(1, math.ceil(20 / n))
+
+        def conv(i):
+            x, wt, ws, b, sx, xq, _ = sets[i]
+            return int8_conv(xq, wt, ws, sx, b, pad, torch.bfloat16, stride=stride)
+
+        def cudnn(i):
+            x, _, _, b, _, _, w16 = sets[i]
+            return F.conv2d(x, w16, b, stride, pad)
+
+        t = {"conv": device_us(conv, idx), "cudnn": device_us(cudnn, idx),
+             "quantize": device_us(lambda i: int8_quantize(sets[i][0], sets[i][4]), idx)}
+        conv_ms = cuda_ms(conv, idx)
+        n8 = -(-cout // 8) * 8
+        cols = []
+        for s in range(min(n, max(1, math.ceil(1.2 * L2_BYTES / (M * K + n8 * K))))):
+            xq, wt = sets[s][5], sets[s][1]
+            a = F.unfold(xq.float(), (kh, kw), padding=geo[:2], stride=geo[2:4])
+            a = a.transpose(1, 2).reshape(M, K).to(torch.int8).contiguous()
+            b2 = torch.zeros(n8, K, dtype=torch.int8, device=wt.device)
+            b2[:cout] = wt.contiguous().reshape(cout, K)
+            cols.append((a, b2.t()))
+        intmm = (device_us(lambda i: torch._int_mm(*cols[i % len(cols)]),
+                           list(range(len(cols))) * max(1, math.ceil(20 / len(cols))))
+                 if M > 16 and K % 8 == 0 else None)
+        del cols
+        ops = 2.0 * M * cout * K
+        nbytes = h * w * cin + cout * K + M * cout * 2 + cout * 6
+        bms, by = bound(ops, nbytes)
+        share = bms * 1e3 / t["conv"] if t["conv"] > 0 else float("nan")
+        frame += per_frame * t["conv"]
+        if (kh, kw, cin, cout, h, w) in ((3, 3, 128, 128, 80, 80), (3, 3, 128, 256, 40, 40),
+                                         (3, 3, 128, 128, 40, 40)):
+            frame128 += t["conv"]
+        print(f"int8 strided shape {kh}x{kw} {cin}->{cout} at {h}x{w}, stride {stride}, pad "
+              f"{pad} -> {OH}x{OW} (M {M}, N {cout}, K {K}), route {plan.route} grid "
+              f"{plan.grid}, rectangle {plan.th}x{plan.tw}, {plan.blocks} blocks, {card}: conv "
+              f"{t['conv']!r} us ({ops / (t['conv'] * 1e-6) / 1e12 if t['conv'] > 0 else 0!r} "
+              f"TOP/s; CUDA events {conv_ms * 1e3!r} us), bound {bms * 1e3!r} us by {by}, share "
+              f"{share!r}; bf16 cuDNN conv {t['cudnn']!r} us; torch._int_mm on im2col (no "
+              f"im2col) " + (f"{intmm!r} us" if intmm is not None else "not taken")
+              + (f" (N padded to {n8})" if n8 != cout and intmm is not None else "")
+              + f"; quantize {t['quantize']!r} us; rotation {n} input sets, "
+              f"{n * set_bytes / 1e6:.1f} MB")
+        if (kh, kw, cin, cout, h, w) == STRIDED_RECORD:
+            x, wt, ws, b, sx, xq, _ = sets[0]
+            record = dict(ms=t["conv"] / 1e3, bound_ms=bms, bound_by=by,
+                          library_ms=intmm / 1e3 if intmm is not None else None,
+                          plain_ms=device_us(lambda i: int8_conv_plain(
+                              xq, wt, ws, sx, b, pad, torch.bfloat16, stride), [0] * 5) / 1e3)
+        del sets
+        torch.cuda.empty_cache()
+    print(f"strided int8 convs a frame of AutoSpeed \"n\" at 640x640 from the shapes' times, "
+          f"{card}: {frame!r} us at min_channels 32 (5 convs), {frame128!r} us at 128 (3 convs)")
+    return record
+
+
 def phase_int8_kernels(card):
     """The int8 kernels against their plain versions, then the 24 shapes'
-    times; -> the JSON records of the int8 kernels."""
+    times and the strided route's shapes; -> the JSON records of the int8
+    kernels."""
     g = torch.Generator().manual_seed(SEED + 4)
     worst = check_int8_kernels(g)
     for name, err in check_pointwise_variants(g).items():
         worst[name] = max(worst[name], err)
+    worst["int8_conv_strided"] = check_strided_kernels(g)
     records = time_int8_shapes(g, card)
     records.update(time_int8_shapes(g, card, HALO_TIMED, "the halo route's shapes (the QAT "
                                                           "export's head a frame)"))
+    records["int8_conv_strided"] = time_strided_shapes(g, card)
     return {name: dict(max_abs_err=worst[name], **rec) for name, rec in records.items()}
 
 
@@ -1004,6 +1195,7 @@ def read_counts():
             "fused_letterbox": fused_letterbox.launches, "nms_greedy": nms_greedy.launches,
             "int8_quantize": int8_quantize.launches, "int8_conv": int8_conv.launches,
             "int8_conv_wgmma": r["wgmma"] + r["splitk"], "int8_conv_splitk": r["splitk"],
+            "int8_conv_strided": r["strided"],
             "int8_conv_halo": r["halo"], "int8_conv_pointwise": r["pointwise"],
             "int8_conv_dot": r["dot"], "int8_conv_transpose": int8_conv_transpose.launches}
 
@@ -1080,26 +1272,32 @@ def int8_modules(pipe, transposes=False):
             if isinstance(m, kinds)]
 
 
-def check_convs_on_path(pipe, frame, transposes=0):
-    """One int8 frame; a hook on each Int8Conv2d (and with ``transposes``,
-    each Int8ConvTranspose2d, that many expected) holds the kernels' output
-    against the plain versions on the same input, with torch.equal."""
+def plain_of(m, x):
+    """The plain version of int8 module ``m`` (an Int8Conv2d with its own
+    padding, stride, dilation and groups, or an Int8ConvTranspose2d) on its
+    input ``x``, with its static scale."""
     from autoware_vision_pilot_tpu_torch.nn.layers import Int8ConvTranspose2d
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (int8_conv2d,
                                                                        int8_conv_transpose)
 
+    x = x.contiguous(memory_format=CL)
+    if isinstance(m, Int8ConvTranspose2d):
+        return int8_conv_transpose(x, m.weight, m.weight_scale, m.input_scale, m.bias,
+                                   plain=True)
+    return int8_conv2d(x, m.weight, m.weight_scale, m.input_scale, m.bias, m.padding,
+                       stride=m.stride, dilation=m.dilation, groups=m.groups, plain=True)
+
+
+def check_convs_on_path(pipe, frame, transposes=0):
+    """One int8 frame; a hook on each Int8Conv2d (and with ``transposes``,
+    each Int8ConvTranspose2d, that many expected) holds the kernels' output
+    against the plain versions on the same input, with torch.equal."""
     checked, bad = [], []
 
     def hook(m, args, y):
         if m.input_scale is None:
             raise AssertionError("an int8 conv of the main path has no static scale")
-        x = args[0].contiguous(memory_format=CL)
-        if isinstance(m, Int8ConvTranspose2d):
-            ref = int8_conv_transpose(x, m.weight, m.weight_scale, m.input_scale, m.bias,
-                                      plain=True)
-        else:
-            ref = int8_conv2d(x, m.weight, m.weight_scale, m.input_scale, m.bias,
-                              m.padding, plain=True)
+        ref = plain_of(m, args[0])
         checked.append(m)
         if not torch.equal(y, ref):
             bad.append((len(checked) - 1, (y.float() - ref.float()).abs().max().item()))
@@ -1448,11 +1646,24 @@ def build_library(pb, csrc, sources, lib_path, defines=()):
     return lib
 
 
+def calls_operators(pkg):
+    """Whether the int8 wrapper of the port in ``pkg`` launches its kernels
+    as the avp operators (of the library kernels/build.py builds), which
+    no other library can stand in for."""
+    return "torch.ops.avp" in (pkg / "ops" / "kernels" / "int8_conv.py").read_text()
+
+
 def int8_wrapper_of(pkg, lib):
     """ops/kernels/int8_conv.py of the port in ``pkg`` as a module of its
     own whose kernels come from ``lib`` (its launch counts apart from this
-    tree's): int8_conv2d through another tree's wrapper and plan."""
+    tree's): int8_conv2d through another tree's wrapper and plan. Only for
+    a tree whose wrapper calls its library through ctypes."""
     import types
+
+    if calls_operators(pkg):
+        raise RuntimeError(f"{pkg} calls its int8 kernels as avp operators: they cannot be "
+                           "bound to another library (--parent's int8 turns need a parent "
+                           "whose int8 wrapper uses ctypes)")
 
     path = pkg / "ops" / "kernels" / "int8_conv.py"
     text = path.read_text().replace("from ...kernels import build\n", "")
@@ -1665,10 +1876,14 @@ def stamped_pointwise(pkg, pb, out, edits=None):
     into a copy of its int8_pointwise.cu, else built with -DAVP_PW_STAMPS
     (this tree's own stamps) beside int8_conv_sm90.cu (the weights' map). ->
     (its int8_conv module over that library, the stamps tensor), or None
-    if an anchor is missing."""
+    if an anchor is missing or the tree calls its kernels as operators."""
     import ctypes
 
     src = pkg / "csrc" / "int8_pointwise.cu"
+    if calls_operators(pkg):
+        print(f"stage split of {src}: not measured (its wrapper calls the kernels as avp "
+              "operators, which a stamped library cannot stand in for)")
+        return None
     if edits:
         text = src.read_text()
         for anchor, stamp in edits:
@@ -1850,9 +2065,14 @@ def stamped_int8(pkg, pb, out):
     stamps: its int8_conv.cu, int8_conv_sm90.cu and int8_conv_halo.cu built
     with -DAVP_HALO_STAMPS -DAVP_D2S_STAMPS into a library of their own
     under ``out``. -> (its int8_conv module over that library, the halo's
-    stamps, the d2s stamps)."""
+    stamps, the d2s stamps), or None where the tree calls its kernels as
+    operators."""
     import ctypes
 
+    if calls_operators(pkg):
+        print(f"the halo and d2s stage splits of {pkg}: not measured (its wrapper calls the "
+              "kernels as avp operators, which a stamped library cannot stand in for)")
+        return None
     csrc = pkg / "csrc"
     lib = build_library(pb, csrc, [csrc / "int8_conv.cu", csrc / "int8_conv_sm90.cu",
                                    csrc / "int8_conv_halo.cu"], out / "libstamped_int8.so",
@@ -1928,8 +2148,10 @@ def phase_d2s_halo_parent(card, parent):
         d2s_sets[(cin, cout, h, w)] = sets[:4]
         del sets
         torch.cuda.empty_cache()
-    mod, halo_stamps, d2s_stamps = stamped_int8(REPO / "autoware_vision_pilot_tpu_torch",
-                                                this_build, REPO / "build")
+    stamped = stamped_int8(REPO / "autoware_vision_pilot_tpu_torch", this_build, REPO / "build")
+    if stamped is None:
+        return
+    mod, halo_stamps, d2s_stamps = stamped
 
     def split(label, stamps, plan, calls, names):
         runs = [stage_split(mod, stamps, plan, call, len(names)) for call in calls]
@@ -3346,17 +3568,14 @@ def check_int8_convs(name, model, run, count, new_shapes=None):
     holds the kernels' output against the plain versions on the same input
     (torch.equal). There must be ``count`` int8 convs. -> the (window,
     cin, cout, h, w) of each conv, in call order."""
-    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv2d
-
     new_shapes = MIN128_INT8 if new_shapes is None else new_shapes
     checked, bad = [], []
 
     def hook(m, args, y):
         if m.input_scale is None:
             raise AssertionError(f"an int8 conv of {name} has no static scale")
-        x = args[0].contiguous(memory_format=CL)
-        ref = int8_conv2d(x, m.weight, m.weight_scale, m.input_scale, m.bias, m.padding,
-                          plain=True)
+        x = args[0]
+        ref = plain_of(m, x)
         checked.append((m.weight.shape[-1], m.weight.shape[1], m.weight.shape[0],
                         *x.shape[2:]))
         if not torch.equal(y, ref):
@@ -5939,6 +6158,314 @@ def phase_data(card):
     return results
 
 
+# ---------- phase 41: the int8 path whole (strided convs, int8 exports) ----------
+
+# min_channels -> (int8 convs, of them strided) of AutoSpeed "n" at 640x640
+INT8_LON = {128: (28, 3), 32: (58, 5)}
+INT8_CALIB_FRAMES = 4
+
+
+def conv_by_conv(name, model, run, count, strided):
+    """run() once; a hook on each Int8Conv2d of ``model`` holds its output
+    against plain_of on the same input (torch.equal). There must be
+    ``count`` of them, ``strided`` of them with a stride other than 1. ->
+    the number held."""
+    from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
+
+    checked, bad = [], []
+
+    def hook(m, args, y):
+        if m.input_scale is None:
+            raise AssertionError(f"an int8 conv of {name} has no static scale")
+        checked.append(m.stride)
+        if not torch.equal(y, plain_of(m, args[0])):
+            bad.append((len(checked) - 1, tuple(m.weight.shape), m.stride))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, Int8Conv2d)]
+    try:
+        with torch.no_grad():
+            run()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    n_strided = sum(s != (1, 1) for s in checked)
+    print(f"{name}, conv by conv: {len(checked)} int8 convs ({n_strided} strided) held against "
+          f"their plain versions on the frame's own input, {len(checked) - len(bad)} bit-equal "
+          "(torch.equal)" + (f"; differ: {bad[:8]}" if bad else ""))
+    if bad or len(checked) != count or n_strided != strided:
+        raise AssertionError(f"{name}: {len(checked)} int8 convs ({n_strided} strided), "
+                             f"expected {count} ({strided}); {len(bad)} differ")
+    return len(checked)
+
+
+def as_launches(op_calls):
+    """Operator calls by operator name -> the JSON line's launches by kernel:
+    "wgmma" and "splitk" are one kernel (int8_conv_wgmma), "d2s" is
+    int8_conv_transpose; calls of 0 left out."""
+    names = {"int8_conv_splitk": "int8_conv_wgmma", "int8_conv_d2s": "int8_conv_transpose"}
+    out = {}
+    for k, v in op_calls.items():
+        if v:
+            out[names.get(k, k)] = out.get(names.get(k, k), 0) + v
+    return out
+
+
+def phase_int8_longitudinal(card):
+    """Phase 41a (path a): build_longitudinal_step with AutoSpeed "n" at
+    640x640, bf16, quantized at min_channels 128 (28 int8 convs, 3 of them
+    stride 2) and 32 (58, 5), calibrated on INT8_CALIB_FRAMES letterboxed
+    seeded 720p frames; WARM + TIMED distinct frames each, the launch
+    counts set to 0 just before and read just after (every int8 conv on a
+    hand kernel, the strided ones on the "strided" route), p50/p99 beside
+    the bf16 step's in the same phase; every int8 conv of one frame
+    bit-equal to its plain version. -> the launches of the two int8 runs."""
+    from autoware_vision_pilot_tpu_torch.export.quantize import (
+        calibrate_int8_activation_scales, int8_conv_count, quantize_for_int8_conv)
+    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_letterbox
+    from autoware_vision_pilot_tpu_torch.runtime.pipeline import build_longitudinal_pipeline
+
+    n = WARM + TIMED
+    pool = frames(n, FRAME_HW, SEED + 100).cuda()
+    calib = frames(INT8_CALIB_FRAMES, FRAME_HW, SEED + 101).cuda()
+    total = {}
+    for mc in (None, *INT8_LON):
+        t0 = time.perf_counter()
+        pipe = build_longitudinal_pipeline("cuda", torch.bfloat16, SEED)
+        if mc is not None:
+            quantize_for_int8_conv(pipe.net, mc)
+            with torch.no_grad():
+                calibrate_int8_activation_scales(
+                    pipe.net, [fused_letterbox(calib[i], LON_HW, torch.bfloat16)[0]
+                               for i in range(INT8_CALIB_FRAMES)])
+            convs, strided = INT8_LON[mc]
+            got = int8_conv_count(pipe.net)
+            if got != convs:
+                raise AssertionError(f"AutoSpeed at min_channels {mc}: {got} int8 convs, "
+                                     f"expected {convs}")
+        torch.cuda.synchronize()
+        label = "bf16" if mc is None else f"int8 at min_channels {mc}"
+        build_s = time.perf_counter() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        latencies, tables = [], []
+        reset_counts()  # count only this path's launches
+        for i in range(n):
+            start.record()
+            tables.append(pipe(pool[i]))
+            end.record()
+            end.synchronize()
+            latencies.append(start.elapsed_time(end))
+        launches = read_counts()
+        check_tables(tables)
+        p50, p99 = percentiles(latencies[WARM:])
+        LATENCY[f"longitudinal {label}"] = (p50, p99)
+        routes = {k: launches[k] // n for k in ("int8_quantize", "int8_conv_wgmma",
+                                                "int8_conv_splitk", "int8_conv_strided",
+                                                "int8_conv_halo", "int8_conv_pointwise",
+                                                "int8_conv_dot")}
+        if mc is not None:
+            expect_launches(launches, {"fused_letterbox": n, "nms_greedy": n,
+                                       "int8_conv": convs * n,
+                                       "int8_conv_strided": strided * n})
+            conv_by_conv(f"int8 AutoSpeed at min_channels {mc}", pipe.net,
+                         lambda: pipe(pool[0]), convs, strided)
+            for k, v in launches.items():
+                if k.startswith("int8") and v:
+                    total[k] = total.get(k, 0) + v
+        print(f"longitudinal step {label}, {FRAME_HW[0]}x{FRAME_HW[1]} -> letterbox "
+              f"{LON_HW[0]}x{LON_HW[1]} -> AutoSpeed n -> NMS, {card}: build "
+              f"{build_s:.1f} s; p50 {p50!r} ms, p99 {p99!r} ms over {TIMED} distinct frames "
+              f"after {WARM} warm-up (CUDA events a frame)"
+              + (f", beside the bf16 step's p50 {LATENCY['longitudinal bf16'][0]!r} ms, p99 "
+                 f"{LATENCY['longitudinal bf16'][1]!r} ms; int8 launches a frame by route "
+                 f"{routes}" if mc is not None else ""))
+        del pipe, tables
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_int8_qat_temporal(card):
+    """Phase 41b (path b): AutoSteer-temporal (80x160 masks) on the card,
+    two QAT steps (train/qat.py::make_qat_loss at min_channels 32, f32,
+    AdamW 1e-4, batch 4 of seeded stacked masks, cross-entropy on both
+    heads), the observers of one QAT forward in eval mode, then
+    int8_variables_from_qat: 4 int8 convs, 3 of them stride 2, the same
+    convs the QAT selected; one forward with the launch counts set to 0
+    just before and read just after, and each int8 conv bit-equal to its
+    plain version. -> the launches."""
+    from autoware_vision_pilot_tpu_torch.models.auto_steer_temporal import AutoSteerTemporalNet
+    from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d, init_seeded
+    from autoware_vision_pilot_tpu_torch.train.qat import (
+        collect_act_scales, int8_variables_from_qat, make_qat_loss, qat_apply, selected_convs)
+
+    t0 = time.perf_counter()
+    net = init_seeded(AutoSteerTemporalNet(), torch.Generator().manual_seed(SEED + 110)).cuda()
+    rng = np.random.default_rng(SEED + 111)
+    x = torch.from_numpy(rng.uniform(0, 1, (4, 6, 80, 160)).astype(np.float32)).cuda()
+    x = x.contiguous(memory_format=CL)
+    target = torch.from_numpy(rng.integers(0, 61, (2, 4))).cuda()
+
+    def base(out, t):
+        prev, curr = out
+        return (torch.nn.functional.cross_entropy(prev, t[0])
+                + torch.nn.functional.cross_entropy(curr, t[1]))
+
+    loss_fn = make_qat_loss(net, base, min_channels=32)
+    opt = torch.optim.AdamW(net.parameters(), lr=1e-4)
+    for p in net.parameters():
+        p.requires_grad_(True)
+    losses = []
+    for _ in range(2):
+        opt.zero_grad()
+        loss, _ = loss_fn(x, target)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    net.eval()
+    observers = {}
+    with torch.no_grad():
+        qat_apply(net, x, min_channels=32, observers=observers)
+    int8 = int8_variables_from_qat(net, collect_act_scales(observers), 32)
+    selected = set(selected_convs(net, 32))
+    quantized = {n for n, m in int8.named_modules() if isinstance(m, Int8Conv2d)}
+    if selected != quantized or len(quantized) != 4:
+        raise AssertionError(f"QAT selected {sorted(selected)}, the export quantized "
+                             f"{sorted(quantized)}")
+    torch.cuda.synchronize()
+    reset_counts()  # count only this path's launches
+    with torch.no_grad():
+        out = int8(x)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_finite("QAT int8 AutoSteer-temporal", list(out))
+    expect_launches(launches, {"int8_conv": 4, "int8_conv_strided": 3})
+    conv_by_conv("QAT int8 AutoSteer-temporal", int8, lambda: int8(x), 4, 3)
+    print(f"QAT export of AutoSteer-temporal, {card}: 2 QAT steps (losses "
+          f"{[round(v, 4) for v in losses]}), int8_variables_from_qat at min_channels 32: "
+          f"{sorted(quantized)} (the QAT's own selection), one forward's launches "
+          f"{ {k: v for k, v in launches.items() if v} }; {time.perf_counter() - t0:.1f} s")
+    del net, int8
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items() if k.startswith("int8") and v}
+
+
+def phase_int8_exports(card):
+    """Phase 41c (path c): the int8 main path (build_pipeline_fused, bf16,
+    min_ch 256: 72 int8 convs) and its variant with the transposed convs
+    quantized (83 int8 modules), each through export_stablehlo and
+    load_stablehlo on the card: the graph calls the avp int8 operators,
+    the loaded program's outputs on 3 frames are bit-equal to the eager
+    int8 path's, and each int8 operator's calls a frame equal the eager
+    frame's launches on its route. -> the operators' calls of the loaded
+    programs."""
+    from autoware_vision_pilot_tpu_torch.export.quantize import (
+        calibrate_int8_activation_scales, quantize_for_int8_conv)
+    from autoware_vision_pilot_tpu_torch.export.stablehlo_export import (export_stablehlo,
+                                                                         load_stablehlo)
+    from autoware_vision_pilot_tpu_torch.ops.kernels import torch_ops
+    from autoware_vision_pilot_tpu_torch.pipeline import build_pipeline_fused, calibration_batches
+
+    out = REPO / "build" / f"int8_exports_{os.getpid()}"
+    pool = frames(3, FRAME_HW, SEED + 120).cuda()
+    calls = {}
+    for transposes in (False, True):
+        t0 = time.perf_counter()
+        if transposes:
+            pipe = build_pipeline_fused("cuda", torch.bfloat16, SEED, CTX_HW, OUT_HW)
+            for net in (pipe.stack, pipe.lanes):
+                quantize_for_int8_conv(net, 256, quantize_transpose=True)
+                calibrate_int8_activation_scales(
+                    net, calibration_batches(OUT_HW, torch.bfloat16, "cuda"))
+        else:
+            pipe = build_pipeline_fused("cuda", torch.bfloat16, SEED, CTX_HW, OUT_HW,
+                                        int8=True, min_ch=256)
+        name = "int8 + transposes" if transposes else "int8"
+        reset_counts()
+        with torch.no_grad():
+            ref = pipe(pool[0])
+        torch.cuda.synchronize()
+        eager = read_counts()
+        path = export_stablehlo(pipe, (pool[0],), out / f"main_{int(transposes)}.pt2")
+        seconds = time.perf_counter() - t0
+        targets = {str(n.target) for n in torch.export.load(path).graph.nodes
+                   if n.op == "call_function" and str(n.target).startswith("avp.")}
+        prog = load_stablehlo(path)
+        with torch.no_grad():  # the eager outputs first: they call the operators too
+            refs = [ref] + [pipe(pool[i]) for i in range(1, len(pool))]
+            torch.cuda.synchronize()
+            before = torch_ops.calls()
+            got = [prog(pool[i]) for i in range(len(pool))]
+        torch.cuda.synchronize()
+        made = {k: (torch_ops.calls()[k] - before[k]) / len(pool) for k in torch_ops.INT8_OPS}
+        want = {"int8_quantize": eager["int8_quantize"],
+                "int8_conv_wgmma": eager["int8_conv_wgmma"] - eager["int8_conv_splitk"],
+                "int8_conv_splitk": eager["int8_conv_splitk"],
+                "int8_conv_strided": eager["int8_conv_strided"],
+                "int8_conv_halo": eager["int8_conv_halo"],
+                "int8_conv_pointwise": eager["int8_conv_pointwise"],
+                "int8_conv_dot": eager["int8_conv_dot"],
+                "int8_conv_d2s": eager["int8_conv_transpose"]}
+        equal = all(torch.equal(a, b) for g, r in zip(got, refs) for a, b in zip(g, r))
+        print(f"export_stablehlo of the {name} main path ({FRAME_HW[0]}x{FRAME_HW[1]} uint8 "
+              f"frame -> the three outputs) -> {path.name} ({path.stat().st_size >> 20} MiB) in "
+              f"{seconds:.1f} s with the build, {card}: the graph calls {sorted(targets)}; the "
+              f"loaded program on {len(pool)} frames bit-equal to the eager int8 path "
+              f"{equal}; int8 operator calls a frame {made}, the eager frame's launches by "
+              f"route {want}")
+        if not equal or made != want:
+            raise AssertionError(f"the exported {name} path differs from the eager one")
+        for k, v in as_launches(made).items():
+            calls[k] = calls.get(k, 0) + int(v * len(pool))
+        del pipe, prog, got, refs
+        torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    return calls
+
+
+def export_int8_lateral(out, frame_hw):
+    """Phase 41d's bundle, in a process of its own beside phase 40c's
+    exports: the lateral step of tools/export_native_app.py (seed-0
+    weights, f32) with EgoLanes quantized at min_channels 256 and
+    calibrated on INT8_CALIB_FRAMES seeded frames' crops (the step's own
+    preprocess), as the AOTInductor package "lateral_int8". -> its int8
+    convs."""
+    from autoware_vision_pilot_tpu_torch.export.native_app import export_native_app
+    from autoware_vision_pilot_tpu_torch.export.quantize import (
+        calibrate_int8_activation_scales, int8_conv_count, quantize_for_int8_conv)
+    from autoware_vision_pilot_tpu_torch.inference.infer import load_weights
+    from autoware_vision_pilot_tpu_torch.models.auto_steer_temporal import AutoSteerTemporalNet
+    from autoware_vision_pilot_tpu_torch.models.ego_lanes import EgoLanesNetwork
+    from autoware_vision_pilot_tpu_torch.ops.kernels.preprocess_kernel import fused_preprocess
+    from autoware_vision_pilot_tpu_torch.runtime import Config
+    from autoware_vision_pilot_tpu_torch.runtime.pipeline import (build_lateral_step,
+                                                                  init_lateral_state)
+
+    kw = dict(device="cuda", dtype=torch.float32)
+    lanes = load_weights(EgoLanesNetwork(), **kw)
+    steer = load_weights(AutoSteerTemporalNet(), **kw)
+    quantize_for_int8_conv(lanes, 256)
+    calib = frames(INT8_CALIB_FRAMES, frame_hw, SEED + 130).cuda()
+    with torch.no_grad():
+        calibrate_int8_activation_scales(
+            lanes, [fused_preprocess(calib[i:i + 1, LATERAL_CROP:], OUT_HW, torch.float32)
+                    for i in range(INT8_CALIB_FRAMES)])
+    step = build_lateral_step(lanes, steer, Config(), frame_hw=frame_hw, dtype=torch.float32)
+    export_native_app(step, init_lateral_state(0, device="cuda"), (*frame_hw, 3), out,
+                      name="lateral_int8", device="cuda")
+    return int8_conv_count(lanes)
+
+
+def start_int8_lateral_export(out):
+    """export_int8_lateral in a spawned process (AOTInductor compiles for
+    minutes, mostly g++). -> (the pool, the future of its int8 convs)."""
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(export_int8_lateral, str(out), FRAME_HW)
+
+
 # ---------- phase 40: the operators, the exported programs, the native app ----------
 
 APP_FRAMES = 16  # the golden run: the probe, then 16 frames with the state carried
@@ -6044,7 +6571,7 @@ def phase_exports(card):
     seven families at EXPORT_SHAPES (seed-0 weights), each saved, loaded
     (load_stablehlo) and run on a seeded input, held to the eager module
     (every output within 1e-2 * max|eager|, two bf16 ulps of the largest);
-    an Int8Conv2d on the card refused (NotImplementedError); then
+    then
     export_stablehlo of fused_preprocess -> SceneSeg -> argmax_mask from a
     720p uint8 frame: the graph holds torch.ops.avp.fused_preprocess, the
     loaded program launches the kernel (profiler) and its mask equals the
@@ -6052,7 +6579,6 @@ def phase_exports(card):
     from autoware_vision_pilot_tpu_torch.export.stablehlo_export import (
         EXPORT_SHAPES, export_model, export_stablehlo, load_stablehlo)
     from autoware_vision_pilot_tpu_torch.inference.infer import load_weights
-    from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
     from autoware_vision_pilot_tpu_torch.ops.kernels import torch_ops
     from autoware_vision_pilot_tpu_torch.tools.export_all import build as build_net
 
@@ -6081,14 +6607,6 @@ def phase_exports(card):
               f"(bar 1e-2 * max|eager|: {bars}; bit-equal "
               f"{all(torch.equal(a, b) for a, b in zip(got, ref))})")
         del net, prog
-    q = torch.nn.Sequential(Int8Conv2d(128, 128, 3, 1, device="cuda", dtype=torch.bfloat16))
-    try:
-        export_stablehlo(q, (torch.zeros((1, 128, 8, 8), device="cuda"),), out / "int8.pt2")
-    except NotImplementedError as e:
-        print(f"an Int8Conv2d on the card is not exported: {e}")
-    else:
-        raise AssertionError("an Int8Conv2d on the card was exported")
-
     seg = load_weights(build_net("SceneSeg")[0], device="cuda", dtype=torch.bfloat16)
     model = SegFromFrame(seg).eval()
     frame = frames(1, FRAME_HW, SEED + 94)[0].cuda()
@@ -6138,12 +6656,18 @@ def app_line(stdout, what):
     raise AssertionError(f"the loop printed no '{what}' line:\n{stdout}")
 
 
-def app_op_calls(stdout):
+LOOP_OPS = ("fused_preprocess", "fused_letterbox", "lane_filter_walk", "nms_greedy")
+
+
+def app_op_calls(stdout, names=LOOP_OPS):
+    """The loop's "op calls:" line, the operators ``names`` (the four of the
+    f32 packages by default)."""
     words = app_line(stdout, "op calls:").split()[2:]
-    return {words[i]: int(words[i + 1]) for i in range(0, len(words), 2)}
+    calls = {words[i]: int(words[i + 1]) for i in range(0, len(words), 2)}
+    return {k: calls[k] for k in names}
 
 
-def phase_native_app(card, app_build):
+def phase_native_app(card, app_build, out, int8_export):
     """Phase 40c: the port's tools/export_native_app.py --longitudinal on the
     card (the lateral step at 720x1280, crop 420, EgoLanes at 320x640, f32;
     AutoSpeed "n" at 640x640 with the letterbox and NMS), each torch.export
@@ -6156,8 +6680,13 @@ def phase_native_app(card, app_build):
     a pid-named /dev/shm segment, republished by the port's
     StatePublisherBridge on an InProcTransport: advancing frame ids, the
     longitudinal fields (ego speed, planner, RSS) in the POD; the AOTI
-    compile seconds and the loop's p50/p99. -> the operator calls of the
-    two runs of the loop, by name."""
+    compile seconds and the loop's p50/p99. Then phase 41d (path d) with
+    the "lateral_int8" package of ``int8_export`` (start_int8_lateral_export,
+    exported meanwhile into ``out``): the C++ loop over it and the same
+    longitudinal package, golden probe and trajectory against the Python
+    replay, then APP_TIMED_FRAMES frames, its int8 operators' calls a frame
+    and its p50/p99 beside the f32 loop's. -> the operator calls of the
+    loop's runs, by name."""
     from autoware_vision_pilot_tpu_torch.export.native_app import replay_native_app
     from autoware_vision_pilot_tpu_torch.host.shm import SharedStateReader
     from autoware_vision_pilot_tpu_torch.kernels import build
@@ -6166,7 +6695,6 @@ def phase_native_app(card, app_build):
     from autoware_vision_pilot_tpu_torch.simulation import StatePublisherBridge
     from autoware_vision_pilot_tpu_torch.tools import export_native_app as tool
 
-    out = REPO / "build" / f"native_app_{os.getpid()}"
     t0 = time.perf_counter()
     tool.main([str(out), "--longitudinal"])  # prints each bundle's export and compile seconds
     print(f"the port's tools/export_native_app.py --longitudinal, {card}: "
@@ -6201,6 +6729,49 @@ def phase_native_app(card, app_build):
           f"of the same package: max|diff| {float(np.abs(final_cpp - final_py).max())!r} (flags "
           f"exact, tol 1e-4); operator calls inside the C++ process {calls} "
           f"({APP_FRAMES + 1} frames)")
+    # phase 41d's package: its export ran beside the two above; wait for it
+    # here, so that the timed loops below run on a quiet host
+    t0 = time.perf_counter()
+    int8_convs = int8_export[1].result()
+    int8_export[0].shutdown()
+    print(f"the int8 lateral bundle (EgoLanes at min_channels 256: {int8_convs} int8 convs) "
+          f"was exported beside them; waited {time.perf_counter() - t0:.1f} s more for it")
+    int8_cmd = [str(app), str(out), "lateral_int8", "--ops", str(build.OPS_LIBRARY), "--lon",
+                "longitudinal", "--frames", str(out / "stack.npy")]
+    dump8 = out / "final_int8.npy"
+    r8 = subprocess.run(int8_cmd + ["--golden", "--max-frames", str(APP_FRAMES), "--dump",
+                                    str(dump8), "--state-shm", f"/avp_smoke_int8_{os.getpid()}"],
+                        capture_output=True, text=True, timeout=600)
+    if r8.returncode != 0 or "golden probe: max|diff|" not in r8.stderr:
+        raise AssertionError(f"the int8 native loop failed ({r8.returncode}):\n{r8.stdout}\n"
+                             f"{r8.stderr}")
+    int8_names = LOOP_OPS + ("int8_quantize", "int8_conv_wgmma", "int8_conv_splitk",
+                             "int8_conv_strided", "int8_conv_halo", "int8_conv_pointwise",
+                             "int8_conv_dot", "int8_conv_d2s")
+
+    def int8_loop_calls(stdout, n_frames):
+        """The loop's calls: the four kernels at least once a frame, and
+        the int8 convs of the lateral package exactly once each a frame."""
+        got = app_op_calls(stdout, int8_names)
+        convs = sum(v for k, v in got.items() if k.startswith("int8_conv"))
+        if min(got[k] for k in LOOP_OPS) < n_frames or convs != int8_convs * n_frames:
+            raise AssertionError(f"the int8 loop called the operators {got} times over "
+                                 f"{n_frames} frames ({int8_convs} int8 convs a frame)")
+        return {k: v for k, v in got.items() if v}
+
+    calls8 = int8_loop_calls(r8.stdout, APP_FRAMES + 1)
+    final8_cpp = np.load(dump8)
+    final8_py = replay_native_app(out, "lateral_int8", list(stack))[-1]
+    if not (np.array_equal(final8_cpp[flags], final8_py[flags])
+            and np.allclose(final8_cpp, final8_py, rtol=1e-4, atol=1e-4)):
+        raise AssertionError(f"the int8 C++ loop's final scalars {final8_cpp} differ from the "
+                             f"Python replay's {final8_py}")
+    print(f"native loop, int8 lateral + longitudinal packages, {APP_FRAMES} state-carried frames "
+          f"after the probe, {card}: {app_line(r8.stderr, 'golden probe')}; final scalars "
+          f"{final8_cpp.tolist()} vs the Python replay of the same package: max|diff| "
+          f"{float(np.abs(final8_cpp - final8_py).max())!r} (flags exact, tol 1e-4); operator "
+          f"calls inside the C++ process {calls8} ({APP_FRAMES + 1} frames); "
+          f"{app_line(r8.stdout, 'int8 op calls a frame:')}")
 
     seg = f"/avp_smoke_pub_{os.getpid()}"
     proc = subprocess.Popen(cmd + ["--max-frames", str(APP_TIMED_FRAMES), "--ego-speed",
@@ -6245,6 +6816,18 @@ def phase_native_app(card, app_build):
     if min(calls2.values()) < APP_TIMED_FRAMES:
         raise AssertionError(f"the publishing loop called the operators {calls2} times over "
                              f"{APP_TIMED_FRAMES} frames")
+    r8 = subprocess.run(int8_cmd + ["--max-frames", str(APP_TIMED_FRAMES), "--ego-speed",
+                                    str(APP_EGO_SPEED), "--state-shm",
+                                    f"/avp_smoke_int8_pub_{os.getpid()}"],
+                        capture_output=True, text=True, timeout=600)
+    if r8.returncode != 0:
+        raise AssertionError(f"the timed int8 loop failed ({r8.returncode}):\n{r8.stdout}\n"
+                             f"{r8.stderr}")
+    calls8_timed = int8_loop_calls(r8.stdout, APP_TIMED_FRAMES)
+    print(f"native loop over the int8 lateral package, {APP_TIMED_FRAMES} frames, {card}: "
+          f"{app_line(r8.stdout, 'visionpilot_app:')}; "
+          f"{app_line(r8.stdout, 'int8 op calls a frame:')}; beside the f32 loop's in this "
+          f"call: {app_line(stdout, 'visionpilot_app:')}")
     print(f"native loop publishing to {seg}, {APP_TIMED_FRAMES} frames, {card}: "
           f"{app_line(stdout, 'visionpilot_app:')}; the port's StatePublisherBridge "
           f"republished {len(ids)} states on an InProcTransport, frame ids {ids[0]}..{ids[-1]} "
@@ -6254,7 +6837,11 @@ def phase_native_app(card, app_build):
           f"AutoSpeed makes no track: phase 17); operator calls {calls2}")
     shutil.rmtree(out, ignore_errors=True)
     torch.cuda.empty_cache()
-    return {k: calls[k] + calls2[k] for k in calls}
+    total = {k: calls[k] + calls2[k] for k in calls}
+    for k, v in as_launches({k: calls8.get(k, 0) + calls8_timed.get(k, 0)
+                             for k in {*calls8, *calls8_timed}}).items():
+        total[k] = total.get(k, 0) + v
+    return total
 
 
 def phase_compare_precisions(card):
@@ -6412,13 +6999,24 @@ def main():
     walls.clear()
     timed(39, phase_data, card)
     print(f"wall time of phase 39 (s): {walls}")
-    # the operators, the exported programs, the native app and the precisions
+    # the int8 path whole: strided convs on AutoSpeed's longitudinal step and
+    # in the QAT export of AutoSteer-temporal
     walls.clear()
+    paths["int8 longitudinal"] = timed("41a", phase_int8_longitudinal, card)
+    paths["QAT export of AutoSteer-temporal"] = timed("41b", phase_int8_qat_temporal, card)
+    print(f"wall time of phases 41a-41b (s): {walls}, {sum(walls.values()):.1f} s in all")
+    # the operators, the exported programs (the int8 main path among them),
+    # the native app (and the int8 lateral package, exported meanwhile) and
+    # the precisions
+    walls.clear()
+    app_out = REPO / "build" / f"native_app_{os.getpid()}"
+    int8_lateral = timed("41d start", start_int8_lateral_export, app_out)
     timed("40a", phase_ops, card)
     paths["exported programs"] = timed("40b", phase_exports, card)
-    paths["native app"] = timed("40c", phase_native_app, card, app_build)
+    paths["int8 exported programs"] = timed("41c", phase_int8_exports, card)
+    paths["native app"] = timed("40c", phase_native_app, card, app_build, app_out, int8_lateral)
     timed("40d", phase_compare_precisions, card)
-    print(f"wall time of phase 40 (s): {walls}, {sum(walls.values()):.1f} s in all")
+    print(f"wall time of phases 40 and 41c-41d (s): {walls}, {sum(walls.values()):.1f} s in all")
     for path, counts in paths.items():
         for name, n in counts.items():
             # the paths at min_channels 128 and above tally the halo route
@@ -6440,6 +7038,8 @@ def main():
                             "autoware_vision_pilot_tpu/nn/layers.py:110"),
         "int8_conv_halo": (pkg + "int8_conv_halo.cu",
                            "autoware_vision_pilot_tpu/nn/layers.py:110"),
+        "int8_conv_strided": (pkg + "int8_conv_sm90.cu",
+                              "autoware_vision_pilot_tpu/nn/layers.py:110"),
         "int8_conv_pointwise": (pkg + "int8_pointwise.cu",
                                 "autoware_vision_pilot_tpu/nn/layers.py:81"),
         "int8_conv_dot": (pkg + "int8_pointwise.cu", "autoware_vision_pilot_tpu/nn/layers.py:81"),

@@ -410,8 +410,15 @@ def test_int8_conv_persistent_blocks_match_plain_version(cuda, route, blocks):
 
 
 def test_int8_weight_map_is_kept_on_the_weight(cuda):
-    """The weights' TMA map is encoded at the first wgmma launch, kept on
-    the weight, and encoded again for a copy at another address."""
+    """The weights' TMA map is encoded at the first wgmma launch and kept
+    by the kernels' library (csrc/sm90.cuh::weight_map), and encoded again
+    for a copy of the weight at another address."""
+    import ctypes
+
+    from autoware_vision_pilot_tpu_torch.kernels import build
+
+    lib = ctypes.CDLL(str(build.build()))
+    lib.avp_int8_weight_map_encodes.restype = ctypes.c_longlong
     g = torch.Generator().manual_seed(9)
     w = torch.randint(-127, 128, (256, 256, 3, 3), generator=g,
                       dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
@@ -419,14 +426,16 @@ def test_int8_weight_map_is_kept_on_the_weight(cuda):
     sx = torch.tensor(0.02, device=cuda)
     xq = torch.randint(-127, 128, (1, 256, 40, 80), generator=g,
                        dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+    before = lib.avp_int8_weight_map_encodes()
     y = int8_conv(xq, w, w_scale, sx, None, 1, torch.int32)
-    key, first = w._tma_map
-    assert key[0] == w.data_ptr() and len(first) == 128
+    assert lib.avp_int8_weight_map_encodes() == before + 1
     assert torch.equal(int8_conv(xq, w, w_scale, sx, None, 1, torch.int32), y)
-    assert w._tma_map[1] is first
+    assert lib.avp_int8_weight_map_encodes() == before + 1
     w2 = copy.deepcopy(w)
     assert torch.equal(int8_conv(xq, w2, w_scale, sx, None, 1, torch.int32), y)
-    assert w2._tma_map[0][0] == w2.data_ptr() != w.data_ptr()
+    assert lib.avp_int8_weight_map_encodes() == before + 2
+    assert torch.equal(int8_conv(xq, w, w_scale, sx, None, 1, torch.int32), y)
+    assert lib.avp_int8_weight_map_encodes() == before + 2
 
 
 def test_int8_wrappers_raise_on_the_card(cuda):
@@ -435,10 +444,10 @@ def test_int8_wrappers_raise_on_the_card(cuda):
     w = torch.zeros(8, 32, 3, 3, dtype=torch.int8, device=cuda).contiguous(memory_format=CL)
     w_scale = torch.ones(8, device=cuda)
     xq = int8_quantize(x, s)
-    with pytest.raises(ValueError, match="groups"):
+    with pytest.raises(ValueError, match="groups"):  # 32 channels, not 2 groups of 32
         int8_conv(xq, w, w_scale, s, None, 1, groups=2)
-    with pytest.raises(ValueError, match="stride"):
-        int8_conv(xq, w, w_scale, s, None, 1, stride=2)
+    with pytest.raises(ValueError, match="strides"):  # any stride >= 1 is taken
+        int8_conv(xq, w, w_scale, s, None, 1, stride=0)
     with pytest.raises(ValueError, match="channels_last"):
         int8_conv(xq.contiguous(), w, w_scale, s, None, 1)
     with pytest.raises(ValueError, match="channels_last"):
@@ -1823,6 +1832,194 @@ def avp_op_cases(cuda):
         "nms_greedy": (*(t[None] for t in top), 64, 0.5, 0.5, True,
                        nms_kernel.cluster_size(top[1].shape[-1])),
     }
+
+
+# (B, C, N, kernel, stride, padding, dilation, groups, hw): the strided
+# convs of the YOLO-family nets at their map sizes (AutoSpeed "n" at
+# 640x640: p3_0, p4_0, p5_0, fpn.h3, fpn.h5; AutoSteer's 2x1 (2, 1) head
+# convs; AutoSteer-temporal's c2-c4), a dilated, a grouped, a padding a
+# dimension, and strides above TMA's traversal limit (one output a tile)
+STRIDED_CARD = (
+    (1, 64, 64, 3, 2, 1, 1, 1, (160, 160)), (1, 128, 128, 3, 2, 1, 1, 1, (80, 80)),
+    (1, 128, 256, 3, 2, 1, 1, 1, (40, 40)), (1, 64, 64, 3, 2, 1, 1, 1, (80, 80)),
+    (1, 128, 128, 3, 2, 1, 1, 1, (40, 40)), (1, 64, 32, (2, 1), (2, 1), 0, 1, 1, (128, 256)),
+    (2, 32, 64, 3, 2, 1, 1, 1, (40, 80)), (2, 64, 128, 3, 2, 1, 1, 1, (20, 40)),
+    (2, 128, 128, 3, 2, 1, 1, 1, (10, 20)), (1, 256, 200, 3, 1, 2, 2, 1, (30, 50)),
+    (2, 128, 64, 3, 2, 1, 1, 4, (19, 23)), (1, 48, 24, 3, (1, 2), (1, 0), 1, 1, (17, 30)),
+    (1, 32, 16, 3, 12, 1, 1, 1, (40, 60)), (1, 16, 24, 1, (9, 3), 0, 1, 1, (300, 300)),
+)
+
+
+@pytest.mark.parametrize("B,C,N,k,stride,pad,dil,groups,hw", STRIDED_CARD,
+                         ids=[str(s) for s in STRIDED_CARD])
+def test_int8_strided_and_grouped_routes_match_plain_version(cuda, B, C, N, k, stride, pad, dil,
+                                                            groups, hw):
+    """The "strided" route (and one launch a group) on the card against the
+    plain version, bit for bit: int32 accumulators, bf16 and f32 outputs,
+    scalar and per-channel scales; each launch counted on its route."""
+    g = torch.Generator().manual_seed(B + C + N + hw[0])
+    kh, kw = (k, k) if isinstance(k, int) else k
+    x = torch.randn(B, C, *hw, generator=g).contiguous(memory_format=CL).to(cuda)
+    w = torch.randint(-127, 128, (N, C // groups, kh, kw), generator=g,
+                      dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+    w_scale = (torch.rand(N, generator=g) * 1e-3 + 1e-4).to(cuda)
+    kw_ = dict(stride=stride, dilation=dil, groups=groups)
+    scales = [torch.tensor(0.021, device=cuda)]
+    if groups == 1:
+        scales.append((torch.rand(C, generator=g) * 0.02 + 0.01).to(cuda))
+    for sx in scales:
+        xq = int8_quantize(x, sx)
+        assert torch.equal(xq, int8_quantize_plain(x.cpu(), sx.cpu()).to(cuda))
+        for dtype in (torch.int32, torch.bfloat16, torch.float32):
+            bias = None if dtype == torch.int32 else torch.randn(N, generator=g).to(cuda, dtype)
+            before = int8_conv.route_launches["strided"]
+            y = int8_conv(xq, w, w_scale, sx, bias, pad, dtype, **kw_)
+            torch.cuda.synchronize()
+            want = int8_conv_plain(xq.cpu(), w.cpu(), w_scale.cpu(), sx.cpu(),
+                                   None if bias is None else bias.cpu(), pad, dtype, stride, dil,
+                                   groups)
+            assert y.shape == want.shape and y.is_contiguous(memory_format=CL)
+            assert torch.equal(y.cpu(), want)
+            assert int8_conv.route_launches["strided"] == before + groups
+        y = int8_conv2d(x, w, w_scale, sx, None, pad, **kw_)
+        assert torch.equal(y.cpu(), int8_conv_plain(
+            xq.cpu(), w.cpu(), w_scale.cpu(), sx.cpu(), None, pad, x.dtype, stride, dil, groups))
+
+
+def int8_op_cases(cuda):
+    """Each int8 operator's arguments on every route: the plan of a shape
+    that takes it, the wrapper's own arguments -> {name: (args, the plain
+    version)}."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
+        _reciprocal, _sm_count, geometry, int8_conv_transpose_plain, int8_conv_transpose_plan)
+
+    g = torch.Generator().manual_seed(77)
+    sms = _sm_count(cuda.index or 0)
+
+    def conv_case(route, B, C, N, k, H, W, pad, stride=1, float_in=False):
+        x = torch.randn(B, C, H, W, generator=g).contiguous(memory_format=CL).to(cuda)
+        sx = torch.tensor(0.02, device=cuda)
+        xq = int8_quantize(x, sx)
+        w = torch.randint(-127, 128, (N, C, k, k), generator=g,
+                          dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+        ws = (torch.rand(N, generator=g) * 1e-3).to(cuda)
+        bias = torch.randn(N, generator=g).to(cuda, torch.bfloat16)
+        plan = int8_conv_plan(B, H, W, C, N, k, k, pad, sms, stride)
+        assert plan.route == route
+        m_tiles, n_tiles, splits = plan.grid
+        geo = list(geometry(pad, stride))
+        inp = x if float_in else xq
+        if route in ("wgmma", "splitk", "strided"):
+            args = (xq, w, ws, sx, bias, geo, [plan.th, plan.tw, m_tiles, n_tiles, splits,
+                                               plan.per_split, plan.blocks], 1)
+        elif route == "halo":
+            args = (xq, w, ws, sx, bias, pad, [plan.th, plan.tw, plan.bn, m_tiles, n_tiles,
+                                               plan.blocks, plan.stages, int(plan.resident)], 1)
+        elif route == "pointwise":
+            args = (inp, w, ws, sx, _reciprocal(sx) if float_in else None, bias,
+                    [plan.bm, plan.bn, m_tiles, n_tiles, splits, plan.per_split * plan.bk], 1)
+        else:
+            args = (inp, w, ws, sx, _reciprocal(sx) if float_in else None, bias, splits, 1)
+        want = int8_conv_plain(xq.cpu(), w.cpu(), ws.cpu(), sx.cpu(), bias.cpu(), pad,
+                               torch.bfloat16, stride)
+        return args, want
+
+    cases = {
+        "int8_conv_wgmma": conv_case("wgmma", 1, 256, 256, 3, 80, 160, 1),
+        "int8_conv_splitk": conv_case("splitk", 1, 1456, 768, 3, 20, 40, 1),
+        "int8_conv_strided": conv_case("strided", 1, 128, 128, 3, 160, 160, 1, 2),
+        "int8_conv_halo": conv_case("halo", 1, 64, 96, 3, 20, 40, 1),
+        "int8_conv_pointwise": conv_case("pointwise", 1, 672, 112, 1, 20, 40, 0, float_in=True),
+        "int8_conv_dot": conv_case("dot", 1, 1152, 48, 1, 1, 1, 0, float_in=True),
+    }
+    x = torch.randn(1, 256, 20, 40, generator=g).contiguous(memory_format=CL).to(cuda)
+    sx = torch.tensor(0.02, device=cuda)
+    cases["int8_quantize"] = ((x, sx), int8_quantize_plain(x.cpu(), sx.cpu()))
+    xq = int8_quantize(x, sx)
+    wt = torch.randint(-127, 128, (2, 2, 128, 256), generator=g,
+                       dtype=torch.int8).to(cuda).permute(3, 2, 0, 1)
+    ws = (torch.rand(128, generator=g) * 1e-3).to(cuda)
+    bias = torch.randn(128, generator=g).to(cuda, torch.bfloat16)
+    plan = int8_conv_transpose_plan(1, 20, 40, 256, 128, 2, 2, sms)
+    m_tiles, n_tiles, splits = plan.grid
+    cases["int8_conv_d2s"] = (
+        (xq, wt, ws, sx, bias, [plan.th, plan.tw, m_tiles, n_tiles, splits, plan.per_split,
+                                plan.blocks], True, 1),
+        int8_conv_transpose_plain(xq.cpu(), wt.cpu(), ws.cpu(), sx.cpu(), bias.cpu(),
+                                  torch.bfloat16))
+    return cases
+
+
+@pytest.mark.parametrize("name", ["int8_quantize", "int8_conv_wgmma", "int8_conv_splitk",
+                                  "int8_conv_strided", "int8_conv_halo", "int8_conv_pointwise",
+                                  "int8_conv_dot", "int8_conv_d2s"])
+def test_int8_avp_operator_matches_plain_version(cuda, name):
+    """Each int8 dispatcher operator (csrc/torch_ops.cpp) on the route it
+    names: torch.library.opcheck (schema, fake implementation and its
+    channels_last strides, dispatch), its output bit-equal to the plain
+    version, every call counted by the library's own counter."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels import torch_ops
+
+    torch_ops.load()
+    args, want = int8_op_cases(cuda)[name]
+    op = getattr(torch.ops.avp, name).default
+    before = torch_ops.calls()[name]
+    torch.library.opcheck(op, args)
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert torch_ops.calls()[name] > before
+    assert got.stride() == want.stride() or got.is_contiguous(memory_format=CL)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_exported_int8_convs_match_eager(cuda, tmp_path):
+    """export_stablehlo of Int8Conv2d modules on the card (a 3x3 wgmma
+    conv, a strided conv, a 1x1 conv that quantizes as it loads, with
+    static and dynamic scales): the graph calls the avp operators, and the
+    loaded program's outputs equal the eager modules', each operator
+    called once a call of the program."""
+    from autoware_vision_pilot_tpu_torch.export.stablehlo_export import (export_stablehlo,
+                                                                         load_stablehlo)
+    from autoware_vision_pilot_tpu_torch.ops.kernels import torch_ops
+
+    kw = dict(device=cuda, dtype=torch.bfloat16)
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.a = Int8Conv2d(128, 128, 3, 1, **kw)
+            self.b = Int8Conv2d(128, 256, 3, 1, stride=2, **kw)
+            self.c = Int8Conv2d(256, 96, 1, 0, **kw)
+
+        def forward(self, x):
+            return self.c(torch.relu(self.b(torch.relu(self.a(x)))))
+
+    g = torch.Generator().manual_seed(5)
+    net = Net().eval()
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, Int8Conv2d):
+                m.weight.copy_(torch.randint(-127, 128, m.weight.shape, generator=g))
+                m.weight_scale.copy_(torch.rand(m.weight_scale.shape, generator=g) * 1e-3)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g))
+    net.a.input_scale = torch.tensor(0.02, device=cuda)  # b and c quantize dynamically
+    # 100 output tiles at 80x160: the wgmma route, no split
+    x = torch.randn(1, 128, 80, 160, generator=g).to(cuda, torch.bfloat16).contiguous(
+        memory_format=CL)
+    path = export_stablehlo(net, (x,), tmp_path / "int8.pt2")
+    nodes = {str(n.target) for n in torch.export.load(path).graph.nodes
+             if n.op == "call_function"}
+    assert {"avp.int8_quantize.default", "avp.int8_conv_wgmma.default",
+            "avp.int8_conv_strided.default", "avp.int8_conv_pointwise.default"} <= nodes
+    prog = load_stablehlo(path)
+    before = torch_ops.calls()
+    with torch.no_grad():
+        got = prog(x)
+        torch.cuda.synchronize()
+        made = {k: torch_ops.calls()[k] - v for k, v in before.items()}
+        assert torch.equal(got, net(x))
+    assert made["int8_conv_wgmma"] == made["int8_conv_strided"] == 1
+    assert made["int8_conv_pointwise"] == 1
 
 
 @pytest.mark.parametrize("name", ["fused_preprocess", "fused_letterbox", "lane_filter_walk",

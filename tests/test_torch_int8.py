@@ -116,18 +116,18 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take():
         int8_quantize(x.contiguous(), s)
     with pytest.raises(ValueError, match="channels_last"):
         int8_conv(xq.contiguous(), w, ws, s, None, 1)
-    with pytest.raises(ValueError, match="groups"):
+    with pytest.raises(ValueError, match="groups"):  # 32 channels, not 2 groups of 32
         int8_conv(xq, w, ws, s, None, 1, groups=2)
-    with pytest.raises(ValueError, match="stride"):
-        int8_conv(xq, w, ws, s, None, 1, stride=2)
+    with pytest.raises(ValueError, match="strides"):  # any stride >= 1 is taken
+        int8_conv(xq, w, ws, s, None, 1, stride=0)
     with pytest.raises(TypeError, match="x_scale"):
         int8_quantize(x, s.double())
     with pytest.raises(ValueError, match="x_scale"):
         int8_quantize(x, torch.ones(3))
     with pytest.raises(TypeError, match="bias"):
         int8_conv(xq, w, ws, s, torch.zeros(8, dtype=torch.bfloat16), 1, torch.float32)
-    with pytest.raises(ValueError, match="symmetric"):
-        int8_conv(xq, w, ws, s, None, (1, 0))
+    with pytest.raises(ValueError, match="padding"):  # a padding a dimension is taken
+        int8_conv(xq, w, ws, s, None, (1, -1))
 
 
 def test_dynamic_mode_keeps_a_running_amax():

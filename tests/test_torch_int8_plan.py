@@ -10,8 +10,6 @@ int32 accumulators exactly in any order of arrival, shapes that no
 route takes raise, and the weights' TMA map is kept on the weight. Integer
 sums, so every comparison is exact.
 """
-import copy
-import ctypes
 import itertools
 import math
 
@@ -230,6 +228,7 @@ def test_plan_rejects_shapes_no_route_takes(shape, match):
 @pytest.mark.parametrize("route,shape", [
     ("wgmma", (1, 80, 160, 512, 512, 3, 3, 1)),   # decode_layer_4: 400 tiles
     ("splitk", (1, 20, 40, 1456, 768, 3, 3, 1)),  # decode_layer_0: 42 tiles
+    ("strided", (1, 160, 160, 64, 64, 3, 3, 1, 132, 2)),  # AutoSpeed's p3_0 at 640x640
     ("halo", (1, 20, 40, 64, 96, 3, 3, 1)),       # a 3x3 window with C < 128
     ("pointwise", (1, 20, 40, 672, 112, 1, 1, 0)),  # a stage-5 MBConv project
     ("dot", (1, 1, 1, 1152, 48, 1, 1, 0)),         # an SE squeeze, M = 1
@@ -237,39 +236,58 @@ def test_plan_rejects_shapes_no_route_takes(shape, match):
 def test_every_route_is_taken_by_a_natural_shape(route, shape):
     plan = int8_conv_plan(*shape)
     assert plan.route == route
-    # the dot route splits each channel's K over the lanes of its group
-    assert (plan.splits > 1) == (route in ("splitk", "pointwise", "dot"))
+    # the dot route splits each channel's K over the lanes of its group; the
+    # strided shape's 50 tiles fill less than half of the SMs
+    assert (plan.splits > 1) == (route in ("splitk", "pointwise", "dot", "strided"))
 
 
-class FakeLib:
-    """avp_int8_weight_map's stand-in: writes the address into the map."""
+MAP_CACHE_PROBE = r"""
+#include <cstdio>
+#include "map_cache.hpp"
+struct Map { long long address, box; };
+int main() {
+  avp::MapCache<Map> maps;
+  int encoded = 0;
+  auto get = [&](long long w, long long box) {
+    Map m{};
+    maps.get(&m, {0, w, 24, 3, 3, 32, box}, [&](Map* out) {
+      ++encoded;
+      *out = Map{w, box};
+      return 0;
+    });
+    std::printf("%lld %lld %d %lld\n", m.address, m.box, encoded, maps.encodes());
+  };
+  get(4096, 128);  // the first launch encodes
+  get(4096, 128);  // the next ones reuse it
+  get(8192, 128);  // a copy of the weight at another address: its own map
+  get(4096, 128);  // the first weight's map stayed
+  get(4096, 64);   // another box (the pointwise route's N tile) is another map
+  Map m{};
+  std::printf("%d\n", maps.get(&m, {0, 1, 1, 1, 1, 1, 1}, [](Map*) { return 7; }));
+  get(1, 1);  // a refused encode is not kept
+}
+"""
 
-    def __init__(self):
-        self.encoded = []
 
-    def avp_int8_weight_map(self, ptr, N, KH, KW, C, box_n, out):
-        self.encoded.append(ptr)
-        ctypes.memmove(out, ptr.to_bytes(8, "little"), 8)
-        return 0
+def test_weight_map_is_kept_on_the_weight(tmp_path):
+    """The weights' TMA map (csrc/map_cache.hpp, which csrc/sm90.cuh::
+    weight_map keeps for the kernels' entry points): encoded once per
+    (address, shape, box) and reused; a copy of the weight (another
+    address) gets its own map, the first weight's stays, another box is
+    another map, and a refused encode returns its error and is not kept.
+    Built with g++ from the header itself (it holds no CUDA)."""
+    import shutil
+    import subprocess
 
-
-def test_weight_map_is_kept_on_the_weight():
-    """Encoded once per weight and reused; a copy of the weight (another
-    address) gets its own map, and a map follows the weight, not a global
-    table."""
-    lib = FakeLib()
-    w = torch.zeros(24, 32, 3, 3, dtype=torch.int8).contiguous(memory_format=CL)
-    first = int8_mod._weight_map(lib, w, 24, 3, 3, 32)
-    assert int8_mod._weight_map(lib, w, 24, 3, 3, 32) == first
-    assert len(first) == 128 and lib.encoded == [w.data_ptr()]
-    w2 = copy.deepcopy(w)
-    assert int8_mod._weight_map(lib, w2, 24, 3, 3, 32) != first
-    assert lib.encoded == [w.data_ptr(), w2.data_ptr()]
-    assert int8_mod._weight_map(lib, w, 24, 3, 3, 32) == first  # w's own map stayed
-    assert len(lib.encoded) == 2
-    # another box (the pointwise route's N tile) is another map
-    int8_mod._weight_map(lib, w, 24, 3, 3, 32, 64)
-    assert lib.encoded == [w.data_ptr(), w2.data_ptr(), w.data_ptr()]
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the map cache's probe")
+    src, exe = tmp_path / "probe.cpp", tmp_path / "probe"
+    src.write_text(MAP_CACHE_PROBE)
+    subprocess.run(["g++", "-std=c++17", "-O1", "-I", str(int8_mod.torch_ops.build.CSRC),
+                    "-o", str(exe), str(src)], check=True, capture_output=True)
+    out = subprocess.run([str(exe)], check=True, capture_output=True, text=True).stdout
+    assert out.split("\n") == ["4096 128 1 1", "4096 128 1 1", "8192 128 2 2", "4096 128 2 2",
+                               "4096 64 3 3", "7", "1 1 4 4", ""]
 
 
 # (window, cin, cout, h, w, convs): the int8 conv shapes that

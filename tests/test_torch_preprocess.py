@@ -204,12 +204,14 @@ def test_kernel_binding_matches_c_signature():
                            ctypes.c_int64 if "long long" in p else
                            ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
                            for p in params.split(",")]
-    # the four kernels of the exported steps are bound by csrc/torch_ops.cpp,
-    # whose declarations must repeat the kernels' own
+    # the kernels are bound by csrc/torch_ops.cpp as operators, whose
+    # declarations must repeat the kernels' own
     op_decls = dict(re.findall(r"\nint (\w+)\(([^)]*)\);",
                                build.OPS_SOURCE.read_text().split('extern "C" {')[1]))
-    assert sorted(op_decls) == ["avp_fused_preprocess", "avp_lane_filter_walk", "avp_letterbox",
-                                "avp_nms_greedy"]
+    assert sorted(op_decls) == ["avp_fused_preprocess", "avp_int8_conv_d2s", "avp_int8_conv_dot",
+                                "avp_int8_conv_halo", "avp_int8_conv_pointwise",
+                                "avp_int8_conv_wgmma", "avp_int8_quantize",
+                                "avp_lane_filter_walk", "avp_letterbox", "avp_nms_greedy"]
     for src in build.sources():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
             if name in op_decls:

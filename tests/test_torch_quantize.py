@@ -122,10 +122,24 @@ def test_quantize_leaves_small_and_depthwise_convs_float():
 
 
 def test_quantize_refuses_what_the_int8_kernel_does_not_cover():
-    conv = tl.init_seeded(tl.Conv2d(64, 8, 3, stride=2, padding=1),
-                          torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="stride"):
-        quantize_for_int8_conv(nn.Sequential(conv), 32)
+    """The conv this test once saw refused (3x3 stride 2, 64 -> 8): the
+    int8 conv now takes JAX's whole rule, so it is quantized as JAX
+    quantizes it and, in f32, computes JAX's int8 branch."""
+    jmod = jl.Conv2d(8, 3, 2, 1)
+    x = normal_input((1, 9, 14, 64), seed=40)
+    v = seeded_variables(jmod, x, seed=41)
+    qv = jax_quantize(v, 32)
+    port = port_with(nn.Sequential(tl.Conv2d(64, 8, 3, stride=2, padding=1)),
+                     {"params": {"0": v["params"]}})
+    quantize_for_int8_conv(port, 32)
+    q = port[0]
+    assert isinstance(q, tl.Int8Conv2d) and q.stride == (2, 2) and q.padding == (1, 1)
+    want = variables_to_state_dict({"params": {"0": qv["params"]}}, port)
+    for k, t in port.state_dict().items():
+        assert torch.equal(t, want[k]), k
+    with torch.no_grad():
+        got = from_port(port(to_port(x)))
+    np.testing.assert_allclose(got, np.asarray(jmod.apply(qv, x)), atol=2e-4, rtol=1e-3)
 
 
 def calibrate_both(jmod, port, batches, min_channels):
