@@ -1,6 +1,6 @@
 // Int8 convolution for Hopper (sm_90a), part 2: the wgmma/TMA route, its
-// split-K form, its strided form ("strided": any stride, dilation and
-// padding), and the int8 transposed conv on the same kernel ("d2s").
+// split-K form, and the int8 transposed conv on the same kernel ("d2s").
+// (The strided convs have a kernel of their own: int8_conv_strided.cu.)
 //
 // Replaces, with int8_conv_halo.cu and int8_pointwise.cu, the int8 conv of
 // autoware_vision_pilot_tpu/nn/layers.py::Conv2d (:110-113), which the JAX
@@ -105,27 +105,6 @@
 // accumulators need more than the 80 registers a thread that allows).
 // Split-K with int32 atomic adds into one zeroed (M, N) sum that the last
 // split reads back was slower at the 20x40 shapes and no faster at 10x20.
-//
-// The strided form ("strided": JAX's window_strides, rhs_dilation and a
-// padding per dimension, nn/layers.py:73-79): the same kernel and the same
-// implicit GEMM; only the input's box changes. Output pixel (oh, ow) reads
-// tap (r, q) at (oh sh + r dh - ph, ow sw + q dw - pw), so the A box of the
-// tile at (oh0, ow0) starts at (oh0 sh + r dh - ph, ow0 sw + q dw - pw) and
-// takes every sh-th row and sw-th column: the input's tensor map is encoded
-// with those as its traversal strides (cuTensorMapEncodeTiled's
-// elementStrides; the box then spans tw sw columns and th sh rows and lands
-// as the same th x tw x 128-byte tile, TMA's zero fill still the padding).
-// Chosen over the im2col mode (cuTensorMapEncodeIm2col) because the tiled
-// map keeps the rectangle tile, the K loop and the byte count of every
-// stage as they are: the im2col mode walks a flat run of output pixels
-// (the plan's rectangles would go) and would need its own map a tap.
-// Dilation moves only the taps' origins. A traversal stride is at most 8
-// and a box at most 256 elements: the plan keeps tw sw and th sh within
-// 256, and a dimension with a stride above 8 takes one output a tile along
-// it (a box of one element, no traversal stride). Where C < 128 the same
-// route runs with K padded to 128 by TMA's zero fill of the channels past
-// C, in the input box and the weight box alike (JAX selects 64-channel
-// strided convs at min_channels 32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -192,7 +171,7 @@ struct WgArgs {
   int* ws;             // (splits, M, N) int32 partial sums when split, else null
   unsigned* arrivals;  // (m_tiles * n_tiles) zeroed counters when split
   int M, OH, OW, KW, nc, th, tw, tiles_h, tiles_w, iters, per_split, splits;
-  int pad_h, pad_w, sh, sw, dh, dw;  // the padding, strides and dilation a dimension
+  int pad_h, pad_w;  // the padding a dimension
   int m_tiles, n_tiles, units;  // units = m_tiles * n_tiles * splits
   // d2s: the transposed conv's O, kh, kw, its N tiles a segment (ceil(O /
   // 128)), and whether the output map stores the tiles (else value by value)
@@ -364,8 +343,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           mbar_expect_tx(full(s), tx);
           const int tap = it / a.nc, c0 = (it % a.nc) * BK;
           const int r = tap / a.KW, q = tap % a.KW;
-          tma_load_4d(a_base + s * A_STAGE, &map_x, full(s), c0, t.ow0 * a.sw + q * a.dw - a.pad_w,
-                      t.oh0 * a.sh + r * a.dh - a.pad_h, t.b);
+          tma_load_4d(a_base + s * A_STAGE, &map_x, full(s), c0, t.ow0 + q - a.pad_w,
+                      t.oh0 + r - a.pad_h, t.b);
           if (D2S)
             tma_load_4d(b_base + s * B_STAGE, &map_w, full(s), c0, t.o0, t.seg, 0);
           else
@@ -547,35 +526,20 @@ int launch_wg(const CUtensorMap& map_x, const CUtensorMap& map_w, const CUtensor
   return (int)cudaGetLastError();
 }
 
-// The extent of one dimension's box and its traversal stride for `t`
-// outputs a tile at stride `s`: t s elements at stride s, or one element
-// for one output (any stride).
-void strided_box(int t, int s, uint32_t* box, uint32_t* estride) {
-  *box = t == 1 ? 1u : (uint32_t)(t * s);
-  *estride = t == 1 ? 1u : (uint32_t)s;
-}
-
 // The arguments both entry points share, checked: the 4-D map of the int8
-// NHWC input in boxes of the th x tw rectangle (each dimension's box t s
-// elements at traversal stride s), and WgArgs up to the epilogue's
-// pointers. Returns 0, cudaErrorInvalidValue, or 100000 + a CUresult.
+// NHWC input in boxes of the th x tw rectangle, and WgArgs up to the
+// epilogue's pointers. Returns 0, cudaErrorInvalidValue, or 100000 + a
+// CUresult.
 int prepare(WgArgs& a, CUtensorMap* map_x, const void* xq, int B, int H, int W, int C, int N,
-            int KH, int KW, int pad_h, int pad_w, int sh, int sw, int dh, int dw, int out_kind,
-            int th, int tw, int m_tiles, int n_tiles, int splits, int per_split, int blocks,
-            void* ws) {
-  if (KH <= 0 || KW <= 0 || pad_h < 0 || pad_w < 0 || sh <= 0 || sw <= 0 || dh <= 0 || dw <= 0 ||
-      th <= 0 || tw <= 0)
+            int KH, int KW, int pad_h, int pad_w, int out_kind, int th, int tw, int m_tiles,
+            int n_tiles, int splits, int per_split, int blocks, void* ws) {
+  if (KH <= 0 || KW <= 0 || pad_h < 0 || pad_w < 0 || th <= 0 || tw <= 0)
     return (int)cudaErrorInvalidValue;
-  a.OH = (H + 2 * pad_h - dh * (KH - 1) - 1) / sh + 1;
-  a.OW = (W + 2 * pad_w - dw * (KW - 1) - 1) / sw + 1;
-  if (H + 2 * pad_h - dh * (KH - 1) - 1 < 0 || W + 2 * pad_w - dw * (KW - 1) - 1 < 0)
-    a.OH = a.OW = 0;
+  a.OH = H + 2 * pad_h - KH + 1;
+  a.OW = W + 2 * pad_w - KW + 1;
+  if (a.OH <= 0 || a.OW <= 0) a.OH = a.OW = 0;
   a.pad_h = pad_h;
   a.pad_w = pad_w;
-  a.sh = sh;
-  a.sw = sw;
-  a.dh = dh;
-  a.dw = dw;
   a.KW = KW;
   a.nc = (C + BK - 1) / BK;
   a.th = th;
@@ -594,8 +558,7 @@ int prepare(WgArgs& a, CUtensorMap* map_x, const void* xq, int B, int H, int W, 
   const long long M = (long long)B * a.OH * a.OW;
   if (B <= 0 || C <= 0 || C % 16 || N <= 0 || a.OH <= 0 || a.OW <= 0 ||
       M > 0x7fffffffLL || out_kind < 0 || out_kind > 2 || th <= 0 || tw <= 0 ||
-      th * tw > BM || (th > 1 && (sh > 8 || th * sh > 256)) ||
-      (tw > 1 && (sw > 8 || tw * sw > 256)) ||
+      th * tw > BM || th > 256 || tw > 256 ||
       (long long)m_tiles != (long long)B * a.tiles_h * a.tiles_w || n_tiles <= 0 ||
       splits <= 0 || (long long)m_tiles * n_tiles * splits > 0x7fffffffLL || blocks <= 0 ||
       (long long)blocks > (long long)m_tiles * n_tiles * splits ||
@@ -605,12 +568,8 @@ int prepare(WgArgs& a, CUtensorMap* map_x, const void* xq, int B, int H, int W, 
   if ((uintptr_t)xq % 16) return (int)cudaErrorMisalignedAddress;
   a.M = (int)M;
   const uint64_t dims[4] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)B};
-  const uint64_t strides[3] = {(uint64_t)C, (uint64_t)C * W, (uint64_t)C * W * H};
-  uint32_t box[4] = {(uint32_t)BK, 1u, 1u, 1u}, estride[4] = {1u, 1u, 1u, 1u};
-  strided_box(tw, sw, &box[1], &estride[1]);
-  strided_box(th, sh, &box[2], &estride[2]);
-  return encode_map(map_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, xq, dims, strides, box,
-                    CU_TENSOR_MAP_SWIZZLE_128B, estride);
+  const uint32_t box[4] = {(uint32_t)BK, (uint32_t)tw, (uint32_t)th, 1u};
+  return encode(map_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 4, xq, dims, box);
 }
 
 avp::Epilogue epilogue(const void* w_scale, const void* x_scale, const void* bias, void* out,
@@ -643,21 +602,18 @@ extern "C" int avp_int8_d2s_set_stamps(void* stamps) {
 #endif
 }
 
-// Launches the wgmma route (and its split-K and strided forms) on `stream`
+// Launches the wgmma route (and its split-K form) on `stream`
 // and returns cudaGetLastError() (0 on success), or 100000 + a CUresult if
 // a tensor map is refused. xq: (B, H, W, C) int8, 16-byte aligned, C a
 // multiple of 16; w: the (N, KH, KW, C) int8 weights, 16-byte aligned (their
 // map is encoded at the first launch and kept, sm90.cuh::weight_map);
 // w_scale: (N,) f32; x_scale: one f32, or null for a per-channel input
 // scale already folded into the weights; bias: (N,) of the output type, or
-// null; pad_h, pad_w, stride_h, stride_w, dil_h, dil_w: the conv's padding
-// (each side), strides and dilation a dimension; out: (B, OH, OW, N), OH =
-// (H + 2 pad_h - dil_h (KH - 1) - 1) / stride_h + 1, f32 (out_kind 0), bf16
+// null; pad_h, pad_w: the conv's padding (each side) a dimension, at stride
+// 1; out: (B, OH, OW, N), OH = H + 2 pad_h - KH + 1, f32 (out_kind 0), bf16
 // (1) or the int32 accumulators (2). The plan's numbers: the th x tw pixel
-// rectangle (th stride_h and tw stride_w at most 256, and stride_h,
-// stride_w at most 8, except along a dimension of one output a tile), the
-// tiles (m_tiles,
-// n_tiles), the K splits and the K steps per split, and the blocks to
+// rectangle, the tiles (m_tiles, n_tiles), the K splits and the K steps per
+// split, and the blocks to
 // launch (each takes every blocks-th unit of work). With splits > 1, ws is
 // an int32 workspace of splits * M * N partial sums followed by m_tiles *
 // n_tiles arrival counters, which this call zeroes on `stream` before the
@@ -665,14 +621,13 @@ extern "C" int avp_int8_d2s_set_stamps(void* stamps) {
 extern "C" int avp_int8_conv_wgmma(const void* xq, const void* w, const void* w_scale,
                                    const void* x_scale, const void* bias, void* out, void* ws,
                                    int B, int H, int W, int C, int N, int KH, int KW, int pad_h,
-                                   int pad_w, int stride_h, int stride_w, int dil_h, int dil_w,
-                                   int out_kind, int th, int tw, int m_tiles, int n_tiles,
-                                   int splits, int per_split, int blocks, void* stream) {
+                                   int pad_w, int out_kind, int th, int tw, int m_tiles,
+                                   int n_tiles, int splits, int per_split, int blocks,
+                                   void* stream) {
   WgArgs a;
   alignas(64) CUtensorMap map_x, map_w;
-  int err = prepare(a, &map_x, xq, B, H, W, C, N, KH, KW, pad_h, pad_w, stride_h, stride_w,
-                    dil_h, dil_w, out_kind, th, tw, m_tiles, n_tiles, splits, per_split, blocks,
-                    ws);
+  int err = prepare(a, &map_x, xq, B, H, W, C, N, KH, KW, pad_h, pad_w, out_kind, th, tw,
+                    m_tiles, n_tiles, splits, per_split, blocks, ws);
   if (err) return err;
   if (!out || !w || n_tiles != (N + BN - 1) / BN) return (int)cudaErrorInvalidValue;
   if ((uintptr_t)w % 16) return (int)cudaErrorMisalignedAddress;
@@ -709,8 +664,8 @@ extern "C" int avp_int8_conv_d2s(const void* xq, const void* wt, const void* w_s
   if ((uintptr_t)wt % 16) return (int)cudaErrorMisalignedAddress;
   WgArgs a;
   alignas(64) CUtensorMap map_x, map_w, map_out;
-  int err = prepare(a, &map_x, xq, B, h, w, C, kh * kw * O, 1, 1, 0, 0, 1, 1, 1, 1, out_kind, th,
-                    tw, m_tiles, n_tiles, splits, per_split, blocks, ws);
+  int err = prepare(a, &map_x, xq, B, h, w, C, kh * kw * O, 1, 1, 0, 0, out_kind, th, tw,
+                    m_tiles, n_tiles, splits, per_split, blocks, ws);
   if (err) return err;
   a.O = O;
   a.kh = kh;

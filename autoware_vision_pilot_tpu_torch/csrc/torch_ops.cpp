@@ -5,9 +5,10 @@
 // the greedy NMS (csrc/nms.cu), and the int8 kernels (the port of the int8
 // branches of autoware_vision_pilot_tpu/nn/layers.py's Conv2d and
 // ConvTranspose2d): the activation quantize (csrc/int8_conv.cu), the conv
-// on each route of ops/kernels/int8_conv.py::int8_conv_plan ("wgmma",
-// "splitk" and "strided" on csrc/int8_conv_sm90.cu, "halo" on
-// csrc/int8_conv_halo.cu, "pointwise" and "dot" on csrc/int8_pointwise.cu)
+// on each route of ops/kernels/int8_conv.py::int8_conv_plan ("wgmma" and
+// "splitk" on csrc/int8_conv_sm90.cu, "strided" on csrc/int8_conv_strided.cu,
+// "halo" on csrc/int8_conv_halo.cu, "pointwise" and "dot" on
+// csrc/int8_pointwise.cu)
 // and the transposed conv's "d2s" product (csrc/int8_conv_sm90.cu).
 //
 // torch.export records a call of `torch.ops.avp.*` as one node, and an
@@ -32,7 +33,8 @@
 // and the weights themselves: the kernels' entry points encode the input's
 // TMA map at each call and the weights' once per (address, shape, box)
 // (csrc/sm90.cuh::weight_map). A split-K launch's workspace comes from
-// at::empty. Their tensors must lie as the kernels read them (NHWC:
+// at::empty (the wgmma kernel's; the strided kernel sums its K splits
+// inside a cluster and needs none). Their tensors must lie as the kernels read them (NHWC:
 // channels_last; checked, never copied), and they are tagged
 // needs_fixed_stride_order so that inductor hands them the strides eager
 // does. The 1x1 routes on a float input quantize as they load with 1 /
@@ -48,6 +50,7 @@
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
+#include <array>
 #include <atomic>
 #include <cstdint>
 #include <optional>
@@ -74,9 +77,15 @@ int avp_int8_quantize(const void* x, void* xq, const void* scale, int per_channe
                       long long pixels, int C, int in_bf16, void* stream);
 int avp_int8_conv_wgmma(const void* xq, const void* w, const void* w_scale, const void* x_scale,
                         const void* bias, void* out, void* ws, int B, int H, int W, int C, int N,
-                        int KH, int KW, int pad_h, int pad_w, int stride_h, int stride_w,
-                        int dil_h, int dil_w, int out_kind, int th, int tw, int m_tiles,
-                        int n_tiles, int splits, int per_split, int blocks, void* stream);
+                        int KH, int KW, int pad_h, int pad_w, int out_kind, int th, int tw,
+                        int m_tiles, int n_tiles, int splits, int per_split, int blocks,
+                        void* stream);
+int avp_int8_conv_strided(const void* xq, const void* w, const void* w_scale,
+                          const void* x_scale, const void* bias, void* out, int B, int H, int W,
+                          int C, int N, int KH, int KW, int pad_h, int pad_w, int stride_h,
+                          int stride_w, int dil_h, int dil_w, int out_kind, int th, int tw,
+                          int bn, int m_tiles, int n_tiles, int cs, int per_rank, int stages,
+                          int phase_h, int phase_w, int gu, void* stream);
 int avp_int8_conv_halo(const void* xq, const void* w, const void* w_scale, const void* x_scale,
                        const void* bias, void* out, int B, int H, int W, int C, int N, int KH,
                        int KW, int pad, int out_kind, int th, int tw, int bn, int m_tiles,
@@ -315,32 +324,41 @@ at::Tensor int8_quantize(const at::Tensor& x, const at::Tensor& scale) {
   return xq;
 }
 
-// The wgmma kernel: "wgmma", "splitk" and "strided" (counted as `op`).
-// geometry: pad_h, pad_w, stride_h, stride_w, dil_h, dil_w; plan: th, tw,
-// m_tiles, n_tiles, splits, per_split, blocks.
-at::Tensor int8_conv_wg(Op op, const char* name, const at::Tensor& xq, const at::Tensor& weight,
-                        const at::Tensor& w_scale, const at::Tensor& x_scale,
-                        const std::optional<at::Tensor>& bias, at::IntArrayRef geometry,
-                        at::IntArrayRef plan, int64_t out_kind) {
+// The input checks of the window convs: xq and weight int8 NHWC, the
+// weight's C that of xq, the epilogue's tensors. -> (B, C, H, W, N, KH, KW).
+std::array<int64_t, 7> check_window_conv(const at::Tensor& xq, const at::Tensor& weight,
+                                         const at::Tensor& w_scale, const at::Tensor& x_scale,
+                                         const std::optional<at::Tensor>& bias,
+                                         int64_t out_kind) {
   check_nhwc(xq, "xq");
   check_nhwc(weight, "weight");
   TORCH_CHECK(xq.scalar_type() == at::kChar && weight.scalar_type() == at::kChar,
               "xq and weight must be int8");
+  const int64_t C = xq.size(1), N = weight.size(0);
+  TORCH_CHECK(weight.size(1) == C, "weight ", weight.sizes(), " does not take ", C, " channels");
+  check_epilogue(xq, w_scale, x_scale, bias, C, N, out_kind);
+  return {xq.size(0), C, xq.size(2), xq.size(3), N, weight.size(2), weight.size(3)};
+}
+
+// The wgmma kernel: "wgmma" and "splitk" (counted as `op`), stride 1.
+// geometry: pad_h, pad_w, stride_h, stride_w, dil_h, dil_w (strides and
+// dilations 1); plan: th, tw, m_tiles, n_tiles, splits, per_split, blocks.
+at::Tensor int8_conv_wg(Op op, const char* name, const at::Tensor& xq, const at::Tensor& weight,
+                        const at::Tensor& w_scale, const at::Tensor& x_scale,
+                        const std::optional<at::Tensor>& bias, at::IntArrayRef geometry,
+                        at::IntArrayRef plan, int64_t out_kind) {
+  const auto [B, C, H, W, N, KH, KW] =
+      check_window_conv(xq, weight, w_scale, x_scale, bias, out_kind);
   TORCH_CHECK(geometry.size() == 6 && plan.size() == 7, name,
               ": geometry (pad_h, pad_w, stride_h, stride_w, dil_h, dil_w) and plan (th, tw, "
               "m_tiles, n_tiles, splits, per_split, blocks), got ", geometry, ", ", plan);
-  const int64_t B = xq.size(0), C = xq.size(1), H = xq.size(2), W = xq.size(3);
-  const int64_t N = weight.size(0), KH = weight.size(2), KW = weight.size(3);
-  TORCH_CHECK(weight.size(1) == C, "weight ", weight.sizes(), " does not take ", C, " channels");
-  check_epilogue(xq, w_scale, x_scale, bias, C, N, out_kind);
-  const int64_t ph = geometry[0], pw = geometry[1], sh = geometry[2], sw = geometry[3],
-                dh = geometry[4], dw = geometry[5];
-  TORCH_CHECK(sh > 0 && sw > 0 && dh > 0 && dw > 0 && ph >= 0 && pw >= 0, name,
-              ": bad geometry ", geometry);
-  const int64_t OH = (H + 2 * ph - dh * (KH - 1) - 1) / sh + 1;
-  const int64_t OW = (W + 2 * pw - dw * (KW - 1) - 1) / sw + 1;
-  TORCH_CHECK(H + 2 * ph - dh * (KH - 1) > 0 && W + 2 * pw - dw * (KW - 1) > 0, name,
-              ": the window is larger than the padded input");
+  const int64_t ph = geometry[0], pw = geometry[1];
+  TORCH_CHECK(ph >= 0 && pw >= 0 && geometry[2] == 1 && geometry[3] == 1 && geometry[4] == 1 &&
+                  geometry[5] == 1,
+              name, ": stride 1 and dilation 1 only (the strided route takes the others), got ",
+              geometry);
+  const int64_t OH = H + 2 * ph - KH + 1, OW = W + 2 * pw - KW + 1;
+  TORCH_CHECK(OH > 0 && OW > 0, name, ": the window is larger than the padded input");
   const int64_t splits = plan[4];
   const c10::cuda::CUDAGuard guard(xq.device());
   at::Tensor out = nhwc_empty(xq, B, N, OH, OW, out_type(out_kind));
@@ -352,9 +370,9 @@ at::Tensor int8_conv_wg(Op op, const char* name, const at::Tensor& xq, const at:
                    xq.data_ptr(), weight.data_ptr(), w_scale.data_ptr(),
                    x_scale.dim() == 0 ? x_scale.data_ptr() : nullptr, bias_ptr(bias, out_kind),
                    out.data_ptr(), splits > 1 ? ws.data_ptr() : nullptr, (int)B, (int)H, (int)W,
-                   (int)C, (int)N, (int)KH, (int)KW, (int)ph, (int)pw, (int)sh, (int)sw, (int)dh,
-                   (int)dw, (int)out_kind, (int)plan[0], (int)plan[1], (int)plan[2],
-                   (int)plan[3], (int)splits, (int)plan[5], (int)plan[6], stream_of(xq)),
+                   (int)C, (int)N, (int)KH, (int)KW, (int)ph, (int)pw, (int)out_kind,
+                   (int)plan[0], (int)plan[1], (int)plan[2], (int)plan[3], (int)splits,
+                   (int)plan[5], (int)plan[6], stream_of(xq)),
                name);
   ++g_calls[op];
   return out;
@@ -376,12 +394,41 @@ at::Tensor int8_conv_splitk(const at::Tensor& xq, const at::Tensor& weight,
                       geometry, plan, out_kind);
 }
 
+// The strided kernel (csrc/int8_conv_strided.cu): one launch, no
+// workspace. geometry: pad_h, pad_w, stride_h, stride_w, dil_h, dil_w;
+// plan: th, tw, bn, m_tiles, n_tiles, cs, per_rank, stages, phase_h,
+// phase_w, gu.
 at::Tensor int8_conv_strided(const at::Tensor& xq, const at::Tensor& weight,
                              const at::Tensor& w_scale, const at::Tensor& x_scale,
                              const std::optional<at::Tensor>& bias, at::IntArrayRef geometry,
                              at::IntArrayRef plan, int64_t out_kind) {
-  return int8_conv_wg(kInt8Strided, "avp::int8_conv_strided", xq, weight, w_scale, x_scale,
-                      bias, geometry, plan, out_kind);
+  const auto [B, C, H, W, N, KH, KW] =
+      check_window_conv(xq, weight, w_scale, x_scale, bias, out_kind);
+  TORCH_CHECK(geometry.size() == 6 && plan.size() == 11,
+              "avp::int8_conv_strided: geometry (pad_h, pad_w, stride_h, stride_w, dil_h, dil_w) "
+              "and plan (th, tw, bn, m_tiles, n_tiles, cs, per_rank, stages, phase_h, phase_w, "
+              "gu), got ", geometry, ", ", plan);
+  const int64_t ph = geometry[0], pw = geometry[1], sh = geometry[2], sw = geometry[3],
+                dh = geometry[4], dw = geometry[5];
+  TORCH_CHECK(sh > 0 && sw > 0 && dh > 0 && dw > 0 && ph >= 0 && pw >= 0,
+              "avp::int8_conv_strided: bad geometry ", geometry);
+  TORCH_CHECK(H + 2 * ph - dh * (KH - 1) > 0 && W + 2 * pw - dw * (KW - 1) > 0,
+              "avp::int8_conv_strided: the window is larger than the padded input");
+  const int64_t OH = (H + 2 * ph - dh * (KH - 1) - 1) / sh + 1;
+  const int64_t OW = (W + 2 * pw - dw * (KW - 1) - 1) / sw + 1;
+  const c10::cuda::CUDAGuard guard(xq.device());
+  at::Tensor out = nhwc_empty(xq, B, N, OH, OW, out_type(out_kind));
+  int p[11];
+  for (int i = 0; i < 11; ++i) p[i] = (int)plan[i];
+  check_launch(avp_int8_conv_strided(
+                   xq.data_ptr(), weight.data_ptr(), w_scale.data_ptr(),
+                   x_scale.dim() == 0 ? x_scale.data_ptr() : nullptr, bias_ptr(bias, out_kind),
+                   out.data_ptr(), (int)B, (int)H, (int)W, (int)C, (int)N, (int)KH, (int)KW,
+                   (int)ph, (int)pw, (int)sh, (int)sw, (int)dh, (int)dw, (int)out_kind, p[0],
+                   p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], stream_of(xq)),
+               "avp::int8_conv_strided");
+  ++g_calls[kInt8Strided];
+  return out;
 }
 
 // plan: th, tw, bn, m_tiles, n_tiles, blocks, stages, resident
@@ -389,16 +436,10 @@ at::Tensor int8_conv_halo(const at::Tensor& xq, const at::Tensor& weight,
                           const at::Tensor& w_scale, const at::Tensor& x_scale,
                           const std::optional<at::Tensor>& bias, int64_t pad,
                           at::IntArrayRef plan, int64_t out_kind) {
-  check_nhwc(xq, "xq");
-  check_nhwc(weight, "weight");
-  TORCH_CHECK(xq.scalar_type() == at::kChar && weight.scalar_type() == at::kChar,
-              "xq and weight must be int8");
+  const auto [B, C, H, W, N, KH, KW] =
+      check_window_conv(xq, weight, w_scale, x_scale, bias, out_kind);
   TORCH_CHECK(plan.size() == 8, "avp::int8_conv_halo: plan (th, tw, bn, m_tiles, n_tiles, "
               "blocks, stages, resident), got ", plan);
-  const int64_t B = xq.size(0), C = xq.size(1), H = xq.size(2), W = xq.size(3);
-  const int64_t N = weight.size(0), KH = weight.size(2), KW = weight.size(3);
-  TORCH_CHECK(weight.size(1) == C, "weight ", weight.sizes(), " does not take ", C, " channels");
-  check_epilogue(xq, w_scale, x_scale, bias, C, N, out_kind);
   const int64_t OH = H + 2 * pad - KH + 1, OW = W + 2 * pad - KW + 1;
   TORCH_CHECK(pad >= 0 && OH > 0 && OW > 0, "avp::int8_conv_halo: the window is larger than "
               "the padded input");

@@ -45,10 +45,11 @@ SIGNATURES = {
     "avp_letterbox_set_stamps": (_P,),
     # stamps (a build with -DAVP_PW_STAMPS; else cudaErrorNotSupported)
     "avp_int8_pointwise_set_stamps": (_P,),
-    # stamps (builds with -DAVP_HALO_STAMPS, -DAVP_D2S_STAMPS; else
-    # cudaErrorNotSupported)
+    # stamps (builds with -DAVP_HALO_STAMPS, -DAVP_D2S_STAMPS,
+    # -DAVP_STRIDED_STAMPS; else cudaErrorNotSupported)
     "avp_int8_halo_set_stamps": (_P,),
     "avp_int8_d2s_set_stamps": (_P,),
+    "avp_int8_strided_set_stamps": (_P,),
     # blocks, threads, cluster, stream
     "avp_launch_floor": (_I, _I, _I, _P),
 }

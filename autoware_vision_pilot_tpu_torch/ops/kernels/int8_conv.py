@@ -1,5 +1,6 @@
 """Int8 convolution: the wrappers of csrc/int8_conv.cu,
-csrc/int8_conv_sm90.cu, csrc/int8_conv_halo.cu and csrc/int8_pointwise.cu,
+csrc/int8_conv_sm90.cu, csrc/int8_conv_halo.cu, csrc/int8_conv_strided.cu
+and csrc/int8_pointwise.cu,
 the port of the int8 branch of autoware_vision_pilot_tpu/nn/layers.py::Conv2d
 (:81-113) and ConvTranspose2d (:187-208), which the JAX package leaves to
 XLA. On the card every kernel is called as a dispatcher operator,
@@ -17,9 +18,12 @@ launches:
   (:110-113); or the accumulators themselves for ``out_dtype=torch.int32``.
   ``int8_conv_plan`` picks one of six routes: "wgmma" (TMA loads and
   wgmma on 128x128 tiles), "splitk" (the same kernel over slices of K; the
-  split that finishes a tile last runs its epilogue), "strided" (the same
-  kernel for any stride, dilation and padding a dimension, each tap's input
-  box read at the stride by TMA's traversal strides), "pointwise" (1x1
+  split that finishes a tile last runs its epilogue), "strided" (a kernel
+  of its own for any stride, dilation and padding a dimension: a halo a
+  phase of the input gathered once a tile (16-byte cp.async), each tap's
+  wgmma reading it through a shifted descriptor, K in steps of 32
+  channels split over the blocks of a cluster and summed in distributed
+  shared memory, N tiles of 8-64; one launch), "pointwise" (1x1
   convs: TMA loads, the quantize into wgmma's register A fragments, K
   split over the blocks of a cluster), "dot" (1x1 convs of at most 8
   pixels, the M = 1 SE convs: a lane per 16 channels of an output
@@ -75,8 +79,11 @@ ROUTES = ("wgmma", "splitk", "strided", "halo", "pointwise", "dot")
 FUSED_ROUTES = ("pointwise", "dot")  # they take a float input and quantize it
 _IN_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 TILE = 128      # the wgmma route's BM = BN = BK (csrc/int8_conv_sm90.cu)
-MAX_BOX = 256   # a TMA box's most elements a dimension
-MAX_TRAVERSAL = 8  # a TMA map's most traversal stride
+# the strided route's limits a dimension (StridedDim.fits): a halo of at
+# most MAX_BOX input elements, a stride of at most MAX_TRAVERSAL where it
+# loads a halo a phase (its kernel's phase tables hold that many)
+MAX_BOX = 256
+MAX_TRAVERSAL = 8
 # the halo route (csrc/int8_conv_halo.cu): its N tiles (wgmma's small N
 # shapes), the channels of a halo chunk and of a weight box, of a slab (one
 # 16-byte pixel row), its most halo stages, its weight ring, and the dynamic
@@ -89,6 +96,16 @@ HALO_WSTAGES = 4
 HALO_SMEM = 113 * 1024   # two blocks an SM
 HALO_BLOCKS_PER_SM = 2
 SMEM_LIMIT = 232_448  # an H100's shared memory a block can use (227 KB)
+# the strided route (csrc/int8_conv_strided.cu): its output positions a
+# block (two consumer warpgroups of 64), its K step (32 channels: one int8
+# wgmma, two 16-byte slabs), its most stages, the words after each row of
+# the int32 tile its cluster sums, and the dynamic shared memory a launch
+# may take
+ST_TILE = 128
+ST_STEP = 32
+ST_STAGES = 8
+ST_PAD = 4
+ST_SMEM = 200 * 1024
 PW_WIDTHS = (64, 128, 192, 256)  # the pointwise route's N tiles (csrc/int8_pointwise.cu)
 PW_BK = 16      # its K ranges are multiples of 16 channels (a TMA box starts on 16 bytes)
 PW_STEP = 128   # its K step: 128 channels, one 128-byte row of an int8 TMA box
@@ -256,7 +273,12 @@ class Int8ConvPlan(NamedTuple):
     per tile and split. The dot route runs ``bn`` output channels a block,
     ``bm`` = M rows each, over ``iters`` chunks of ``bk`` channels; its K
     splits are the ``grid[2]`` lanes of a channel, lane z taking chunks z,
-    z + lanes, ... (``per_split`` of them at most)."""
+    z + lanes, ... (``per_split`` of them at most). The strided route tiles
+    M as th x tw rectangles (th hw <= 128 positions, hw the W halo's lines)
+    and N as ``bn`` channels; its K is ``iters`` steps of ``bk`` = 32
+    channels, ``per_split`` of them a rank of a cluster of ``grid[2]``
+    blocks; ``stages`` units a batch in shared memory; ``phases`` = (a
+    halo a phase along H, along W, the groups of a unit)."""
     route: str
     bm: int
     bn: int
@@ -269,6 +291,7 @@ class Int8ConvPlan(NamedTuple):
     blocks: int
     stages: int = 0
     resident: bool = False
+    phases: tuple = ()
 
     @property
     def splits(self) -> int:
@@ -280,14 +303,12 @@ def _widths(OW: int, bm: int = TILE) -> list:
     return sorted({min(OW, bm), *(w for w in (128, 64, 32, 16, 8) if w <= OW)}, reverse=True)
 
 
-def _rectangle(OH: int, OW: int, bm: int = TILE, max_h: int = MAX_BOX,
-               max_w: int = MAX_BOX) -> tuple:
-    """The th x tw pixel rectangle (th * tw <= bm, th <= max_h, tw <=
-    max_w) that covers the OH x OW map in the fewest M tiles; the widest of
-    those."""
+def _rectangle(OH: int, OW: int, bm: int = TILE) -> tuple:
+    """The th x tw pixel rectangle (th * tw <= bm) that covers the OH x OW
+    map in the fewest M tiles; the widest of those."""
     best = None
-    for tw in _widths(min(OW, max_w), bm):
-        th = min(bm // tw, OH, max_h)
+    for tw in _widths(OW, bm):
+        th = min(bm // tw, OH)
         tiles = math.ceil(OH / th) * math.ceil(OW / tw)
         if best is None or tiles < best[0]:
             best = (tiles, th, tw)
@@ -355,8 +376,9 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
     window, ``pad`` zeros on each side (an int, or one a dimension),
     ``stride`` and ``dilation`` (an int, or one a dimension), on a card of
     ``sms`` SMs. A conv with a stride or a dilation other than 1, or with
-    another padding a dimension, takes "strided" (_strided_plan); the
-    others:
+    another padding a dimension, takes "strided" (_strided_plan: a halo a
+    phase, N tiles of 8-64, K steps of 32 channels split over a cluster of
+    up to 8 blocks, one block a tile, N tile and rank); the others:
 
     - "wgmma" for windows larger than 1x1 with C >= 128;
     - "splitk" for those of them whose 128x128 output tiles fill less than
@@ -379,7 +401,7 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
       window with padding): _halo_plan.
 
     The wgmma routes launch persistent blocks, one per SM or one per unit
-    of work, whichever is fewer.
+    of work, whichever is fewer; "strided" launches one block a unit.
 
     Raises ValueError for a shape that no route takes."""
     geo = geometry(pad, stride, dilation)
@@ -417,31 +439,173 @@ def int8_conv_plan(B: int, H: int, W: int, C: int, N: int, KH: int, KW: int,
                         min(tiles * splits, sms))
 
 
-def _tile_limit(s: int) -> int:
-    """The most outputs a tile of the strided route takes along a
-    dimension of stride s: its box spans that many times s elements (at
-    most MAX_BOX) at a traversal stride of s (at most MAX_TRAVERSAL); above
-    that, one (a box of one element)."""
-    return MAX_BOX // s if s <= MAX_TRAVERSAL else 1
+class StridedDim(NamedTuple):
+    """How the "strided" route loads one dimension of a tile of ``t``
+    outputs (csrc/int8_conv_strided.cu::Dim): tap k reads input line x0 s +
+    k d - p for output x0. ``phase``: a halo a phase, the taps' lines taken
+    (o mod s) apart and offset floor(o / s) (o = k d - p) within it, every
+    input line once a tile; else a box a tap (every tap its own group, line
+    0). ``groups`` halos, each ``ext`` lines of the phase; tap k reads group
+    ``tap_group[k]`` from line ``tap_line[k]`` on; group g starts at input
+    line x0 s + ``base[g]``; its ``ext`` lines lie ``estride`` apart, over
+    ``box`` input elements."""
+    phase: bool
+    groups: int
+    ext: int
+    span: int
+    base: tuple
+    tap_group: tuple
+    tap_line: tuple
+    estride: int
+    box: int
+
+    @property
+    def fits(self) -> bool:
+        """Whether the route takes the dimension: a halo of at most MAX_BOX
+        input elements, a stride of at most MAX_TRAVERSAL between its lines
+        (one line needs none)."""
+        return self.box <= MAX_BOX and (self.box == 1 or self.estride <= MAX_TRAVERSAL)
+
+
+def strided_dim(K: int, s: int, d: int, p: int, t: int, phase: bool) -> StridedDim:
+    """The StridedDim of a dimension with K taps, stride s, dilation d and
+    padding p, for tiles of t outputs."""
+    offs = [k * d - p for k in range(K)]
+    if not phase:
+        return StridedDim(False, K, t, 0, tuple(offs), tuple(range(K)), (0,) * K,
+                          s if t > 1 else 1, t * s if t > 1 else 1)
+    phases = sorted({o % s for o in offs})
+    amin = {f: min(o // s for o in offs if o % s == f) for f in phases}
+    lines = tuple(o // s - amin[o % s] for o in offs)
+    ext = t + max(lines)
+    return StridedDim(True, len(phases), ext, max(lines),
+                      tuple(amin[f] * s + f for f in phases),
+                      tuple(phases.index(o % s) for o in offs), lines, s, ext * s)
+
+
+class StridedLayout(NamedTuple):
+    """The strided route's shared memory (csrc/int8_conv_strided.cu's
+    entry point): a 16-channel slab's pitch (the halo of one group, and
+    what the ST_TILE positions' taps read past it), a stage (``groups``
+    halos of two slabs, then two slabs of ``taps`` weight boxes of bn rows),
+    the stages, the int32 tile of this rank's own rows (ST_TILE rows of bn +
+    ST_PAD words) in the same memory, the taps' and groups' tables after
+    them, the slots of the other cs - 1 ranks' rows of this rank's share,
+    and the launch's dynamic shared memory (1024 bytes of it align the
+    base)."""
+    slab_pitch: int
+    groups: int
+    taps: int
+    stage_bytes: int
+    stages: int
+    tile_bytes: int
+    smem: int
+
+
+def strided_units(dh: StridedDim, dw: StridedDim, gu: int) -> list:
+    """The taps (r, q) of each unit of ``gu`` groups (group g = gh dw.groups
+    + gw, a unit the groups [u gu, (u + 1) gu)): a K step of 32 channels
+    runs its units in turn."""
+    G = dh.groups * dw.groups
+    units = [[] for _ in range(math.ceil(G / gu))]
+    for r, gh in enumerate(dh.tap_group):
+        for q, gw in enumerate(dw.tap_group):
+            units[(gh * dw.groups + gw) // gu].append((r, q))
+    return units
+
+
+def strided_layout(dh: StridedDim, dw: StridedDim, gu: int, bn: int, units_per_rank: int,
+                   cs: int) -> StridedLayout:
+    """The shared memory of a strided launch; the kernel's own arithmetic."""
+    hw = dw.ext
+    rows = max(dh.ext * hw, ST_TILE + dh.span * hw + dw.span)
+    slab_pitch = _round_up(rows * HALO_SLAB, 128)
+    taps = max(len(u) for u in strided_units(dh, dw, gu))
+    stage_bytes = _round_up(gu * 2 * slab_pitch + taps * 2 * bn * HALO_SLAB, 1024)
+    tile_bytes = ST_TILE * (bn + ST_PAD) * 4
+    # each tap's (group, first position, r, q) and each group's offsets
+    tables = _round_up(16 * len(dh.tap_group) * len(dw.tap_group) + 8 * dh.groups * dw.groups,
+                       16)
+    # the other ranks' rows of this rank's share: cs - 1 slots of ceil(ST_TILE / cs) rows
+    recv = (cs - 1) * math.ceil(ST_TILE / cs) * bn * 4
+    stages = max(1, min(units_per_rank, ST_STAGES,
+                        (ST_SMEM - 1024 - tables - recv) // stage_bytes))
+    smem = 1024 + max(stages * stage_bytes, tile_bytes) + tables + recv
+    return StridedLayout(slab_pitch, gu, taps, stage_bytes, stages, tile_bytes, smem)
+
+
+def _strided_tiles(OH: int, OW: int, KH: int, KW: int, geo: tuple, phase_h: bool,
+                   phase_w: bool):
+    """The th x tw rectangle of the strided route for these modes: th hw <=
+    ST_TILE positions (hw = the W halo's lines), both dimensions within
+    StridedDim.fits; the fewest tiles, then the fewest halo positions
+    loaded, then the widest (the longest runs of a halo's rows). ->
+    (th, tw, dim_h, dim_w), or None where no rectangle fits."""
+    ph, pw, sh, sw, dh_, dw_ = geo
+    best = None
+    for tw in range(1, min(OW, ST_TILE) + 1):
+        dw = strided_dim(KW, sw, dw_, pw, tw, phase_w)
+        if not dw.fits or dw.ext > ST_TILE:
+            continue
+        th = min(OH, ST_TILE // dw.ext)
+        while th > 0 and not strided_dim(KH, sh, dh_, ph, th, phase_h).fits:
+            th -= 1
+        if th == 0:
+            continue
+        dh = strided_dim(KH, sh, dh_, ph, th, phase_h)
+        tiles = math.ceil(OH / th) * math.ceil(OW / tw)
+        key = (tiles, tiles * dh.ext * dw.ext * dh.groups * dw.groups, -tw)
+        if best is None or key < best[0]:
+            best = (key, th, tw, dh, dw)
+    return None if best is None else best[1:]
 
 
 def _strided_plan(B: int, OH: int, OW: int, C: int, N: int, KH: int, KW: int, geo: tuple,
                   sms: int) -> Int8ConvPlan:
-    """The "strided" plan: the wgmma route's 128x128 tiles over the OH x OW
-    output, the rectangle of _rectangle within _tile_limit of each
-    dimension's stride, K as KH KW ceil(C / 128) steps (C < 128 padded by
-    the loads' zero fill), and the K splits of _k_splits."""
+    """The "strided" plan (csrc/int8_conv_strided.cu): along each dimension
+    a halo a phase where its stride is at most MAX_TRAVERSAL and the halo
+    fits (else a box a tap, and one output a tile where the stride is
+    larger); the rectangle of _strided_tiles; N tiles of the narrowest
+    HALO_WIDTHS that holds N (64 above it); K as ceil(C / 32) steps of 32
+    channels, split over the blocks of a cluster of up to MAX_CLUSTER (as
+    many as the SMs hold, every cluster at once: clusters_at_once), each
+    rank a contiguous range of ``per_split`` steps; a step's groups in
+    units of ``phases[2]`` groups (all of them where a stage fits), and as
+    many stages as the rank's units, up to ST_STAGES, as ST_SMEM holds.
+    One block a (tile, N tile, rank): ``blocks`` of them. ``phases`` is
+    (phase_h, phase_w, groups a unit). Raises ValueError where no tiling
+    fits."""
     _, _, sh, sw, _, _ = geo
-    th, tw = _rectangle(OH, OW, TILE, _tile_limit(sh), _tile_limit(sw))
-    m_tiles = B * math.ceil(OH / th) * math.ceil(OW / tw)
-    n_tiles = math.ceil(N / TILE)
+    bn = next((w for w in HALO_WIDTHS if w >= N), HALO_WIDTHS[-1])
+    n_tiles = math.ceil(N / bn)
     if n_tiles > 65535:
         raise ValueError(f"N = {N}: more output channels than the grid holds")
-    iters = KH * KW * math.ceil(C / TILE)
-    tiles = m_tiles * n_tiles
-    splits, per_split = _k_splits(tiles, iters, sms)
-    return Int8ConvPlan("strided", TILE, TILE, TILE, (m_tiles, n_tiles, splits), th, tw, iters,
-                        per_split, min(tiles * splits, sms))
+    steps = math.ceil(C / ST_STEP)
+    for phase_h, phase_w in ((True, True), (True, False), (False, True), (False, False)):
+        if (phase_h and sh > MAX_TRAVERSAL) or (phase_w and sw > MAX_TRAVERSAL):
+            continue
+        found = _strided_tiles(OH, OW, KH, KW, geo, phase_h, phase_w)
+        if found is None:
+            continue
+        th, tw, dh, dw = found
+        m_tiles = B * math.ceil(OH / th) * math.ceil(OW / tw)
+        tiles = m_tiles * n_tiles
+        cs = max(1, min(MAX_CLUSTER, steps, sms // tiles))
+        while cs > 1 and tiles > clusters_at_once(cs, sms):
+            cs -= 1  # every cluster on the card at once
+        per_split = math.ceil(steps / cs)
+        cs = math.ceil(steps / per_split)  # no rank left without channels
+        if m_tiles * cs >= 2 ** 31:
+            continue
+        G = dh.groups * dw.groups
+        for gu in range(G, 0, -1):
+            layout = strided_layout(dh, dw, gu, bn, per_split * math.ceil(G / gu), cs)
+            if layout.smem <= ST_SMEM:
+                return Int8ConvPlan("strided", ST_TILE, bn, ST_STEP, (m_tiles, n_tiles, cs), th,
+                                    tw, steps, per_split, tiles * cs, layout.stages, False,
+                                    (phase_h, phase_w, gu))
+    raise ValueError(f"window {KH}x{KW} with geometry {geo}: no strided tiling fits the "
+                     "route's halo limits and the shared memory")
 
 
 class HaloLayout(NamedTuple):
@@ -736,9 +900,15 @@ def _launch(plan: Int8ConvPlan, x: torch.Tensor, weight: torch.Tensor,
             x, weight, weight_scale, scale, b, ph,
             [plan.th, plan.tw, plan.bn, m_tiles, n_tiles, plan.blocks, plan.stages,
              int(plan.resident)], kind)
+    elif plan.route == "strided":
+        phase_h, phase_w, gu = plan.phases
+        out = torch.ops.avp.int8_conv_strided(
+            x, weight, weight_scale, scale, b, list(geometry(pad, stride, dilation)),
+            [plan.th, plan.tw, plan.bn, m_tiles, n_tiles, splits, plan.per_split, plan.stages,
+             int(phase_h), int(phase_w), gu], kind)
     else:
         route = getattr(torch.ops.avp, f"int8_conv_{plan.route}")
-        out = route(x, weight, weight_scale, scale, b, list(geometry(pad, stride, dilation)),
+        out = route(x, weight, weight_scale, scale, b, list(geometry(pad)),
                     [plan.th, plan.tw, m_tiles, n_tiles, splits, plan.per_split, plan.blocks],
                     kind)
     if _eager():

@@ -5,14 +5,15 @@
     python3 chip_smoke.py --parent ROOT       # also time the lane-filter walk,
                                               # NMS, int8 1x1 ("pointwise",
                                               # "dot"), window conv with C <
-                                              # 128, transposed conv and
+                                              # 128, transposed conv,
+                                              # strided conv and
                                               # letterbox kernels
                                               # of the port in ROOT (an
                                               # earlier commit, from git
                                               # archive) against this tree's:
                                               # parent, this, this, parent;
-                                              # the 1x1, halo, d2s and
-                                              # letterbox stage splits;
+                                              # the 1x1, halo, d2s, strided
+                                              # and letterbox stage splits;
                                               # phase 8's host costs of ROOT's
                                               # package in turns
     python3 chip_smoke.py --host-costs ROOT   # phase 7's host costs alone, of
@@ -56,7 +57,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              64 -> 96 at 20x40). With --parent, the parent's transposed conv
              and mma.sync conv against this tree's d2s and halo kernels in
              turns (PARENT_D2S, PARENT_HALO), and the new kernels' stage
-             splits from a build with -DAVP_HALO_STAMPS -DAVP_D2S_STAMPS.
+             splits from a build with -DAVP_HALO_STAMPS -DAVP_D2S_STAMPS;
+             the parent's strided route (called through its own C entry
+             point) against this tree's at STRIDED_TIMED in turns, each
+             call's device time by kernel, and both stage splits at
+             STRIDED_SPLIT (the parent's from a stamped copy, this tree's
+             csrc/int8_conv_strided.cu built with -DAVP_STRIDED_STAMPS).
+             A parent that calls its int8 kernels as avp operators has its
+             1x1, halo, d2s and letterbox turns skipped (they cannot be
+             bound to its own library).
   5. lane filter: the lane-filter walk kernel against its plain version
              (torch.equal on the weight images and start points) on 30 mask
              sets from the script's own rasteriser (10 kinds of scene x 2
@@ -358,9 +367,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              the int8 operators' calls a frame, then 300 frames, its p50/p99
              beside the f32 loop's. Phase 4 checks the strided route (and a
              launch a group) bit for bit at the YOLO nets' strided shapes, a
-             dilated, a grouped and a padding-a-dimension conv and strides
-             above 8, and times the strided shapes (bound, cuDNN bf16 at the
-             stride, torch._int_mm on a pre-built im2col).
+             dilated, a grouped and a padding-a-dimension conv, strides
+             above 8, an 11x11 window and a dilation of 70, and times the
+             strided shapes beside their plans (tiles, cluster, blocks;
+             bound, cuDNN bf16 at the stride, torch._int_mm on a pre-built
+             im2col).
 The run prints its wall time, and that of phases 19-25, 26-28, 29-32,
 33-35, 36, 37, 38, 39, 41a-41b, and 40 with 41c-41d.
 """
@@ -453,12 +464,17 @@ STRIDED_TIMED = (
 STRIDED_RECORD = (3, 3, 128, 128, 80, 80)  # AutoSpeed's p4_0: the JSON line's shape
 # (kh, kw, cin, cout, h, w, stride, pad, dilation, groups) checked bit for
 # bit besides STRIDED_TIMED: a dilated conv, a grouped one (a launch a
-# group), a padding a dimension, a batch of two, and strides above the
-# TMA's traversal limit of 8 (one output a tile along them)
+# group), a padding a dimension, a batch of two, strides above the TMA's
+# traversal limit of 8 (one output a tile along them), and the strided
+# kernel's other tilings
 STRIDED_CHECKED = (
     (3, 3, 256, 200, 30, 50, 1, 2, 2, 1), (3, 3, 128, 64, 19, 23, 2, 1, 1, 4),
     (3, 3, 48, 24, 17, 30, (1, 2), (1, 0), 1, 1), (3, 3, 32, 16, 40, 60, 12, 1, 1, 1),
     (1, 1, 16, 24, 300, 300, (9, 3), 0, 1, 1),
+    # an 11x11 window whose weights fill a stage: a K step's phase groups in
+    # two units, through a one-stage ring; a dilation whose phase halo would
+    # not fit: a box a tap along W
+    (11, 11, 32, 64, 48, 48, 2, 5, 1, 1), (1, 3, 16, 8, 20, 150, 1, 0, (1, 70), 1),
 )
 # (window, cin, cout, h, w, convs per frame): the 24 distinct int8 convs of
 # the main path at 320x640 (72 convs, 669.7 GOP)
@@ -1099,8 +1115,9 @@ def time_strided_shapes(g, card):
                                          (3, 3, 128, 128, 40, 40)):
             frame128 += t["conv"]
         print(f"int8 strided shape {kh}x{kw} {cin}->{cout} at {h}x{w}, stride {stride}, pad "
-              f"{pad} -> {OH}x{OW} (M {M}, N {cout}, K {K}), route {plan.route} grid "
-              f"{plan.grid}, rectangle {plan.th}x{plan.tw}, {plan.blocks} blocks, {card}: conv "
+              f"{pad} -> {OH}x{OW} (M {M}, N {cout}, K {K}), route {plan.route}: tiles (M, N, "
+              f"cluster) {plan.grid}, rectangle {plan.th}x{plan.tw}, N tile {plan.bn}, "
+              f"{plan.per_split} K steps of 32 channels a rank, {plan.blocks} blocks, {card}: conv "
               f"{t['conv']!r} us ({ops / (t['conv'] * 1e-6) / 1e12 if t['conv'] > 0 else 0!r} "
               f"TOP/s; CUDA events {conv_ms * 1e3!r} us), bound {bms * 1e3!r} us by {by}, share "
               f"{share!r}; bf16 cuDNN conv {t['cudnn']!r} us; torch._int_mm on im2col (no "
@@ -1742,9 +1759,18 @@ def parent_kernels(root):
         return outs
 
     print(f"parent kernels built from {pkg}")
+    # a parent that calls its int8 and preprocess kernels as avp operators
+    # cannot be bound to its own library: those turns are not measured
+    ops = calls_operators(pkg)
+    if ops:
+        print(f"{pkg} calls its int8 and preprocess kernels as avp operators: the 1x1, halo, "
+              "d2s and letterbox turns with it are not measured (the strided route's are, "
+              "through its C entry point)")
     return (walk, nms, stamped_parent(pkg, pb, out) if walk_args == 6 else None,
-            int8_wrapper_of(pkg, lib), stamped_pointwise(pkg, pb, out, PARENT_PW_STAMPS),
-            preprocess_wrapper_of(pkg, lib), stamped_letterbox(pkg, pb, out))
+            None if ops else int8_wrapper_of(pkg, lib),
+            stamped_pointwise(pkg, pb, out, PARENT_PW_STAMPS),
+            None if ops else preprocess_wrapper_of(pkg, lib), stamped_letterbox(pkg, pb, out),
+            parent_strided(pkg, pb, out))
 
 
 # Stage stamps for the parent's kernels when they have none of their own (the
@@ -1998,6 +2024,8 @@ def phase_pointwise_parent(card, parent):
     from autoware_vision_pilot_tpu_torch.ops.kernels import int8_conv as ours
 
     theirs = parent[3]
+    if theirs is None:
+        return {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator().manual_seed(SEED + 12)
     times = {}
@@ -2108,6 +2136,8 @@ def phase_d2s_halo_parent(card, parent):
     from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_quantize
 
     theirs = parent[3]
+    if theirs is None:
+        return
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator().manual_seed(SEED + 19)
     mods = (("parent", theirs), ("this tree", ours))
@@ -2173,6 +2203,276 @@ def phase_d2s_halo_parent(card, parent):
               [lambda m, s=s: m.int8_conv_transpose(*s[:3], sx, s[3]) for s in sets], D2S_STAGES)
     del halo_sets, d2s_sets
     torch.cuda.empty_cache()
+
+
+# --parent's turns of the strided route (phase 4): the parent's form, the
+# strided variant of the wgmma kernel (csrc/int8_conv_sm90.cu there), called
+# through its own C entry point with its own plan, against this tree's
+# route on the same int8 inputs, at STRIDED_TIMED's shapes; and stage splits
+# at STRIDED_SPLIT (window h w, cin, cout, h, w, stride, pad): the parent's
+# from a copy of its int8_conv_sm90.cu with PARENT_STRIDED_STAMPS put in
+# (built with -DAVP_D2S_STAMPS, whose StageClock the edits then run for every
+# variant), this tree's built with -DAVP_STRIDED_STAMPS.
+STRIDED_SPLIT = ((3, 3, 64, 64, 160, 160, 2, 1), (3, 3, 128, 128, 80, 80, 2, 1),
+                 (2, 1, 64, 32, 128, 256, (2, 1), 0))
+# (window, cin, cout, h, w) of the main path's 3x3 convs timed in the same
+# turns: the wgmma kernel's stride-1 routes ("wgmma", "splitk"), whose
+# kernel lost its strided form, the parent's through the same C entry point
+MAIN_TURNS = ((3, 256, 256, 160, 320), (3, 512, 512, 80, 160), (3, 1456, 768, 20, 40))
+# (old text, new text, times found) in the parent's int8_conv_sm90.cu; the
+# stages: 0 the consumer's start to the first full stage, 1 every later
+# load wait, 2 the wgmmas and their group waits, 3 split-K's partial-tile
+# store, arrival atomic and read-back, 4 the epilogue's stores
+PARENT_STRIDED_STAMPS = [
+    ("    if (D2S) st.start();\n", "    st.start();\n", 1),
+    ("if (D2S) st.lap(0);", "st.lap(i == 0 ? 0 : 1);", 1),
+    ("if (D2S) st.lap(1);", "st.lap(2);", 2),
+    ("        if (!last_split) continue;\n", "        st.lap(3);\n        if (!last_split) continue;\n",
+     1),
+    ("      } else {\n#pragma unroll\n        for (int h = 0; h < 2; ++h) {\n          if (m[h] < 0) "
+     "continue;\n", "      } else {\n        st.lap(3);\n#pragma unroll\n        for (int h = 0; "
+     "h < 2; ++h) {\n          if (m[h] < 0) continue;\n", 1),
+    ("acc[4 * p + 2 * h], acc[4 * p + 2 * h + 1]);\n        }\n      }\n",
+     "acc[4 * p + 2 * h], acc[4 * p + 2 * h + 1]);\n        }\n        st.lap(4);\n      }\n", 1),
+    ("    if (D2S && threadIdx.x == 128) {", "    if (threadIdx.x == 128) {", 1),
+]
+OLD_STRIDED_STAGES = ("start to the first full stage", "later load waits", "wgmma",
+                      "split-K store, arrival and read-back", "epilogue")
+# this tree's (csrc/int8_conv_strided.cu built with -DAVP_STRIDED_STAMPS)
+STRIDED_STAGES = ("start to the first batch of stages landed (tables, loads)",
+                  "later batches' loads", "wgmma", "the int32 tile staged, the cluster barrier "
+                  "and sums", "epilogue")
+
+
+def stamped_strided(pkg, pb, out):
+    """The strided kernel of the port in ``pkg`` with its stage stamps: its
+    int8_conv_strided.cu built with -DAVP_STRIDED_STAMPS into a library of
+    its own under ``out``, called through its C entry point. -> (call(xq,
+    weight, w_scale, x_scale, bias, pad, stride, plan) -> bf16 output, the
+    stamps tensor)."""
+    import ctypes
+
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import geometry, out_size
+
+    lib = build_library(pb, pkg / "csrc", [pkg / "csrc" / "int8_conv_strided.cu"],
+                        out / "libstamped_strided.so", ("-DAVP_STRIDED_STAMPS",))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.avp_int8_conv_strided.argtypes = [P] * 6 + [I] * 25 + [P]
+    lib.avp_int8_conv_strided.restype = I
+    stamps = torch.zeros(STAMP_WORDS * 4096, dtype=torch.int64, device="cuda")
+    if lib.avp_int8_strided_set_stamps(ctypes.c_void_p(stamps.data_ptr())):
+        raise RuntimeError(f"could not set the stamp buffer of {pkg}'s strided kernel")
+
+    def call(xq, weight, w_scale, x_scale, bias, pad, stride, plan):
+        B, C, H, W = xq.shape
+        N, _, KH, KW = weight.shape
+        geo = geometry(pad, stride)
+        OH, OW = out_size(H, W, KH, KW, geo)
+        out = torch.empty((B, N, OH, OW), dtype=torch.bfloat16, device=xq.device,
+                          memory_format=CL)
+        m_tiles, n_tiles, cs = plan.grid
+        err = lib.avp_int8_conv_strided(
+            xq.data_ptr(), weight.data_ptr(), w_scale.data_ptr(), x_scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), B, H, W, C, N, KH, KW, *geo, 1, plan.th, plan.tw,
+            plan.bn, m_tiles, n_tiles, cs, plan.per_split, plan.stages, int(plan.phases[0]),
+            int(plan.phases[1]), plan.phases[2], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the stamped avp_int8_conv_strided failed: {err}")
+        return out
+
+    return call, stamps
+
+
+def parent_strided(pkg, pb, out):
+    """The strided route of the port in ``pkg`` (the earlier form: the
+    wgmma kernel's strided variant, avp_int8_conv_wgmma with traversal
+    strides)
+    as this script calls it: its int8_conv_sm90.cu built alone into a
+    library under ``out``, and again with PARENT_STRIDED_STAMPS; its plan
+    from its own int8_conv.py. -> {"plan": plan(B, H, W, C, N, KH, KW, pad,
+    sms, stride), "call": call(lib, xq, weight, w_scale, x_scale, bias, pad,
+    stride, plan) -> bf16 output, "lib", "stamped": (lib, stamps tensor)},
+    or None where ``pkg`` has no strided form in that kernel."""
+    import ctypes
+    import types
+
+    src = pkg / "csrc" / "int8_conv_sm90.cu"
+    text = src.read_text()
+    if "strided_box" not in text:
+        print(f"the parent's strided route: not measured ({src} has no strided form)")
+        return None
+    for old, new, count in PARENT_STRIDED_STAMPS:
+        if text.count(old) != count:
+            print(f"the parent's strided stage split: not measured ({old!r} found "
+                  f"{text.count(old)} times, not {count})")
+            return None
+        text = text.replace(old, new)
+    copy = out / "stamped_int8_conv_sm90.cu"
+    copy.write_text(text)
+    plain = build_library(pb, pkg / "csrc", [src], out / "libparent_strided.so")
+    stamped = build_library(pb, pkg / "csrc", [copy], out / "libparent_strided_stamped.so",
+                            ("-DAVP_D2S_STAMPS",))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for lib in (plain, stamped):
+        lib.avp_int8_conv_wgmma.argtypes = [P] * 7 + [I] * 21 + [P]
+        lib.avp_int8_conv_wgmma.restype = I
+    stamped.avp_int8_d2s_set_stamps.argtypes = [P]
+    stamps = torch.zeros(STAMP_WORDS * 4096, dtype=torch.int64, device="cuda")
+    if stamped.avp_int8_d2s_set_stamps(ctypes.c_void_p(stamps.data_ptr())):
+        raise RuntimeError("could not set the stamp buffer of the parent's strided route")
+    path = pkg / "ops" / "kernels" / "int8_conv.py"
+    mod = types.ModuleType(f"parent_int8_plan_{abs(hash(str(pkg)))}")
+    exec(compile(path.read_text().replace("from . import torch_ops\n", ""), str(path), "exec"),
+         mod.__dict__)
+
+    def call(lib, xq, weight, w_scale, x_scale, bias, pad, stride, plan):
+        from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import geometry, out_size
+        B, C, H, W = xq.shape
+        N, _, KH, KW = weight.shape
+        geo = geometry(pad, stride)
+        OH, OW = out_size(H, W, KH, KW, geo)
+        m_tiles, n_tiles, splits = plan.grid
+        out = torch.empty((B, N, OH, OW), dtype=torch.bfloat16, device=xq.device,
+                          memory_format=CL)
+        ws = (torch.empty(splits * B * OH * OW * N + m_tiles * n_tiles, dtype=torch.int32,
+                          device=xq.device) if splits > 1 else None)
+        err = lib.avp_int8_conv_wgmma(
+            xq.data_ptr(), weight.data_ptr(), w_scale.data_ptr(), x_scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), B, H, W, C,
+            N, KH, KW, *geo, 1, plan.th, plan.tw, m_tiles, n_tiles, splits, plan.per_split,
+            plan.blocks, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's avp_int8_conv_wgmma failed: {err}")
+        return out
+
+    print(f"the parent's strided route built from {src} (and a stamped copy)")
+    return {"plan": mod.int8_conv_plan, "call": call, "lib": plain,
+            "stamped": (stamped, stamps)}
+
+
+def device_us_by_name(fn, inputs):
+    """Device microseconds a call of fn(x) by kernel (and memset) name over
+    ``inputs``, from one torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x in inputs:
+            fn(x)
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / len(inputs) for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def strided_sets(g, kh, kw, cin, cout, h, w):
+    """Rotating int8 inputs of a strided conv (xq, weight, w_scale, bias,
+    x_scale), together above the L2 where the shape allows. -> (sets,
+    indices of about 20 calls)."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_quantize
+
+    set_bytes = h * w * cin + cout * cin * kh * kw
+    n = max(2, min(64, math.ceil(1.2 * L2_BYTES / set_bytes)))
+    sets = []
+    for _ in range(n):
+        x = torch.randn(1, cin, h, w, generator=g).to(torch.bfloat16).contiguous(
+            memory_format=CL).cuda()
+        weight = torch.randint(-127, 128, (cout, cin, kh, kw), generator=g,
+                               dtype=torch.int8).contiguous(memory_format=CL).cuda()
+        ws = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).cuda()
+        b = (torch.randn(cout, generator=g) * 0.1).to(torch.bfloat16).cuda()
+        sx = torch.tensor(float(x.float().abs().max()) / 127.0, device="cuda")
+        sets.append((int8_quantize(x, sx), weight, ws, b, sx))
+    return sets, list(range(n)) * max(1, math.ceil(20 / n))
+
+
+def phase_strided_parent(card, parent):
+    """--parent: the parent's strided route (parent_strided) against this
+    tree's on the same int8 inputs, outputs equal, profiler device time in
+    turns (parent, this, this, parent) at STRIDED_TIMED's shapes, each
+    call's device time by kernel (the parent's split-K memset apart); then
+    both stage splits at STRIDED_SPLIT (the parent's by PARENT_STRIDED_STAMPS,
+    this tree's stamped_strided), mean ns a block over 4 launches; and the
+    main path's 3x3 convs at MAIN_TURNS in the same turns."""
+    from autoware_vision_pilot_tpu_torch.kernels import build as this_build
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv, int8_conv_plan
+
+    old = parent[7] if parent is not None and len(parent) > 7 else None
+    if old is None:
+        return
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator().manual_seed(SEED + 23)
+    kept = {}
+    for kh, kw, cin, cout, h, w, stride, pad, _ in STRIDED_TIMED:
+        sets, idx = strided_sets(g, kh, kw, cin, cout, h, w)
+        pplan = old["plan"](1, h, w, cin, cout, kh, kw, pad, sms, stride)
+        plan = int8_conv_plan(1, h, w, cin, cout, kh, kw, pad, sms, stride)
+        fns = {"parent": lambda i: old["call"](old["lib"], sets[i][0], sets[i][1], sets[i][2],
+                                               sets[i][4], sets[i][3], pad, stride, pplan),
+               "this tree": lambda i: int8_conv(sets[i][0], sets[i][1], sets[i][2], sets[i][4],
+                                                sets[i][3], pad, torch.bfloat16, stride=stride)}
+        if not torch.equal(fns["parent"](0), fns["this tree"](0)):
+            raise AssertionError(f"strided {kh}x{kw} {cin}->{cout} at {h}x{w}: the parent's "
+                                 "output differs")
+        label = (f"int8 strided {kh}x{kw} {cin}->{cout} at {h}x{w}, stride {stride}, int8 in, "
+                 f"bf16 out (parent grid {pplan.grid} rectangle {pplan.th}x{pplan.tw} "
+                 f"{pplan.blocks} blocks; this tree {plan.route} {plan_text(plan)})")
+        t = alternate(label, fns, idx, card)
+        names = {k: device_us_by_name(f, idx) for k, f in fns.items()}
+        print(f"{label}, {card}: parent {float(np.mean(t['parent']))!r} us, this tree "
+              f"{float(np.mean(t['this tree']))!r} us (mean of two turns each); device us a "
+              f"call by kernel: " + "; ".join(
+                  f"{k}: " + ", ".join(f"{n} {v!r}" for n, v in d.items())
+                  for k, d in names.items()))
+        if (kh, kw, cin, cout, h, w, stride, pad) in STRIDED_SPLIT:
+            kept[(kh, kw, cin, cout, h, w, stride, pad)] = (sets[:4], pplan, plan)
+        del sets
+        torch.cuda.empty_cache()
+    for k, cin, cout, h, w in MAIN_TURNS:
+        sets, idx = strided_sets(g, k, k, cin, cout, h, w)
+        pplan = old["plan"](1, h, w, cin, cout, k, k, 1, sms)
+        plan = int8_conv_plan(1, h, w, cin, cout, k, k, 1, sms)
+        fns = {"parent": lambda i: old["call"](old["lib"], sets[i][0], sets[i][1], sets[i][2],
+                                               sets[i][4], sets[i][3], 1, 1, pplan),
+               "this tree": lambda i: int8_conv(sets[i][0], sets[i][1], sets[i][2], sets[i][4],
+                                                sets[i][3], 1, torch.bfloat16)}
+        if not torch.equal(fns["parent"](0), fns["this tree"](0)):
+            raise AssertionError(f"{k}x{k} {cin}->{cout} at {h}x{w}: the parent's output differs")
+        label = (f"int8 conv {k}x{k} {cin}->{cout} at {h}x{w}, int8 in, bf16 out (parent "
+                 f"{pplan.route} grid {pplan.grid}; this tree {plan.route} grid {plan.grid})")
+        t = alternate(label, fns, idx, card)
+        print(f"{label}, {card}: parent {float(np.mean(t['parent']))!r} us, this tree "
+              f"{float(np.mean(t['this tree']))!r} us (mean of two turns each)")
+        del sets
+        torch.cuda.empty_cache()
+    lib, stamps = old["stamped"]
+    new_call, new_stamps = stamped_strided(REPO / "autoware_vision_pilot_tpu_torch", this_build,
+                                           REPO / "build")
+    for key, (sets, pplan, plan) in kept.items():
+        kh, kw, cin, cout, h, w, stride, pad = key
+        for who, p, names, run in (
+                ("the parent's", pplan, OLD_STRIDED_STAGES,
+                 lambda s: old["call"](lib, s[0], s[1], s[2], s[4], s[3], pad, stride, pplan)),
+                ("this tree's", plan, STRIDED_STAGES,
+                 lambda s: new_call(s[0], s[1], s[2], s[4], s[3], pad, stride, plan))):
+            bufs = stamps if who == "the parent's" else new_stamps
+            runs = [stage_split(None, bufs, p, lambda _, s=s: run(s), len(names)) for s in sets]
+            mean = np.mean([r[0] for r in runs], axis=0)
+            print(f"{who} strided stage split {kh}x{kw} {cin}->{cout} at {h}x{w}, stride "
+                  f"{stride}, grid {p.grid}, {p.blocks} blocks, {card} (ns a block, mean over "
+                  f"the blocks x {len(runs)} launches, clock64 laps of the first consumer "
+                  f"thread scaled by %globaltimer): " + ", ".join(
+                      f"{n} {v:.0f}" for n, v in zip(names, mean))
+                  + f"; first stamp to last {np.mean([r[1] for r in runs]):.0f} (slowest "
+                  f"block {np.mean([r[2] for r in runs]):.0f})")
+    del kept
+    torch.cuda.empty_cache()
+
+
+def plan_text(plan):
+    """A strided plan in a few words."""
+    return (f"grid {plan.grid}, rectangle {plan.th}x{plan.tw}, bn {plan.bn}, "
+            f"{plan.blocks} blocks")
 
 
 def launch_floor(card):
@@ -2615,6 +2915,8 @@ def phase_letterbox_parent(card, parent):
     from autoware_vision_pilot_tpu_torch.ops.kernels import preprocess_kernel as ours
 
     theirs = parent[5]
+    if theirs is None:
+        return {}
     times = {}
     for hw, n, count in LETTERBOX_TURNS:
         pool = [frames(n, hw, SEED + 40 + i).cuda() for i in range(count)]
@@ -6900,6 +7202,7 @@ def main():
     if parent is not None:
         phase_pointwise_parent(card, parent)
         phase_d2s_halo_parent(card, parent)
+        phase_strided_parent(card, parent)
     records["lane_filter_walk"] = phase_lane_filter(card, parent)
     phase_f32()
     bf16_pipe = phase_bf16(card)
@@ -7038,7 +7341,7 @@ def main():
                             "autoware_vision_pilot_tpu/nn/layers.py:110"),
         "int8_conv_halo": (pkg + "int8_conv_halo.cu",
                            "autoware_vision_pilot_tpu/nn/layers.py:110"),
-        "int8_conv_strided": (pkg + "int8_conv_sm90.cu",
+        "int8_conv_strided": (pkg + "int8_conv_strided.cu",
                               "autoware_vision_pilot_tpu/nn/layers.py:110"),
         "int8_conv_pointwise": (pkg + "int8_pointwise.cu",
                                 "autoware_vision_pilot_tpu/nn/layers.py:81"),

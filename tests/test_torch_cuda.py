@@ -1837,8 +1837,10 @@ def avp_op_cases(cuda):
 # (B, C, N, kernel, stride, padding, dilation, groups, hw): the strided
 # convs of the YOLO-family nets at their map sizes (AutoSpeed "n" at
 # 640x640: p3_0, p4_0, p5_0, fpn.h3, fpn.h5; AutoSteer's 2x1 (2, 1) head
-# convs; AutoSteer-temporal's c2-c4), a dilated, a grouped, a padding a
-# dimension, and strides above TMA's traversal limit (one output a tile)
+# convs at 512x1024 and 256x512; AutoSteer-temporal's c2-c4), a dilated, a
+# grouped, a padding a dimension, strides above TMA's traversal limit (one
+# output a tile), an 11x11 window whose phase groups take two units of a
+# one-stage ring, and a dilation whose phase halo does not fit (a box a tap)
 STRIDED_CARD = (
     (1, 64, 64, 3, 2, 1, 1, 1, (160, 160)), (1, 128, 128, 3, 2, 1, 1, 1, (80, 80)),
     (1, 128, 256, 3, 2, 1, 1, 1, (40, 40)), (1, 64, 64, 3, 2, 1, 1, 1, (80, 80)),
@@ -1847,6 +1849,8 @@ STRIDED_CARD = (
     (2, 128, 128, 3, 2, 1, 1, 1, (10, 20)), (1, 256, 200, 3, 1, 2, 2, 1, (30, 50)),
     (2, 128, 64, 3, 2, 1, 1, 4, (19, 23)), (1, 48, 24, 3, (1, 2), (1, 0), 1, 1, (17, 30)),
     (1, 32, 16, 3, 12, 1, 1, 1, (40, 60)), (1, 16, 24, 1, (9, 3), 0, 1, 1, (300, 300)),
+    (1, 64, 32, (2, 1), (2, 1), 0, 1, 1, (64, 128)), (1, 32, 64, 11, 2, 5, 1, 1, (48, 48)),
+    (1, 16, 8, (1, 3), 1, 0, (1, 70), 1, (20, 150)),
 )
 
 
@@ -1886,6 +1890,72 @@ def test_int8_strided_and_grouped_routes_match_plain_version(cuda, B, C, N, k, s
             xq.cpu(), w.cpu(), w_scale.cpu(), sx.cpu(), None, pad, x.dtype, stride, dil, groups))
 
 
+@pytest.mark.parametrize("shape", [(64, 64, 160), (128, 128, 80), (64, 32, None)],
+                         ids=["p3_0", "p4_0", "2x1 (2, 1)"])
+def test_int8_strided_conv_is_one_launch_after_its_quantize(cuda, shape):
+    """A strided int8 conv on the card is its quantize and one kernel launch:
+    no memset, no workspace, no other kernel (torch.profiler's device
+    records of int8_conv2d: the quantize kernel and the strided kernel,
+    once each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cin, cout, hw = shape
+    k, stride, pad, size = ((3, 2, 1, (hw, hw)) if hw else ((2, 1), (2, 1), 0, (128, 256)))
+    kh, kw = (k, k) if isinstance(k, int) else k
+    g = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(1, cin, *size, generator=g).to(cuda, torch.bfloat16).contiguous(
+        memory_format=CL)
+    w = torch.randint(-127, 128, (cout, cin, kh, kw), generator=g,
+                      dtype=torch.int8).contiguous(memory_format=CL).to(cuda)
+    ws = (torch.rand(cout, generator=g) * 1e-3).to(cuda)
+    sx = torch.tensor(0.02, device=cuda)
+    int8_conv2d(x, w, ws, sx, None, pad, stride=stride)  # the weights' map, the build
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = int8_conv2d(x, w, ws, sx, None, pad, stride=stride)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2, names
+    assert sum("int8_conv_strided_kernel" in n for n in names) == 1, names
+    assert sum("quantize" in n for n in names) == 1, names
+    assert not any("emset" in n for n in names), names
+    assert torch.equal(y.cpu(), int8_conv_plain(int8_quantize_plain(x.cpu(), sx.cpu()), w.cpu(),
+                                                ws.cpu(), sx.cpu(), None, pad, x.dtype, stride))
+
+
+def test_exported_int8_autospeed_matches_eager(cuda, tmp_path):
+    """int8 AutoSpeed "n" (min_channels 32: its five strided convs on the
+    strided route) exported with export_stablehlo on the card: the loaded
+    program equals the eager net bit for bit, and calls the strided operator
+    as often as eager launches the route."""
+    from autoware_vision_pilot_tpu_torch.export.quantize import quantize_for_int8_conv
+    from autoware_vision_pilot_tpu_torch.export.stablehlo_export import (export_stablehlo,
+                                                                         load_stablehlo)
+    from autoware_vision_pilot_tpu_torch.models.auto_speed import AutoSpeedNetwork
+    from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded
+    from autoware_vision_pilot_tpu_torch.ops.kernels import torch_ops
+
+    net = init_seeded(AutoSpeedNetwork("n", 4, 640, 640), torch.Generator().manual_seed(3))
+    net = net.to(cuda, torch.bfloat16).eval()
+    quantize_for_int8_conv(net, 32)
+    x = torch.rand(1, 3, 640, 640, generator=torch.Generator().manual_seed(4)).to(
+        cuda, torch.bfloat16).contiguous(memory_format=CL)
+    with torch.no_grad():
+        before = int8_conv.route_launches["strided"]
+        want = net(x)
+        eager = int8_conv.route_launches["strided"] - before
+    assert eager == 5
+    path = export_stablehlo(net, (x,), tmp_path / "autospeed_int8.pt2")
+    prog = load_stablehlo(path)
+    calls = torch_ops.calls()["int8_conv_strided"]
+    with torch.no_grad():
+        got = prog(x)
+        torch.cuda.synchronize()
+    assert torch_ops.calls()["int8_conv_strided"] - calls == eager
+    for a, b in zip(torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(want)):
+        assert torch.equal(a, b)
+
+
 def int8_op_cases(cuda):
     """Each int8 operator's arguments on every route: the plan of a shape
     that takes it, the wrapper's own arguments -> {name: (args, the plain
@@ -1909,9 +1979,14 @@ def int8_op_cases(cuda):
         m_tiles, n_tiles, splits = plan.grid
         geo = list(geometry(pad, stride))
         inp = x if float_in else xq
-        if route in ("wgmma", "splitk", "strided"):
+        if route in ("wgmma", "splitk"):
             args = (xq, w, ws, sx, bias, geo, [plan.th, plan.tw, m_tiles, n_tiles, splits,
                                                plan.per_split, plan.blocks], 1)
+        elif route == "strided":
+            phase_h, phase_w, gu = plan.phases
+            args = (xq, w, ws, sx, bias, geo, [plan.th, plan.tw, plan.bn, m_tiles, n_tiles,
+                                               splits, plan.per_split, plan.stages,
+                                               int(phase_h), int(phase_w), gu], 1)
         elif route == "halo":
             args = (xq, w, ws, sx, bias, pad, [plan.th, plan.tw, plan.bn, m_tiles, n_tiles,
                                                plan.blocks, plan.stages, int(plan.resident)], 1)

@@ -237,7 +237,8 @@ def test_every_route_is_taken_by_a_natural_shape(route, shape):
     plan = int8_conv_plan(*shape)
     assert plan.route == route
     # the dot route splits each channel's K over the lanes of its group; the
-    # strided shape's 50 tiles fill less than half of the SMs
+    # strided shape's 54 tiles fill less than half of the SMs (its cluster:
+    # two blocks, a 32-channel K step each)
     assert (plan.splits > 1) == (route in ("splitk", "pointwise", "dot", "strided"))
 
 

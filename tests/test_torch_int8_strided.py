@@ -38,8 +38,9 @@ from autoware_vision_pilot_tpu_torch.models import auto_steer as tast
 from autoware_vision_pilot_tpu_torch.models import auto_steer_temporal as ttmp
 from autoware_vision_pilot_tpu_torch.nn import layers as tl
 from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (
-    MAX_BOX, MAX_TRAVERSAL, TILE, dynamic_input_scale, geometry, int8_conv, int8_conv_plan,
-    int8_quantize, out_size)
+    HALO_WIDTHS, MAX_BOX, MAX_CLUSTER, MAX_TRAVERSAL, ST_SMEM, ST_STEP, ST_TILE,
+    clusters_at_once, dynamic_input_scale, geometry, int8_conv, int8_conv_plan, int8_quantize,
+    out_size, strided_dim, strided_layout, strided_units)
 from autoware_vision_pilot_tpu_torch.train import qat as tqat
 
 from test_torch_layers import from_port, normal_input, port_with, seeded_variables, to_port
@@ -229,47 +230,72 @@ PLAN_SHAPES = [  # (B, H, W, C, N, KH, KW, pad, stride, dilation)
     (1, 7, 12, 48, 24, 3, 3, (1, 0), (1, 2), 1),  # a padding a dimension
     (1, 40, 60, 32, 16, 3, 3, 1, 12, 1),       # a stride above TMA's traversal limit
     (1, 300, 300, 16, 16, 1, 1, 0, (9, 3), 1),
+    (1, 48, 48, 32, 64, 11, 11, 5, 2, 1),      # a step's phase groups in two units
+    (1, 20, 150, 16, 8, 1, 3, 0, 1, (1, 70)),  # a phase halo too long: a box a tap
 ]
 
 
 def replay(xq, w, plan, geo):
-    """The strided route's arithmetic on the CPU: each unit's A box as TMA
-    loads it (element (oh0 + i) sh + r dh - ph, zeros outside the image and
-    past C in a 128-channel chunk), the K steps of each split summed into
-    the tile, the tile's rows that fall inside the output stored."""
+    """The strided route's arithmetic on the CPU, as csrc/int8_conv_strided.cu
+    runs it: for each (tile, N tile) and each rank of the cluster, the
+    rank's K steps of 32 channels, a step's groups in units of the plan's;
+    each group's halo as the block gathers it (ext_h x hw positions, element
+    (y, x) the input at the group's base plus (y, x) strides, zeros outside
+    the image and past C) in a slab whose positions past the halo hold
+    garbage; each tap's A the ST_TILE positions from its line offset
+    on; the ranks' int32 tiles summed, and the positions that are outputs
+    stored."""
     B, C, H, W = xq.shape
     N, _, KH, KW = w.shape
-    ph, pw, sh, sw, dh, dw = geo
+    ph, pw, sh, sw, dil_h, dil_w = geo
     OH, OW = out_size(H, W, KH, KW, geo)
-    th, tw = plan.th, plan.tw
-    nc = math.ceil(C / TILE)
-    x = F.pad(xq.long(), (0, 0, 0, 0, 0, nc * TILE - C)).permute(0, 2, 3, 1)  # NHWC
-    wl = F.pad(w.long(), (0, 0, 0, 0, 0, nc * TILE - C)).permute(0, 2, 3, 1)  # (N, KH, KW, C)
+    th, tw, bn = plan.th, plan.tw, plan.bn
+    phase_h, phase_w, gu = plan.phases
+    dh = strided_dim(KH, sh, dil_h, ph, th, phase_h)
+    dw = strided_dim(KW, sw, dil_w, pw, tw, phase_w)
+    hw, G = dw.ext, dh.groups * dw.groups
+    layout = strided_layout(dh, dw, gu, bn, plan.per_split * math.ceil(G / gu), plan.grid[2])
+    rows = layout.slab_pitch // 16  # the positions a slab holds
+    m_tiles, n_tiles, cs = plan.grid
+    steps = plan.iters
+    x = F.pad(xq.long(), (0, 0, 0, 0, 0, steps * ST_STEP - C)).permute(0, 2, 3, 1)  # NHWC
+    wl = F.pad(w.long(), (0, 0, 0, 0, 0, steps * ST_STEP - C)).permute(0, 2, 3, 1)
+    wl = F.pad(wl, (0, 0, 0, 0, 0, 0, 0, n_tiles * bn - N))  # (n_tiles bn, KH, KW, C)
+    units = strided_units(dh, dw, gu)
+    g = torch.Generator().manual_seed(7)
     out = torch.full((B, OH, OW, N), -1, dtype=torch.long)
     tiles_h, tiles_w = math.ceil(OH / th), math.ceil(OW / tw)
-    m_tiles, n_tiles, splits = plan.grid
-    assert m_tiles == B * tiles_h * tiles_w and n_tiles == math.ceil(N / TILE)
+    ys, xs = torch.arange(dh.ext), torch.arange(dw.ext)
     for m in range(m_tiles):
         b, rem = divmod(m, tiles_h * tiles_w)
         oh0, ow0 = rem // tiles_w * th, rem % tiles_w * tw
-        acc = torch.zeros((th * tw, n_tiles * TILE), dtype=torch.long)
-        for z in range(splits):
-            for it in range(z * plan.per_split, min(plan.iters, (z + 1) * plan.per_split)):
-                tap, c0 = divmod(it, nc)
-                r, q = divmod(tap, KW)
-                rows = (oh0 + torch.arange(th)) * sh + r * dh - ph
-                cols = (ow0 + torch.arange(tw)) * sw + q * dw - pw
-                box = torch.zeros((th, tw, TILE), dtype=torch.long)
-                ok_r, ok_c = (rows >= 0) & (rows < H), (cols >= 0) & (cols < W)
-                inner = x[b][rows.clamp(0, H - 1)][:, cols.clamp(0, W - 1), c0 * TILE:(c0 + 1) * TILE]
-                box[:] = inner * (ok_r[:, None, None] & ok_c[None, :, None])
-                wbox = F.pad(wl[:, r, q, c0 * TILE:(c0 + 1) * TILE],
-                             (0, 0, 0, n_tiles * TILE - N))
-                acc += box.reshape(th * tw, TILE) @ wbox.T
-        for i in range(th):
-            for j in range(tw):
-                if oh0 + i < OH and ow0 + j < OW:
-                    out[b, oh0 + i, ow0 + j] = acc[i * tw + j, :N]
+        halos = []  # each group's halo of every channel step, in a slab of `rows` positions
+        for gi in range(G):
+            gh, gw = divmod(gi, dw.groups)
+            rr = oh0 * sh + dh.base[gh] + ys * dh.estride
+            cc = ow0 * sw + dw.base[gw] + xs * dw.estride
+            ok = ((rr >= 0) & (rr < H))[:, None] & ((cc >= 0) & (cc < W))[None, :]
+            box = x[b][rr.clamp(0, H - 1)][:, cc.clamp(0, W - 1)] * ok[:, :, None]
+            slab = torch.randint(-127, 128, (rows, steps * ST_STEP), generator=g)
+            slab[:dh.ext * hw] = box.reshape(dh.ext * hw, -1)
+            halos.append(slab)
+        for n in range(n_tiles):
+            total = torch.zeros((ST_TILE, bn), dtype=torch.long)
+            for z in range(cs):
+                for step in range(z * plan.per_split, min(steps, (z + 1) * plan.per_split)):
+                    c = slice(step * ST_STEP, (step + 1) * ST_STEP)
+                    for u, taps in enumerate(units):
+                        for r, q in taps:
+                            gi = dh.tap_group[r] * dw.groups + dw.tap_group[q]
+                            assert gi // gu == u
+                            lo = dh.tap_line[r] * hw + dw.tap_line[q]
+                            a = halos[gi][lo:lo + ST_TILE, c]
+                            total += a @ wl[n * bn:(n + 1) * bn, r, q, c].T
+            for pos in range(ST_TILE):
+                y, xx = divmod(pos, hw)
+                if y < th and xx < tw and oh0 + y < OH and ow0 + xx < OW:
+                    ncols = min(bn, N - n * bn)
+                    out[b, oh0 + y, ow0 + xx, n * bn:n * bn + ncols] = total[pos, :ncols]
     return out.permute(0, 3, 1, 2)
 
 
@@ -280,15 +306,36 @@ def test_strided_plan_is_valid_and_its_tiling_computes_the_conv(shape):
     plan = int8_conv_plan(B, H, W, C, N, KH, KW, pad, 132, stride, dil)
     assert plan.route == "strided"
     OH, OW = out_size(H, W, KH, KW, geo)
-    _, _, sh, sw, _, _ = geo
-    assert plan.th * plan.tw <= TILE
-    for t, s in ((plan.th, sh), (plan.tw, sw)):  # each box fits TMA: the kernel's own check
-        assert t == 1 or (s <= MAX_TRAVERSAL and t * s <= MAX_BOX)
-    m_tiles, n_tiles, splits = plan.grid
+    ph, pw, sh, sw, dil_h, dil_w = geo
+    phase_h, phase_w, gu = plan.phases
+    dh = strided_dim(KH, sh, dil_h, ph, plan.th, phase_h)
+    dw = strided_dim(KW, sw, dil_w, pw, plan.tw, phase_w)
+    # the tiles cover the output: th x tw outputs in th hw <= ST_TILE positions
+    assert plan.th * dw.ext <= ST_TILE and plan.th <= OH and plan.tw <= OW
+    m_tiles, n_tiles, cs = plan.grid
     assert m_tiles == B * math.ceil(OH / plan.th) * math.ceil(OW / plan.tw)
-    assert plan.iters == KH * KW * math.ceil(C / TILE)
-    assert plan.per_split * splits >= plan.iters > plan.per_split * (splits - 1)
-    assert 0 < plan.blocks <= min(m_tiles * n_tiles * splits, 132)
+    assert plan.bn in HALO_WIDTHS and n_tiles == math.ceil(N / plan.bn)
+    assert plan.bn >= N or plan.bn == HALO_WIDTHS[-1]
+    # each halo within the route's limits: at most MAX_BOX input elements, its
+    # lines at most MAX_TRAVERSAL apart
+    for d, t in ((dh, plan.th), (dw, plan.tw)):
+        assert d.fits and d.box <= MAX_BOX and (d.box == 1 or d.estride <= MAX_TRAVERSAL)
+        assert d.ext == t + d.span and len(d.base) == d.groups
+        if d.phase:  # a halo a phase: each input line of the tile loaded once
+            assert d.groups <= d.estride and len(set(d.base)) == d.groups
+    if max(sh, sw) <= MAX_TRAVERSAL and KH * KW > 1 and max(dil_h, dil_w) < 8:
+        assert phase_h and phase_w  # the YOLO nets' shapes, dilated or not
+    # the cluster: at most 8 ranks whose K ranges of 32-channel steps cover K exactly
+    assert plan.iters == math.ceil(C / ST_STEP) and 1 <= cs <= MAX_CLUSTER
+    ranges = [range(z * plan.per_split, min(plan.iters, (z + 1) * plan.per_split))
+              for z in range(cs)]
+    assert all(len(r) > 0 for r in ranges) and sum(map(list, ranges), []) == list(
+        range(plan.iters))
+    assert plan.blocks == m_tiles * n_tiles * cs
+    assert cs == 1 or m_tiles * n_tiles <= clusters_at_once(cs, 132)
+    layout = strided_layout(dh, dw, gu, plan.bn, plan.per_split * math.ceil(
+        dh.groups * dw.groups / gu), cs)
+    assert layout.smem <= ST_SMEM and layout.stages == plan.stages >= 1
     if B * OH * OW * N <= 200_000:  # the replay at the smaller shapes
         g = torch.Generator().manual_seed(B * H + W + C)
         xq = torch.randint(-127, 128, (B, C, H, W), generator=g, dtype=torch.int8)

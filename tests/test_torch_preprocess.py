@@ -193,9 +193,10 @@ def test_kernel_binding_matches_c_signature():
     as c_int, long longs as c_int64, floats as c_float, in order. The
     library itself is built only on a GPU machine."""
     assert [p.name for p in build.sources()] == ["int8_conv.cu", "int8_conv_halo.cu",
-                                                 "int8_conv_sm90.cu", "int8_pointwise.cu",
-                                                 "lane_filter.cu", "launch_floor.cu",
-                                                 "letterbox.cu", "nms.cu", "preprocess.cu"]
+                                                 "int8_conv_sm90.cu", "int8_conv_strided.cu",
+                                                 "int8_pointwise.cu", "lane_filter.cu",
+                                                 "launch_floor.cu", "letterbox.cu", "nms.cu",
+                                                 "preprocess.cu"]
     decls = {}
     for src in build.sources():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
@@ -210,7 +211,8 @@ def test_kernel_binding_matches_c_signature():
                                build.OPS_SOURCE.read_text().split('extern "C" {')[1]))
     assert sorted(op_decls) == ["avp_fused_preprocess", "avp_int8_conv_d2s", "avp_int8_conv_dot",
                                 "avp_int8_conv_halo", "avp_int8_conv_pointwise",
-                                "avp_int8_conv_wgmma", "avp_int8_quantize",
+                                "avp_int8_conv_strided", "avp_int8_conv_wgmma",
+                                "avp_int8_quantize",
                                 "avp_lane_filter_walk", "avp_letterbox", "avp_nms_greedy"]
     for src in build.sources():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
