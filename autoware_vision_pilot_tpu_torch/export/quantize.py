@@ -14,11 +14,14 @@ and, with ``quantize_transpose``, every selected ``ConvTranspose2d`` for an
 calibration writes each ``input_scale``. Selection, scales and rounding are
 the JAX package's, bit for bit (tests/test_torch_quantize.py,
 tests/test_torch_int8_transpose.py, tests/test_torch_weight_ptq.py).
+``int8_like`` readies a model to load a tree already in the int8 format,
+and ``cast_quantized`` casts an int8 model's float tensors but the scales.
 """
 from __future__ import annotations
 
 from typing import Dict, Iterable, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
@@ -125,6 +128,16 @@ class QuantizedInference:
 
 # ------------------------------------------------------- the selective int8 path
 
+def _int8_shell(conv: Conv2d, sx_shape: Optional[tuple]) -> Int8Conv2d:
+    """An empty Int8Conv2d with ``conv``'s geometry, device and dtype, and
+    an input scale of ``sx_shape`` (None: dynamic)."""
+    out_ch, in_per_group, kh, kw = conv.weight.shape
+    return Int8Conv2d(in_per_group * conv.groups, out_ch, (kh, kw), conv.padding,
+                      conv.bias is not None, stride=conv.stride, dilation=conv.dilation,
+                      groups=conv.groups, input_scale_shape=sx_shape,
+                      device=conv.weight.device, dtype=conv.weight.dtype)
+
+
 def _int8_from(conv: Conv2d, sx: Optional[torch.Tensor]) -> Int8Conv2d:
     """export/quantize.py:128-145 on one conv, whatever its stride,
     dilation and groups (the int8 conv keeps them)."""
@@ -135,12 +148,7 @@ def _int8_from(conv: Conv2d, sx: Optional[torch.Tensor]) -> Int8Conv2d:
         w = w * sx.reshape(1, -1, 1, 1)
     scale = f32_div(w.abs().amax(dim=(1, 2, 3)).clamp_min(1e-8), 127.0)
     wq = torch.clamp(torch.round(w / scale.reshape(-1, 1, 1, 1)), -127, 127)
-    out_ch, in_per_group, kh, kw = conv.weight.shape
-    q = Int8Conv2d(in_per_group * conv.groups, out_ch, (kh, kw), conv.padding,
-                   conv.bias is not None, stride=conv.stride, dilation=conv.dilation,
-                   groups=conv.groups,
-                   input_scale_shape=None if sx is None else tuple(sx.shape),
-                   device=w.device, dtype=conv.weight.dtype)
+    q = _int8_shell(conv, None if sx is None else tuple(sx.shape))
     q.weight.copy_(wq.to(torch.int8))
     q.weight_scale.copy_(scale)
     if sx is not None:
@@ -237,6 +245,65 @@ def calibrate_int8_activation_scales(model: nn.Module,
         m.input_scale = torch.tensor(amax * percentile_headroom / 127.0,
                                      dtype=torch.float32, device=m.weight.device)
         m.observed_amax = None
+    return model
+
+
+def _is_int8(leaf) -> bool:
+    return getattr(leaf, "dtype", None) in (np.int8, torch.int8)
+
+
+@torch.no_grad()
+def int8_like(model: nn.Module, variables: Mapping) -> nn.Module:
+    """``model`` made ready to load a JAX variables tree in the int8
+    deployment format (``quantize_variables_for_int8_conv``'s, e.g. a QAT
+    export's msgpack file): each ``Conv2d`` whose ``w`` the tree holds as
+    int8 becomes an empty ``Int8Conv2d`` of its geometry, with an input
+    scale of the tree's ``x_scale`` shape where it has one, and each
+    ``ConvTranspose2d`` whose ``wt`` is int8 an empty
+    ``Int8ConvTranspose2d``; convert/from_jax.py::variables_to_state_dict
+    then fills every tensor strictly. Each new module takes the mode of the
+    one it replaces. Returns ``model``."""
+    from ..convert.from_jax import _flatten, _merge_digits
+
+    flat = _flatten(variables.get("params", {}))
+    for name, m in list(model.named_modules()):
+        if not isinstance(m, (Conv2d, ConvTranspose2d)) or not name:
+            continue
+        path = _merge_digits(name)
+        if not _is_int8(flat.get(f"{path}.{'w' if isinstance(m, Conv2d) else 'wt'}")):
+            continue
+        sx = flat.get(f"{path}.x_scale")
+        sx_shape = None if sx is None else tuple(np.shape(sx))
+        if isinstance(m, Conv2d):
+            q = _int8_shell(m, sx_shape)
+        else:
+            in_ch, out_ch, kh, kw = m.weight.shape
+            q = Int8ConvTranspose2d(in_ch, out_ch, (kh, kw), m.bias is not None,
+                                    device=m.weight.device, dtype=m.weight.dtype)
+            if sx_shape is not None:
+                q.input_scale = torch.empty(sx_shape, device=m.weight.device)
+        q.train(m.training)
+        parent, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(parent), leaf, q)
+    return model
+
+
+@torch.no_grad()
+def cast_quantized(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """``model.to(dtype)`` for a model with int8 modules: every floating
+    parameter and buffer in ``dtype`` (strides kept), but the int8 modules'
+    ``weight_scale`` and ``input_scale``, which their kernels take in f32.
+    The counterpart of a JAX net of that dtype over an int8 tree quantized
+    from f32 weights. Returns ``model``."""
+    for m in model.modules():
+        keep = (("weight_scale", "input_scale")
+                if isinstance(m, (Int8Conv2d, Int8ConvTranspose2d)) else ())
+        for p in m.parameters(recurse=False):
+            if p.is_floating_point():
+                p.data = p.data.to(dtype)
+        for name, b in m.named_buffers(recurse=False):
+            if b is not None and b.is_floating_point() and name not in keep:
+                setattr(m, name, b.to(dtype))
     return model
 
 

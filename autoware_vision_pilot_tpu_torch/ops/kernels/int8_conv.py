@@ -64,7 +64,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -850,14 +850,33 @@ def _conv(x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor,
                    geo[2:4], geo[4:])
 
 
+def int8_conv2d_launches(x_shape, weight_shape, padding=0, stride=1, dilation=1,
+                         groups: int = 1, sms: int = SMS) -> Dict[str, int]:
+    """The kernel launches ``int8_conv2d`` makes on the card for a float
+    input of NCHW ``x_shape`` and an OIHW ``weight_shape`` -> {"quantize": n,
+    route: n}: one conv a group on the route ``int8_conv_plan`` gives its
+    channels (padded to 16), each after a quantize but on the "pointwise"
+    and "dot" routes. Pure Python, as _conv decides."""
+    B, C, H, W = x_shape
+    N, _, KH, KW = weight_shape
+    geo = geometry(padding, stride, dilation)
+    plan = int8_conv_plan(B, H, W, padded_channels(C // groups), N // groups, KH, KW, geo[:2],
+                          sms, geo[2:4], geo[4:])
+    out = {"quantize": 0 if plan.route in FUSED_ROUTES else groups}
+    out[plan.route] = groups
+    return out
+
+
 def _reciprocal(x_scale: torch.Tensor) -> torch.Tensor:
     """1 / x_scale in float64, correctly rounded: the "pointwise" and "dot"
     routes quantize with it (csrc/int8_common.cuh::quantize_rcp, the same
     values as the division). In an eager run it is kept on the scale tensor
     while its address and version are unchanged, so a static scale costs
     one launch, once; a trace records the reciprocal in the graph (a trace
-    cannot see the kept one)."""
-    if not _eager():
+    cannot see the kept one). An inference tensor (made under
+    torch.inference_mode, as a per-channel scale padded to 16 channels
+    there is) has no version to key on: its reciprocal is not kept."""
+    if not _eager() or x_scale.is_inference():
         return torch.reciprocal(x_scale.double())
     key = (x_scale.data_ptr(), x_scale._version)
     kept = getattr(x_scale, "_rcp", None)

@@ -1,2 +1,4 @@
 """Command-line tools of the port: the export of the native-app bundles and
-of every model family."""
+of every model family, and the accuracy tools (the synthetic dataset, the
+SceneSeg, AutoSteer-temporal and AutoSpeed training demos, the QAT-to-int8
+closure, checkpoint validation, the AutoSteer debug harness)."""

@@ -6768,6 +6768,238 @@ def start_int8_lateral_export(out):
     return pool, pool.submit(export_int8_lateral, str(out), FRAME_HW)
 
 
+# ---------- phase 42: the accuracy tools (autoware_vision_pilot_tpu_torch/tools/) ----------
+
+ACC_SAMPLES = 16  # phase 42a's synthetic dataset: samples 0-15, one validation sample (9)
+ACC_CLIP_FRAMES = 30  # phase 42f's 720p MJPG clip
+ACC_BARS = {"miou": 0.90, "steer_acc_1deg": 0.90, "map50": 0.50, "agreement": 0.995,
+            "miou_gap": 0.02}
+ACC_CHILDREN = ("e2e_autosteer_demo", "e2e_autospeed_demo")
+JAX_AGREEMENT = 0.99908  # the JAX package's recorded per-channel agreement (not a bar)
+
+
+def accuracy_tool(name):
+    """Phase 42c or 42d in a spawned process: the tool's ``run`` at the JAX
+    tool's defaults on the card, the kernels' counts set to 0 just before
+    and read just after -> (its JSON result, the counts, seconds)."""
+    import importlib
+
+    tool = importlib.import_module(f"autoware_vision_pilot_tpu_torch.tools.{name}")
+    t0 = time.perf_counter()
+    reset_counts()
+    result = tool.run(device="cuda")
+    torch.cuda.synchronize()
+    return result, read_counts(), time.perf_counter() - t0
+
+
+def start_accuracy_children():
+    """Phase 42c and 42d, each in a spawned process beside the main
+    process's tools (their scenes and masks are made on the host). -> (the
+    pool, {name: future})."""
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(len(ACC_CHILDREN), mp_context=multiprocessing.get_context("spawn"))
+    return pool, {name: pool.submit(accuracy_tool, name) for name in ACC_CHILDREN}
+
+
+def stop_pool(pool):
+    """Ends a pool's processes whether or not their work is done."""
+    for proc in list(getattr(pool, "_processes", {}).values()):
+        if proc.is_alive():
+            proc.terminate()
+    pool.shutdown(wait=True, cancel_futures=True)
+
+
+def planned_int8(sms):
+    """A global forward hook adding each Int8Conv2d call's planned launches
+    (ops/kernels/int8_conv.py::int8_conv2d_launches) by route to the dict
+    it returns with the hook's handle."""
+    from autoware_vision_pilot_tpu_torch.nn.layers import Int8Conv2d
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import (ROUTES,
+                                                                       int8_conv2d_launches)
+    want = dict.fromkeys(ROUTES + ("quantize",), 0)
+
+    def hook(m, args, y):
+        if isinstance(m, Int8Conv2d):
+            if m.input_scale is None:
+                raise AssertionError("an int8 conv of the QAT export has no static scale")
+            for k, n in int8_conv2d_launches(tuple(args[0].shape), tuple(m.weight.shape),
+                                             m.padding, m.stride, m.dilation, m.groups,
+                                             sms).items():
+                want[k] += n
+
+    return want, torch.nn.modules.module.register_module_forward_hook(hook)
+
+
+def qat_closure_on_card(out, card, **kw):
+    """Phase 42e, one run: qat_closure.run on the card with the launches of
+    every int8 conv planned by a global hook and counted by the wrappers ->
+    (the result, the launches). Every int8 conv must launch the route its
+    plan names, and each of its quantizes."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv
+    from autoware_vision_pilot_tpu_torch.tools import qat_closure
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want, handle = planned_int8(sms)
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        result = qat_closure.run(out=str(out), device="cuda", **kw)
+        torch.cuda.synchronize()
+    finally:
+        handle.remove()
+    launches = read_counts()
+    got = {**int8_conv.route_launches, "quantize": launches["int8_quantize"]}
+    print(f"qat_closure (min_ch {result['min_ch']}, per_ch_act {result['per_ch_act']}), "
+          f"{card}: int8 launches by route {got}, planned {want}")
+    if got != want or sum(want.values()) <= 0:
+        raise AssertionError(f"qat_closure: int8 launches {got}, planned {want}")
+    return result, launches
+
+
+def write_clip(path, n, hw, seed):
+    """An MJPG clip of ``n`` seeded distinct frames (a noisy road-like
+    gradient with a moving bright bar, so that no two frames are equal)."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 10.0, (w, h))
+    base = np.linspace(40, 200, h, dtype=np.float32)[:, None, None]
+    for i in range(n):
+        img = base + rng.normal(0, 20, (h, w, 3)).astype(np.float32)
+        x = (i * 37) % (w - 40)
+        img[h // 2:, x:x + 40] = 255.0
+        writer.write(np.clip(img, 0, 255).astype(np.uint8))
+    writer.release()
+
+
+def phase_accuracy_tools(card):
+    """Phase 42: each port tool's ``run`` at the JAX tool's defaults, full
+    width and depth, held to its bar. (c) e2e_autosteer_demo and (d)
+    e2e_autospeed_demo run in two spawned processes meanwhile. (b)
+    e2e_train_demo: mIoU >= 0.90 and above the untrained one, the last five
+    losses' mean below the first five's, the checkpoint round trip
+    identical. (e) qat_closure at its defaults and with --per-ch-act
+    --min-ch 256: every int8 conv on its planned route (qat_closure_on_card);
+    the per-channel run's int8-vs-bf16 agreement >= 0.995 and int8 mIoU
+    within 0.02 of bf16. (a) gen_synthetic_dataset (16 samples at 320x640)
+    and validate_checkpoint with (e)'s per-channel int8 export: every
+    labelled pixel counted. (f) debug_autosteer over a 30-frame seeded 720p
+    clip: every frame-to-frame diff of the raw logits nonzero, one
+    preprocess launch a frame. (c): the +/-1 degree accuracy bar, MAE below
+    the always-straight baseline's. (d): mAP@50 >= 0.50, the validation's
+    NMS launches. -> {path: launches}."""
+    import tempfile
+    from autoware_vision_pilot_tpu_torch.tools import (debug_autosteer, e2e_train_demo,
+                                                       gen_synthetic_dataset,
+                                                       validate_checkpoint)
+
+    walls, paths = {}, {}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    pool, futures = start_accuracy_children()
+    try:
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+            tmp = pathlib.Path(tmp)
+            t0 = time.perf_counter()
+            r = e2e_train_demo.run(out=str(tmp / "e2e_train_demo"), device="cuda")
+            walls["42b"] = time.perf_counter() - t0
+            first, last = np.mean(r["loss_first5"]), np.mean(r["loss_last5"])
+            if not (r["miou_after"] >= ACC_BARS["miou"] and r["miou_after"] > r["miou_before"]
+                    and last < first and r["checkpoint_roundtrip"] == "identical"):
+                raise AssertionError(f"e2e_train_demo missed its bars: {r}")
+            print(f"42b e2e_train_demo, {card}: mIoU {r['miou_before']} -> {r['miou_after']} "
+                  f"(bar {ACC_BARS['miou']}), loss {first:.4f} -> {last:.4f} (means of the first "
+                  f"and last five), {walls['42b']:.1f} s")
+
+            results = {}
+            for label, kw in (("per-tensor, min_ch 128", {}),
+                              ("per-channel, min_ch 256", {"per_ch_act": True, "min_ch": 256})):
+                t0 = time.perf_counter()
+                out = tmp / f"qat_{len(results)}"
+                results[label] = qat_closure_on_card(out, card, **kw)
+                walls[f"42e {label}"] = time.perf_counter() - t0
+            r, launches = results["per-channel, min_ch 256"]
+            gap = abs(r["miou_int8"] - r["miou_bf16"])
+            print(f"42e qat_closure, {card}: per-tensor at 128 agreement "
+                  f"{results['per-tensor, min_ch 128'][0]['argmax_agreement_int8_vs_bf16']}; "
+                  f"per-channel at 256 agreement {r['argmax_agreement_int8_vs_bf16']} (bar "
+                  f"{ACC_BARS['agreement']}; the JAX package recorded {JAX_AGREEMENT}), int8 "
+                  f"mIoU {r['miou_int8']} against bf16 {r['miou_bf16']} (gap {gap:.4f}, bar "
+                  f"{ACC_BARS['miou_gap']}), control bf16 vs f32 "
+                  f"{r['control_agreement_bf16_vs_f32']}")
+            if r["argmax_agreement_int8_vs_bf16"] < ACC_BARS["agreement"] or \
+                    gap > ACC_BARS["miou_gap"]:
+                raise AssertionError(f"qat_closure (per-channel) missed its bars: {r}")
+            for label, (_, counts) in results.items():
+                paths[f"qat_closure {label}"] = {
+                    k: counts[k] for k in ("int8_quantize", "int8_conv_wgmma",
+                                           "int8_conv_pointwise", "int8_conv_dot",
+                                           "int8_conv_halo", "int8_conv_strided")
+                    if counts[k] > 0}
+
+            t0 = time.perf_counter()
+            data = tmp / "synthetic"
+            gen_synthetic_dataset.run(str(data), ACC_SAMPLES, OUT_HW)
+            torch.cuda.synchronize()
+            reset_counts()
+            cm, iou, miou, overall = validate_checkpoint.run(
+                [f"{data}:SYNTHETIC"], str(tmp / "qat_1" / "scene_seg_qat_int8.msgpack"),
+                device="cuda")
+            counts = read_counts()
+            walls["42a"] = time.perf_counter() - t0
+            n_val = sum((i + 1) % 10 == 0 for i in range(ACC_SAMPLES))
+            print(f"42a validate_checkpoint of the per-channel QAT export over {ACC_SAMPLES} "
+                  f"synthetic samples, {card}: mIoU {miou:.4f}, overall {overall:.4f}, "
+                  f"{int(cm.sum())} pixels counted of {n_val} x {OUT_HW[0]} x {OUT_HW[1]}; "
+                  f"int8 launches {counts['int8_conv']}")
+            if int(cm.sum()) != n_val * OUT_HW[0] * OUT_HW[1] or counts["int8_conv"] <= 0:
+                raise AssertionError(f"validate_checkpoint counted {int(cm.sum())} pixels")
+
+            t0 = time.perf_counter()
+            clip = tmp / "clip.avi"
+            write_clip(clip, ACC_CLIP_FRAMES, FRAME_HW, SEED + 142)
+            torch.cuda.synchronize()
+            reset_counts()
+            d = debug_autosteer.run(str(clip), ACC_CLIP_FRAMES, device="cuda")
+            counts = read_counts()
+            walls["42f"] = time.perf_counter() - t0
+            print(f"42f debug_autosteer over a {ACC_CLIP_FRAMES}-frame "
+                  f"{FRAME_HW[0]}x{FRAME_HW[1]} clip, {card}: frame-to-frame diffs "
+                  f"{min(d['diffs']):.5f}-{max(d['diffs']):.5f}, steering "
+                  f"{min(d['angles']):+.1f}..{max(d['angles']):+.1f} deg, fused_preprocess "
+                  f"launches {counts['fused_preprocess']}")
+            if d["frames"] != ACC_CLIP_FRAMES or len(d["diffs"]) != ACC_CLIP_FRAMES - 1 or \
+                    min(d["diffs"]) <= 0 or counts["fused_preprocess"] != ACC_CLIP_FRAMES:
+                raise AssertionError(f"debug_autosteer: {d['frames']} frames, diffs {d['diffs']},"
+                                     f" {counts['fused_preprocess']} preprocess launches")
+            paths["debug_autosteer"] = {"fused_preprocess": counts["fused_preprocess"]}
+
+            t0 = time.perf_counter()
+            (steer, _, steer_s), (speed, speed_counts, speed_s) = (
+                futures[name].result(timeout=600) for name in ACC_CHILDREN)
+            walls["42c-d wait"] = time.perf_counter() - t0
+    finally:
+        stop_pool(pool)
+    print(f"42c e2e_autosteer_demo, {card}: +/-1 deg accuracy {steer['val_curr_acc_1deg']} "
+          f"(bar {ACC_BARS['steer_acc_1deg']}), MAE {steer['val_curr_mae_deg']} deg against "
+          f"the always-straight {steer['baseline_straight_mae_deg']}, {steer_s:.1f} s in its "
+          "process")
+    if not (steer["bar_met"] and steer["val_curr_mae_deg"] < steer["baseline_straight_mae_deg"]):
+        raise AssertionError(f"e2e_autosteer_demo missed its bars: {steer}")
+    n_val_batches = 2 * math.ceil(32 / 8)  # EMA and live weights, 32 scenes in batches of 8
+    print(f"42d e2e_autospeed_demo, {card}: mAP@50 {speed['map50']} (EMA {speed['map50_ema']}, "
+          f"live {speed['map50_live']}; bar {ACC_BARS['map50']}), mAP@[.5:.95] "
+          f"{speed['map50_95']}, NMS launches {speed_counts['nms_greedy']} (the validations' "
+          f"{n_val_batches} batches), {speed_s:.1f} s in its process")
+    if not speed["pass"] or speed_counts["nms_greedy"] != n_val_batches:
+        raise AssertionError(f"e2e_autospeed_demo: {speed}, NMS {speed_counts['nms_greedy']}")
+    paths["e2e_autospeed validation"] = {"nms_greedy": speed_counts["nms_greedy"]}
+    print(f"wall time of phase 42 (s): { {k: round(v, 1) for k, v in walls.items()} }, "
+          f"{time.perf_counter() - t_phase:.1f} s in all")
+    return paths
+
+
 # ---------- phase 40: the operators, the exported programs, the native app ----------
 
 APP_FRAMES = 16  # the golden run: the probe, then 16 frames with the state carried
@@ -7320,6 +7552,9 @@ def main():
     paths["native app"] = timed("40c", phase_native_app, card, app_build, app_out, int8_lateral)
     timed("40d", phase_compare_precisions, card)
     print(f"wall time of phases 40 and 41c-41d (s): {walls}, {sum(walls.values()):.1f} s in all")
+    # the accuracy tools: the e2e demos, the QAT closure, the dataset and
+    # checkpoint validation, the AutoSteer debug harness, each to its bar
+    paths.update(phase_accuracy_tools(card))
     for path, counts in paths.items():
         for name, n in counts.items():
             # the paths at min_channels 128 and above tally the halo route

@@ -2146,3 +2146,115 @@ def test_exported_scene_seg_launches_fused_preprocess(cuda, tmp_path):
         assert torch_ops.calls()["fused_preprocess"] == before + 1
         assert fused_preprocess.launches == launches  # the program calls the operator itself
         assert torch.equal(got, model(frame))
+
+
+# ---------------------------------------------------------------- the accuracy tools
+
+def test_detection_chain_overfits_to_perfect_map(cuda):
+    """The port of tests/test_detection_trainer.py::
+    test_detection_chain_overfits_to_perfect_map: 4 synthetic boxed scenes
+    at 128x256, 120 steps of DetectionTrainer on the card (the ramped EMA
+    in step), then the deployment decode on the live weights with batch
+    statistics (every BatchNorm in train mode, the head in eval mode) and
+    the NMS kernel, one launch for the 4 scenes: mAP@50 = 1.0."""
+    from autoware_vision_pilot_tpu_torch.models.auto_speed import AutoSpeedNetwork
+    from autoware_vision_pilot_tpu_torch.nn.layers import BatchNorm2d
+    from autoware_vision_pilot_tpu_torch.tools.e2e_autospeed_demo import make_boxed_scene
+    from autoware_vision_pilot_tpu_torch.train.detection_trainer import (
+        DetectionTrainer, DetectionTrainerConfig)
+    from autoware_vision_pilot_tpu_torch.train.metrics import detection_map
+    from autoware_vision_pilot_tpu_torch.train.train_step import to_device_images
+    from autoware_vision_pilot_tpu_torch.train.yolo_data import pad_targets
+
+    hw = (128, 256)
+    cfg = DetectionTrainerConfig(num_classes=4, input_hw=hw, max_boxes=8, lr=2e-3,
+                                 warmup_steps=10, max_steps=120, ema_decay=0.999)
+    trainer = DetectionTrainer(AutoSpeedNetwork("n", 4, *hw), cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    scenes = [make_boxed_scene(rng, hw) for _ in range(4)]
+    imgs = np.stack([s[0] for s in scenes])
+    bs, ls, ms = (np.stack(t) for t in zip(*[pad_targets(s[1], s[2], hw, 8) for s in scenes]))
+    for _ in range(120):
+        loss = trainer.fit_step(imgs, bs, ls, ms)
+    assert math.isfinite(float(loss))
+
+    model = trainer.model.eval()
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.train()
+    with torch.no_grad():
+        out = model(to_device_images(imgs, cuda))
+    model.eval()
+    xywh, scores = out[..., :4], out[..., 4:]
+    boxes = torch.cat([xywh[..., :2] - xywh[..., 2:] / 2, xywh[..., :2] + xywh[..., 2:] / 2], -1)
+    nms_greedy.launches = 0
+    bb, ss, cc, vv = (t.cpu().numpy() for t in nms_kernel.nms_fixed(
+        boxes.contiguous(), scores.amax(-1).contiguous(),
+        scores.argmax(-1).to(torch.int32).contiguous(), max_det=50, iou_thresh=0.65,
+        conf_thresh=0.1))
+    assert nms_greedy.launches == 1
+    preds = [(bb[b][vv[b]], ss[b][vv[b]], cc[b][vv[b]]) for b in range(4)]
+    m50, _ = detection_map(preds, [(s[1], s[2]) for s in scenes], 4)
+    assert m50 == 1.0, m50
+
+
+def test_int8_1x1_per_channel_scale_under_inference_mode(cuda):
+    """A 1x1 int8 conv with a per-channel scale on 40 channels (padded to
+    48 inside, the padded scale then an inference tensor) called under
+    torch.inference_mode on the card, as qat_closure's int8 program calls
+    it: bit-equal to its plain version."""
+    g = torch.Generator(device="cpu").manual_seed(41)
+    x = torch.randn(16, 40, 8, 16, generator=g).to(cuda, torch.bfloat16).contiguous(
+        memory_format=CL)
+    w = torch.randint(-127, 128, (24, 40, 1, 1), generator=g, dtype=torch.int8).to(
+        cuda).contiguous(memory_format=CL)
+    ws = (torch.rand(24, generator=g) * 0.01 + 1e-3).to(cuda)
+    sx = (torch.rand(40, generator=g) * 0.05 + 0.01).to(cuda)
+    bias = torch.randn(24, generator=g).to(cuda, torch.bfloat16)
+    with torch.inference_mode():
+        got = int8_conv2d(x, w, ws, sx, bias)
+    ref = int8_conv2d(x, w, ws, sx, bias, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_qat_closure_runs_every_int8_conv_on_its_route(cuda, monkeypatch, tmp_path):
+    """tools/qat_closure.py's run on the card at dryrun depth (64x128,
+    min_channels 32, per-channel scales): the int8 program's convs launch
+    the routes int8_conv_plan names for their inputs (counted through a
+    global forward hook, against int8_conv.route_launches), and no plain
+    version runs."""
+    from autoware_vision_pilot_tpu_torch.models.scene_seg import SceneSegNetwork
+    from autoware_vision_pilot_tpu_torch.ops.kernels import int8_conv as ic
+    from autoware_vision_pilot_tpu_torch.tools import qat_closure
+
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(ic, "int8_conv_plain", boom)
+    monkeypatch.setattr(ic, "int8_quantize_plain", boom)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = dict.fromkeys(ic.ROUTES + ("quantize",), 0)
+
+    def hook(m, args, y):
+        if isinstance(m, Int8Conv2d):
+            assert m.input_scale is not None and m.input_scale.dim() == 1
+            for k, n in ic.int8_conv2d_launches(tuple(args[0].shape), tuple(m.weight.shape),
+                                                m.padding, m.stride, m.dilation, m.groups,
+                                                sms).items():
+                want[k] += n
+
+    ic.int8_conv.route_launches = dict.fromkeys(ic.ROUTES, 0)
+    ic.int8_quantize.launches = 0
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        result = qat_closure.run(2, 4, None, 0.0, 5e-5, 32, True, 2, str(tmp_path), "cuda",
+                                 make_model=lambda: SceneSegNetwork((2, 4), B0_DRYRUN_STAGES),
+                                 hw=(64, 128))
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    got = {**ic.int8_conv.route_launches, "quantize": ic.int8_quantize.launches}
+    assert got == want and sum(want[r] for r in ic.ROUTES) == 30, (got, want)
+    assert sum(1 for r in ic.ROUTES if want[r]) >= 3  # several routes on one net
+    assert result["n_quantized_convs"] > 0 and result["argmax_agreement_int8_vs_bf16"] > 0.5

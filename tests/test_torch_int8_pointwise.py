@@ -286,6 +286,21 @@ def test_reciprocal_quantize_equals_the_division():
                            torch.clamp(torch.round(want), -127, 127))
 
 
+def test_reciprocal_of_an_inference_tensor():
+    """A scale made under torch.inference_mode (the per-channel scale that
+    _conv pads to 16 channels there) has no version counter: its reciprocal
+    is computed each call and not kept; an ordinary scale's is kept."""
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import _reciprocal
+
+    with torch.inference_mode():
+        s = torch.nn.functional.pad(torch.full((40,), 0.02), (0, 8), value=1.0)
+        r = _reciprocal(s)
+        assert s.is_inference() and not hasattr(s, "_rcp")
+        assert torch.equal(r, torch.reciprocal(s.double()))
+    t = torch.full((48,), 0.02)
+    assert _reciprocal(t) is _reciprocal(t) and hasattr(t, "_rcp")
+
+
 def quantize_fast_replay(v, s):
     """csrc/int8_common.cuh::quantize4_fast_path on the CPU, op for op
     (each product and sum rounded alone). -> (its int8 values, the mask of
