@@ -154,7 +154,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              streams' network outputs, masks, flags and AutoSteer equal,
              lane fits within 5e-3 * max|single|, detection tables equal.
  17. engine: app.py::build_engine(Config()) in bf16 at full width on 60
-             distinct 720p host frames, pipeline depth 1, 2, 2, 1, every
+             distinct 720p host frames, pipeline depth 1 and 2, every
              dispatch under sync-debug "error": in-order finite results,
              the tracker fed every frame's detections, one launch of each
              of the four kernels a frame; host-loop and CUDA-event p50/p99
@@ -256,7 +256,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              equal to its FrameResult, the CSV, Rerun (a no-op without the
              SDK), and where cv2 imports the composite and the MJPG video
              (60 frames of 1280x720 read back); the host-loop p50 with the
-             outputs against phase 17's sink-less engine, in eight turns of 20
+             outputs against phase 17's sink-less engine, in four turns of 20
              frames, and the sink's parts.
 36. training: (a) one make_seg_train_step step of SceneSeg (full width and
              depth at 128x256, batch 2, AdamW 1e-4) in f32 with TF32 off on
@@ -266,8 +266,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              1e-3 * max|CPU|; (b) tools/bench_train.py's configuration,
              SceneSeg at 320x640, batch 16, bf16 autocast over f32 weights:
              step p50/p99 (CUDA events), samples/s, host enqueue, peak
-             memory, a finite loss, then with EMA, microbatches 2, both,
-             and at batch 8; (c) LegacySegTrainer with
+             memory, a finite loss, then with EMA and with EMA and
+             microbatches 2 (phase 43's bench_train runs microbatches 2
+             alone); (c) LegacySegTrainer with
              qat=True, qat_min_channels 32 at 320x640 for two steps, the
              observers' scales, int8_variables_from_qat, the int8 net on the
              card: launches by route (halo among them), every int8 conv
@@ -340,7 +341,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              thread since phase 2) with --golden, --lon and --dump over 16
              state-carried frames against a Python replay of the same
              package, each operator called at least once a frame inside the
-             C++ process, then 300 frames published to a pid-named /dev/shm
+             C++ process, then 150 frames published to a pid-named /dev/shm
              segment and republished by the port's StatePublisherBridge; the
              AOTInductor compile seconds and the loop's p50/p99; (d)
              export/benchmark_models.py::compare_precisions on SceneSeg
@@ -364,7 +365,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              crop, an AOTInductor package exported in a spawned process beside
              40c's, run by the C++ loop with 40c's longitudinal package:
              golden probe and 16-frame trajectory against the Python replay,
-             the int8 operators' calls a frame, then 300 frames, its p50/p99
+             the int8 operators' calls a frame, then 150 frames, its p50/p99
              beside the f32 loop's. Phase 4 checks the strided route (and a
              launch a group) bit for bit at the YOLO nets' strided shapes, a
              dilated, a grouped and a padding-a-dimension conv, strides
@@ -372,8 +373,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              strided shapes beside their plans (tiles, cluster, blocks;
              bound, cuDNN bf16 at the stride, torch._int_mm on a pre-built
              im2col).
-The run prints its wall time, and that of phases 19-25, 26-28, 29-32,
-33-35, 36, 37, 38, 39, 41a-41b, and 40 with 41c-41d.
+42. the accuracy tools (autoware_vision_pilot_tpu_torch/tools/) at the JAX
+             tools' defaults, each to its bar (phase_accuracy_tools).
+43. the bench tools (bench_app_loop, bench_train, bench_fleet, bench_zoo,
+             profile_pipeline_stages), each as ``python -m`` at the JAX
+             tools' defaults: every JSON line's keys, finite positive
+             numbers and the card; no error line; one in-process run of each
+             path that launches hand kernels, its launches counted (int8
+             routes against their plans); the tools' figures beside phases
+             7-8, 17, 18 and 36b of the same call.
+Order: the AOTInductor bundles of 40c and 41d compile in spawned processes
+while phase 42 (accuracy bars, not times) and 40a, 40b and 41c run; 40c
+runs the loop once they are done; phase 43 comes last, on an idle host.
+Every Python process the run starts shares a bytecode cache under
+build/pycache. The run prints its wall time, and that of phases 1-18,
+19-25, 26-28, 29-32, 33-35, 36, 37, 38, 39, 41a-41b, 40 with 41c-41d, 42
+and 43.
 """
 from __future__ import annotations
 
@@ -389,13 +404,71 @@ import sys
 import threading
 import time
 
+REPO = pathlib.Path(__file__).resolve().parent
+FRAME_HW = (720, 1280)
+if __name__ == "__main__":
+    # Python's bytecode cache under build/, for this process and every Python
+    # process it starts: where the environment sets PYTHONDONTWRITEBYTECODE and
+    # torch ships no __pycache__, each process compiles torch's modules as it
+    # imports them (~10 s a process on the card machine)
+    sys.pycache_prefix = str(REPO / "build" / "pycache")
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
+def echo(kind, a, b, n):
+    """``chip_smoke.py --echo KIND A B N``, the second process of phase 33:
+    opens A as a reader and creates B, says "ready", then writes each of the
+    N items it reads from A back into B, unchanged; exits after the N-th.
+    It runs before torch is imported (the host library needs only numpy),
+    so that it starts in a fraction of a second."""
+    sys.path.insert(0, str(REPO))
+    from autoware_vision_pilot_tpu_torch.host import frame_ring, iox2, shm
+
+    n = int(n)
+    if kind == "state":
+        with shm.SharedStateReader(a) as rd, shm.SharedStatePublisher(b) as pub:
+            print("ready", flush=True)
+            last = 0
+            while last < n:
+                s = rd.read()
+                if s.frame_number != last:
+                    pub.publish(s)
+                    last = s.frame_number
+                os.sched_yield()
+    elif kind == "ring":
+        with frame_ring.FrameRing(a) as rd, \
+                frame_ring.FrameRing(b, owner=True, slot_bytes=FRAME_HW[0] * FRAME_HW[1] * 3) \
+                as ring:
+            print("ready", flush=True)
+            last = 0
+            while last < n:
+                got = rd.read_latest(last)
+                if got is not None:
+                    ring.publish(got[0], got[1].frame_number, got[1].timestamp_ns)
+                    last = got[1].frame_number
+                os.sched_yield()
+    else:
+        with iox2.Iox2Service(a, iox2.RawFrameStruct, timeout_ms=10000) as sub, \
+                iox2.Iox2Service(b, iox2.RawFrameStruct, create=True) as pub:
+            print("ready", flush=True)
+            for _ in range(n):
+                got = None
+                while got is None:
+                    os.sched_yield()
+                    got = iox2.receive_frame(sub)
+                iox2.publish_frame(pub, got[0], got[1].frame_id)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--echo"]:
+    sys.exit(echo(*sys.argv[2:6]))
+
 import numpy as np
 import torch
 
-REPO = pathlib.Path(__file__).resolve().parent
 # AOTInductor's cache (phase 40) under build/, beside the kernels' build
 os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(REPO / "build" / "inductor_cache"))
-FRAME_HW = (720, 1280)
 ODD_HW = (375, 1242)  # a KITTI-sized frame: upscale rows, downscale columns
 OUT_HW = (320, 640)
 LATERAL_CROP = 420  # the lateral step's crop, frame[420:]: 300x1280
@@ -3478,8 +3551,8 @@ def percentiles(xs):
 
 def phase_engine(card):
     """app.py::build_engine(Config()) in bf16 at full width on ENGINE_FRAMES
-    distinct 720p frames from a host source, at pipeline depth 1, 2, 2 and
-    1 in turns (the host's pace moves between runs), every dispatch under
+    distinct 720p frames from a host source, at pipeline depth 1 and 2 (the
+    app loop of phase 43 sweeps depths 1-8), every dispatch under
     sync-debug "error": results in order and finite,
     the tracker fed the live detections of every frame, one preprocess,
     walk, letterbox and NMS launch a frame; p50/p99 end to end from
@@ -3506,7 +3579,7 @@ def phase_engine(card):
     engine.object_finder.update_and_get_cipo = counting
     launches = dict.fromkeys(("fused_preprocess", "lane_filter_walk", "fused_letterbox",
                               "nms_greedy"), 0)
-    for depth in (1, 2, 2, 1):
+    for depth in (1, 2):
         it = iter(host)
         engine.frame_source = lambda: next(it, None)
         engine.metrics = type(engine.metrics)(report_every=10 ** 9)
@@ -3532,6 +3605,8 @@ def phase_engine(card):
             raise AssertionError(f"the tracker was fed {fed} detections a frame")
         host_p = percentiles(np.asarray(engine.metrics.e2e_samples[WARM:]) * 1e3)
         dev_p = percentiles(engine.device_ms[WARM:])
+        if depth == 1:  # phase 43 prints its app loop at depth 1 beside the first run
+            LATENCY.setdefault("engine", (*host_p, ENGINE_FRAMES / wall))
         print(f"bf16 engine (build_engine: EgoLanes 320x640, AutoSteer, AutoSpeed n 640x640, "
               f"tracking, RSS planning, PID), depth {depth}, {ENGINE_FRAMES} distinct 720p host "
               f"frames, {card}: host loop p50 {host_p[0]!r} ms, p99 {host_p[1]!r} ms "
@@ -4612,48 +4687,6 @@ def phase_importers(card):
 IPC_FRAMES = 60
 
 
-def echo(kind, a, b, n):
-    """``chip_smoke.py --echo KIND A B N``, the second process of phase 33:
-    opens A as a reader and creates B, says "ready", then writes each of the
-    N items it reads from A back into B, unchanged; exits after the N-th."""
-    sys.path.insert(0, str(REPO))
-    from autoware_vision_pilot_tpu_torch.host import frame_ring, iox2, shm
-
-    n = int(n)
-    if kind == "state":
-        with shm.SharedStateReader(a) as rd, shm.SharedStatePublisher(b) as pub:
-            print("ready", flush=True)
-            last = 0
-            while last < n:
-                s = rd.read()
-                if s.frame_number != last:
-                    pub.publish(s)
-                    last = s.frame_number
-                os.sched_yield()
-    elif kind == "ring":
-        with frame_ring.FrameRing(a) as rd, \
-                frame_ring.FrameRing(b, owner=True, slot_bytes=FRAME_HW[0] * FRAME_HW[1] * 3) \
-                as ring:
-            print("ready", flush=True)
-            last = 0
-            while last < n:
-                got = rd.read_latest(last)
-                if got is not None:
-                    ring.publish(got[0], got[1].frame_number, got[1].timestamp_ns)
-                    last = got[1].frame_number
-                os.sched_yield()
-    else:
-        with iox2.Iox2Service(a, iox2.RawFrameStruct, timeout_ms=10000) as sub, \
-                iox2.Iox2Service(b, iox2.RawFrameStruct, create=True) as pub:
-            print("ready", flush=True)
-            for _ in range(n):
-                got = None
-                while got is None:
-                    os.sched_yield()
-                    got = iox2.receive_frame(sub)
-                iox2.publish_frame(pub, got[0], got[1].frame_id)
-
-
 @contextlib.contextmanager
 def echo_process(kind, a, b, n):
     """The ``--echo`` process for KIND, once it has opened A and created B;
@@ -4951,8 +4984,8 @@ def phase_app_outputs(card):
     equal to its FrameResult's fields, the CSV, Rerun (a no-op without the
     SDK), and where cv2 imports the composite and the MJPG video (read back:
     ENGINE_FRAMES frames of 1280x720). Then the host-loop p50 with these
-    outputs and with no sink, in eight turns (none, outputs, outputs, none,
-    twice), 20 frames each, and the p50 of the
+    outputs and with no sink, in four turns (none, outputs, outputs, none),
+    20 frames each, and the p50 of the
     sink's parts (composite, video write, SHM publish, CSV row). -> the
     launches."""
     import csv
@@ -5039,7 +5072,7 @@ def phase_app_outputs(card):
         # and the sink's parts timed on the host clock
         loops = {"no sink": [], "app outputs": []}
         parts = {"composite": [], "video write": [], "SHM publish": [], "CSV row": []}
-        turns = ("no sink", "app outputs", "app outputs", "no sink") * 2
+        turns = ("no sink", "app outputs", "app outputs", "no sink")
         for turn, kind in enumerate(turns):
             it = iter(host[:20])
             turn_outputs = AppOutputs(config(f"turn{turn}"), shm=SharedStatePublisher(state)) \
@@ -5065,7 +5098,7 @@ def phase_app_outputs(card):
             loops[kind] += eng.metrics.e2e_samples[2:]
         p = {k: percentiles(np.asarray(v) * 1e3) for k, v in loops.items()}
         print(f"host loop with the app outputs against without a sink (phase 17's engine), "
-              f"depth 2, 20 frames a turn, turns none/outputs/outputs/none twice, "
+              f"depth 2, 20 frames a turn, turns none/outputs/outputs/none, "
               f"{len(loops['no sink'])} and {len(loops['app outputs'])} samples, {card}: p50 "
               f"{p['app outputs'][0]!r} ms against {p['no sink'][0]!r} ms, the outputs' host "
               f"cost {p['app outputs'][0] - p['no sink'][0]!r} ms a frame; p99 "
@@ -5187,9 +5220,9 @@ def phase_train_bench(card):
     the timed steps, the host's enqueue time a step, the peak of
     max_memory_allocated, a finite final loss; beside them the step's work
     (3 x the forward's FLOPs, forward_gflop) at the bf16 peak. Then, TRAIN_WARM + 10 steps
-    each, with EMA 0.999, with microbatches=2, with both (finite, the EMA
-    too), and at batch 8, to split a microbatched step's cost. -> the
-    p50 ms."""
+    each, with EMA 0.999, and with it and microbatches=2 (finite, the EMA
+    too); phase 43's bench_train times microbatches=2 alone. -> the p50
+    ms."""
     import copy
     from autoware_vision_pilot_tpu_torch.models import SceneSegNetwork
     from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded
@@ -5211,10 +5244,8 @@ def phase_train_bench(card):
     results = {}
     variants = (("", TRAIN_BATCH, TRAIN_TIMED, {}),
                 (", EMA 0.999", TRAIN_BATCH, 10, {"ema_decay": 0.999}),
-                (", microbatches 2", TRAIN_BATCH, 10, {"microbatches": 2}),
                 (", microbatches 2, EMA 0.999", TRAIN_BATCH, 10,
-                 {"microbatches": 2, "ema_decay": 0.999}),
-                (", half the batch", TRAIN_BATCH // 2, 10, {}))
+                 {"microbatches": 2, "ema_decay": 0.999}))
     for label, batch, timed, kw in variants:
         net = copy.deepcopy(seeded).to("cuda", memory_format=CL)
         state = create_seg_train_state(net, adamw(1e-4), ema="ema_decay" in kw)
@@ -6759,6 +6790,20 @@ def export_int8_lateral(out, frame_hw):
     return int8_conv_count(lanes)
 
 
+def start_native_app_export(out):
+    """Phase 40c's bundles: the port's tools/export_native_app.py
+    --longitudinal (the lateral step and AutoSpeed "n", f32) as ``python
+    -m`` into ``out``, its output to ``out``/export.log. -> (the process,
+    its start time)."""
+    out.mkdir(parents=True, exist_ok=True)
+    log = open(out / "export.log", "w")
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "autoware_vision_pilot_tpu_torch.tools.export_native_app", str(out),
+                             "--longitudinal"], cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc, time.perf_counter()
+
+
 def start_int8_lateral_export(out):
     """export_int8_lateral in a spawned process (AOTInductor compiles for
     minutes, mostly g++). -> (the pool, the future of its int8 convs)."""
@@ -7000,10 +7045,187 @@ def phase_accuracy_tools(card):
     return paths
 
 
+# ---------- phase 43: the bench tools (autoware_vision_pilot_tpu_torch/tools/) ----------
+
+# (label, tool, arguments): each run as ``python -m`` at the JAX tool's defaults
+BENCH_RUNS = (("app loop bf16", "bench_app_loop", ()),
+              ("app loop int8", "bench_app_loop", ("--int8",)),
+              ("train", "bench_train", ()),
+              ("train, microbatches 2", "bench_train", ("--microbatches", "2")),
+              ("fleet bf16", "bench_fleet", ()),
+              ("fleet int8", "bench_fleet", ("--int8",)),
+              ("zoo", "bench_zoo", ()),
+              ("stages", "profile_pipeline_stages", ()))
+BENCH_KEYS = {  # the keys every JSON line of a tool must carry
+    "bench_app_loop": ("config", "mode", "tracking", "depth", "int8", "fps", "ms_per_frame",
+                       "frames", "host_p50_ms", "host_p99_ms", "p50_ms", "p99_ms", "card"),
+    "bench_train": ("metric", "value", "unit", "batch", "step_ms", "final_loss", "microbatches",
+                    "world", "warmup_s", "p50_ms", "p99_ms", "card"),
+    "bench_fleet": ("metric", "value", "unit", "per_stream_fps", "p50_ms", "p99_ms", "card"),
+    "bench_zoo": ("model", "shape", "ms_per_forward", "fps", "params_m", "p50_ms", "p99_ms",
+                  "card"),
+    "profile_pipeline_stages": ("stage", "ms", "p50_ms", "p99_ms", "card"),
+}
+BENCH_LINES = {"bench_app_loop": 8, "bench_train": 1, "bench_fleet": 4, "bench_zoo": 8,
+               "profile_pipeline_stages": 7}
+BENCH_GAP = 0.25  # a tool's figure this far off its phase's is flagged (PERF.md says why)
+
+
+def bench_lines(label, tool, args, card):
+    """One tool as ``python -m`` on the card -> (its JSON lines, seconds).
+    Fails on a nonzero exit, an ``error`` line, a missing key, a number
+    that is not finite and positive, another card, or a line count other
+    than the tool's."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"autoware_vision_pilot_tpu_torch.tools.{tool}",
+                           *args], cwd=REPO, capture_output=True, text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    if len(lines) != BENCH_LINES[tool]:
+        raise AssertionError(f"{label}: {len(lines)} JSON lines, expected {BENCH_LINES[tool]}")
+    for line in lines:
+        if "error" in line:
+            raise AssertionError(f"{label}: {line}")
+        derived = line.get("stage") == "seg_decoder_derived"  # stack_full - backbone: no p50
+        keys = ("stage", "ms", "card") if derived else BENCH_KEYS[tool]
+        missing = [k for k in keys if k not in line]
+        if missing:
+            raise AssertionError(f"{label}: {line} lacks {missing}")
+        for k, v in line.items():
+            values = v if isinstance(v, list) else [v]
+            if any(not isinstance(x, bool) and isinstance(x, (int, float)) and
+                   not (math.isfinite(x) and x > 0) for x in values):
+                raise AssertionError(f"{label}: {k} = {v} is not finite and positive")
+        if line["card"] != card:
+            raise AssertionError(f"{label}: card {line['card']!r}, expected {card!r}")
+    return lines, wall
+
+
+def bench_paths(card):
+    """Phase 43's in-process runs of the tools' paths that launch hand
+    kernels, at a few frames or ticks, each with the counts set to 0 just
+    before it and read just after (an int8 path's launches by route also
+    held to the routes its convs plan, planned_int8) -> {path: counts}.
+    The networks are built once: the app loop's; the fleet shares its
+    lateral networks (a copy for --int8 at 128, before the app loop's
+    --int8 recipe quantizes them at 256); the stage profile its EgoLanes."""
+    import copy
+    from autoware_vision_pilot_tpu_torch.models.multitask import SharedPerceptionStack
+    from autoware_vision_pilot_tpu_torch.nn.layers import init_seeded
+    from autoware_vision_pilot_tpu_torch.ops.kernels.int8_conv import int8_conv
+    from autoware_vision_pilot_tpu_torch.tools import (bench_app_loop, bench_fleet,
+                                                       profile_pipeline_stages)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lat, lon = bench_app_loop.build("cuda", torch.bfloat16)
+    stack = init_seeded(SharedPerceptionStack(CTX_HW, with_domain=False),
+                        torch.Generator().manual_seed(SEED))
+    stack.to("cuda", torch.bfloat16, memory_format=CL).eval()
+    lanes128 = bench_fleet.int8_lanes(copy.deepcopy(lat.lanes), "cuda", torch.bfloat16)
+    one = (("preupload+tracking", "preuploaded", True, (1,)),)
+    paths = {
+        "stages": lambda: profile_pipeline_stages.run(
+            models=(stack, lat.lanes, stack.Backbone), warmup=0, timed=2),
+        "fleet bf16": lambda: bench_fleet.run((2,), 2, nets=(lat.lanes, lat.steer_net)),
+        "fleet int8": lambda: bench_fleet.run((2,), 2, int8=True,
+                                              nets=(lanes128, lat.steer_net)),
+        "app loop bf16": lambda: bench_app_loop.run(2, nets=(lat, lon), configs=one,
+                                                    warm_frames=2),
+        "app loop int8": lambda: bench_app_loop.run(2, True, nets=(lat, lon), configs=one,
+                                                    warm_frames=2),
+    }
+    # each path's launches: a fleet run is 3 warm-up + 3 windows of 2 ticks; an app
+    # loop run warmup() + 2 warm-up frames + 2 timed; the profile 2 calls of each stage
+    frames = {"stages": 4, "fleet bf16": 9, "fleet int8": 9, "app loop bf16": 5,
+              "app loop int8": 5}
+    kernels = {"stages": ("fused_preprocess",),
+               "fleet bf16": ("fused_preprocess", "lane_filter_walk"),
+               "app loop bf16": ("fused_preprocess", "lane_filter_walk", "fused_letterbox",
+                                 "nms_greedy")}
+    kernels["fleet int8"] = kernels["fleet bf16"]
+    kernels["app loop int8"] = kernels["app loop bf16"]
+    counts = {}
+    for path, run in paths.items():
+        if path == "app loop int8":
+            bench_app_loop.int8_nets(lat.lanes, lon.net, "cuda", torch.bfloat16)
+        int8 = path.endswith("int8")
+        want, handle = planned_int8(sms) if int8 else (None, None)
+        torch.cuda.synchronize()
+        reset_counts()
+        try:
+            run()
+            torch.cuda.synchronize()
+        finally:
+            if handle is not None:
+                handle.remove()
+        c = read_counts()
+        expect_launches(c, {k: frames[path] for k in kernels[path]})
+        if int8:
+            got = {**int8_conv.route_launches, "quantize": c["int8_quantize"]}
+            if got != want or c["int8_conv"] <= 0 or c["int8_quantize"] <= 0:
+                raise AssertionError(f"{path}: int8 launches by route {got}, planned {want}")
+        else:
+            expect_launches(c, {"int8_quantize": 0, "int8_conv": 0})
+        counts[path] = {k: n for k, n in c.items()
+                        if n > 0 and k not in ("int8_conv", "int8_conv_splitk")}
+        print(f"43 {path}, in process: launches {counts[path]}")
+    del lat, lon, stack, lanes128
+    torch.cuda.empty_cache()
+    return counts
+
+
+def beside(what, tool_ms, phase_ms):
+    gap = tool_ms / phase_ms - 1
+    flag = f" ({gap:+.0%}: more than {BENCH_GAP:.0%} off, PERF.md says why)" \
+        if abs(gap) > BENCH_GAP else f" ({gap:+.0%})"
+    return f"{what}: {tool_ms!r} against {phase_ms!r}{flag}"
+
+
+def phase_bench_tools(card):
+    """Phase 43: the five bench tools each as ``python -m`` on the card at the
+    JAX tools' defaults (bench_lines: every JSON line checked), then one
+    in-process run of each path that launches hand kernels (bench_paths),
+    and the tools' figures beside the phases that time the same path in
+    this call: the stage profile's fused_everything with phases 7-8, the
+    train step with 36b, the fleet at N = 8 with 18, the app loop without
+    tracking at depth 1 with 17. -> {path: launches}."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out, walls = {}, {}
+    for label, tool, args in BENCH_RUNS:
+        out[label], walls[label] = bench_lines(label, tool, args, card)
+        for line in out[label]:
+            print(f"43 {label}: {json.dumps(line)}")
+    paths = bench_paths(card)
+    stages = {x["stage"]: x for x in out["stages"]}
+    print(f"43 stage split, bf16, {FRAME_HW[0]}x{FRAME_HW[1]} -> {OUT_HW[0]}x{OUT_HW[1]}, "
+          f"{card}: " + ", ".join(f"{k} {v['ms']!r} ms" for k, v in stages.items()))
+    fused = stages["fused_everything"]["p50_ms"]
+    print("43 beside the phases of this call, p50 ms, " + card + ": " + "; ".join([
+        beside("stage profile fused_everything vs phase 7 (bf16 main path)", fused,
+               LATENCY["bf16"][0]),
+        f"vs phase 8 (int8 main path) {LATENCY['int8'][0]!r}",
+        beside("bench_train step vs phase 36b", out["train"][0]["p50_ms"],
+               LATENCY["train step"][0]),
+        beside("bench_fleet tick at N = 8 (lateral only) vs phase 18 (FleetEngine, lateral "
+               "and longitudinal, host between ticks)", out["fleet bf16"][-1]["p50_ms"],
+               LATENCY["fleet"][0]),
+        beside("bench_app_loop no-track depth 1, host loop vs phase 17 (build_engine, "
+               "tracking, depth 1, host frames)",
+               next(x for x in out["app loop bf16"] if not x["tracking"] and x["depth"] == 1)
+               ["host_p50_ms"], LATENCY["engine"][0])]))
+    print(f"wall time of phase 43 (s): { {k: round(v, 1) for k, v in walls.items()} }, "
+          f"{time.perf_counter() - t_phase:.1f} s in all")
+    return paths
+
+
 # ---------- phase 40: the operators, the exported programs, the native app ----------
 
 APP_FRAMES = 16  # the golden run: the probe, then 16 frames with the state carried
-APP_TIMED_FRAMES = 300  # the publishing run, which also times the loop
+APP_TIMED_FRAMES = 150  # the publishing run, which also times the loop
 APP_EGO_SPEED = 12.5
 
 
@@ -7201,7 +7423,7 @@ def app_op_calls(stdout, names=LOOP_OPS):
     return {k: calls[k] for k in names}
 
 
-def phase_native_app(card, app_build, out, int8_export):
+def phase_native_app(card, app_build, out, int8_export, native_export):
     """Phase 40c: the port's tools/export_native_app.py --longitudinal on the
     card (the lateral step at 720x1280, crop 420, EgoLanes at 320x640, f32;
     AutoSpeed "n" at 640x640 with the letterbox and NMS), each torch.export
@@ -7227,13 +7449,19 @@ def phase_native_app(card, app_build, out, int8_export):
     from autoware_vision_pilot_tpu_torch.middleware.transport import InProcTransport
     from autoware_vision_pilot_tpu_torch.runtime.pipeline import SCALAR_FIELDS
     from autoware_vision_pilot_tpu_torch.simulation import StatePublisherBridge
-    from autoware_vision_pilot_tpu_torch.tools import export_native_app as tool
 
-    t0 = time.perf_counter()
-    tool.main([str(out), "--longitudinal"])  # prints each bundle's export and compile seconds
+    proc, t0 = native_export
+    t_wait = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    log = (out / "export.log").read_text()
+    if rc != 0:
+        raise AssertionError(f"tools/export_native_app.py --longitudinal exited {rc}:\n{log}")
+    for line in log.splitlines():  # each bundle's export and compile seconds
+        if line.startswith("[native_app]"):
+            print(line)
     print(f"the port's tools/export_native_app.py --longitudinal, {card}: "
-          f"{time.perf_counter() - t0:.1f} s in all (the two bundles in two processes; seed-0 "
-          "weights, f32)")
+          f"{time.perf_counter() - t0:.1f} s in all, {time.perf_counter() - t_wait:.1f} s of them "
+          "waited for here (the two bundles in two processes; seed-0 weights, f32)")
     app = app_build[1].result()
     app_build[0].shutdown()
     stack = frames(APP_FRAMES, FRAME_HW, SEED + 95).numpy()
@@ -7420,49 +7648,8 @@ T0 = time.perf_counter()
 def main():
     if sys.argv[1:2] == ["--host-costs"]:
         return host_costs_of(sys.argv[2])
-    if sys.argv[1:2] == ["--echo"]:
-        return echo(*sys.argv[2:6])
     parent_root = sys.argv[2] if sys.argv[1:2] == ["--parent"] else None
-    card = phase_device()
-    sys.path.insert(0, str(REPO))
-    phase_build()
-    app_build = start_app_build()  # phase 40c's C++ loop, built meanwhile
-    parent = parent_kernels(parent_root)
-    launch_floor(card)
-    preprocess, crop = phase_kernel()
-    records = {"fused_preprocess": preprocess, **phase_int8_kernels(card)}
-    if parent is not None:
-        phase_pointwise_parent(card, parent)
-        phase_d2s_halo_parent(card, parent)
-        phase_strided_parent(card, parent)
-    records["lane_filter_walk"] = phase_lane_filter(card, parent)
-    phase_f32()
-    bf16_pipe = phase_bf16(card)
-    launches = phase_int8(card, bf16_pipe, parent_root)  # the selective-int8 main path
-    del bf16_pipe
-    torch.cuda.empty_cache()
-    phase_lateral_f32()
-    lateral = phase_lateral(card)  # the lateral program
-    launches["lane_filter_walk"] = lateral["lane_filter_walk"]
-    records["fused_letterbox"] = phase_letterbox(card)
-    if parent is not None:
-        phase_letterbox_parent(card, parent)
-    heads = phase_longitudinal_f32()
-    records["nms_greedy"] = phase_nms(card, heads, parent)
-    longitudinal = phase_longitudinal(card)  # the longitudinal program
-    launches["fused_letterbox"] = longitudinal["fused_letterbox"]
-    launches["nms_greedy"] = longitudinal["nms_greedy"]
-    batched = phase_batched(card)
-    phase_fleet_f32()
-    engine = phase_engine(card)  # the serving engine (app.py::build_engine)
-    fleet = phase_fleet(card)  # the N-stream fleet
-    for name in ("fused_preprocess", "lane_filter_walk", "fused_letterbox", "nms_greedy"):
-        if engine[name] <= 0 or fleet[name] <= 0:
-            raise AssertionError(f"the engine or the fleet never launched {name}")
-        launches[name] += engine[name] + fleet[name]
-    # the per-network wrappers (inference/infer.py), the backend and the clip,
-    # each phase's wall time kept
-    walls = {}
+    walls = {}  # each phase's wall time, printed by groups
 
     def timed(phase, fn, *args):
         t0 = time.perf_counter()
@@ -7470,6 +7657,48 @@ def main():
         walls[phase] = round(time.perf_counter() - t0, 1)
         return out
 
+    card = timed(1, phase_device)
+    sys.path.insert(0, str(REPO))
+    timed(2, phase_build)
+    app_build = start_app_build()  # phase 40c's C++ loop, built meanwhile
+    parent = parent_kernels(parent_root)
+    timed("2 floor", launch_floor, card)
+    preprocess, crop = timed(3, phase_kernel)
+    records = {"fused_preprocess": preprocess, **timed(4, phase_int8_kernels, card)}
+    if parent is not None:
+        phase_pointwise_parent(card, parent)
+        phase_d2s_halo_parent(card, parent)
+        phase_strided_parent(card, parent)
+    records["lane_filter_walk"] = timed(5, phase_lane_filter, card, parent)
+    timed(6, phase_f32)
+    bf16_pipe = timed(7, phase_bf16, card)
+    # the selective-int8 main path
+    launches = timed(8, phase_int8, card, bf16_pipe, parent_root)
+    del bf16_pipe
+    torch.cuda.empty_cache()
+    timed(9, phase_lateral_f32)
+    lateral = timed(10, phase_lateral, card)  # the lateral program
+    launches["lane_filter_walk"] = lateral["lane_filter_walk"]
+    records["fused_letterbox"] = timed(11, phase_letterbox, card)
+    if parent is not None:
+        phase_letterbox_parent(card, parent)
+    heads = timed(12, phase_longitudinal_f32)
+    records["nms_greedy"] = timed(13, phase_nms, card, heads, parent)
+    longitudinal = timed(14, phase_longitudinal, card)  # the longitudinal program
+    launches["fused_letterbox"] = longitudinal["fused_letterbox"]
+    launches["nms_greedy"] = longitudinal["nms_greedy"]
+    batched = timed(15, phase_batched, card)
+    timed(16, phase_fleet_f32)
+    engine = timed(17, phase_engine, card)  # the serving engine (app.py::build_engine)
+    fleet = timed(18, phase_fleet, card)  # the N-stream fleet
+    for name in ("fused_preprocess", "lane_filter_walk", "fused_letterbox", "nms_greedy"):
+        if engine[name] <= 0 or fleet[name] <= 0:
+            raise AssertionError(f"the engine or the fleet never launched {name}")
+        launches[name] += engine[name] + fleet[name]
+    print(f"wall time of phases 1-18 (s): {walls}, {time.perf_counter() - T0:.1f} s since the "
+          "start")
+    # the per-network wrappers (inference/infer.py), the backend and the clip
+    walls.clear()
     timed(19, phase_wrappers_f32)
     paths = {"wrappers bf16": timed(20, phase_wrappers_bf16, card),
              "int8 wrappers": timed(21, phase_int8_wrappers, card)}
@@ -7540,21 +7769,31 @@ def main():
     paths["int8 longitudinal"] = timed("41a", phase_int8_longitudinal, card)
     paths["QAT export of AutoSteer-temporal"] = timed("41b", phase_int8_qat_temporal, card)
     print(f"wall time of phases 41a-41b (s): {walls}, {sum(walls.values()):.1f} s in all")
-    # the operators, the exported programs (the int8 main path among them),
-    # the native app (and the int8 lateral package, exported meanwhile) and
-    # the precisions
+    # the native app's three AOTInductor bundles (40c's two, 41d's int8
+    # lateral) compile in spawned processes, for minutes, while the accuracy
+    # tools (phase 42: bars, not times) and 40a, 40b and 41c run
     walls.clear()
     app_out = REPO / "build" / f"native_app_{os.getpid()}"
     int8_lateral = timed("41d start", start_int8_lateral_export, app_out)
+    native = timed("40c start", start_native_app_export, app_out)
+    # the accuracy tools: the e2e demos, the QAT closure, the dataset and
+    # checkpoint validation, the AutoSteer debug harness, each to its bar
+    t0 = time.perf_counter()
+    paths.update(phase_accuracy_tools(card))
+    phase42 = time.perf_counter() - t0
+    # the operators, the exported programs (the int8 main path among them),
+    # the native app and the precisions
     timed("40a", phase_ops, card)
     paths["exported programs"] = timed("40b", phase_exports, card)
     paths["int8 exported programs"] = timed("41c", phase_int8_exports, card)
-    paths["native app"] = timed("40c", phase_native_app, card, app_build, app_out, int8_lateral)
+    paths["native app"] = timed("40c", phase_native_app, card, app_build, app_out, int8_lateral,
+                                native)
     timed("40d", phase_compare_precisions, card)
-    print(f"wall time of phases 40 and 41c-41d (s): {walls}, {sum(walls.values()):.1f} s in all")
-    # the accuracy tools: the e2e demos, the QAT closure, the dataset and
-    # checkpoint validation, the AutoSteer debug harness, each to its bar
-    paths.update(phase_accuracy_tools(card))
+    print(f"wall time of phases 40 and 41c-41d (s): {walls}, {sum(walls.values()):.1f} s in all "
+          f"(and phase 42's {phase42:.1f} s while the bundles compiled)")
+    # the bench tools, each as python -m at the JAX tool's defaults, and each
+    # path that launches hand kernels once in process; on an idle host
+    paths.update(phase_bench_tools(card))
     for path, counts in paths.items():
         for name, n in counts.items():
             # the paths at min_channels 128 and above tally the halo route
